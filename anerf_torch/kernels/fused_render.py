@@ -1,11 +1,18 @@
-"""K1: world->local transform + cutoff PE + full NeRF MLP forward in one
-CUDA kernel (port of anerf_tpu/kernels/fused_render.py:fused_encode_mlp_pts).
+"""K1 and K2: the fused render kernels and the autograd.Function that
+ties them together (port of anerf_tpu/kernels/fused_render.py).
 
-The kernel source is csrc/fused_render.cu. It is built with nvcc for
-sm_90a on first use into anerf_torch/_build/ and loaded with ctypes.
-`fused_encode_mlp_pts` launches it for CUDA tensors and runs the plain
-PyTorch version, `fused_encode_mlp_pts_ref`, for CPU tensors; it never
-falls back from one to the other.
+K1 (`fused_encode_mlp_pts`, csrc/fused_render.cu) is the forward:
+world->local transform + cutoff PE + the full NeRF MLP in one kernel.
+K2 (`fused_bwd`, csrc/fused_render_bwd.cu) is its backward with f32
+cotangent products (the JAX `bwd_f32=True` flavour). `FusedApply` /
+`fused_apply` run K1 forward and K2 backward, with gradients reaching
+the network's f32 parameter leaves, the points and the per-ray operands
+(and through `pack_ray_data` the skeleton transforms and framecodes).
+
+Each source is built with nvcc for sm_90a on first use into
+anerf_torch/_build/ and loaded with ctypes. A wrapper launches its kernel
+for CUDA tensors and runs the plain PyTorch version (`*_ref`) for CPU
+tensors; it never falls back from one to the other.
 
 Layouts (no TPU lane padding):
   pts    (R, S, 3) f32 world points;
@@ -47,12 +54,21 @@ FC_CH = 16                    # framecode columns the view block reserves
 AUX_W = 2 * C72 + FC_CH
 KERNEL_WIDTH = 256            # trunk width the CUDA kernel is built for
 
-#: Kernel launches since the last reset; the wrapper adds one per launch.
+#: K1 launches since the last reset; the wrapper adds one per launch.
 LAUNCHES = 0
+#: K2 launches since the last reset; `fused_bwd` adds one per launch of
+#: its kernel sequence.
+BWD_LAUNCHES = 0
+#: Points per partial sum of K2's weight gradients (one CTA row of the
+#: dW products per chunk, reduced afterwards in chunk order).
+BWD_CHUNK = 2048
 
-_SRC = Path(__file__).resolve().parent / 'csrc' / 'fused_render.cu'
+_CSRC = Path(__file__).resolve().parent / 'csrc'
+_SOURCES = {'fused_render': ('fused_render.cu', 'fused_render_common.cuh'),
+            'fused_render_bwd': ('fused_render_bwd.cu',
+                                 'fused_render_common.cuh')}
 _BUILD_DIR = Path(__file__).resolve().parents[1] / '_build'
-_LIB = None
+_LIBS: Dict[str, Any] = {}
 
 
 def _rup16(n: int) -> int:
@@ -239,21 +255,27 @@ def _encode(packed, pts, m_all, aux, S, tau):
     return x0.to(bf).float(), xv.to(bf).float()
 
 
-def fused_encode_mlp_pts_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
-                             pts: torch.Tensor, m_all: torch.Tensor,
-                             aux: torch.Tensor, S: int, tau) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: the same function in
-    plain torch ops, from the same packed operands. bf16 operands, f32
-    products and accumulation, activations rounded to bf16 between
-    layers, as in the kernel."""
-    R = pts.shape[0]
-    x0, xv = _encode(packed, pts, m_all, aux, S, tau)
-    W = ncfg.width
+def _weights_f32(ncfg: NeRFConfig, packed: Dict[str, Any]
+                 ) -> List[torch.Tensor]:
+    """Every MMA layer's (N, K) weight block back from fragment order, as
+    f32 (bf16 values), in `layer_shapes` order."""
     ws, off = [], 0
     for n, k in layer_shapes(ncfg, packed['nfk'], packed['nfv']):
         ws.append(from_fragment_order(packed['w'][off:off + n * k], n, k)
                   .float())
         off += n * k
+    return ws
+
+
+def _forward_trace(ncfg: NeRFConfig, packed: Dict[str, Any],
+                   pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
+                   S: int, tau) -> Dict[str, Any]:
+    """The kernel's forward in plain torch, keeping what the backward
+    reads: the MLP inputs x0 / xv, every trunk activation hs[i], feat and
+    hv (each bf16-rounded, as f32) and the raw output."""
+    x0, xv = _encode(packed, pts, m_all, aux, S, tau)
+    W = ncfg.width
+    ws = _weights_f32(ncfg, packed)
     bs = list(packed['b'][:W * (ncfg.depth + 1)].split(W)) + \
         [packed['b'][W * (ncfg.depth + 1):]]
 
@@ -261,22 +283,169 @@ def fused_encode_mlp_pts_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
         y = x @ ws[i].t() + bs[i]
         return (torch.relu(y) if relu else y).to(torch.bfloat16).float()
 
-    h = layer(x0, 0)
+    hs = [layer(x0, 0)]
     for i in range(1, ncfg.depth):
-        h = layer(torch.cat([x0, h], -1) if (i - 1) in ncfg.skips else h, i)
-    feat = layer(h, ncfg.depth, relu=False)
+        hs.append(layer(torch.cat([x0, hs[-1]], -1)
+                        if (i - 1) in ncfg.skips else hs[-1], i))
+    feat = layer(hs[-1], ncfg.depth, relu=False)
     hv = layer(torch.cat([feat, xv], -1), ncfg.depth + 1)
     rgb = hv @ packed['w_rgb'].t() + packed['b_out'][:3]
-    alpha = h @ packed['w_alpha'][:, None] + packed['b_out'][3:]
-    return torch.cat([rgb, alpha], -1).reshape(R, S, 4)
+    alpha = hs[-1] @ packed['w_alpha'][:, None] + packed['b_out'][3:]
+    return {'x0': x0, 'xv': xv, 'hs': hs, 'feat': feat, 'hv': hv, 'ws': ws,
+            'out': torch.cat([rgb, alpha], -1)}
 
 
-def build_library() -> Tuple[Path, str]:
-    """Compile csrc/fused_render.cu for sm_90a (once per source version)
-    into anerf_torch/_build/. Returns (library path, nvcc's messages,
-    which include ptxas' register and spill report)."""
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:12]
-    lib = _BUILD_DIR / f'fused_render_{digest}.so'
+def fused_encode_mlp_pts_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
+                             pts: torch.Tensor, m_all: torch.Tensor,
+                             aux: torch.Tensor, S: int, tau) -> torch.Tensor:
+    """The plain PyTorch version of K1: the same function in plain torch
+    ops, from the same packed operands. bf16 operands, f32 products and
+    accumulation, activations rounded to bf16 between layers, as in the
+    kernel."""
+    R = pts.shape[0]
+    out = _forward_trace(ncfg, packed, pts, m_all, aux, S, tau)['out']
+    return out.reshape(R, S, 4)
+
+
+def grad_blocks(ncfg: NeRFConfig, nfk: int, nfv: int
+                ) -> List[Tuple[str, int, int]]:
+    """(name, rows, cols) of each block of K2's flat weight gradient, in
+    order: trunk layers 'l0'.., 'feat', 'view' (rows = the packed input
+    width K, then one bias row; cols = the layer's outputs N), then the
+    heads 'rgb' (W/2 + 1, 3) and 'alpha' (W + 1, 1)."""
+    names = [f'l{i}' for i in range(ncfg.depth)] + ['feat', 'view']
+    blocks = [(nm, k + 1, n) for nm, (n, k) in
+              zip(names, layer_shapes(ncfg, nfk, nfv))]
+    W = ncfg.width
+    return blocks + [('rgb', W // 2 + 1, 3), ('alpha', W + 1, 1)]
+
+
+def split_grads(ncfg: NeRFConfig, nfk: int, nfv: int, dW: torch.Tensor
+                ) -> Dict[str, torch.Tensor]:
+    """K2's flat weight gradient -> {name: (rows, cols) view}; the last
+    row of each block is the bias gradient."""
+    out, off = {}, 0
+    for nm, r, c in grad_blocks(ncfg, nfk, nfv):
+        out[nm] = dW[off:off + r * c].view(r, c)
+        off += r * c
+    if off != dW.numel():
+        raise ValueError('weight gradient does not match the config')
+    return out
+
+
+def _pe_transform_bwd_ref(packed, pts, m_all, aux, S, tau, dx0, dxv):
+    """Backward of the cutoff PE and the world->local transform in exact
+    fp32 (the pose-refinement path): cotangents of the MLP inputs dx0
+    (R, S, k0p) and dxv (R, S, kvp) -> dpts (R, S, 3), dm_all (R*3, 72),
+    daux (R, 160). Mirrors K2's last kernel term by term."""
+    nfk, nfv = packed['nfk'], packed['nfv']
+    R, J = pts.shape[0], N_JOINTS
+    m = m_all.reshape(R, 3, C72)
+    trans, d = aux[:, :C72], aux[:, C72:2 * C72]
+    pts_t = rotate_flat(pts, m) + trans[:, None]           # (R, S, 72)
+    v = torch.sqrt(torch.clamp_min(_group3_sumsq(pts_t, J), 1e-24))
+    inv = 1.0 / torch.clamp_min(v, 1e-12)
+    w = torch.sigmoid(-tau * (v - packed['cut']))          # (R, S, 24)
+
+    nb = J * (1 + 2 * nfk)
+    dv = dx0[..., :J] * w
+    dw = dx0[..., :J] * v
+    for k in range(nfk):
+        f = float(2 ** k)
+        sn, cs = torch.sin(v * f), torch.cos(v * f)
+        dsv = dx0[..., J + 2 * J * k:2 * J + 2 * J * k]
+        dcv = dx0[..., 2 * J + 2 * J * k:3 * J + 2 * J * k]
+        dv = dv + f * (dsv * cs - dcv * sn) * w
+        dw = dw + (dsv * sn + dcv * cs)
+    w72 = _expand3(w, J)
+    dd = dxv[..., :C72] * w72
+    dw72 = dxv[..., :C72] * d[:, None]
+    for k in range(nfv):
+        f = float(2 ** k)
+        sn, cs = torch.sin(d * f)[:, None], torch.cos(d * f)[:, None]
+        dsd = dxv[..., C72 + 2 * C72 * k:2 * C72 + 2 * C72 * k]
+        dcd = dxv[..., 2 * C72 + 2 * C72 * k:3 * C72 + 2 * C72 * k]
+        dd = dd + f * (dsd * cs - dcd * sn) * w72
+        dw72 = dw72 + (dsd * sn + dcd * cs)
+    dw = dw + dw72.reshape(*dw72.shape[:-1], J, 3).sum(-1)
+    dv = dv + tau * dw * (-(1.0 - w) * w)                  # w = 1 - sigmoid
+
+    drb = dx0[..., nb:nb + C72]
+    dpts_t = drb * _expand3(inv, J)
+    dvinv = (drb * pts_t).reshape(R, S, J, 3).sum(-1)
+    dv = dv - dvinv * inv * inv * (v > 1e-12)
+    dv2s = dv * 0.5 * inv
+    dpts_t = dpts_t + _expand3(dv2s, J) * 2.0 * pts_t
+
+    dpts = (dpts_t[:, :, None, :] * m[:, None]).sum(-1)    # (R, S, 3)
+    dm = (pts[..., :, None] * dpts_t[..., None, :]).sum(1)  # (R, 3, 72)
+    fc0 = C72 * (1 + 2 * nfv)
+    daux = torch.cat([dpts_t.sum(1), dd.sum(1),
+                      dxv[..., fc0:fc0 + FC_CH].sum(1)], -1)
+    return dpts, dm.reshape(R * 3, C72), daux
+
+
+def fused_bwd_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
+                  pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
+                  S: int, tau, g: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """The plain PyTorch version of K2: recompute the forward, then the
+    backward with f32 cotangent products, for the cotangent g (R, S, 4)
+    of K1's output. ReLU masks come from the bf16-rounded activations.
+    Returns (dW flat in `grad_blocks` layout, dpts (R, S, 3),
+    dm_all (R*3, 72), daux (R, 160))."""
+    R = pts.shape[0]
+    P = R * S
+    t = _forward_trace(ncfg, packed, pts, m_all, aux, S, tau)
+    ws, hs = t['ws'], t['hs']
+    flat = lambda x: x.reshape(P, x.shape[-1])
+    x0, xv, feat, hv = (flat(t[k]) for k in ('x0', 'xv', 'feat', 'hv'))
+    hs = [flat(h) for h in hs]
+    g2 = g.reshape(P, 4).float()
+    W, depth = ncfg.width, ncfg.depth
+    k0p = x0.shape[-1]
+
+    def block(x, dy):           # (K + 1, N): x^T dy, then the bias row
+        return torch.cat([x.t() @ dy, dy.sum(0, keepdim=True)])
+
+    grads = {'rgb': block(hv, g2[:, :3]), 'alpha': block(hs[-1], g2[:, 3:])}
+    dhv = (g2[:, :3] @ packed['w_rgb']) * (hv > 0)
+    grads['view'] = block(torch.cat([feat, xv], -1), dhv)
+    dview = dhv @ ws[depth + 1]
+    dfeat, dxv = dview[:, :W], dview[:, W:]
+    grads['feat'] = block(hs[-1], dfeat)
+    dh = (dfeat @ ws[depth] + g2[:, 3:] * packed['w_alpha']) * (hs[-1] > 0)
+    dx0 = torch.zeros_like(x0)
+    for i in range(depth - 1, 0, -1):
+        skip = (i - 1) in ncfg.skips
+        grads[f'l{i}'] = block(torch.cat([x0, hs[i - 1]], -1) if skip
+                               else hs[i - 1], dh)
+        din = dh @ ws[i]
+        if skip:
+            dx0 = dx0 + din[:, :k0p]
+            din = din[:, k0p:]
+        dh = din * (hs[i - 1] > 0)
+    grads['l0'] = block(x0, dh)
+    dx0 = dx0 + dh @ ws[0]
+
+    dW = torch.cat([grads[nm].reshape(-1) for nm, _, _ in
+                    grad_blocks(ncfg, packed['nfk'], packed['nfv'])])
+    dpts, dm, daux = _pe_transform_bwd_ref(
+        packed, pts, m_all, aux, S, tau, dx0.reshape(R, S, k0p),
+        dxv.reshape(R, S, dxv.shape[-1]))
+    return dW, dpts, dm, daux
+
+
+def build_library(name: str) -> Tuple[Path, str]:
+    """Compile one kernel source ('fused_render' = K1, 'fused_render_bwd'
+    = K2) for sm_90a into anerf_torch/_build/, once per version of its
+    sources. Returns (library path, nvcc's messages, which include
+    ptxas' register and spill report)."""
+    srcs = [_CSRC / f for f in _SOURCES[name]]
+    digest = hashlib.sha256(b''.join(p.read_bytes() for p in srcs)
+                            ).hexdigest()[:12]
+    lib = _BUILD_DIR / f'{name}_{digest}.so'
     if lib.exists():
         return lib, ''
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -285,50 +454,55 @@ def build_library() -> Tuple[Path, str]:
     tmp = lib.with_name(f'{lib.name}.{os.getpid()}.tmp')
     cmd = [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
            '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v',
-           '-o', str(tmp), str(_SRC)]
+           '-o', str(tmp), str(srcs[0])]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({proc.returncode}):\n'
+        raise RuntimeError(f'nvcc failed for {name} ({proc.returncode}):\n'
                            f'{proc.stdout}\n{proc.stderr}')
     os.replace(tmp, lib)
     return lib, proc.stdout + proc.stderr
 
 
-def _library():
-    global _LIB
-    if _LIB is None:
-        path, _ = build_library()
+def build_libraries() -> Dict[str, Tuple[Path, str]]:
+    """Build every kernel library at once, one nvcc per source."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(len(_SOURCES)) as pool:
+        futs = {n: pool.submit(build_library, n) for n in _SOURCES}
+        return {n: f.result() for n, f in futs.items()}
+
+
+def _library(name: str):
+    if name not in _LIBS:
+        path, _ = build_library(name)
         lib = ctypes.CDLL(str(path))
-        fn = lib.anerf_fused_encode_mlp_pts
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
-                       + [ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        lib.anerf_cuda_error_string.argtypes = [ctypes.c_int]
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        if name == 'fused_render':
+            lib.anerf_fused_encode_mlp_pts.argtypes = \
+                [p] * 10 + [i] * 6 + [f, p]
+            lib.anerf_fused_encode_mlp_pts.restype = i
+        else:
+            lib.anerf_fused_bwd.argtypes = [p] * 23 + [i] * 7 + [f, p]
+            lib.anerf_fused_bwd.restype = i
+        lib.anerf_cuda_error_string.argtypes = [i]
         lib.anerf_cuda_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        _LIBS[name] = lib
+    return _LIBS[name]
 
 
-def fused_encode_mlp_pts(ncfg: NeRFConfig, packed: Dict[str, Any],
-                         pts: torch.Tensor, m_all: torch.Tensor,
-                         aux: torch.Tensor, S: int, tau) -> torch.Tensor:
-    """World points -> raw (R, S, 4): transform + cutoff PE + MLP.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (and raise if it cannot launch)."""
-    global LAUNCHES
-    if pts.device.type == 'cpu':
-        return fused_encode_mlp_pts_ref(ncfg, packed, pts, m_all, aux, S,
-                                        tau)
+def _check_operands(fn: str, ncfg: NeRFConfig, packed: Dict[str, Any],
+                    pts: torch.Tensor, m_all: torch.Tensor,
+                    aux: torch.Tensor, S: int, **extra) -> None:
+    """Raise unless every operand is what the kernels take: contiguous,
+    of the right type and shape, on the points' CUDA device."""
     if pts.device.type != 'cuda':
-        raise ValueError(f'fused_encode_mlp_pts: no kernel for {pts.device}')
+        raise ValueError(f'{fn}: no kernel for {pts.device}')
     R = pts.shape[0]
     if ncfg.width != KERNEL_WIDTH:
-        raise ValueError(f'the kernel is built for width {KERNEL_WIDTH}')
+        raise ValueError(f'the kernels are built for width {KERNEL_WIDTH}')
     if ncfg.depth > 31:
-        raise ValueError('the kernel takes at most 31 trunk layers')
+        raise ValueError('the kernels take at most 31 trunk layers')
     if 4 * R * S >= 2 ** 31:
-        raise ValueError('the kernel indexes points with 32-bit ints: '
+        raise ValueError('the kernels index points with 32-bit ints: '
                          f'R * S = {R * S} is too many; split the rays')
     tensors = {'pts': (pts, (R, S, 3), torch.float32),
                'm_all': (m_all, (R * 3, C72), torch.float32),
@@ -341,21 +515,43 @@ def fused_encode_mlp_pts(ncfg: NeRFConfig, packed: Dict[str, Any],
                            torch.float32),
                'b_out': (packed['b_out'], (4,), torch.float32),
                'cut': (packed['cut'], (N_JOINTS,), torch.float32)}
+    tensors.update(extra)
     for name, (t, shape, dtype) in tensors.items():
         if t.device != pts.device or t.dtype != dtype \
                 or not t.is_contiguous() \
                 or (shape is not None and tuple(t.shape) != shape):
-            raise ValueError(f'fused_encode_mlp_pts: {name} must be a '
-                             f'contiguous {dtype} {shape} on {pts.device}, '
-                             f'got {t.dtype} {tuple(t.shape)} on {t.device}')
+            raise ValueError(f'{fn}: {name} must be a contiguous {dtype} '
+                             f'{shape} on {pts.device}, got {t.dtype} '
+                             f'{tuple(t.shape)} on {t.device}')
     n_w = sum(n * k for n, k in layer_shapes(ncfg, packed['nfk'],
                                              packed['nfv']))
     if packed['w'].numel() != n_w:
         raise ValueError('packed weights do not match the config')
+
+
+def _raise_on(lib, err: int, fn: str) -> None:
+    if err != 0:
+        raise RuntimeError(f'{fn} launch failed: '
+                           + lib.anerf_cuda_error_string(err).decode())
+
+
+def fused_encode_mlp_pts(ncfg: NeRFConfig, packed: Dict[str, Any],
+                         pts: torch.Tensor, m_all: torch.Tensor,
+                         aux: torch.Tensor, S: int, tau) -> torch.Tensor:
+    """K1: world points -> raw (R, S, 4): transform + cutoff PE + MLP.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (and raise if it cannot launch)."""
+    global LAUNCHES
+    if pts.device.type == 'cpu':
+        return fused_encode_mlp_pts_ref(ncfg, packed, pts, m_all, aux, S,
+                                        tau)
+    _check_operands('fused_encode_mlp_pts', ncfg, packed, pts, m_all, aux, S)
+    R = pts.shape[0]
     out = torch.empty((R, S, 4), dtype=torch.float32, device=pts.device)
     if R * S == 0:
         return out
-    lib = _library()
+    lib = _library('fused_render')
     skip_mask = sum(1 << s for s in ncfg.skips)
     with torch.cuda.device(pts.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -366,8 +562,152 @@ def fused_encode_mlp_pts(ncfg: NeRFConfig, packed: Dict[str, Any],
             packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
             out.data_ptr(), R * S, S, ncfg.depth, skip_mask,
             packed['nfk'], packed['nfv'], float(tau), stream)
-    if err != 0:
-        raise RuntimeError('fused_encode_mlp_pts launch failed: '
-                           + lib.anerf_cuda_error_string(err).decode())
+    _raise_on(lib, err, 'fused_encode_mlp_pts')
     LAUNCHES += 1
     return out
+
+
+def fused_bwd(ncfg: NeRFConfig, packed: Dict[str, Any], pts: torch.Tensor,
+              m_all: torch.Tensor, aux: torch.Tensor, S: int, tau,
+              g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor, torch.Tensor]:
+    """K2: the backward of K1 for the cotangent g (R, S, 4) of its output.
+    Returns (dW flat in `grad_blocks` layout, dpts (R, S, 3),
+    dm_all (R*3, 72), daux (R, 160)), all f32.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    sequence of csrc/fused_render_bwd.cu (and raise if it cannot launch).
+    The sequence allocates its scratch here: the saved bf16 activations
+    (2 * (k0p + kvp + (depth + 1) W + W/2) bytes per point, 7,072 at the
+    flagship), the f32 cotangents and the per-chunk dW partial sums."""
+    global BWD_LAUNCHES
+    if pts.device.type == 'cpu':
+        return fused_bwd_ref(ncfg, packed, pts, m_all, aux, S, tau, g)
+    R = pts.shape[0]
+    _check_operands('fused_bwd', ncfg, packed, pts, m_all, aux, S,
+                    g=(g, (R, S, 4), torch.float32))
+    nfk, nfv = packed['nfk'], packed['nfv']
+    _, k0p, _, kvp = input_widths(nfk, nfv)
+    W, WV, P = ncfg.width, ncfg.width // 2, R * S
+    dev = pts.device
+    n_grad = sum(r * c for _, r, c in grad_blocks(ncfg, nfk, nfv))
+    dW = torch.zeros((n_grad,), dtype=torch.float32, device=dev)
+    dpts = torch.zeros((R, S, 3), dtype=torch.float32, device=dev)
+    dm = torch.zeros((R * 3, C72), dtype=torch.float32, device=dev)
+    daux = torch.zeros((R, AUX_W), dtype=torch.float32, device=dev)
+    if P == 0:
+        return dW, dpts, dm, daux
+    w32 = torch.cat([w.reshape(-1) for w in _weights_f32(ncfg, packed)])
+    n_chunk = -(-P // BWD_CHUNK)
+    f32 = dict(dtype=torch.float32, device=dev)
+    act = torch.empty((P, k0p + kvp + (ncfg.depth + 1) * W + WV),
+                      dtype=torch.bfloat16, device=dev)
+    scratch = [torch.empty((P, 4), **f32),             # K1's raw output
+               torch.empty((P, WV), **f32),            # d hv
+               torch.empty((P, W + kvp), **f32),       # d [feat | xv]
+               torch.empty((P, W), **f32),             # d h, ping
+               torch.empty((P, W), **f32),             # d h, pong
+               torch.empty((P, k0p), **f32),           # d x0
+               torch.empty((n_chunk, n_grad), **f32)]  # dW partial sums
+    lib = _library('fused_render_bwd')
+    skip_mask = sum(1 << s for s in ncfg.skips)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.anerf_fused_bwd(
+            pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
+            packed['w'].data_ptr(), packed['b'].data_ptr(),
+            packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
+            packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
+            w32.data_ptr(), g.data_ptr(), act.data_ptr(),
+            *(t.data_ptr() for t in scratch),
+            dW.data_ptr(), dpts.data_ptr(), dm.data_ptr(), daux.data_ptr(),
+            P, S, ncfg.depth, skip_mask, nfk, nfv, BWD_CHUNK, float(tau),
+            stream)
+    _raise_on(lib, err, 'fused_bwd')
+    BWD_LAUNCHES += 1
+    return dW, dpts, dm, daux
+
+
+def _net_leaves(ncfg: NeRFConfig, net: Dict[str, Any]
+                ) -> List[torch.Tensor]:
+    """The f32 parameter leaves the kernels read, in a fixed order: the
+    trunk's (w, b) per layer, then feature, view, rgb and alpha (w, b)."""
+    layers = (list(net['pts_linears']) + [net['feature_linear'],
+                                          net['views_linears'][0],
+                                          net['rgb_linear'],
+                                          net['alpha_linear']])
+    return [x for layer in layers for x in (layer['w'], layer['b'])]
+
+
+def _net_from_leaves(ncfg: NeRFConfig, leaves) -> Dict[str, Any]:
+    lin = [{'w': leaves[2 * i], 'b': leaves[2 * i + 1]}
+           for i in range(len(leaves) // 2)]
+    d = ncfg.depth
+    return {'pts_linears': lin[:d], 'feature_linear': lin[d],
+            'views_linears': [lin[d + 1]], 'rgb_linear': lin[d + 2],
+            'alpha_linear': lin[d + 3]}
+
+
+def _leaf_grads(ncfg: NeRFConfig, nfk: int, nfv: int, dW: torch.Tensor
+                ) -> List[torch.Tensor]:
+    """K2's weight-gradient blocks -> gradients of `_net_leaves`: drop the
+    zero padding rows, split the skip layer's [x0 | h] rows back into the
+    (dnet + W, W) leaf. Weight gradients are rounded to bf16, as the JAX
+    VJP casts them to the packed weights' dtype; biases stay f32."""
+    blocks = split_grads(ncfg, nfk, nfv, dW)
+    k0, k0p, _, _ = input_widths(nfk, nfv)
+    W, bf = ncfg.width, torch.bfloat16
+    n_view = ncfg.input_ch_views + (ncfg.framecode_ch
+                                    if ncfg.use_framecode else 0)
+    rows = []
+    for i in range(ncfg.depth):
+        b = blocks[f'l{i}']
+        if i == 0:
+            rows.append((b[:k0], b[-1]))
+        elif (i - 1) in ncfg.skips:
+            rows.append((torch.cat([b[:k0], b[k0p:k0p + W]]), b[-1]))
+        else:
+            rows.append((b[:W], b[-1]))
+    rows += [(blocks['feat'][:W], blocks['feat'][-1]),
+             (blocks['view'][:W + n_view], blocks['view'][-1]),
+             (blocks['rgb'][:W // 2], blocks['rgb'][-1]),
+             (blocks['alpha'][:W], blocks['alpha'][-1])]
+    return [x for w, b in rows for x in (w.to(bf).float(), b.clone())]
+
+
+class FusedApply(torch.autograd.Function):
+    """K1 forward, K2 backward (the JAX `fused_apply` custom VJP). The
+    forward packs the network's f32 leaves into the kernel operands
+    (no grad) and keeps only pts, m_all and aux: K2 recomputes the
+    forward. cutoff_dist and tau get no gradient by design (never
+    trained; tau is a schedule)."""
+
+    @staticmethod
+    def forward(ctx, ncfg, S, tau, nfk, nfv, cutoff_dist, pts, m_all, aux,
+                *leaves):
+        packed = pack_render_params(_net_from_leaves(ncfg, leaves), ncfg,
+                                    nfk, nfv, cutoff_dist)
+        ctx.save_for_backward(pts, m_all, aux)
+        ctx.packed, ctx.ncfg, ctx.S, ctx.tau = packed, ncfg, S, tau
+        return fused_encode_mlp_pts(ncfg, packed, pts, m_all, aux, S, tau)
+
+    @staticmethod
+    def backward(ctx, g):
+        pts, m_all, aux = ctx.saved_tensors
+        p = ctx.packed
+        dW, dpts, dm, daux = fused_bwd(ctx.ncfg, p, pts, m_all, aux, ctx.S,
+                                       ctx.tau, g.contiguous().float())
+        return (None,) * 6 + (dpts, dm, daux) + tuple(
+            _leaf_grads(ctx.ncfg, p['nfk'], p['nfv'], dW))
+
+
+def fused_apply(ncfg: NeRFConfig, S: int, net: Dict[str, Any],
+                cutoff_dist: torch.Tensor, n_freq_kp: int, n_freq_view: int,
+                pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
+                tau) -> torch.Tensor:
+    """Differentiable fused transform + PE + MLP: (R, S, 3) world points
+    -> raw (R, S, 4) through K1, with K2 as its backward. Gradients reach
+    the leaves of `net` (one network's params), pts, m_all and aux."""
+    return FusedApply.apply(ncfg, S, float(tau), int(n_freq_kp),
+                            int(n_freq_view), cutoff_dist, pts, m_all, aux,
+                            *_net_leaves(ncfg, net))

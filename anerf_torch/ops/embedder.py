@@ -63,6 +63,35 @@ class EmbedConfig:
         return np.linspace(2.0 ** 0.0, 2.0 ** self.max_freq_log2,
                            self.num_freqs).astype(np.float32)
 
+    def freq_k(self) -> np.ndarray:
+        """log2 of freq bands repeated for (sin, cos): shape (NF, 2)."""
+        fb = self.freq_bands()
+        return np.log2(np.maximum(fb, 1e-30))[:, None].repeat(2, 1).astype(
+            np.float32)
+
+
+def tau_schedule(cfg: EmbedConfig, global_step: int, cutoff_step: int,
+                 cutoff_rate: float) -> float:
+    """tau = init_tau * rate^(step / (cutoff_step * 1000)), clamped at
+    2000 (reference cutoff_embedder.py:181-183). The step is a host
+    integer; the arithmetic is float32, as in the JAX package."""
+    f32 = np.float32
+    with np.errstate(over='ignore'):      # inf, then the clamp
+        tau = f32(cfg.init_tau) * f32(cutoff_rate) ** (
+            f32(global_step) / f32(cutoff_step * 1000))
+    return float(min(tau, f32(2000.0)))
+
+
+def alpha_schedule(cfg: EmbedConfig, global_step: int, alpha_step: int,
+                   target: Optional[float] = None) -> float:
+    """Linear BARF-style coarse-to-fine alpha (cutoff_embedder.py:185-190),
+    float32 arithmetic on a host step."""
+    if target is None:
+        target = float(np.max(cfg.freq_k())) if cfg.num_freqs else 0.0
+    f32 = np.float32
+    return float(f32(cfg.init_alpha) + (f32(target) - f32(cfg.init_alpha))
+                 * f32(global_step) / f32(alpha_step * 1000))
+
 
 def embed(cfg: EmbedConfig, inputs: torch.Tensor,
           dists: Optional[torch.Tensor] = None,

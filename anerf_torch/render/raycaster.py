@@ -1,13 +1,15 @@
 """The rendering core: cylinder bounds -> sampling -> skeleton-relative
 encoding -> MLP -> compositing -> importance resampling -> fine pass
-(torch port of anerf_tpu/render/raycaster.py, forward only).
+(torch port of anerf_tpu/render/raycaster.py).
 
 Two branches compute the encoding + MLP, as in the JAX package:
-`use_fused` runs the K1 kernel (kernels/fused_render.py) twice per call,
-once for the coarse net at S = n_samples and once for the fine net on the
-[coarse ++ importance] concatenation; otherwise plain torch mirrors the
-JAX XLA path (encode_inputs + run_network). Randomness draws from an
-explicit torch.Generator.
+`use_fused` runs the fused kernels (kernels/fused_render.py) twice per
+call, once for the coarse net at S = n_samples and once for the fine net
+on the [coarse ++ importance] concatenation: through `fused_apply` (K1
+forward, K2 backward) when training, or K1 alone on operands the caller
+packed once (`packed`, the render path). Otherwise plain torch mirrors
+the JAX XLA path (encode_inputs + run_network) and autograd gives its
+backward. Randomness draws from an explicit torch.Generator.
 """
 from __future__ import annotations
 
@@ -16,8 +18,8 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from ..kernels.fused_render import (fused_encode_mlp_pts, pack_ray_data,
-                                    pack_render_params)
+from ..kernels.fused_render import (fused_apply, fused_encode_mlp_pts,
+                                    pack_ray_data, pack_render_params)
 from ..models.nerf import NeRFConfig, apply_nerf, lookup_framecodes
 from ..ops.compositing import get_density_fn, raw2outputs
 from ..ops.cylinder import get_near_far_in_cylinder
@@ -72,6 +74,10 @@ class RenderConfig:
     @property
     def eff_fast_pe(self) -> bool:
         return self.fast_grads if self.fast_pe is None else self.fast_pe
+
+    @property
+    def eff_fast_mlp(self) -> bool:
+        return self.fast_grads if self.fast_mlp is None else self.fast_mlp
 
     def test_mode(self) -> 'RenderConfig':
         """Copy with stochasticity disabled."""
@@ -174,8 +180,10 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig,
                 ) -> Dict[str, torch.Tensor]:
     """Volumetric rendering of a packed ray batch (R, 8|11) =
     [o, d, near, far, (viewdirs)]. params: {'coarse', 'fine',
-    'cutoff_dist'}. `packed` (from pack_fused_params) skips re-packing the
-    kernel operands on the fused branch. Returns rgb_map / disp_map /
+    'cutoff_dist'}. `packed` (from pack_fused_params) makes the fused
+    branch run K1 alone on those operands (no gradient: the render path);
+    without it the fused branch goes through fused_apply, whose backward
+    is K2. Returns rgb_map / disp_map /
     acc_map / alpha (+ the coarse rgb0 / disp0 / acc0 / alpha0).
     kp_batch and bones are accepted for the JAX signature; the ported
     (reldist) encoders do not read them."""
@@ -208,11 +216,21 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig,
                                        eval_mean=eval_framecode_mean)
 
     if cfg.use_fused:
-        if packed is None:
-            packed = pack_fused_params(params, cfg)
+        if packed is None and cfg.eff_fast_mlp and torch.is_grad_enabled():
+            raise NotImplementedError(
+                'the fused backward with bf16 cotangents (fast_grads / '
+                'fast_mlp) is not ported yet; K2 runs f32 cotangents only')
+        nf = (cfg.embed_kp.num_freqs, cfg.embed_view.num_freqs)
+
+        def net(name, pts_in, aux_in):
+            if packed is not None:
+                return fused_encode_mlp_pts(cfg.nerf, packed[name], pts_in,
+                                            m_all, aux_in, pts_in.shape[1],
+                                            tau)
+            return fused_apply(cfg.nerf, pts_in.shape[1], params[name],
+                               cutoff_dist, *nf, pts_in, m_all, aux_in, tau)
         m_all, aux = pack_ray_data(rays_d[:, None, :], skts, framecodes)
-        raw = fused_encode_mlp_pts(cfg.nerf, packed['coarse'], pts, m_all,
-                                   aux, pts.shape[1], tau)
+        raw = net('coarse', pts, aux)
     else:
         encoded = encode_inputs(cfg, pts, rays_d[:, None, :], skts,
                                 cutoff_dist, tau)
@@ -241,15 +259,9 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig,
         if cfg.use_fused:
             if not cfg.single_net:
                 _, aux_f = pack_ray_data(rays_d[:, None, :], skts, fc_fine)
-                pts_cat = torch.cat([pts, pts_is], 1)
-                raw_all = fused_encode_mlp_pts(
-                    cfg.nerf, packed['fine'], pts_cat, m_all, aux_f,
-                    pts_cat.shape[1], tau)
+                raw_all = net('fine', torch.cat([pts, pts_is], 1), aux_f)
             else:
-                raw_is = fused_encode_mlp_pts(
-                    cfg.nerf, packed['coarse'], pts_is, m_all, aux,
-                    pts_is.shape[1], tau)
-                raw_all = torch.cat([raw, raw_is], 1)
+                raw_all = torch.cat([raw, net('coarse', pts_is, aux)], 1)
         elif not cfg.single_net:
             encoded_is = encode_inputs(cfg, pts_is, rays_d[:, None, :],
                                        skts, cutoff_dist, tau)

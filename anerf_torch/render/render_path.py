@@ -32,14 +32,18 @@ def make_render_fn(cfg: RenderConfig, params: Dict[str, Any],
 
     scal is the 26-float vector of pack_pose_scalars; tables hold the
     stacked pose tables on the device. The kernel operands are packed
-    once here, not per bucket. mesh (data parallel) is not ported yet.
+    once here, not per bucket, and the buckets render without autograd.
+    mesh (data parallel) is not ported yet.
     """
     if mesh is not None:
         raise NotImplementedError('data-parallel rendering (mesh=) is not '
                                   'ported yet')
     test_cfg = cfg.test_mode()
-    packed = pack_fused_params(params, test_cfg) if cfg.use_fused else None
+    with torch.no_grad():
+        packed = (pack_fused_params(params, test_cfg) if cfg.use_fused
+                  else None)
 
+    @torch.no_grad()
     def fn(scal: np.ndarray, tables: Dict[str, Optional[torch.Tensor]],
            n_buckets: int, chunk: int) -> Dict[str, torch.Tensor]:
         scal = np.asarray(scal, np.float32)

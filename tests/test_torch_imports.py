@@ -36,7 +36,11 @@ def test_no_jax_import(path):
 
 def test_scan_finds_the_port():
     assert 'anerf_torch/kernels/fused_render.py' in FILES
-    assert len(FILES) >= 20
+    for sub in ('train', 'pose'):
+        assert f'anerf_torch/{sub}/__init__.py' in FILES
+    assert 'anerf_torch/train/trainer.py' in FILES
+    assert 'anerf_torch/pose/pose_opt.py' in FILES
+    assert len(FILES) >= 26
     tree = ast.parse('import jax.numpy as jnp\nfrom anerf_tpu.ops import fk')
     assert [m for m in _imported_modules(tree)] == ['jax.numpy',
                                                     'anerf_tpu.ops']
