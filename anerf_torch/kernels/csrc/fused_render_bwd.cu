@@ -36,10 +36,20 @@
 //     over the ray's samples in a fixed order.
 // Every result is a function of the inputs alone: two calls give the
 // same bits.
+//
+// K2-d (anerf_fused_bwd_staged) replaces tools/kernel_bench.py:
+// decompose_bwd (the stage= exits of _render_kernel_pts_bwd): the same
+// sequence stopped after the recompute (1), after the MLP backward (1-5),
+// or after the PE backward (step 6 with its transform backward cut out,
+// which writes a digest to dpts). Python side:
+// anerf_torch/kernels/stages.py:decompose_bwd.
 
 #include "fused_render_common.cuh"
 
 namespace {
+
+// Stages of the backward sequence (K2-d); BWD_FULL is production.
+constexpr int BWD_FULL = 0, BWD_RECOMPUTE = 1, BWD_MLP = 2, BWD_PE = 3;
 
 constexpr int GBM = 128, GBN = 128, GBK = 8, GTHREADS = 256;
 
@@ -171,7 +181,11 @@ __global__ void reduce_chunks_kernel(const float* __restrict__ partial,
 // from the cotangents of the MLP inputs dx0 (P x k0p, row stride ldx0)
 // and dxv (P x kvp, row stride ldxv). Shared memory: dpts_t and dd of
 // every sample (2 x S x 72 f32) and the ray's view-band sin / cos
-// (2 x nfv x 72 f32).
+// (2 x nfv x 72 f32). PE_ONLY (K2-d's pe stage) stops before the
+// transform backward and writes dpts[p] = (sum_j dv_j, sum_c dd_c,
+// sum_c dr_c): dv is the distances' cotangent with the window derivative,
+// dd the view directions', dr the unit bone directions' (read from dx0).
+template <bool PE_ONLY>
 __global__ void __launch_bounds__(NTHREADS)
 pe_transform_bwd_kernel(const float* __restrict__ pts,
                         const float* __restrict__ m_all,
@@ -250,6 +264,18 @@ pe_transform_bwd_kernel(const float* __restrict__ pts,
     }
     // window w = 1 - sigmoid(tau (v - cut)): dw/dv = -tau w (1 - w)
     dv += tau * dw * (-(1.f - w) * w);
+    if constexpr (PE_ONLY) {
+      float dds = 0.f, drs = 0.f;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        dds += ddd[s * C72 + j * 3 + a];
+        drs += gx[nb + j * 3 + a];
+      }
+      dpt[s * C72 + j * 3] = dv;
+      dpt[s * C72 + j * 3 + 1] = dds;
+      dpt[s * C72 + j * 3 + 2] = drs;
+      continue;
+    }
 
     // r = q / max(v, 1e-12), v = sqrt(max(|q|^2, 1e-24))
     float drb[3];
@@ -266,6 +292,15 @@ pe_transform_bwd_kernel(const float* __restrict__ pts,
       dpt[s * C72 + j * 3 + a] = drb[a] * inv + dv2s * 2.f * q[a];
   }
   __syncthreads();
+  if constexpr (PE_ONLY) {
+    for (int it = tid; it < S * 3; it += NTHREADS) {
+      const int s = it / 3, b = it - s * 3;
+      float acc = 0.f;
+      for (int j = 0; j < J; ++j) acc += dpt[s * C72 + j * 3 + b];
+      dpts[((size_t)ray * S + s) * 3 + b] = acc;
+    }
+    return;
+  }
 
   // dpts[p, b] = sum_c dpts_t[c] m[b, c]
   for (int it = tid; it < S * 3; it += NTHREADS) {
@@ -334,22 +369,16 @@ struct Launcher {
   }
 };
 
-}  // namespace
-
-extern "C" {
-
-// Run K2 on `stream`: dW (flat, blocks in the Python grad_blocks order),
-// dpts, dm_all, daux for the cotangent g of K1's output. The scratch
-// buffers come from the caller. Returns a cudaError_t code (0 on success).
-int anerf_fused_bwd(const float* pts, const float* m_all, const float* aux,
-                    const void* wts, const float* bias, const float* w_rgb,
-                    const float* w_alpha, const float* b_out,
-                    const float* cut, const float* w32, const float* g,
-                    void* act_v, float* raw, float* dhv, float* dview,
-                    float* dh_a, float* dh_b, float* dx0, float* partial,
-                    float* dW, float* dpts, float* dm, float* daux, int P,
-                    int S, int depth, int skip_mask, int nfk, int nfv,
-                    int chunk, float tau, void* stream_v) {
+// The backward sequence up to `stage` (BWD_*).
+int run_bwd(int stage, const float* pts, const float* m_all,
+            const float* aux, const void* wts, const float* bias,
+            const float* w_rgb, const float* w_alpha, const float* b_out,
+            const float* cut, const float* w32, const float* g, void* act_v,
+            float* raw, float* dhv, float* dview, float* dh_a, float* dh_b,
+            float* dx0, float* partial, float* dW, float* dpts, float* dm,
+            float* daux, int P, int S, int depth, int skip_mask, int nfk,
+            int nfv, int chunk, float tau, void* stream_v) {
+  if (stage < BWD_FULL || stage > BWD_PE) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_v;
   const Dims d = make_dims(nfk, nfv);
   const ActLayout al = make_act_layout(d, depth);
@@ -367,6 +396,7 @@ int anerf_fused_bwd(const float* pts, const float* m_all, const float* aux,
       pts, m_all, aux, reinterpret_cast<const bf16*>(wts), bias, w_rgb,
       w_alpha, b_out, cut, raw, P, S, depth, skip_mask, nfk, nfv, tau, act);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (stage == BWD_RECOMPUTE) return 0;
 
   // offsets of the dW blocks (rows K + 1, cols N) and of the f32 weights
   // (N x K) of every MMA layer, trunk first
@@ -433,18 +463,63 @@ int anerf_fused_bwd(const float* pts, const float* m_all, const float* aux,
   reduce_chunks_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
       partial, dW, total, n_chunk);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (stage == BWD_MLP) return 0;
 
   // 6. PE and transform backward, per-ray sums
   const int R = P / S;
   const size_t smem_pe = (size_t)(2 * S + 2 * nfv) * C72 * sizeof(float);
-  e = cudaFuncSetAttribute(pe_transform_bwd_kernel,
+  auto pe_kernel = stage == BWD_PE ? pe_transform_bwd_kernel<true>
+                                   : pe_transform_bwd_kernel<false>;
+  e = cudaFuncSetAttribute(pe_kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem_pe);
   if (e != cudaSuccess) return (int)e;
-  pe_transform_bwd_kernel<<<R, NTHREADS, smem_pe, stream>>>(
+  pe_kernel<<<R, NTHREADS, smem_pe, stream>>>(
       pts, m_all, aux, cut, dx0, d.k0p, dview + W, (int)ldv, S, nfk, nfv,
       tau, dpts, dm, daux);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Run K2 on `stream`: dW (flat, blocks in the Python grad_blocks order),
+// dpts, dm_all, daux for the cotangent g of K1's output. The scratch
+// buffers come from the caller. Returns a cudaError_t code (0 on success).
+int anerf_fused_bwd(const float* pts, const float* m_all, const float* aux,
+                    const void* wts, const float* bias, const float* w_rgb,
+                    const float* w_alpha, const float* b_out,
+                    const float* cut, const float* w32, const float* g,
+                    void* act_v, float* raw, float* dhv, float* dview,
+                    float* dh_a, float* dh_b, float* dx0, float* partial,
+                    float* dW, float* dpts, float* dm, float* daux, int P,
+                    int S, int depth, int skip_mask, int nfk, int nfv,
+                    int chunk, float tau, void* stream_v) {
+  return run_bwd(BWD_FULL, pts, m_all, aux, wts, bias, w_rgb, w_alpha, b_out,
+                 cut, w32, g, act_v, raw, dhv, dview, dh_a, dh_b, dx0,
+                 partial, dW, dpts, dm, daux, P, S, depth, skip_mask, nfk,
+                 nfv, chunk, tau, stream_v);
+}
+
+// K2-d: the same sequence stopped after `stage` (1 recompute: raw and the
+// saved activations; 2 mlp: dW, dx0 and dview too; 3 pe: dW and the PE
+// digest in dpts; 0 full: anerf_fused_bwd).
+int anerf_fused_bwd_staged(int stage, const float* pts, const float* m_all,
+                           const float* aux, const void* wts,
+                           const float* bias, const float* w_rgb,
+                           const float* w_alpha, const float* b_out,
+                           const float* cut, const float* w32,
+                           const float* g, void* act_v, float* raw,
+                           float* dhv, float* dview, float* dh_a,
+                           float* dh_b, float* dx0, float* partial,
+                           float* dW, float* dpts, float* dm, float* daux,
+                           int P, int S, int depth, int skip_mask, int nfk,
+                           int nfv, int chunk, float tau, void* stream_v) {
+  return run_bwd(stage, pts, m_all, aux, wts, bias, w_rgb, w_alpha, b_out,
+                 cut, w32, g, act_v, raw, dhv, dview, dh_a, dh_b, dx0,
+                 partial, dW, dpts, dm, daux, P, S, depth, skip_mask, nfk,
+                 nfv, chunk, tau, stream_v);
 }
 
 const char* anerf_cuda_error_string(int e) {

@@ -1,10 +1,13 @@
-// Device code shared by K1 (fused_render.cu) and K2 (fused_render_bwd.cu):
-// the tile constants, the bf16 mma.sync helpers and K1's kernel body.
+// Device code shared by K1 (fused_render.cu), K2 (fused_render_bwd.cu) and
+// K3, K4, K1-d (fused_render_modes.cu): the tile constants, the bf16
+// mma.sync helpers and K1's kernel body.
 // K1 instantiates the kernel with SAVE = false; K2's first pass
 // instantiates it with SAVE = true, which also writes every bf16 MLP
 // input and activation of the tile to device memory (the `act` rows the
-// backward products read). The SAVE = false instantiation compiles to
-// the same code as before the template parameter existed.
+// backward products read). MODE and STAGE default to K1's (IN_PTS,
+// ST_FULL); every branch on them is `if constexpr` or a constant
+// condition, so K1's and K2's instantiations compile to the same code as
+// before those template parameters existed.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,6 +26,29 @@ constexpr int C72 = 3 * J;
 constexpr int FC = 16;              // framecode columns
 constexpr int AUXW = 2 * C72 + FC;  // aux row: trans | view dirs | fc
 constexpr int PF = 3;               // weight k-steps in flight per warp
+constexpr int RAWW = J + 2 * C72 + FC;  // K3's input row: v | r | d | fc
+
+// Input modes of the kernel body (template parameter MODE):
+//  IN_PTS       K1: world points, per-ray rotation columns and aux rows;
+//  IN_RAW       K3: per-point rows [v (24) | r (72) | d (72) | fc (16)]
+//               in `pts` (RAWW floats a point); the window and every band
+//               are computed as K1 computes them;
+//  IN_EMBEDDED  K4: the MLP inputs, already embedded, as bf16 rows of k0
+//               (in `pts`) and kv (in `aux`) columns, multiples of 8,
+//               zero-padded to 16 in shared memory; nfk and nfv carry k0
+//               and kv; phase A is a copy.
+constexpr int IN_PTS = 0, IN_RAW = 1, IN_EMBEDDED = 2;
+// Where the body stops (template parameter STAGE; K1-d, the staged K1 of
+// anerf_torch/tools/kernel_bench.py --decompose; IN_PTS only):
+//  ST_FULL         the whole kernel (production);
+//  ST_TRANSFORM    after the geometry (local coordinates, v, unit dirs);
+//  ST_PE           after both PE phases (accurate sincosf);
+//  ST_PE_STANDIN   the same with sincosf replaced by a cheap polynomial;
+//  ST_PE_FASTTRIG  the same with the __sincosf intrinsic.
+// An early exit writes a digest of every live value to `out` (4 floats a
+// point), so that the compiler keeps all the work before it.
+constexpr int ST_FULL = 0, ST_TRANSFORM = 1, ST_PE = 2, ST_PE_STANDIN = 3,
+              ST_PE_FASTTRIG = 4;
 
 typedef __nv_bfloat16 bf16;
 
@@ -49,6 +75,40 @@ __host__ __device__ inline Dims make_dims(int nfk, int nfv) {
   d.sv = row_stride(d.kvp);
   d.sh = row_stride(W);
   return d;
+}
+
+// Dims of embedded inputs of k0 and kv columns (IN_EMBEDDED).
+__host__ __device__ inline Dims make_dims_k(int k0, int kv) {
+  Dims d;
+  d.k0 = k0;
+  d.k0p = rup16(k0);
+  d.kv = kv;
+  d.kvp = rup16(kv);
+  d.s0 = row_stride(d.k0p);
+  d.sv = row_stride(d.kvp);
+  d.sh = row_stride(W);
+  return d;
+}
+
+template <int MODE>
+__host__ __device__ inline Dims body_dims(int nfk, int nfv) {
+  if constexpr (MODE == IN_EMBEDDED) return make_dims_k(nfk, nfv);
+  else return make_dims(nfk, nfv);
+}
+
+// The PE's sin / cos pair for STAGE: accurate sincosf everywhere but in
+// the two trig probes of K1-d. The stand-in is JAX's pe_notrig
+// polynomial; it keeps a multiply-add chain of the same shape alive.
+template <int STAGE>
+__device__ __forceinline__ void pe_sincos(float x, float* s, float* c) {
+  if constexpr (STAGE == ST_PE_STANDIN) {
+    *s = x * 0.5f - x * x * 0.124f;
+    *c = 1.f - x * x * 0.437f;
+  } else if constexpr (STAGE == ST_PE_FASTTRIG) {
+    __sincosf(x, s, c);
+  } else {
+    sincosf(x, s, c);
+  }
 }
 
 inline size_t smem_bytes(const Dims& d) {
@@ -214,7 +274,24 @@ __device__ __forceinline__ void save_tile(const bf16* src, int ss,
   }
 }
 
-template <bool SAVE>
+// IN_EMBEDDED's phase A: the tile's rows of `k` bf16 columns (k a
+// multiple of 8, rows 16-byte aligned) from src into shared memory (row
+// stride ss), zero columns k .. kp, 16 bytes a thread.
+__device__ __forceinline__ void copy_rows(bf16* dst, int ss,
+                                          const bf16* __restrict__ src,
+                                          int k, int kp, int row0, int P,
+                                          int tid) {
+  const int n8 = kp / 8, k8 = k / 8;
+  for (int it = tid; it < TM * n8; it += NTHREADS) {
+    const int r = it / n8, c = it - r * n8;
+    const size_t p = last_row(row0 + r, P);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (c < k8) v = __ldg(reinterpret_cast<const uint4*>(src + p * k) + c);
+    *reinterpret_cast<uint4*>(dst + r * ss + c * 8) = v;
+  }
+}
+
+template <bool SAVE, int MODE = IN_PTS, int STAGE = ST_FULL>
 __global__ void __launch_bounds__(NTHREADS, 1)
 fused_encode_mlp_pts_kernel(const float* __restrict__ pts,
                             const float* __restrict__ m_all,
@@ -228,8 +305,12 @@ fused_encode_mlp_pts_kernel(const float* __restrict__ pts,
                             float* __restrict__ out, int P, int S,
                             int depth, int skip_mask, int nfk, int nfv,
                             float tau, bf16* __restrict__ act) {
+  static_assert(MODE == IN_PTS || STAGE == ST_FULL, "stages are K1's");
+  static_assert(!SAVE || (MODE == IN_PTS && STAGE == ST_FULL),
+                "K2 saves K1's activations");
+  static_assert(NTHREADS == 4 * TM, "digests: one thread per output");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const Dims d = make_dims(nfk, nfv);
+  const Dims d = body_dims<MODE>(nfk, nfv);
   bf16* X0 = reinterpret_cast<bf16*>(smem_raw);   // kp PE | bone dirs
   bf16* XV = X0 + TM * d.s0;                      // view PE | framecode
   bf16* HA = XV + TM * d.sv;                      // activations, ping
@@ -239,25 +320,51 @@ fused_encode_mlp_pts_kernel(const float* __restrict__ pts,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row0 = blockIdx.x * TM;
 
+  if constexpr (MODE == IN_EMBEDDED) {
+    // ---- phase A: copy the embedded bf16 rows, zero-padded to 16 ----
+    copy_rows(X0, d.s0, reinterpret_cast<const bf16*>(pts), d.k0, d.k0p,
+              row0, P, tid);
+    copy_rows(XV, d.sv, reinterpret_cast<const bf16*>(aux), d.kv, d.kvp,
+              row0, P, tid);
+    __syncthreads();
+  } else {
   // ---- phase A1: per (point, joint) geometry, window, kp bands ----
   const int nb = J * (1 + 2 * nfk);  // first bone-direction column
   for (int it = tid; it < TM * J; it += NTHREADS) {
     const int r = it / J, j = it - (it / J) * J;
     const int p = last_row(row0 + r, P);   // tail rows: finite dummy
-    const int ray = p / S;
-    const float x = pts[p * 3], y = pts[p * 3 + 1], z = pts[p * 3 + 2];
-    const float* m = m_all + ray * 3 * C72;
-    const float* tr = aux + ray * AUXW;
-    float q[3];
-    float ss = 0.f;
+    float q[3];   // IN_PTS: local coordinates; IN_RAW: the unit direction
+    float v, inv;
+    if constexpr (MODE == IN_PTS) {
+      const int ray = p / S;
+      const float x = pts[p * 3], y = pts[p * 3 + 1], z = pts[p * 3 + 2];
+      const float* m = m_all + ray * 3 * C72;
+      const float* tr = aux + ray * AUXW;
+      float ss = 0.f;
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const int c = j * 3 + a;
-      q[a] = fmaf(m[2 * C72 + c], z, fmaf(m[C72 + c], y, m[c] * x)) + tr[c];
-      ss = fmaf(q[a], q[a], ss);
+      for (int a = 0; a < 3; ++a) {
+        const int c = j * 3 + a;
+        q[a] = fmaf(m[2 * C72 + c], z, fmaf(m[C72 + c], y, m[c] * x))
+               + tr[c];
+        ss = fmaf(q[a], q[a], ss);
+      }
+      v = sqrtf(fmaxf(ss, 1e-24f));
+      inv = 1.f / fmaxf(v, 1e-12f);
+    } else {
+      const float* xin = pts + (size_t)p * RAWW;
+      v = xin[j];
+#pragma unroll
+      for (int a = 0; a < 3; ++a) q[a] = xin[J + j * 3 + a];
+      inv = 1.f;
     }
-    const float v = sqrtf(fmaxf(ss, 1e-24f));
-    const float inv = 1.f / fmaxf(v, 1e-12f);
+    if constexpr (STAGE == ST_TRANSFORM) {
+      // (v, unit dir) of this (point, joint), summed per point below
+      float* dg = reinterpret_cast<float*>(HA) + it * 4;
+      dg[0] = v;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) dg[1 + a] = q[a] * inv;
+      continue;
+    }
     const float w = 1.f / (1.f + expf(tau * (v - cut[j])));
     W24[r * J + j] = w;
     bf16* xr = X0 + r * d.s0;
@@ -265,7 +372,7 @@ fused_encode_mlp_pts_kernel(const float* __restrict__ pts,
     float f = 1.f;
     for (int k = 0; k < nfk; ++k) {
       float s, c;
-      sincosf(v * f, &s, &c);
+      pe_sincos<STAGE>(v * f, &s, &c);
       xr[J + 2 * J * k + j] = __float2bfloat16_rn(s * w);
       xr[2 * J + 2 * J * k + j] = __float2bfloat16_rn(c * w);
       f *= 2.f;
@@ -273,6 +380,16 @@ fused_encode_mlp_pts_kernel(const float* __restrict__ pts,
 #pragma unroll
     for (int a = 0; a < 3; ++a)
       xr[nb + j * 3 + a] = __float2bfloat16_rn(q[a] * inv);
+  }
+  if constexpr (STAGE == ST_TRANSFORM) {
+    // digest: out[p] = (sum_j v, sum_j r_x, sum_j r_y, sum_j r_z)
+    __syncthreads();
+    const float* dg = reinterpret_cast<const float*>(HA);
+    const int r = tid >> 2, k = tid & 3;
+    float s = 0.f;
+    for (int j = 0; j < J; ++j) s += dg[(r * J + j) * 4 + k];
+    if (row0 + r < P) out[(size_t)(row0 + r) * 4 + k] = s;
+    return;
   }
   const int pad0 = d.k0p - d.k0;
   for (int it = tid; it < TM * pad0; it += NTHREADS)
@@ -283,14 +400,16 @@ fused_encode_mlp_pts_kernel(const float* __restrict__ pts,
   for (int it = tid; it < TM * C72; it += NTHREADS) {
     const int r = it / C72, c = it - (it / C72) * C72;
     const int p = last_row(row0 + r, P);
-    const float dv = aux[(p / S) * AUXW + C72 + c];
+    const float dv = MODE == IN_PTS
+                         ? aux[(p / S) * AUXW + C72 + c]
+                         : pts[(size_t)p * RAWW + J + C72 + c];
     const float w = W24[r * J + c / 3];
     bf16* xr = XV + r * d.sv;
     xr[c] = __float2bfloat16_rn(dv * w);
     float f = 1.f;
     for (int k = 0; k < nfv; ++k) {
       float s, co;
-      sincosf(dv * f, &s, &co);
+      pe_sincos<STAGE>(dv * f, &s, &co);
       xr[C72 + 2 * C72 * k + c] = __float2bfloat16_rn(s * w);
       xr[2 * C72 + 2 * C72 * k + c] = __float2bfloat16_rn(co * w);
       f *= 2.f;
@@ -300,10 +419,26 @@ fused_encode_mlp_pts_kernel(const float* __restrict__ pts,
   for (int it = tid; it < TM * nfc; it += NTHREADS) {
     const int r = it / nfc, c = it % nfc;
     const int p = last_row(row0 + r, P);
-    const float val = c < FC ? aux[(p / S) * AUXW + 2 * C72 + c] : 0.f;
+    const float val = c < FC ? (MODE == IN_PTS
+                                    ? aux[(p / S) * AUXW + 2 * C72 + c]
+                                    : pts[(size_t)p * RAWW + J + 2 * C72
+                                          + c])
+                             : 0.f;
     XV[r * d.sv + (d.kv - FC) + c] = __float2bfloat16_rn(val);
   }
   __syncthreads();
+  }  // phase A
+
+  if constexpr (STAGE != ST_FULL) {
+    // digest of the MLP inputs: out[p, k] = sum of the row's X0 and XV
+    // columns c with c % 4 == k, in column order
+    const int r = tid >> 2, k = tid & 3;
+    float s = 0.f;
+    for (int c = k; c < d.k0p; c += 4) s += __bfloat162float(X0[r * d.s0 + c]);
+    for (int c = k; c < d.kvp; c += 4) s += __bfloat162float(XV[r * d.sv + c]);
+    if (row0 + r < P) out[(size_t)(row0 + r) * 4 + k] = s;
+    return;
+  }
   const ActLayout al = make_act_layout(d, depth);
   if constexpr (SAVE) {
     save_tile(X0, d.s0, act, al.width, al.x0, d.k0p, row0, P, tid);

@@ -1,5 +1,5 @@
-"""K1 and K2: the fused render kernels and the autograd.Function that
-ties them together (port of anerf_tpu/kernels/fused_render.py).
+"""K1, K2 and K3: the fused render kernels and the autograd.Function that
+ties K1 and K2 together (port of anerf_tpu/kernels/fused_render.py).
 
 K1 (`fused_encode_mlp_pts`, csrc/fused_render.cu) is the forward:
 world->local transform + cutoff PE + the full NeRF MLP in one kernel.
@@ -8,6 +8,10 @@ cotangent products (the JAX `bwd_f32=True` flavour). `FusedApply` /
 `fused_apply` run K1 forward and K2 backward, with gradients reaching
 the network's f32 parameter leaves, the points and the per-ray operands
 (and through `pack_ray_data` the skeleton transforms and framecodes).
+K3 (`fused_encode_mlp`, csrc/fused_render_modes.cu) is K1 without the
+transform: the cutoff PE + MLP of per-point raw inputs made by
+`build_raw_inputs`. The plain versions of K1, K3 and K4
+(kernels/fused_mlp.py) share one MLP (`mlp_trace`).
 
 Each source is built with nvcc for sm_90a on first use into
 anerf_torch/_build/ and loaded with ctypes. A wrapper launches its kernel
@@ -18,6 +22,9 @@ Layouts (no TPU lane padding):
   pts    (R, S, 3) f32 world points;
   m_all  (R*3, 72) f32 rotation columns, m_all[3r+b, 3j+a] = skts[r,j,a,b];
   aux    (R, 160) f32 per-ray [trans (72) | unit view dirs (72) | fc (16)];
+  x_raw  (..., 184) f32 per-point [v (24) | r (72) | d (72) | fc (16)]
+         (K3's input; the TPU kernel's is 512 lanes, four 128-lane
+         segments);
   out    (R, S, 4) f32 raw = [rgb logits (3), sigma].
 Packed weights are bf16 blocks of (out, in) = (N, K), each K padded to a
 multiple of 16 by zero columns (kp/bone input 432, already aligned at the
@@ -46,12 +53,14 @@ from typing import Any, Dict, List, Tuple
 import torch
 
 from ..models.nerf import NeRFConfig
-from ..ops.encoding import _expand3, _group3_sumsq, rot_cols, rotate_flat
+from ..ops.encoding import (_expand3, _group3_sumsq, rot_cols, rotate_flat,
+                            transform_batch_pts_flat)
 
 N_JOINTS = 24
 C72 = 3 * N_JOINTS
 FC_CH = 16                    # framecode columns the view block reserves
 AUX_W = 2 * C72 + FC_CH
+RAW_W = N_JOINTS + 2 * C72 + FC_CH   # K3's input row: v | r | d | fc
 KERNEL_WIDTH = 256            # trunk width the CUDA kernel is built for
 
 #: K1 launches since the last reset; the wrapper adds one per launch.
@@ -59,6 +68,9 @@ LAUNCHES = 0
 #: K2 launches since the last reset; `fused_bwd` adds one per launch of
 #: its kernel sequence.
 BWD_LAUNCHES = 0
+#: K3 launches since the last reset; `fused_encode_mlp` adds one per
+#: launch.
+RAW_LAUNCHES = 0
 #: Points per partial sum of K2's weight gradients (one CTA row of the
 #: dW products per chunk, reduced afterwards in chunk order).
 BWD_CHUNK = 2048
@@ -66,7 +78,9 @@ BWD_CHUNK = 2048
 _CSRC = Path(__file__).resolve().parent / 'csrc'
 _SOURCES = {'fused_render': ('fused_render.cu', 'fused_render_common.cuh'),
             'fused_render_bwd': ('fused_render_bwd.cu',
-                                 'fused_render_common.cuh')}
+                                 'fused_render_common.cuh'),
+            'fused_render_modes': ('fused_render_modes.cu',
+                                   'fused_render_common.cuh')}
 _BUILD_DIR = Path(__file__).resolve().parents[1] / '_build'
 _LIBS: Dict[str, Any] = {}
 
@@ -115,8 +129,14 @@ def layer_shapes(ncfg: NeRFConfig, nfk: int, nfv: int
                  ) -> List[Tuple[int, int]]:
     """(N, K) of each packed weight block, in the order the kernel walks
     the flat buffer: trunk layers, feature layer, view layer."""
-    W = ncfg.width
     _, k0p, _, kvp = input_widths(nfk, nfv)
+    return mlp_shapes(ncfg, k0p, kvp)
+
+
+def mlp_shapes(ncfg: NeRFConfig, k0p: int, kvp: int
+               ) -> List[Tuple[int, int]]:
+    """`layer_shapes` for MLP input blocks of k0p and kvp columns."""
+    W = ncfg.width
     shapes = []
     for i in range(ncfg.depth):
         if i == 0:
@@ -159,10 +179,20 @@ def pack_render_params(params: Dict[str, Any], ncfg: NeRFConfig,
     1-wide alpha heads run on the CUDA cores in f32 on bf16-rounded
     weights ('w_rgb' (3, W/2), 'w_alpha' (W,), 'b_out' (4,)).
     """
+    _, k0p, _, kvp = input_widths(n_freq_kp, n_freq_view)
+    return {**pack_mlp_params(params, ncfg, k0p, kvp),
+            'cut': cutoff_dist.reshape(-1)[:N_JOINTS].float()
+            .to(cutoff_dist.device).contiguous(),
+            'nfk': int(n_freq_kp), 'nfv': int(n_freq_view)}
+
+
+def pack_mlp_params(params: Dict[str, Any], ncfg: NeRFConfig, k0p: int,
+                    kvp: int) -> Dict[str, torch.Tensor]:
+    """The MLP operands of `pack_render_params` for input blocks of k0p
+    (the density input, dnet_input columns padded) and kvp (the view
+    input and framecode, padded) columns; it records both widths."""
     W = ncfg.width
     dnet = ncfg.dnet_input
-    k0, k0p, _, kvp = input_widths(n_freq_kp, n_freq_view)
-    dev = cutoff_dist.device
 
     def rows(w, n):          # zero-pad the input (row) axis to n
         return torch.cat([w, w.new_zeros((n - w.shape[0], w.shape[1]))], 0)
@@ -197,9 +227,7 @@ def pack_render_params(params: Dict[str, Any], ncfg: NeRFConfig,
         'b_out': torch.cat([params['rgb_linear']['b'],
                             params['alpha_linear']['b']]).float()
         .contiguous(),
-        'cut': cutoff_dist.reshape(-1)[:N_JOINTS].float().to(dev)
-        .contiguous(),
-        'nfk': int(n_freq_kp), 'nfv': int(n_freq_view),
+        'k0p': k0p, 'kvp': kvp,
     }
 
 
@@ -223,36 +251,59 @@ def pack_ray_data(rays_d: torch.Tensor, skts: torch.Tensor,
             aux.float().contiguous())
 
 
-def _encode(packed, pts, m_all, aux, S, tau):
-    """The kernel's phase A in plain torch: the bf16-rounded MLP inputs
-    x0 (R, S, k0p) and xv (R, S, kvp), as f32 values."""
-    nfk, nfv = packed['nfk'], packed['nfv']
-    k0, k0p, kv, kvp = input_widths(nfk, nfv)
-    R, J = pts.shape[0], N_JOINTS
-    m = m_all.reshape(R, 3, C72)
-    trans, d, fc = aux[:, :C72], aux[:, C72:2 * C72], aux[:, 2 * C72:]
+def accurate_sincos(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The PE's sin / cos pair: the accurate library functions, as the
+    kernels' sincosf."""
+    return torch.sin(x), torch.cos(x)
 
-    pts_t = rotate_flat(pts, m) + trans[:, None]           # (R, S, 72)
+
+def geometry(pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K1's transform in plain fp32: local coordinates pts_t (R, S, 72),
+    distances v (R, S, 24) and unit bone directions r (R, S, 72)."""
+    R, J = pts.shape[0], N_JOINTS
+    pts_t = rotate_flat(pts, m_all.reshape(R, 3, C72)) + aux[:, None, :C72]
     v = torch.sqrt(torch.clamp_min(_group3_sumsq(pts_t, J), 1e-24))
     r = pts_t * _expand3(1.0 / torch.clamp_min(v, 1e-12), J)
+    return pts_t, v, r
+
+
+def embed(packed: Dict[str, Any], v: torch.Tensor, r: torch.Tensor,
+          d: torch.Tensor, fc: torch.Tensor, tau,
+          sincos=accurate_sincos) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' cutoff PE in plain torch: distances v (..., 24), unit
+    bone directions r (..., 72), view directions d (..., 72) and
+    framecodes fc (..., 16) (d and fc may broadcast over the sample axis)
+    -> the bf16-rounded MLP inputs x0 (..., k0p) and xv (..., kvp), as f32
+    values."""
+    nfk, nfv = packed['nfk'], packed['nfv']
+    k0, k0p, kv, kvp = input_widths(nfk, nfv)
+    lead, J = v.shape[:-1], N_JOINTS
     w24 = torch.sigmoid(-tau * (v - packed['cut']))        # 1 - sigmoid
 
     def bands(x, n):        # (..., D) -> (..., 1 + 2n, D): [x, s0, c0, ..]
         f = 2.0 ** torch.arange(n, dtype=x.dtype, device=x.device)
         ang = x[..., None, :] * f[:, None]
-        sc = torch.stack([torch.sin(ang), torch.cos(ang)], -2)
+        sc = torch.stack(sincos(ang), -2)
         return torch.cat([x[..., None, :],
                           sc.reshape(*x.shape[:-1], 2 * n, x.shape[-1])], -2)
 
-    kp = (bands(v, nfk) * w24[..., None, :]).reshape(R, S, k0 - C72)
-    x0 = torch.cat([kp, r, pts.new_zeros((R, S, k0p - k0))], -1)
-    w72 = _expand3(w24, J)
-    vb = bands(d, nfv)[:, None] * w72[:, :, None, :]       # (R, S, K, 72)
-    xv = torch.cat([vb.reshape(R, S, kv - FC_CH),
-                    fc[:, None].expand(R, S, FC_CH),
-                    pts.new_zeros((R, S, kvp - kv))], -1)
+    kp = (bands(v, nfk) * w24[..., None, :]).reshape(*lead, k0 - C72)
+    x0 = torch.cat([kp, r, v.new_zeros((*lead, k0p - k0))], -1)
+    vb = bands(d, nfv) * _expand3(w24, J)[..., None, :]    # (..., K, 72)
+    xv = torch.cat([vb.reshape(*lead, kv - FC_CH),
+                    fc.expand(*lead, FC_CH),
+                    v.new_zeros((*lead, kvp - kv))], -1)
     bf = torch.bfloat16
     return x0.to(bf).float(), xv.to(bf).float()
+
+
+def _encode(packed, pts, m_all, aux, S, tau, sincos=accurate_sincos):
+    """K1's phase A in plain torch: the bf16-rounded MLP inputs
+    x0 (R, S, k0p) and xv (R, S, kvp), as f32 values."""
+    _, v, r = geometry(pts, m_all, aux)
+    return embed(packed, v, r, aux[:, None, C72:2 * C72],
+                 aux[:, None, 2 * C72:], tau, sincos)
 
 
 def _weights_f32(ncfg: NeRFConfig, packed: Dict[str, Any]
@@ -260,20 +311,20 @@ def _weights_f32(ncfg: NeRFConfig, packed: Dict[str, Any]
     """Every MMA layer's (N, K) weight block back from fragment order, as
     f32 (bf16 values), in `layer_shapes` order."""
     ws, off = [], 0
-    for n, k in layer_shapes(ncfg, packed['nfk'], packed['nfv']):
+    for n, k in mlp_shapes(ncfg, packed['k0p'], packed['kvp']):
         ws.append(from_fragment_order(packed['w'][off:off + n * k], n, k)
                   .float())
         off += n * k
     return ws
 
 
-def _forward_trace(ncfg: NeRFConfig, packed: Dict[str, Any],
-                   pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
-                   S: int, tau) -> Dict[str, Any]:
-    """The kernel's forward in plain torch, keeping what the backward
-    reads: the MLP inputs x0 / xv, every trunk activation hs[i], feat and
-    hv (each bf16-rounded, as f32) and the raw output."""
-    x0, xv = _encode(packed, pts, m_all, aux, S, tau)
+def mlp_trace(ncfg: NeRFConfig, packed: Dict[str, Any], x0: torch.Tensor,
+              xv: torch.Tensor) -> Dict[str, Any]:
+    """The kernels' MLP (phase B) in plain torch, from the bf16-valued
+    inputs x0 (..., k0p) and xv (..., kvp): bf16 operands, f32 products
+    and accumulation, activations rounded to bf16 between layers. Keeps
+    what K2 reads: every trunk activation hs[i], feat and hv (each
+    bf16-rounded, as f32), the weights and the raw output."""
     W = ncfg.width
     ws = _weights_f32(ncfg, packed)
     bs = list(packed['b'][:W * (ncfg.depth + 1)].split(W)) + \
@@ -291,8 +342,17 @@ def _forward_trace(ncfg: NeRFConfig, packed: Dict[str, Any],
     hv = layer(torch.cat([feat, xv], -1), ncfg.depth + 1)
     rgb = hv @ packed['w_rgb'].t() + packed['b_out'][:3]
     alpha = hs[-1] @ packed['w_alpha'][:, None] + packed['b_out'][3:]
-    return {'x0': x0, 'xv': xv, 'hs': hs, 'feat': feat, 'hv': hv, 'ws': ws,
+    return {'hs': hs, 'feat': feat, 'hv': hv, 'ws': ws,
             'out': torch.cat([rgb, alpha], -1)}
+
+
+def _forward_trace(ncfg: NeRFConfig, packed: Dict[str, Any],
+                   pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
+                   S: int, tau) -> Dict[str, Any]:
+    """K1's forward in plain torch, keeping what the backward reads: the
+    MLP inputs x0 / xv and everything `mlp_trace` keeps."""
+    x0, xv = _encode(packed, pts, m_all, aux, S, tau)
+    return {'x0': x0, 'xv': xv, **mlp_trace(ncfg, packed, x0, xv)}
 
 
 def fused_encode_mlp_pts_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
@@ -305,6 +365,42 @@ def fused_encode_mlp_pts_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
     R = pts.shape[0]
     out = _forward_trace(ncfg, packed, pts, m_all, aux, S, tau)['out']
     return out.reshape(R, S, 4)
+
+
+def build_raw_inputs(pts: torch.Tensor, rays_d: torch.Tensor,
+                     skts: torch.Tensor, framecodes: torch.Tensor | None
+                     ) -> torch.Tensor:
+    """K3's input from world points: pts (R, S, 3), rays_d (R, 1, 3),
+    skts (R, J, 4, 4), framecodes (R, 16) or None -> (R, S, 184) f32
+    [v (24) | r (72) | d (72) | fc (16)], the per-joint distances, unit
+    bone directions and unit view directions of every point, as JAX's
+    build_raw_inputs computes them (without its 128-lane segments)."""
+    R, S = pts.shape[:2]
+    J = N_JOINTS
+    pts_t = transform_batch_pts_flat(pts, skts)             # (R, S, 72)
+    v = torch.sqrt(torch.clamp_min(_group3_sumsq(pts_t, J), 0.0))
+    r = pts_t * _expand3(1.0 / torch.clamp_min(v, 1e-12), J)
+    rays_flat = rotate_flat(rays_d, rot_cols(skts))         # (R, 1, 72)
+    dss = _group3_sumsq(rays_flat, J)
+    d = rays_flat * _expand3(torch.rsqrt(torch.clamp_min(dss, 1e-24)), J)
+    if framecodes is None:
+        framecodes = pts.new_zeros((R, FC_CH))
+    if framecodes.shape[-1] != FC_CH:
+        raise ValueError(f'framecodes must be (R, {FC_CH})')
+    return torch.cat([v, r, d.expand(R, S, C72),
+                      framecodes[:, None].to(v.dtype).expand(R, S, FC_CH)],
+                     -1).float().contiguous()
+
+
+def fused_encode_mlp_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
+                         x_raw: torch.Tensor, tau) -> torch.Tensor:
+    """The plain PyTorch version of K3: raw inputs (..., 184) -> raw
+    (..., 4), the cutoff PE and MLP of K1's plain version."""
+    J = N_JOINTS
+    x0, xv = embed(packed, x_raw[..., :J], x_raw[..., J:J + C72],
+                   x_raw[..., J + C72:J + 2 * C72],
+                   x_raw[..., J + 2 * C72:], tau)
+    return mlp_trace(ncfg, packed, x0, xv)['out']
 
 
 def grad_blocks(ncfg: NeRFConfig, nfk: int, nfv: int
@@ -333,17 +429,21 @@ def split_grads(ncfg: NeRFConfig, nfk: int, nfv: int, dW: torch.Tensor
     return out
 
 
-def _pe_transform_bwd_ref(packed, pts, m_all, aux, S, tau, dx0, dxv):
+def pe_transform_bwd_ref(packed, pts, m_all, aux, S, tau, dx0, dxv,
+                         pe_only=False):
     """Backward of the cutoff PE and the world->local transform in exact
     fp32 (the pose-refinement path): cotangents of the MLP inputs dx0
     (R, S, k0p) and dxv (R, S, kvp) -> dpts (R, S, 3), dm_all (R*3, 72),
-    daux (R, 160). Mirrors K2's last kernel term by term."""
+    daux (R, 160). Mirrors K2's last kernel term by term. With `pe_only`
+    (K2-d's pe stage) it stops before the transform backward and returns
+    the stage's digest (R, S, 3): per point the sums of the distances'
+    cotangents dv (window derivative included), of the view directions'
+    dd and of the unit bone directions' dr."""
     nfk, nfv = packed['nfk'], packed['nfv']
     R, J = pts.shape[0], N_JOINTS
     m = m_all.reshape(R, 3, C72)
-    trans, d = aux[:, :C72], aux[:, C72:2 * C72]
-    pts_t = rotate_flat(pts, m) + trans[:, None]           # (R, S, 72)
-    v = torch.sqrt(torch.clamp_min(_group3_sumsq(pts_t, J), 1e-24))
+    d = aux[:, C72:2 * C72]
+    pts_t, v, _ = geometry(pts, m_all, aux)
     inv = 1.0 / torch.clamp_min(v, 1e-12)
     w = torch.sigmoid(-tau * (v - packed['cut']))          # (R, S, 24)
 
@@ -371,6 +471,8 @@ def _pe_transform_bwd_ref(packed, pts, m_all, aux, S, tau, dx0, dxv):
     dv = dv + tau * dw * (-(1.0 - w) * w)                  # w = 1 - sigmoid
 
     drb = dx0[..., nb:nb + C72]
+    if pe_only:
+        return torch.stack([dv.sum(-1), dd.sum(-1), drb.sum(-1)], -1)
     dpts_t = drb * _expand3(inv, J)
     dvinv = (drb * pts_t).reshape(R, S, J, 3).sum(-1)
     dv = dv - dvinv * inv * inv * (v > 1e-12)
@@ -385,16 +487,15 @@ def _pe_transform_bwd_ref(packed, pts, m_all, aux, S, tau, dx0, dxv):
     return dpts, dm.reshape(R * 3, C72), daux
 
 
-def fused_bwd_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
-                  pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
-                  S: int, tau, g: torch.Tensor
-                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                             torch.Tensor]:
-    """The plain PyTorch version of K2: recompute the forward, then the
-    backward with f32 cotangent products, for the cotangent g (R, S, 4)
-    of K1's output. ReLU masks come from the bf16-rounded activations.
-    Returns (dW flat in `grad_blocks` layout, dpts (R, S, 3),
-    dm_all (R*3, 72), daux (R, 160))."""
+def mlp_bwd_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
+                pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
+                S: int, tau, g: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2's recompute and MLP backward in plain torch (f32 cotangent
+    products, ReLU masks from the bf16-rounded activations), for the
+    cotangent g (R, S, 4) of K1's output. Returns (dW flat in
+    `grad_blocks` layout, dx0 (R, S, k0p), dxv (R, S, kvp)), the
+    cotangents of the MLP inputs."""
     R = pts.shape[0]
     P = R * S
     t = _forward_trace(ncfg, packed, pts, m_all, aux, S, tau)
@@ -431,17 +532,30 @@ def fused_bwd_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
 
     dW = torch.cat([grads[nm].reshape(-1) for nm, _, _ in
                     grad_blocks(ncfg, packed['nfk'], packed['nfv'])])
-    dpts, dm, daux = _pe_transform_bwd_ref(
-        packed, pts, m_all, aux, S, tau, dx0.reshape(R, S, k0p),
-        dxv.reshape(R, S, dxv.shape[-1]))
-    return dW, dpts, dm, daux
+    return dW, dx0.reshape(R, S, k0p), dxv.reshape(R, S, dxv.shape[-1])
+
+
+def fused_bwd_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
+                  pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
+                  S: int, tau, g: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                             torch.Tensor]:
+    """The plain PyTorch version of K2: recompute the forward, then the
+    backward with f32 cotangent products, for the cotangent g (R, S, 4)
+    of K1's output. ReLU masks come from the bf16-rounded activations.
+    Returns (dW flat in `grad_blocks` layout, dpts (R, S, 3),
+    dm_all (R*3, 72), daux (R, 160))."""
+    dW, dx0, dxv = mlp_bwd_ref(ncfg, packed, pts, m_all, aux, S, tau, g)
+    return (dW,) + pe_transform_bwd_ref(packed, pts, m_all, aux, S, tau,
+                                        dx0, dxv)
 
 
 def build_library(name: str) -> Tuple[Path, str]:
     """Compile one kernel source ('fused_render' = K1, 'fused_render_bwd'
-    = K2) for sm_90a into anerf_torch/_build/, once per version of its
-    sources. Returns (library path, nvcc's messages, which include
-    ptxas' register and spill report)."""
+    = K2 and K2-d, 'fused_render_modes' = K3, K4 and K1-d) for sm_90a
+    into anerf_torch/_build/, once per version of its sources. Returns
+    (library path, nvcc's messages, which include ptxas' register and
+    spill report)."""
     srcs = [_CSRC / f for f in _SOURCES[name]]
     digest = hashlib.sha256(b''.join(p.read_bytes() for p in srcs)
                             ).hexdigest()[:12]
@@ -480,53 +594,85 @@ def _library(name: str):
             lib.anerf_fused_encode_mlp_pts.argtypes = \
                 [p] * 10 + [i] * 6 + [f, p]
             lib.anerf_fused_encode_mlp_pts.restype = i
-        else:
+        elif name == 'fused_render_bwd':
             lib.anerf_fused_bwd.argtypes = [p] * 23 + [i] * 7 + [f, p]
             lib.anerf_fused_bwd.restype = i
+            lib.anerf_fused_bwd_staged.argtypes = \
+                [i] + [p] * 23 + [i] * 7 + [f, p]
+            lib.anerf_fused_bwd_staged.restype = i
+        else:
+            lib.anerf_fused_encode_mlp_raw.argtypes = \
+                [p] * 8 + [i] * 5 + [f, p]
+            lib.anerf_fused_encode_mlp_raw.restype = i
+            lib.anerf_fused_mlp.argtypes = [p] * 8 + [i] * 5 + [p]
+            lib.anerf_fused_mlp.restype = i
+            lib.anerf_fused_stage.argtypes = [i] + [p] * 10 + [i] * 6 \
+                + [f, p]
+            lib.anerf_fused_stage.restype = i
         lib.anerf_cuda_error_string.argtypes = [i]
         lib.anerf_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
     return _LIBS[name]
 
 
-def _check_operands(fn: str, ncfg: NeRFConfig, packed: Dict[str, Any],
-                    pts: torch.Tensor, m_all: torch.Tensor,
-                    aux: torch.Tensor, S: int, **extra) -> None:
-    """Raise unless every operand is what the kernels take: contiguous,
-    of the right type and shape, on the points' CUDA device."""
-    if pts.device.type != 'cuda':
-        raise ValueError(f'{fn}: no kernel for {pts.device}')
-    R = pts.shape[0]
+def check_kernel_operands(fn: str, ncfg: NeRFConfig,
+                          packed: Dict[str, Any], device: torch.device,
+                          n_points: int, **tensors) -> None:
+    """Raise unless the config and every operand are what the kernels
+    take: width 256, at most 31 trunk layers, point indices within 32
+    bits, packed weights of the config's shapes, and each tensor
+    (name=(tensor, shape or None, dtype)) contiguous, of its type and
+    shape, on `device`, a CUDA device."""
+    if device.type != 'cuda':
+        raise ValueError(f'{fn}: no kernel for {device}')
     if ncfg.width != KERNEL_WIDTH:
         raise ValueError(f'the kernels are built for width {KERNEL_WIDTH}')
     if ncfg.depth > 31:
         raise ValueError('the kernels take at most 31 trunk layers')
-    if 4 * R * S >= 2 ** 31:
+    if 4 * n_points >= 2 ** 31:
         raise ValueError('the kernels index points with 32-bit ints: '
-                         f'R * S = {R * S} is too many; split the rays')
-    tensors = {'pts': (pts, (R, S, 3), torch.float32),
-               'm_all': (m_all, (R * 3, C72), torch.float32),
-               'aux': (aux, (R, AUX_W), torch.float32),
-               'w': (packed['w'], None, torch.bfloat16),
+                         f'{n_points} points are too many; split them')
+    tensors = {'w': (packed['w'], None, torch.bfloat16),
                'b': (packed['b'], None, torch.float32),
                'w_rgb': (packed['w_rgb'], (3, KERNEL_WIDTH // 2),
                          torch.float32),
                'w_alpha': (packed['w_alpha'], (KERNEL_WIDTH,),
                            torch.float32),
                'b_out': (packed['b_out'], (4,), torch.float32),
-               'cut': (packed['cut'], (N_JOINTS,), torch.float32)}
-    tensors.update(extra)
+               **tensors}
     for name, (t, shape, dtype) in tensors.items():
-        if t.device != pts.device or t.dtype != dtype \
+        if t.device != device or t.dtype != dtype \
                 or not t.is_contiguous() \
                 or (shape is not None and tuple(t.shape) != shape):
             raise ValueError(f'{fn}: {name} must be a contiguous {dtype} '
-                             f'{shape} on {pts.device}, got {t.dtype} '
+                             f'{shape} on {device}, got {t.dtype} '
                              f'{tuple(t.shape)} on {t.device}')
-    n_w = sum(n * k for n, k in layer_shapes(ncfg, packed['nfk'],
-                                             packed['nfv']))
+    n_w = sum(n * k for n, k in mlp_shapes(ncfg, packed['k0p'],
+                                            packed['kvp']))
     if packed['w'].numel() != n_w:
         raise ValueError('packed weights do not match the config')
+
+
+def _check_operands(fn: str, ncfg: NeRFConfig, packed: Dict[str, Any],
+                    pts: torch.Tensor, m_all: torch.Tensor,
+                    aux: torch.Tensor, S: int, **extra) -> None:
+    """`check_kernel_operands` for K1's operands (and K2's `extra`)."""
+    R = pts.shape[0]
+    check_kernel_operands(
+        fn, ncfg, packed, pts.device, R * S,
+        pts=(pts, (R, S, 3), torch.float32),
+        m_all=(m_all, (R * 3, C72), torch.float32),
+        aux=(aux, (R, AUX_W), torch.float32),
+        cut=(packed['cut'], (N_JOINTS,), torch.float32), **extra)
+
+
+def skip_mask(ncfg: NeRFConfig) -> int:
+    """The kernels' skip bits: bit s set for every skip after layer s."""
+    return sum(1 << s for s in ncfg.skips)
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def _raise_on(lib, err: int, fn: str) -> None:
@@ -552,19 +698,106 @@ def fused_encode_mlp_pts(ncfg: NeRFConfig, packed: Dict[str, Any],
     if R * S == 0:
         return out
     lib = _library('fused_render')
-    skip_mask = sum(1 << s for s in ncfg.skips)
     with torch.cuda.device(pts.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = lib.anerf_fused_encode_mlp_pts(
             pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
             packed['w'].data_ptr(), packed['b'].data_ptr(),
             packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
             packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
-            out.data_ptr(), R * S, S, ncfg.depth, skip_mask,
-            packed['nfk'], packed['nfv'], float(tau), stream)
+            out.data_ptr(), R * S, S, ncfg.depth, skip_mask(ncfg),
+            packed['nfk'], packed['nfv'], float(tau), _stream(pts.device))
     _raise_on(lib, err, 'fused_encode_mlp_pts')
     LAUNCHES += 1
     return out
+
+
+def fused_encode_mlp(ncfg: NeRFConfig, packed: Dict[str, Any],
+                     x_raw: torch.Tensor, tau) -> torch.Tensor:
+    """K3: raw inputs (..., 184) from `build_raw_inputs` -> raw (..., 4):
+    cutoff PE + MLP, with K1's operands from `pack_render_params`.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (and raise if it cannot launch)."""
+    global RAW_LAUNCHES
+    if x_raw.device.type == 'cpu':
+        return fused_encode_mlp_ref(ncfg, packed, x_raw, tau)
+    lead = x_raw.shape[:-1]
+    P = x_raw[..., 0].numel()
+    check_kernel_operands(
+        'fused_encode_mlp', ncfg, packed, x_raw.device, P,
+        x_raw=(x_raw, (*lead, RAW_W), torch.float32),
+        cut=(packed['cut'], (N_JOINTS,), torch.float32))
+    out = torch.empty((*lead, 4), dtype=torch.float32, device=x_raw.device)
+    if P == 0:
+        return out
+    lib = _library('fused_render_modes')
+    with torch.cuda.device(x_raw.device):
+        err = lib.anerf_fused_encode_mlp_raw(
+            x_raw.data_ptr(), packed['w'].data_ptr(), packed['b'].data_ptr(),
+            packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
+            packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
+            out.data_ptr(), P, ncfg.depth, skip_mask(ncfg), packed['nfk'],
+            packed['nfv'], float(tau), _stream(x_raw.device))
+    _raise_on(lib, err, 'fused_encode_mlp')
+    RAW_LAUNCHES += 1
+    return out
+
+
+def launch_bwd(entry: str, stage: int, ncfg: NeRFConfig,
+               packed: Dict[str, Any], pts: torch.Tensor,
+               m_all: torch.Tensor, aux: torch.Tensor, S: int, tau,
+               g: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Launch K2's kernel sequence through `entry` of the K2 library
+    ('anerf_fused_bwd', or 'anerf_fused_bwd_staged' stopped after
+    `stage`) on CUDA tensors. Allocates the outputs and the scratch and
+    returns them by name: dW, dpts, dm, daux, act (the saved bf16
+    activations, 2 * (k0p + kvp + (depth + 1) W + W/2) bytes per point,
+    7,072 at the flagship), raw, dhv, dview, dh_a, dh_b, dx0, partial
+    (the f32 cotangents and the per-chunk dW partial sums)."""
+    R = pts.shape[0]
+    _check_operands(entry, ncfg, packed, pts, m_all, aux, S,
+                    g=(g, (R, S, 4), torch.float32))
+    nfk, nfv = packed['nfk'], packed['nfv']
+    _, k0p, _, kvp = input_widths(nfk, nfv)
+    W, WV, P = ncfg.width, ncfg.width // 2, R * S
+    dev = pts.device
+    n_grad = sum(r * c for _, r, c in grad_blocks(ncfg, nfk, nfv))
+    f32 = dict(dtype=torch.float32, device=dev)
+    t = {'dW': torch.zeros((n_grad,), **f32),
+         'dpts': torch.zeros((R, S, 3), **f32),
+         'dm': torch.zeros((R * 3, C72), **f32),
+         'daux': torch.zeros((R, AUX_W), **f32)}
+    if P == 0:
+        return t
+    w32 = torch.cat([w.reshape(-1) for w in _weights_f32(ncfg, packed)])
+    n_chunk = -(-P // BWD_CHUNK)
+    t['act'] = torch.empty((P, k0p + kvp + (ncfg.depth + 1) * W + WV),
+                           dtype=torch.bfloat16, device=dev)
+    scratch = {'raw': torch.empty((P, 4), **f32),      # K1's raw output
+               'dhv': torch.empty((P, WV), **f32),     # d hv
+               'dview': torch.empty((P, W + kvp), **f32),   # d [feat | xv]
+               'dh_a': torch.empty((P, W), **f32),     # d h, ping
+               'dh_b': torch.empty((P, W), **f32),     # d h, pong
+               'dx0': torch.empty((P, k0p), **f32),    # d x0
+               'partial': torch.empty((n_chunk, n_grad), **f32)}
+    t.update(scratch)
+    lib = _library('fused_render_bwd')
+    fn = getattr(lib, entry)
+    head = (stage,) if entry == 'anerf_fused_bwd_staged' else ()
+    with torch.cuda.device(dev):
+        err = fn(*head,
+                 pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
+                 packed['w'].data_ptr(), packed['b'].data_ptr(),
+                 packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
+                 packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
+                 w32.data_ptr(), g.data_ptr(), t['act'].data_ptr(),
+                 *(x.data_ptr() for x in scratch.values()),
+                 t['dW'].data_ptr(), t['dpts'].data_ptr(),
+                 t['dm'].data_ptr(), t['daux'].data_ptr(),
+                 P, S, ncfg.depth, skip_mask(ncfg), nfk, nfv, BWD_CHUNK,
+                 float(tau), _stream(dev))
+    _raise_on(lib, err, entry)
+    return t
 
 
 def fused_bwd(ncfg: NeRFConfig, packed: Dict[str, Any], pts: torch.Tensor,
@@ -576,56 +809,16 @@ def fused_bwd(ncfg: NeRFConfig, packed: Dict[str, Any], pts: torch.Tensor,
     dm_all (R*3, 72), daux (R, 160)), all f32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    sequence of csrc/fused_render_bwd.cu (and raise if it cannot launch).
-    The sequence allocates its scratch here: the saved bf16 activations
-    (2 * (k0p + kvp + (depth + 1) W + W/2) bytes per point, 7,072 at the
-    flagship), the f32 cotangents and the per-chunk dW partial sums."""
+    sequence of csrc/fused_render_bwd.cu (and raise if it cannot launch),
+    with the scratch `launch_bwd` allocates."""
     global BWD_LAUNCHES
     if pts.device.type == 'cpu':
         return fused_bwd_ref(ncfg, packed, pts, m_all, aux, S, tau, g)
-    R = pts.shape[0]
-    _check_operands('fused_bwd', ncfg, packed, pts, m_all, aux, S,
-                    g=(g, (R, S, 4), torch.float32))
-    nfk, nfv = packed['nfk'], packed['nfv']
-    _, k0p, _, kvp = input_widths(nfk, nfv)
-    W, WV, P = ncfg.width, ncfg.width // 2, R * S
-    dev = pts.device
-    n_grad = sum(r * c for _, r, c in grad_blocks(ncfg, nfk, nfv))
-    dW = torch.zeros((n_grad,), dtype=torch.float32, device=dev)
-    dpts = torch.zeros((R, S, 3), dtype=torch.float32, device=dev)
-    dm = torch.zeros((R * 3, C72), dtype=torch.float32, device=dev)
-    daux = torch.zeros((R, AUX_W), dtype=torch.float32, device=dev)
-    if P == 0:
-        return dW, dpts, dm, daux
-    w32 = torch.cat([w.reshape(-1) for w in _weights_f32(ncfg, packed)])
-    n_chunk = -(-P // BWD_CHUNK)
-    f32 = dict(dtype=torch.float32, device=dev)
-    act = torch.empty((P, k0p + kvp + (ncfg.depth + 1) * W + WV),
-                      dtype=torch.bfloat16, device=dev)
-    scratch = [torch.empty((P, 4), **f32),             # K1's raw output
-               torch.empty((P, WV), **f32),            # d hv
-               torch.empty((P, W + kvp), **f32),       # d [feat | xv]
-               torch.empty((P, W), **f32),             # d h, ping
-               torch.empty((P, W), **f32),             # d h, pong
-               torch.empty((P, k0p), **f32),           # d x0
-               torch.empty((n_chunk, n_grad), **f32)]  # dW partial sums
-    lib = _library('fused_render_bwd')
-    skip_mask = sum(1 << s for s in ncfg.skips)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.anerf_fused_bwd(
-            pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
-            packed['w'].data_ptr(), packed['b'].data_ptr(),
-            packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
-            packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
-            w32.data_ptr(), g.data_ptr(), act.data_ptr(),
-            *(t.data_ptr() for t in scratch),
-            dW.data_ptr(), dpts.data_ptr(), dm.data_ptr(), daux.data_ptr(),
-            P, S, ncfg.depth, skip_mask, nfk, nfv, BWD_CHUNK, float(tau),
-            stream)
-    _raise_on(lib, err, 'fused_bwd')
-    BWD_LAUNCHES += 1
-    return dW, dpts, dm, daux
+    t = launch_bwd('anerf_fused_bwd', 0, ncfg, packed, pts, m_all, aux, S,
+                   tau, g)
+    if pts.shape[0] * S:
+        BWD_LAUNCHES += 1
+    return t['dW'], t['dpts'], t['dm'], t['daux']
 
 
 def _net_leaves(ncfg: NeRFConfig, net: Dict[str, Any]

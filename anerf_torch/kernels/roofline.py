@@ -5,10 +5,19 @@ operation and byte counts.
 
 prints the bound of every kernel in PERF.md's table at the flagship
 shapes (8 x 256 MLP, multires 7 / 4, framecodes; S = 64 coarse + S = 80
-fine). A bound is the larger of the operations over the peak rate of
+fine), and of every stage of K1-d and K2-d at the kernel_bench tool's
+2048 rays. A bound is the larger of the operations over the peak rate of
 their type and the bytes over the HBM rate, each input read once and each
 output written once. chip_smoke.py takes the counts from here and applies
 them to its own run's inputs.
+
+fp32 work outside the tensor cores is counted in FLOP at the 67 TFLOP/s
+peak (an FMA is 2 FLOP). An instruction of the special function unit
+(MUFU: ex2, rcp, rsqrt, sin, cos) counts 16 FLOP: an SM executes 16 of
+them a clock against 128 FMAs. The transcendental costs below are
+estimates of the instructions each call compiles to at these arguments;
+bf16 conversions, integer index arithmetic and shared-memory traffic are
+not counted.
 """
 from __future__ import annotations
 
@@ -17,6 +26,23 @@ from ..models.nerf import NeRFConfig
 PEAK_BF16_FLOPS = 989e12        # H100 SXM dense bf16 (data sheet)
 PEAK_FP32_FLOPS = 67e12         # H100 SXM fp32, non-tensor (data sheet)
 PEAK_HBM_BYTES = 3.35e12        # H100 SXM HBM3
+
+#: accurate sincosf for |x| < 105615 (the PE's angles stay below 2^7 x
+#: a distance of a few units): a three-part Cody-Waite reduction (3 FMA),
+#: two minimax polynomials (about 7 FMA each), a quadrant select
+SINCOSF_FLOP = 40
+#: __sincosf: MUFU.SIN and MUFU.COS after one range-scaling multiply
+FAST_SINCOSF_FLOP = 34
+#: the pe_notrig stand-in x / 2 - 0.124 x^2, 1 - 0.437 x^2
+STANDIN_SINCOS_FLOP = 6
+#: the window 1 / (1 + expf(tau (v - cut))): expf (MUFU.EX2 and about 4
+#: FMA) and a correctly rounded divide (MUFU.RCP and about 4 FMA)
+WINDOW_FLOP = 40
+#: sqrtf(v^2) and 1 / v of the geometry, the same way
+SQRT_DIV_FLOP = 40
+N_JOINTS, C72, FC = 24, 72, 16
+#: bytes of one ray's K1 operands: m_all (3 x 72) and aux (160) f32
+RAY_BYTES = 4 * (3 * C72 + 2 * C72 + FC)
 
 
 def _mma_layers(ncfg: NeRFConfig):
@@ -46,6 +72,42 @@ def bwd_f32_macs_per_point(ncfg: NeRFConfig) -> int:
     return macs + 2 * (W // 2) * 3 + 2 * W + 4
 
 
+def transform_flop_per_point() -> int:
+    """K1's geometry per point: per joint 3 rotated coordinates (a
+    multiply, 2 FMA, an add), the sum of squares (3 FMA), sqrt and
+    divide, 3 unit-direction multiplies."""
+    return N_JOINTS * (3 * 6 + 6 + SQRT_DIV_FLOP + 3)
+
+
+def pe_flop_per_point(nfk: int, nfv: int,
+                      sincos_flop: int = SINCOSF_FLOP) -> int:
+    """The cutoff PE per point after the geometry: per joint the window
+    and the windowed v, per kp band an angle, a sin / cos pair, two
+    window products and the next frequency; per view channel the same
+    over nfv bands (the view bands are computed per point, as K1 does)."""
+    band = sincos_flop + 4
+    return (N_JOINTS * (WINDOW_FLOP + 1 + nfk * band)
+            + C72 * (1 + nfv * band))
+
+
+def pe_bwd_flop_per_point(nfk: int, nfv: int) -> int:
+    """K2's cutoff-PE backward per point (pe_transform_bwd_kernel up to
+    the window derivative): the geometry and window again, per kp band a
+    sin / cos pair and 4 FMA, per view band 4 FMA (the view bands' sin /
+    cos are per ray), the window derivative."""
+    return (transform_flop_per_point()
+            + N_JOINTS * (WINDOW_FLOP + 4 + nfk * (SINCOSF_FLOP + 8) + 6)
+            + C72 * (2 + nfv * 8))
+
+
+def transform_bwd_flop_per_point() -> int:
+    """K2's transform backward per point: per joint the normalize and
+    sqrt cotangents (about 13 FMA), then dpts (3 x 72 FMA) and the point's
+    share of the per-ray sums of dm_all (3 x 72 FMA) and daux (2 x 72
+    adds)."""
+    return N_JOINTS * 26 + 2 * 2 * 3 * C72 + 2 * C72
+
+
 def bound_ms(times_s) -> tuple:
     """(bound in ms, 'operations' or 'bytes') from {kind: seconds}, the
     seconds each kind of work takes at its peak; the key 'bytes' names
@@ -54,45 +116,122 @@ def bound_ms(times_s) -> tuple:
     return times_s[kind] * 1e3, 'bytes' if kind == 'bytes' else 'operations'
 
 
-def flagship_bounds(n_rays_fwd: int = 4096, n_rays_bwd: int = 2048):
+def act_bytes_per_point(ncfg: NeRFConfig, k0p: int, kvp: int) -> int:
+    """K2's saved bf16 MLP inputs and activations per point."""
+    W = ncfg.width
+    return 2 * (k0p + kvp + (ncfg.depth + 1) * W + W // 2)
+
+
+def k1d_stage_seconds(stage: str, ncfg: NeRFConfig, nfk: int, nfv: int,
+                      n_points: int, n_rays: int, w_bytes: int) -> dict:
+    """{kind: seconds at its peak} of one K1-d launch at `stage` on
+    n_points points of n_rays rays (w_bytes: the packed operands): it
+    reads the points and the per-ray operands (and, at 'full', the
+    weights) and writes 4 floats a point."""
+    fp32 = transform_flop_per_point()
+    if stage != 'transform':
+        trig = {'pe_notrig': STANDIN_SINCOS_FLOP,
+                'pe_fasttrig': FAST_SINCOSF_FLOP}.get(stage, SINCOSF_FLOP)
+        fp32 += pe_flop_per_point(nfk, nfv, trig)
+    n_bytes = (12 + 16) * n_points + RAY_BYTES * n_rays
+    out = {'fp32': fp32 * n_points / PEAK_FP32_FLOPS}
+    if stage == 'full':
+        n_bytes += w_bytes
+        out['bf16'] = 2.0 * mlp_macs_per_point(ncfg) * n_points \
+            / PEAK_BF16_FLOPS
+    out['bytes'] = n_bytes / PEAK_HBM_BYTES
+    return out
+
+
+def k2d_stage_seconds(stage: str, ncfg: NeRFConfig, nfk: int, nfv: int,
+                      k0p: int, kvp: int, n_points: int, n_rays: int,
+                      w_bytes: int, dw_bytes: int) -> dict:
+    """{kind: seconds at its peak} of K2's sequence stopped after `stage`
+    on n_points points of n_rays rays. It reads the points, the per-ray
+    operands, the weights and (after the recompute) the cotangent; it
+    writes the stage's outputs: raw and the saved activations
+    (recompute); dW and the MLP inputs' f32 cotangents (mlp); dW and a
+    3-float digest a point (pe); dW, dpts and the per-ray dm_all and
+    daux (full)."""
+    P = n_points
+    fp32 = (transform_flop_per_point() + pe_flop_per_point(nfk, nfv)) * P
+    n_in = (12 + (16 if stage != 'recompute' else 0)) * P \
+        + RAY_BYTES * n_rays + w_bytes
+    n_out = {'recompute': (16 + act_bytes_per_point(ncfg, k0p, kvp)) * P,
+             'mlp': dw_bytes + 4 * (k0p + kvp) * P,
+             'pe': dw_bytes + 12 * P,
+             'full': dw_bytes + 12 * P + RAY_BYTES * n_rays}[stage]
+    if stage != 'recompute':
+        fp32 += 2.0 * bwd_f32_macs_per_point(ncfg) * P
+    if stage in ('pe', 'full'):
+        fp32 += pe_bwd_flop_per_point(nfk, nfv) * P
+    if stage == 'full':
+        fp32 += transform_bwd_flop_per_point() * P
+    return {'fp32': fp32 / PEAK_FP32_FLOPS,
+            'bf16': 2.0 * mlp_macs_per_point(ncfg) * P / PEAK_BF16_FLOPS,
+            'bytes': (n_in + n_out) / PEAK_HBM_BYTES}
+
+
+def flagship_bounds(n_rays_fwd: int = 4096, n_rays_bwd: int = 2048,
+                    n_rays_stages: int = 2048):
     """{kernel id: (bound ms, bound_by, what it covers)} at the flagship
     shapes: K1, K3 and K4 on one render bucket of `n_rays_fwd` rays, K2
-    on one train step of `n_rays_bwd` rays; both nets, S = 64 + 80."""
+    on one train step of `n_rays_bwd` rays; both nets, S = 64 + 80; each
+    K1-d and K2-d stage on `n_rays_stages` rays, S = 64 + 80 (the coarse
+    net's weights)."""
     ncfg = NeRFConfig(use_framecode=True, framecode_ch=16)
     W = ncfg.width
+    nfk, nfv = 7, 4
+    k0p, kvp = 432, 672
     n_w = sum(k * n for k, n in _mma_layers(ncfg))          # per net
     n_f32 = (W * (ncfg.depth + 1) + W // 2                  # biases
              + 3 * (W // 2) + W + 4 + 24)                   # heads, cut
-    w_bytes = 2 * (2 * n_w + 4 * n_f32)                     # both nets
-    ray_bytes = 4 * (3 * 72 + 160)                          # m_all + aux
+    w_net = 2 * n_w + 4 * n_f32
+    w_bytes = 2 * w_net                                     # both nets
     view_in = ncfg.vnet_input - W
     P = n_rays_fwd * (64 + 80)
-    fwd_ops = 2.0 * mlp_macs_per_point(ncfg) * P / PEAK_BF16_FLOPS
+    fwd_ops = {'bf16': 2.0 * mlp_macs_per_point(ncfg) * P / PEAK_BF16_FLOPS,
+               'fp32': (transform_flop_per_point()
+                        + pe_flop_per_point(nfk, nfv)) * P / PEAK_FP32_FLOPS}
     per_point = {
-        'K1': 12 + 16,                          # pts in, raw out
-        'K3': 4 * 512 + 16,                     # segment-packed f32 in
-        'K4': 2 * (ncfg.dnet_input + view_in) + 16,   # embedded bf16 in
+        'K1': 12 + 16,                                  # pts in, raw out
+        'K3': 4 * (N_JOINTS + 2 * C72 + FC) + 16,       # 184 f32 in
+        'K4': 2 * (ncfg.dnet_input + view_in) + 16,     # embedded bf16 in
     }
     out = {}
     for kid, b in per_point.items():
-        n_bytes = P * b + w_bytes + (2 * n_rays_fwd * ray_bytes
+        n_bytes = P * b + w_bytes + (2 * n_rays_fwd * RAY_BYTES
                                      if kid == 'K1' else 0)
-        ms, by = bound_ms({'ops': fwd_ops, 'bytes': n_bytes / PEAK_HBM_BYTES})
-        out[kid] = (ms, by, f'{n_rays_fwd}-ray bucket')
+        times = dict(fwd_ops, bytes=n_bytes / PEAK_HBM_BYTES)
+        if kid == 'K4':
+            del times['fp32']                           # no PE
+        out[kid] = bound_ms(times) + (f'{n_rays_fwd}-ray bucket',)
     Pb = n_rays_bwd * (64 + 80)
     n_grad = 2 * 4 * sum((k + 1) * n for k, n in _mma_layers(ncfg))
-    n_bytes = (Pb * (12 + 16 + 12) + 2 * 2 * n_rays_bwd * ray_bytes
+    n_bytes = (Pb * (12 + 16 + 12) + 2 * 2 * n_rays_bwd * RAY_BYTES
                + w_bytes + n_grad)
     out['K2'] = bound_ms({
         'fp32': 2.0 * bwd_f32_macs_per_point(ncfg) * Pb / PEAK_FP32_FLOPS,
         'bf16': 2.0 * mlp_macs_per_point(ncfg) * Pb / PEAK_BF16_FLOPS,
         'bytes': n_bytes / PEAK_HBM_BYTES}) + (
         f'{n_rays_bwd}-ray train step',)
+    R = n_rays_stages
+    what = f'{R} rays, S = 64 + 80'
+    for stage in ('transform', 'pe', 'pe_notrig', 'pe_fasttrig', 'full'):
+        ms = [bound_ms(k1d_stage_seconds(stage, ncfg, nfk, nfv, R * S, R,
+                                         w_net)) for S in (64, 80)]
+        out[f'K1-d {stage}'] = (ms[0][0] + ms[1][0], ms[0][1], what)
+    dw_bytes = n_grad // 2
+    for stage in ('recompute', 'mlp', 'pe', 'full'):
+        ms = [bound_ms(k2d_stage_seconds(stage, ncfg, nfk, nfv, k0p, kvp,
+                                         R * S, R, w_net, dw_bytes))
+              for S in (64, 80)]
+        out[f'K2-d {stage}'] = (ms[0][0] + ms[1][0], ms[0][1], what)
     return out
 
 
 def main() -> None:
-    for kid, (ms, by, what) in sorted(flagship_bounds().items()):
+    for kid, (ms, by, what) in flagship_bounds().items():
         print(f'{kid}: bound {ms:.4f} ms per {what} ({by})')
 
 

@@ -14,13 +14,22 @@ Phases (any failure exits non-zero and prints no result):
      the coarse net and S = 80 on the fine net), every output held against
      its plain version, and a second launch on the same inputs held to
      the same bits.
-  3. render slice: the flagship SURREAL model (random weights from a seed,
+  3. modes and stages: K3 (fused_encode_mlp) and K4 (fused_mlp_apply) on
+     the K1 phase's bucket, each against its plain version and against
+     K1 on the same points, timed beside its bound; every stage of K1-d
+     and K2-d (the staged kernels of anerf_torch/kernels/stages.py) on
+     the K2 phase's batch against its plain digest, the full stages bit
+     for bit against K1 and K2, timed beside their bounds; then the
+     kernel_bench tool's three modes (anerf_torch/tools/kernel_bench.py:
+     default, --decompose, --decompose_bwd) at 2048 rays, S = 64 and 80,
+     the main path of K3, K4, K1-d and K2-d.
+  4. render slice: the flagship SURREAL model (random weights from a seed,
      fused_kernel on, chunk 4096) answers three render_path requests at
      512 x 512 (bullet time of one pose, two selected poses, the bullet
      time again); each is checked for finite output and for two K1
      launches per ray bucket. A small ray batch through render_rays on the
      fused branch is held against the plain-torch branch.
-  4. train slice: one step's gradients on the fused branch (K1 + K2) held
+  5. train slice: one step's gradients on the fused branch (K1 + K2) held
      against the plain-torch branch on 256 rays; then 20 train steps of
      the flagship (N_rand 2048, 128 frames, pose refinement) through
      make_train_step, checked for finite and falling loss, acc in [0, 1],
@@ -33,6 +42,7 @@ The last lines are a JSON `kernels` record, the card line, and
 {"ok": true, "device": {...}}.
 """
 import json
+import math
 import subprocess
 import sys
 import time
@@ -68,6 +78,29 @@ K2_BLOCK_RTOL = 0.12
 # (tests/test_fused_render.py:217-261)
 STEP_GRAD_RTOL = 0.12
 N_TRAIN_STEPS = 20
+# K3 and K4 against K1 on the same points (K3 fed build_raw_inputs of
+# them, K4 the plain version's embedded inputs): each pair computes its
+# geometry or trig in another f32 order, which flips an occasional bf16
+# rounding, as K1 and its plain version do; so K1's tolerance.
+CROSS_ATOL = CROSS_RTOL = 2e-3
+# K1-d's early stages against their plain digests, relative to the
+# digest's largest value: a digest sums about 280 bf16 MLP inputs (or 24
+# geometry values) a column, and the kernel and the plain version round
+# an occasional input to the next bf16 value (the __sincosf stage more
+# often: the intrinsic is off by up to about 1e-4 at the PE's largest
+# angles), each time by at most 2^-8 of that input.
+DIGEST_RTOL = 1e-2
+# K2-d's per-point outputs that K2 does not return (the mlp stage's MLP
+# input cotangents dx0 / dxv, the pe stage's digest): a flipped ReLU mask
+# moves one point's row by a whole unit's contribution, which no sum over
+# points dilutes, so a bound on the max does not fit them (observed: an
+# entry off by 0.127 of the largest at S = 80 on an H100, Frobenius
+# 5.2e-3).
+# They are held to K2_FRO in the Frobenius norm, and at most this share
+# of the points may have an entry off by more than K2_RTOL of the
+# output's largest value (K2's own phase saw at most 10 of 2048 rays off,
+# i.e. at most 10 of 163,840 points).
+K2D_POINTS_OFF = 1e-3
 
 
 def _median_ms(fn, inputs, reps):
@@ -86,54 +119,17 @@ def _median_ms(fn, inputs, reps):
     return times[len(times) // 2]
 
 
-def _flagship(torch, np, n_frames, **overrides):
-    """__graft_entry__._flagship()'s TrainConfig with the fused kernel on
-    (and `overrides` from configs/surreal/surreal.txt), its synthetic
-    skeleton of `n_frames` frames (rest * 0.3, bones / pelvis from
-    default_rng(0)) through the port's FK, and random weights from a
-    seeded generator. Returns (args, cfg, params, rest, bones, kp3d)."""
-    from anerf_torch.config import TrainConfig
-    from anerf_torch.ops.fk import fk
-    from anerf_torch.render.factory import (build_render_config,
-                                            init_render_params)
-    from anerf_torch.skeleton import SMPLSkeleton, smpl_rest_pose
-
-    args = TrainConfig(**{**dict(
-        netdepth=8, netwidth=256, multires=7, multires_views=4,
-        N_samples=64, N_importance=16, N_rand=256, N_sample_images=4,
-        use_viewdirs=True, use_cutoff=True, cutoff_viewdir=True,
-        cutoff_inputs=True, use_background=True, opt_framecode=True,
-        ext_scale=0.001, raw_noise_std=1.0, compute_dtype='bfloat16',
-        opt_pose=True, opt_rot6d=True, opt_pose_step=2, opt_pose_coef=2.0,
-        opt_pose_tol=0.01, lrate_decay=500, fused_kernel=True), **overrides})
-    rng = np.random.default_rng(0)
-    rest = (smpl_rest_pose * 0.3).astype(np.float32)
-    bones = (rng.normal(size=(n_frames, 24, 3)) * 0.2).astype(np.float32)
-    pelvis = (rng.normal(size=(n_frames, 3)) * 0.2).astype(np.float32)
-    kp3d = fk(torch.as_tensor(bones), torch.as_tensor(rest),
-              torch.as_tensor(pelvis))[0].numpy()
-
-    cfg = build_render_config(args, {'skel_type': SMPLSkeleton,
-                                     'n_views': n_frames})
-    params = init_render_params(args, cfg, torch.Generator().manual_seed(0),
-                                device='cuda')
-    # random weights put almost no density anywhere; lift the density
-    # head's bias (as tests/test_mesh_render.py does) so the body shows up
-    # in the images and the output checks are not vacuous
-    for net in ('coarse', 'fine'):
-        params[net]['alpha_linear']['b'] += 2.0
-    return args, cfg, params, rest, bones, kp3d
-
-
 def _flagship_render(torch, np):
-    """The render slice's setup: _flagship on 8 frames at the render chunk
-    of surreal.txt, a camera 2.5 units in front of each root.
-    Returns (args, cfg, params, pose source)."""
+    """The render slice's setup: the flagship (anerf_torch/tools/
+    flagship.py) on 8 frames at the render chunk of surreal.txt, a camera
+    2.5 units in front of each root. Returns (args, cfg, params, pose
+    source)."""
     from anerf_torch.render.modes import PoseSource
+    from anerf_torch.tools.flagship import flagship
 
     n_frames = 8
-    args, cfg, params, rest, bones, kp3d = _flagship(torch, np, n_frames,
-                                                     chunk=4096)
+    args, cfg, params, rest, bones, kp3d, _ = flagship(n_frames,
+                                                       chunk=4096)
     # cameras 2.5 units in front of each root, looking at it (NeRF: -z)
     c2ws = np.tile(np.eye(4, dtype=np.float32), (n_frames, 1, 1))
     c2ws[:, :3, 3] = kp3d[:, 0] + np.array([0.0, 0.0, 2.5], np.float32)
@@ -146,7 +142,9 @@ def _flagship_render(torch, np):
 def _bucket_inputs(torch, np, cfg, params, src, seed, R=4096):
     """One bucket of K1 operands as the main path builds them: R rays
     from a camera 2.5 units from the root of pose 0 toward the body,
-    cylinder near/far, 64 stratified samples and the 64 + 16 fine set."""
+    cylinder near/far, 64 stratified samples and the 64 + 16 fine set.
+    Returns ({S: pts}, m_all, aux, the per-ray inputs of pack_ray_data
+    {'rays_d', 'skts', 'fc'})."""
     from anerf_torch.kernels.fused_render import pack_ray_data
     from anerf_torch.models.nerf import lookup_framecodes
     from anerf_torch.ops.cylinder import (get_kp_bounding_cylinder,
@@ -179,7 +177,8 @@ def _bucket_inputs(torch, np, cfg, params, src, seed, R=4096):
     fc = lookup_framecodes(params['coarse'],
                            torch.zeros(R, dtype=torch.long, device=dev))
     m_all, aux = pack_ray_data(rays_d[:, None], skts_r, fc)
-    return {64: pts64.contiguous(), 80: pts80.contiguous()}, m_all, aux
+    return ({64: pts64.contiguous(), 80: pts80.contiguous()}, m_all, aux,
+            {'rays_d': rays_d[:, None], 'skts': skts_r, 'fc': fc})
 
 
 def kernel_phase(torch, np, cfg, params, src):
@@ -360,6 +359,280 @@ def k2_phase(torch, np, cfg, params, src):
             'ms_s64': rec[64][0], 'ms_s80': rec[80][0]}
 
 
+def modes_phase(torch, np, cfg, params, src):
+    """K3 and K4 at the flagship width on one 4096-ray bucket (the coarse
+    net at S = 64, the fine net at S = 80; tau = 2000 and 35): each held
+    to its plain version and to K1 on the same points; median times
+    beside the bounds. Returns their `kernels` records."""
+    from anerf_torch.kernels import fused_mlp as fm
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.kernels import roofline as rf
+    from anerf_torch.render.raycaster import pack_fused_params
+
+    packed = pack_fused_params(params, cfg)
+    packed4 = {net: fm.pack_params(params[net], cfg.nerf)
+               for net in ('coarse', 'fine')}
+    ncfg = cfg.nerf
+    k0, kv = ncfg.dnet_input, fm.view_in(ncfg)
+    R = 4096
+    variants = [_bucket_inputs(torch, np, cfg, params, src, seed)
+                for seed in range(4)]
+    bf = torch.bfloat16
+
+    def k3_args(v, S, net, tau):
+        x = fr.build_raw_inputs(v[0][S], v[3]['rays_d'], v[3]['skts'],
+                                v[3]['fc'])
+        return ncfg, packed[net], x, tau
+
+    def k4_args(v, S, net, tau):
+        x0, xv = fr._encode(packed[net], v[0][S], v[1], v[2], S, tau)
+        return (ncfg, packed4[net], x0[..., :k0].reshape(-1, k0).to(bf),
+                xv[..., :kv].reshape(-1, kv).to(bf))
+
+    kernels = {'K3': (fr.fused_encode_mlp, fr.fused_encode_mlp_ref,
+                      k3_args),
+               'K4': (fm.fused_mlp_apply, fm.fused_mlp_apply_ref, k4_args)}
+    max_abs = {kid: 0.0 for kid in kernels}
+    rec = {kid: {} for kid in kernels}
+    for S, net in ((64, 'coarse'), (80, 'fine')):
+        for tau in (2000.0, 35.0):
+            v = variants[0]
+            k1 = fr.fused_encode_mlp_pts(ncfg, packed[net], v[0][S], v[1],
+                                         v[2], S, tau)
+            for kid, (kernel, plain, make) in kernels.items():
+                args = make(v, S, net, tau)
+                got = kernel(*args).reshape(R, S, 4)
+                torch.cuda.synchronize()
+                want = plain(*args).reshape(R, S, 4)
+                err = (got - want).abs().max().item()
+                err_k1 = (got - k1).abs().max().item()
+                ok = (torch.allclose(got, want, atol=K1_ATOL, rtol=K1_RTOL)
+                      and torch.allclose(got, k1, atol=CROSS_ATOL,
+                                         rtol=CROSS_RTOL)
+                      and bool(torch.isfinite(got).all()))
+                print(f'{kid} S={S} tau={tau:g}: max_abs={err:.3e} vs plain '
+                      f'(tol atol=rtol={K1_ATOL}), {err_k1:.3e} vs K1 '
+                      f'(tol atol=rtol={CROSS_ATOL}) -> '
+                      f'{"ok" if ok else "FAIL"}', flush=True)
+                if not ok:
+                    raise AssertionError(f'{kid} disagrees at S={S} '
+                                         f'tau={tau}')
+                max_abs[kid] = max(max_abs[kid], err)
+        for kid, (kernel, plain, make) in kernels.items():
+            ins = [make(v, S, net, 2000.0) for v in variants]
+            rec[kid][S] = (_median_ms(kernel, ins, 21),
+                           _median_ms(plain, ins, 5))
+            print(f'{kid} S={S}: kernel {rec[kid][S][0]:.4f} ms, plain '
+                  f'{rec[kid][S][1]:.4f} ms (median, R={R})', flush=True)
+            del ins
+
+    P = R * (64 + 80)
+    bf16_s = 2.0 * rf.mlp_macs_per_point(ncfg) * P / rf.PEAK_BF16_FLOPS
+    times = {
+        'K3': {'bf16': bf16_s,
+               'fp32': rf.pe_flop_per_point(7, 4) * P / rf.PEAK_FP32_FLOPS,
+               'bytes': (P * (4 * fr.RAW_W + 16)
+                         + _packed_bytes(torch, packed)) / rf.PEAK_HBM_BYTES},
+        'K4': {'bf16': bf16_s,
+               'bytes': (P * (2 * (k0 + kv) + 16)
+                         + _packed_bytes(torch, packed4)) / rf.PEAK_HBM_BYTES}}
+    out = []
+    for kid, name, src_file, replaces in (
+            ('K3', 'fused_encode_mlp', 'fused_render_modes.cu',
+             'anerf_tpu/kernels/fused_render.py:555'),
+            ('K4', 'fused_mlp_apply', 'fused_render_modes.cu',
+             'anerf_tpu/kernels/fused_mlp.py:146')):
+        bound, bound_by = rf.bound_ms(times[kid])
+        ms = rec[kid][64][0] + rec[kid][80][0]
+        print(f'{kid} bucket (S=64 + S=80): bound {bound:.4f} ms '
+              f'({bound_by}); kernel {ms:.4f} ms = {bound / ms:.3f} of the '
+              f'bound', flush=True)
+        out.append({'name': name, 'route': 'cuda',
+                    'source': f'anerf_torch/kernels/csrc/{src_file}',
+                    'replaces': replaces, 'launches': None,
+                    'max_abs_err': max_abs[kid], 'ms': ms,
+                    'plain_ms': rec[kid][64][1] + rec[kid][80][1],
+                    'bound_ms': bound, 'bound_by': bound_by,
+                    'library_ms': None, 'ms_s64': rec[kid][64][0],
+                    'ms_s80': rec[kid][80][0]})
+    return out
+
+
+def _k2_style_errors(torch, ncfg, nfk, nfv, got, want, label, per_point):
+    """K2's bounds on a K2-d stage's outputs: each dW block (the first
+    output) within K2_FRO in the Frobenius norm and K2_BLOCK_RTOL in the
+    max, relative; each other output the same, or, if `per_point`, within
+    K2_FRO and K2D_POINTS_OFF. Returns (max abs, worst max rel, worst
+    share of points off)."""
+    from anerf_torch.kernels import fused_render as fr
+    pairs = [(a, b, False) for a, b in zip(
+        fr.split_grads(ncfg, nfk, nfv, got[0]).values(),
+        fr.split_grads(ncfg, nfk, nfv, want[0]).values())]
+    pairs += [(a, b, per_point) for a, b in zip(got[1:], want[1:])]
+    max_abs, worst, worst_off = 0.0, 0.0, 0.0
+    for a, b, pp in pairs:
+        d = (a - b).abs()
+        top = b.abs().max().clamp_min(1e-7)
+        rel = (d.max() / top).item()
+        fro = ((a - b).norm() / b.norm().clamp_min(1e-7)).item()
+        off = (d.reshape(-1, d.shape[-1]) > K2_RTOL * top).any(1) \
+            .float().mean().item()
+        ok = (fro < K2_FRO and bool(torch.isfinite(a).all())
+              and (off < K2D_POINTS_OFF if pp else rel < K2_BLOCK_RTOL))
+        if not ok:
+            raise AssertionError(f'{label}: rel {rel:.3e}, fro {fro:.3e}, '
+                                 f'points off {off:.3e}')
+        max_abs, worst = max(max_abs, d.max().item()), max(worst, rel)
+        worst_off = max(worst_off, off) if pp else worst_off
+    return max_abs, worst, worst_off
+
+
+def stages_phase(torch, np, cfg, params, src):
+    """Every stage of K1-d and K2-d on one training batch's operands (2048
+    rays; the coarse net at S = 64, the fine net at S = 80; tau = 2000):
+    each against its plain digest, the full stages bit for bit against K1
+    and K2; median times beside the stages' bounds. Returns their
+    `kernels` records."""
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.kernels import roofline as rf
+    from anerf_torch.kernels import stages
+    from anerf_torch.render.raycaster import pack_fused_params
+
+    packed = pack_fused_params(params, cfg)
+    ncfg = cfg.nerf
+    nfk, nfv = packed['coarse']['nfk'], packed['coarse']['nfv']
+    _, k0p, _, kvp = fr.input_widths(nfk, nfv)
+    R, tau = 2048, 2000.0
+    variants = [_bucket_inputs(torch, np, cfg, params, src, seed, R=R)
+                for seed in range(4)]
+    gs = {S: [torch.as_tensor(
+        np.random.default_rng(10 + i).normal(size=(R, S, 4)) * 0.1,
+        dtype=torch.float32, device='cuda') for i in range(4)]
+        for S in (64, 80)}
+    w_net = _packed_bytes(torch, packed) // 2
+    dw_bytes = 4 * sum(r * c for _, r, c in fr.grad_blocks(ncfg, nfk, nfv))
+    rec = {'K1-d': {st: {} for st in stages.FWD_STAGES},
+           'K2-d': {st: {} for st in stages.BWD_STAGES}}
+    for S, net in ((64, 'coarse'), (80, 'fine')):
+        k1_ins = [(ncfg, packed[net], v[0][S], v[1], v[2], S, tau)
+                  for v in variants]
+        for stage in stages.FWD_STAGES:
+            got = stages.decompose_fwd(stage, *k1_ins[0])
+            if stage == 'full':
+                want = fr.fused_encode_mlp_pts(*k1_ins[0])
+                torch.cuda.synchronize()
+                ok, err, rel = torch.equal(got, want), 0.0, 0.0
+            else:
+                torch.cuda.synchronize()
+                want = stages.decompose_fwd_ref(stage, *k1_ins[0])
+                err = (got - want).abs().max().item()
+                rel = err / want.abs().max().clamp_min(1e-7).item()
+                ok = rel < DIGEST_RTOL and bool(torch.isfinite(got).all())
+            print(f'K1-d {stage} S={S}: max_abs={err:.3e} max_rel={rel:.3e} '
+                  f'(tol {"bit-equal to K1" if stage == "full" else DIGEST_RTOL}'
+                  f') -> {"ok" if ok else "FAIL"}', flush=True)
+            if not ok:
+                raise AssertionError(f'K1-d {stage} disagrees at S={S}')
+            ins = [(stage,) + a for a in k1_ins]
+            bound = rf.bound_ms(rf.k1d_stage_seconds(
+                stage, ncfg, nfk, nfv, R * S, R, w_net))
+            rec['K1-d'][stage][S] = (
+                _median_ms(stages.decompose_fwd, ins, 11),
+                _median_ms(stages.decompose_fwd_ref, ins, 3), bound, err)
+        k2_ins = [a + (g,) for a, g in zip(k1_ins, gs[S])]
+        for stage in stages.BWD_STAGES:
+            got = stages.decompose_bwd(stage, *k2_ins[0])
+            if stage == 'full':
+                want = fr.fused_bwd(*k2_ins[0])
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise AssertionError(f'K2-d full is not K2 at S={S}')
+            torch.cuda.synchronize()
+            want = stages.decompose_bwd_ref(stage, *k2_ins[0])
+            off = 0.0
+            if stage == 'recompute':
+                err = (got[0] - want[0]).abs().max().item()
+                rel = err / want[0].abs().max().item()
+                if not torch.allclose(got[0], want[0], atol=K1_ATOL,
+                                      rtol=K1_RTOL):
+                    raise AssertionError(f'K2-d recompute disagrees at S={S}')
+            else:
+                err, rel, off = _k2_style_errors(
+                    torch, ncfg, nfk, nfv, got, want, f'K2-d {stage} S={S}',
+                    per_point=stage != 'full')
+            print(f'K2-d {stage} S={S}: max_abs={err:.3e} max_rel={rel:.3e}'
+                  f' points off by >{K2_RTOL}: {off:.3e}'
+                  f'{" (bit-equal to K2)" if stage == "full" else ""} -> ok',
+                  flush=True)
+            del got, want
+            ins = [(stage,) + a for a in k2_ins]
+            bound = rf.bound_ms(rf.k2d_stage_seconds(
+                stage, ncfg, nfk, nfv, k0p, kvp, R * S, R, w_net, dw_bytes))
+            rec['K2-d'][stage][S] = (
+                _median_ms(stages.decompose_bwd, ins, 7),
+                _median_ms(stages.decompose_bwd_ref, ins, 3), bound, err)
+
+    out = []
+    for kid, name, src_file, replaces in (
+            ('K1-d', 'decompose_fwd', 'fused_render_modes.cu',
+             'tools/kernel_bench.py:194'),
+            ('K2-d', 'decompose_bwd', 'fused_render_bwd.cu',
+             'tools/kernel_bench.py:314')):
+        per = {}
+        for stage, by_s in rec[kid].items():
+            per[stage] = {
+                'ms_s64': by_s[64][0], 'ms_s80': by_s[80][0],
+                'plain_ms': by_s[64][1] + by_s[80][1],
+                'bound_ms': by_s[64][2][0] + by_s[80][2][0],
+                'bound_by': by_s[64][2][1],
+                'max_abs_err': max(by_s[64][3], by_s[80][3])}
+            print(f'{kid} {stage} (S=64 + S=80, R={R}): kernel '
+                  f'{by_s[64][0] + by_s[80][0]:.4f} ms (S=64 '
+                  f'{by_s[64][0]:.4f}, S=80 {by_s[80][0]:.4f}), plain '
+                  f'{per[stage]["plain_ms"]:.4f} ms, bound '
+                  f'{per[stage]["bound_ms"]:.4f} ms '
+                  f'({per[stage]["bound_by"]})', flush=True)
+        top = max(per.values(), key=lambda p: p['bound_ms'])
+        out.append({'name': name, 'route': 'cuda',
+                    'source': f'anerf_torch/kernels/csrc/{src_file}',
+                    'replaces': replaces, 'launches': None,
+                    'max_abs_err': max(p['max_abs_err']
+                                       for p in per.values()),
+                    'ms': sum(p['ms_s64'] + p['ms_s80']
+                              for p in per.values()),
+                    'plain_ms': sum(p['plain_ms'] for p in per.values()),
+                    'bound_ms': sum(p['bound_ms'] for p in per.values()),
+                    'bound_by': top['bound_by'], 'library_ms': None,
+                    'stages': per})
+    return out
+
+
+def tool_phase(torch):
+    """The kernel_bench tool's three modes at 2048 rays, S = 64 and 80:
+    the main path of K3, K4, K1-d and K2-d. Their counts are set to 0
+    just before and read just after. Returns {kernel id: launches}."""
+    from anerf_torch.kernels import fused_mlp as fm
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.kernels import stages
+    from anerf_torch.tools import kernel_bench as kb
+
+    fr.RAW_LAUNCHES = fm.LAUNCHES = 0
+    stages.FWD_LAUNCHES = stages.BWD_LAUNCHES = 0
+    for mode in ('bench', 'decompose', 'decompose_bwd'):
+        rec = kb.run(mode, n_rays=2048, reps=8, shapes=(64, 80))
+        for row in rec['rows']:
+            for key, val in row.items():
+                if (key.endswith('_ms') or key == 'ms') \
+                        and not math.isfinite(val):
+                    raise AssertionError(f'{mode}: {key} = {val}')
+    counts = {'K3': fr.RAW_LAUNCHES, 'K4': fm.LAUNCHES,
+              'K1-d': stages.FWD_LAUNCHES, 'K2-d': stages.BWD_LAUNCHES}
+    print(f'launches on the kernel_bench path: {counts}', flush=True)
+    if not all(counts.values()):
+        raise AssertionError(f'a kernel did not run on its path: {counts}')
+    return counts
+
+
 def reference_check(torch, np, cfg, params, src):
     """The rendered output against a reference: render_rays through K1 vs
     the plain-torch (XLA-mirror) branch on a small batch of rays aimed at
@@ -474,7 +747,7 @@ def slice_phase(torch, np, args, cfg, params, src, k1_bucket_ms):
 
 
 def _flagship_train(torch, np):
-    """The train slice's setup: _flagship on 128 frames with N_rand 2048
+    """The train slice's setup: the flagship on 128 frames with N_rand 2048
     and N_sample_images 128 from configs/surreal/surreal.txt; one batch
     of 16 rays per frame aimed at its root (as __graft_entry__._batch
     aims them) with a constant gray target. Returns (args, cfg, pose
@@ -482,14 +755,15 @@ def _flagship_train(torch, np):
     from anerf_torch.ops.cylinder import get_kp_bounding_cylinder
     from anerf_torch.pose.pose_opt import (PoseOptConfig, init_pose_params,
                                            pose_anchor_tree)
+    from anerf_torch.tools.flagship import flagship
     from anerf_torch.train.state import (TrainState, init_opt_state,
                                          init_pose_opt_state,
                                          make_nerf_optimizer,
                                          make_pose_optimizer)
 
     n_frames, n_rays = 128, 2048
-    args, cfg, params, rest, bones, kp3d = _flagship(
-        torch, np, n_frames, N_rand=n_rays, N_sample_images=n_frames)
+    args, cfg, params, rest, bones, kp3d, _ = flagship(
+        n_frames, N_rand=n_rays, N_sample_images=n_frames)
     cyls = get_kp_bounding_cylinder(kp3d, ext_scale=0.001, head='y')
     pose_cfg = PoseOptConfig(use_rot6d=True)
     opt = make_nerf_optimizer(args.lrate, args.lrate_decay,
@@ -670,6 +944,36 @@ def profile_phase(torch, label, fn):
               f' x{count:<6d} {key[:90]}', flush=True)
 
 
+def _ptxas_lines(log):
+    """One line per kernel of nvcc's `-Xptxas -v` report: the kernel's
+    name (demangled by the toolkit's cu++filt where it is found, without
+    its parameter list), its registers, stack and spills."""
+    import os
+    import re
+    import shutil
+
+    kernels, name, spill = [], None, ''
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+        elif 'spill' in line:
+            spill = line.strip()
+        elif 'registers' in line:
+            kernels.append((name, f'{line.split(":", 1)[-1].strip()}; '
+                                  f'{spill}'))
+    names = [n for n, _ in kernels]
+    filt = shutil.which('cu++filt') or os.path.join(
+        os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cu++filt')
+    if os.path.exists(filt):
+        out = subprocess.run([filt], input='\n'.join(names),
+                             capture_output=True, text=True).stdout
+        if len(out.splitlines()) == len(names):
+            names = out.splitlines()
+    return [f'{re.sub(r"[(][^()]*[)]$", "", n)}: {r}'
+            for n, (_, r) in zip(names, kernels)]
+
+
 def main(argv) -> int:
     import torch
     if not torch.cuda.is_available():
@@ -694,14 +998,18 @@ def main(argv) -> int:
     t0 = time.perf_counter()
     for name, (path, log) in fr.build_libraries().items():
         print(f'built {path.name}', flush=True)
-        for line in log.splitlines():
-            if 'registers' in line or 'spill' in line:
-                print(f'  ptxas: {line.strip()}', flush=True)
+        for line in _ptxas_lines(log):
+            print(f'  ptxas: {line}', flush=True)
     print(f'build took {time.perf_counter() - t0:.1f} s', flush=True)
 
     args, cfg, params, src = _flagship_render(torch, np)
     k1 = kernel_phase(torch, np, cfg, params, src)
     k2 = k2_phase(torch, np, cfg, params, src)
+    k3, k4 = modes_phase(torch, np, cfg, params, src)
+    k1d, k2d = stages_phase(torch, np, cfg, params, src)
+    tool = tool_phase(torch)
+    for rec, kid in ((k3, 'K3'), (k4, 'K4'), (k1d, 'K1-d'), (k2d, 'K2-d')):
+        rec['launches'] = tool[kid]
     reference_check(torch, np, cfg, params, src)
     render_k1 = slice_phase(torch, np, args, cfg, params, src, k1['ms'])
     if '--profile' in argv:
@@ -720,7 +1028,7 @@ def main(argv) -> int:
           flush=True)
     k2['step_ms'] = step_s * 1e3
 
-    print(json.dumps({'kernels': [k1, k2]}))
+    print(json.dumps({'kernels': [k1, k2, k3, k4, k1d, k2d]}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

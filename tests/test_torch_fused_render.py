@@ -1,4 +1,5 @@
-"""anerf_torch K1 (kernels/fused_render.py) against anerf_tpu, on the CPU.
+"""anerf_torch K1 and K3 (kernels/fused_render.py) against anerf_tpu, on
+the CPU.
 
 On a CPU tensor the wrapper runs the kernel's plain PyTorch version, so
 these tests hold the plain version (and the operand packing the CUDA
@@ -8,11 +9,13 @@ CUDA kernel itself is held against the plain version on the card by
 chip_smoke.py and tests/test_torch_kernels_gpu.py.
 
 Tolerances:
-  * plain K1 vs the Pallas kernel: 5e-3 abs/rel. Both keep each product
-    in f32 and round the same activations to bf16; they differ by the
-    sin/cos implementation (libm vs a 3e-6 polynomial) and hi/lo-split
+  * plain K1 or K3 vs the Pallas kernel: 5e-3 abs/rel. Both keep each
+    product in f32 and round the same activations to bf16; they differ by
+    the sin/cos implementation (libm vs a 3e-6 polynomial) and hi/lo-split
     vs plain f32 geometry, which flip an occasional bf16 rounding
     (observed 2.8e-4 on raw values up to ~0.2).
+  * build_raw_inputs vs JAX's: 1e-6 abs, f32 rounding of the same
+    geometry.
   * plain K1 vs JAX encode_inputs + run_network: 3e-2, the bound the JAX
     package's own fused-vs-XLA tests use (XLA rounds each layer's
     product to bf16 before the bias add).
@@ -173,3 +176,70 @@ def test_fragment_order_is_the_mma_b_fragment():
                 want = [w[16 * pair + 8 * half + g, 16 * ks + 2 * t + hi + e]
                         for half in (0, 1) for hi in (0, 8) for e in (0, 1)]
                 assert got.tolist() == [int(x) for x in want]
+
+
+def _raw_inputs(s):
+    return tfr.build_raw_inputs(_t(s['pts']), _t(s['rays_d'])[:, None],
+                                _t(s['skts']), _t(s['fc']))
+
+
+@pytest.mark.parametrize('with_fc', [True, False])
+def test_build_raw_inputs_matches_jax(setup, with_fc):
+    """The port's (R, S, 184) rows against JAX's (R, S, 512) segments
+    [v | r | d | fc], each 128 lanes wide with its live lanes first."""
+    s = setup
+    fc = s['fc'] if with_fc else None
+    want = np.asarray(jfr.build_raw_inputs(s['pts'], s['rays_d'][:, None],
+                                           s['skts'], fc))
+    got = tfr.build_raw_inputs(_t(s['pts']), _t(s['rays_d'])[:, None],
+                               _t(s['skts']),
+                               None if fc is None else _t(fc)).numpy()
+    assert got.shape == (16, s['S'], tfr.RAW_W) and got.dtype == np.float32
+    SEG = jfr.SEG
+    lanes = np.concatenate([np.arange(24), SEG + np.arange(72),
+                            2 * SEG + np.arange(72), 3 * SEG + np.arange(16)])
+    np.testing.assert_allclose(got, want[..., lanes], atol=1e-6, rtol=0)
+    assert not np.any(np.delete(want, lanes, axis=-1))
+
+
+@pytest.mark.parametrize('tau', [35.0, 2000.0])
+def test_plain_k3_matches_pallas(setup, tau):
+    """K3's plain version against the JAX fused_encode_mlp, run in
+    interpret mode as tests/test_fused_render.py:184 runs it."""
+    s = setup
+    jpacked = jfr.pack_render_params(s['params']['coarse'], s['cfg'].nerf,
+                                     7, 4, s['params']['cutoff_dist'])
+    x = jfr.build_raw_inputs(s['pts'], s['rays_d'][:, None], s['skts'],
+                             s['fc'])
+    R, S = x.shape[:2]
+    want = jfr.fused_encode_mlp(s['cfg'].nerf, jpacked,
+                                x.reshape(R * S, -1), 256, jnp.float32(tau))
+    packed, _, _ = _torch_operands(s)
+    got = tfr.fused_encode_mlp_ref(s['tcfg'].nerf, packed, _raw_inputs(s),
+                                   tau)
+    assert got.shape == (R, S, 4)
+    np.testing.assert_allclose(got.numpy().reshape(R * S, 4),
+                               np.asarray(want), **LIKE)
+
+
+def test_plain_k3_matches_plain_k1(setup):
+    """K3 on build_raw_inputs of K1's points computes K1's function: the
+    plain versions agree up to f32 rounding of the geometry."""
+    s = setup
+    packed, m_all, aux = _torch_operands(s)
+    got = tfr.fused_encode_mlp_ref(s['tcfg'].nerf, packed, _raw_inputs(s),
+                                   35.0)
+    want = tfr.fused_encode_mlp_pts_ref(s['tcfg'].nerf, packed, _t(s['pts']),
+                                        m_all, aux, s['S'], 35.0)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **LIKE)
+
+
+def test_k3_wrapper_takes_plain_route_on_cpu(setup):
+    s = setup
+    packed, _, _ = _torch_operands(s)
+    x = _raw_inputs(s)
+    before = tfr.RAW_LAUNCHES
+    got = tfr.fused_encode_mlp(s['tcfg'].nerf, packed, x, 35.0)
+    assert tfr.RAW_LAUNCHES == before == 0
+    assert torch.equal(got, tfr.fused_encode_mlp_ref(s['tcfg'].nerf, packed,
+                                                     x, 35.0))

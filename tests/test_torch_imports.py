@@ -40,7 +40,11 @@ def test_scan_finds_the_port():
         assert f'anerf_torch/{sub}/__init__.py' in FILES
     assert 'anerf_torch/train/trainer.py' in FILES
     assert 'anerf_torch/pose/pose_opt.py' in FILES
-    assert len(FILES) >= 26
+    for mod in ('kernels/fused_mlp.py', 'kernels/stages.py',
+                'tools/__init__.py', 'tools/flagship.py',
+                'tools/kernel_bench.py'):
+        assert f'anerf_torch/{mod}' in FILES
+    assert len(FILES) >= 31
     tree = ast.parse('import jax.numpy as jnp\nfrom anerf_tpu.ops import fk')
     assert [m for m in _imported_modules(tree)] == ['jax.numpy',
                                                     'anerf_tpu.ops']

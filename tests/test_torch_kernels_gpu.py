@@ -1,13 +1,22 @@
-"""K1's and K2's CUDA kernels against their plain PyTorch versions, on
-the card.
+"""The CUDA kernels K1, K2, K3, K4, K1-d and K2-d against their plain
+PyTorch versions, on the card.
 
 Needs a CUDA device and nvcc; skips elsewhere. This file imports neither
 JAX nor the JAX package, so it also runs on a machine without them:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 Tolerances:
-  * K1, 2e-3 abs/rel: the kernel and its plain version round the same
-    activations to bf16 and differ by fp32 summation order and sin/cos
-    ulps (observed 5e-4 abs at the flagship width on an H100).
+  * K1, K3 and K4, 2e-3 abs/rel: the kernel and its plain version round
+    the same activations to bf16 and differ by fp32 summation order and
+    sin/cos ulps (observed 5e-4 abs for K1 at the flagship width on an
+    H100).
+  * K1-d's early stages: 1e-2 of the digest's largest value. A digest
+    sums about 280 bf16 MLP inputs (or 24 geometry values) a column;
+    the kernel and the plain version round an occasional input to the
+    next bf16 value (the __sincosf stage more often: the intrinsic is
+    off by up to about 1e-4 at the PE's largest angles), each time by at
+    most 2^-8 of the input. K1-d's full stage is K1: the same bits.
+  * K2-d: its stages' outputs to K2's bounds (below); its full stage is
+    K2: the same bits.
   * K2: dpts, dm_all and daux 2e-2 relative max (denominator floored
     at 1e-7), the JAX kernel-vs-oracle bound
     (tests/test_fused_render.py:119); each weight-gradient block 2e-2
@@ -103,3 +112,114 @@ def test_k2_kernel_matches_plain_and_is_deterministic(cuda, R, S, tau):
         assert _rel(a, b) < 2e-2
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+def _flagship_ncfg():
+    return NeRFConfig(depth=8, width=256, input_ch=360, input_ch_bones=72,
+                      input_ch_views=648, use_framecode=True,
+                      framecode_ch=16, n_framecodes=4)
+
+
+def _packed(dev, seed=0):
+    ncfg = _flagship_ncfg()
+    params = init_nerf_params(ncfg, torch.Generator().manual_seed(seed), dev)
+    params['alpha_linear']['b'] += 1.0
+    return ncfg, params, fr.pack_render_params(
+        params, ncfg, 7, 4, torch.full((24,), 0.5, device=dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('R,S,tau', [(3, 7, 35.0), (256, 80, 2000.0)])
+def test_k3_kernel_matches_plain(cuda, R, S, tau):
+    ncfg, _, packed = _packed(cuda)
+    rng = np.random.default_rng(R + S)
+    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
+    skts = torch.zeros((R, 24, 4, 4), device=cuda)
+    skts[..., :3, :3] = axisang_to_rot(f(rng.normal(size=(R, 24, 3))))
+    skts[..., :3, 3] = f(rng.normal(size=(R, 24, 3)) * 0.3)
+    skts[..., 3, 3] = 1.0
+    x = fr.build_raw_inputs(f(rng.normal(size=(R, S, 3)) * 0.4),
+                            f(rng.normal(size=(R, 1, 3))), skts,
+                            f(rng.normal(size=(R, 16))))
+    before = fr.RAW_LAUNCHES
+    got = fr.fused_encode_mlp(ncfg, packed, x, tau)
+    torch.cuda.synchronize()
+    assert fr.RAW_LAUNCHES == before + 1 and got.shape == (R, S, 4)
+    want = fr.fused_encode_mlp_ref(ncfg, packed, x, tau)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('config', ['flagship', 'small', 'odd_widths'])
+def test_k4_kernel_matches_plain(cuda, config):
+    from anerf_torch.kernels import fused_mlp as fm
+    ncfg = {'flagship': _flagship_ncfg(),
+            'small': NeRFConfig(depth=4, width=256, input_ch=24,
+                                input_ch_bones=0, input_ch_views=72,
+                                skips=(2,), use_viewdirs=True),
+            # widths the kernel's 16-byte copy needs padded to 8
+            'odd_widths': NeRFConfig(depth=3, width=256, input_ch=30,
+                                     input_ch_bones=0, input_ch_views=70,
+                                     skips=(), use_viewdirs=True)}[config]
+    params = init_nerf_params(ncfg, torch.Generator().manual_seed(2), cuda)
+    packed = fm.pack_params(params, ncfg)
+    rng = np.random.default_rng(4)
+    P = 1500
+    x_pts = torch.as_tensor(rng.normal(size=(P, ncfg.dnet_input)),
+                            dtype=torch.float32, device=cuda)
+    x_view = torch.as_tensor(rng.normal(size=(P, fm.view_in(ncfg))),
+                             dtype=torch.float32, device=cuda)
+    before = fm.LAUNCHES
+    got = fm.fused_mlp_apply(ncfg, packed, x_pts, x_view)
+    torch.cuda.synchronize()
+    assert fm.LAUNCHES == before + 1
+    want = fm.fused_mlp_apply_ref(ncfg, packed, x_pts, x_view)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('stage', ['transform', 'pe', 'pe_notrig',
+                                   'pe_fasttrig', 'full'])
+def test_k1d_stage_matches_plain(cuda, stage):
+    from anerf_torch.kernels import stages
+    ncfg, _, packed = _packed(cuda)
+    R, S = 40, 64
+    pts, m_all, aux = _operands(cuda, R, S, 11)
+    args = (ncfg, packed, pts, m_all, aux, S, 2000.0)
+    before = stages.FWD_LAUNCHES
+    got = stages.decompose_fwd(stage, *args)
+    torch.cuda.synchronize()
+    assert stages.FWD_LAUNCHES == before + 1
+    if stage == 'full':
+        assert torch.equal(got, fr.fused_encode_mlp_pts(*args))
+    else:
+        assert _rel(got, stages.decompose_fwd_ref(stage, *args)) < 1e-2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('stage', ['recompute', 'mlp', 'pe', 'full'])
+def test_k2d_stage_matches_plain(cuda, stage):
+    from anerf_torch.kernels import stages
+    ncfg, _, packed = _packed(cuda, seed=1)
+    R, S = 40, 64
+    pts, m_all, aux = _operands(cuda, R, S, 12)
+    g = torch.as_tensor(np.random.default_rng(5).normal(size=(R, S, 4)),
+                        dtype=torch.float32, device=cuda)
+    args = (ncfg, packed, pts, m_all, aux, S, 2000.0, g)
+    before = stages.BWD_LAUNCHES
+    got = stages.decompose_bwd(stage, *args)
+    torch.cuda.synchronize()
+    assert stages.BWD_LAUNCHES == before + 1
+    want = stages.decompose_bwd_ref(stage, *args)
+    if stage == 'full':
+        assert all(torch.equal(a, b)
+                   for a, b in zip(got, fr.fused_bwd(*args)))
+    if stage == 'recompute':
+        torch.testing.assert_close(got[0], want[0], atol=2e-3, rtol=2e-3)
+        return
+    blocks = fr.split_grads(ncfg, 7, 4, got[0])
+    for name, ref in fr.split_grads(ncfg, 7, 4, want[0]).items():
+        assert _rel_fro(blocks[name], ref) < 2e-2, name
+        assert _rel(blocks[name], ref) < 0.12, name
+    for a, b in zip(got[1:], want[1:]):
+        assert _rel_fro(a, b) < 2e-2 and _rel(a, b) < 0.12
