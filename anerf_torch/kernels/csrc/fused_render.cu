@@ -1,5 +1,8 @@
-// K1: fused world->local transform + cutoff positional encoding + NeRF MLP
-// forward, for Hopper (sm_90a).
+// K1-v1: fused world->local transform + cutoff positional encoding + NeRF
+// MLP forward, for Hopper (sm_90a): K1's first kernel. K1 itself is now
+// fused_render_sm90.cu (wgmma, weights staged in shared memory by
+// cluster-multicast bulk copies); this one stays as the comparison that
+// chip_smoke.py measures K1 against, and no path of the port calls it.
 //
 // Replaces the Pallas TPU kernel anerf_tpu/kernels/fused_render.py:
 // fused_encode_mlp_pts (kernel body _render_kernel_pts, _transform_tile,
@@ -44,14 +47,14 @@
 
 extern "C" {
 
-// Launch K1 on `stream`. Returns a cudaError_t code (0 on success).
-int anerf_fused_encode_mlp_pts(const float* pts, const float* m_all,
-                               const float* aux, const void* wts,
-                               const float* bias, const float* w_rgb,
-                               const float* w_alpha, const float* b_out,
-                               const float* cut, float* out, int P, int S,
-                               int depth, int skip_mask, int nfk, int nfv,
-                               float tau, void* stream) {
+// Launch K1-v1 on `stream`. Returns a cudaError_t code (0 on success).
+int anerf_fused_encode_mlp_pts_v1(const float* pts, const float* m_all,
+                                  const float* aux, const void* wts,
+                                  const float* bias, const float* w_rgb,
+                                  const float* w_alpha, const float* b_out,
+                                  const float* cut, float* out, int P,
+                                  int S, int depth, int skip_mask, int nfk,
+                                  int nfv, float tau, void* stream) {
   const Dims d = make_dims(nfk, nfv);
   const size_t smem = smem_bytes(d);
   cudaError_t e = cudaFuncSetAttribute(

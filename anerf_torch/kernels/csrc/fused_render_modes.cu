@@ -1,6 +1,7 @@
-// K3, K4 and K1-d: the other input modes and the staged exits of K1's
-// kernel body (fused_render_common.cuh), for Hopper (sm_90a). K1's
-// production library (fused_render.cu) stays a library of its own.
+// K3 and K4: the other input modes of K1-v1's kernel body
+// (fused_render_common.cuh), for Hopper (sm_90a). K1-v1's library
+// (fused_render.cu) stays a library of its own; K1 and its staged exits
+// (K1-d) are fused_render_sm90.cu.
 //
 // K3 replaces the Pallas TPU kernel anerf_tpu/kernels/fused_render.py:
 // fused_encode_mlp (kernel body _render_kernel): the cutoff PE and the MLP
@@ -13,28 +14,21 @@
 // _mlp_chain): the MLP alone on embedded inputs, bf16 rows of any widths
 // k0 and kv. Python side: anerf_torch/kernels/fused_mlp.py.
 //
-// K1-d replaces tools/kernel_bench.py:decompose: K1 stopped after the
-// geometry, after the PE (with accurate, stand-in or fast trig), or not at
-// all. Python side: anerf_torch/kernels/stages.py:decompose_fwd.
-//
 // What bounds them on an H100: K3 and K4 do K1's MLP, so operations (about
 // 1.03 ms of bf16 tensor-core work per 4096-ray bucket at S = 64 + 80);
 // K3 moves 752 B and K4 2,208 B a point, inputs and output (0.13 and 0.39
-// ms of HBM time per bucket), below that. The K1-d stages before the MLP are bound by
-// fp32 operations (the sincosf of the PE bands) and by the bytes of their
-// inputs; anerf_torch/kernels/roofline.py counts both.
+// ms of HBM time per bucket), below that.
 //
-// Design: the same CTA, tile, shared-memory layout and phase B as K1. K3
+// Design: the same CTA, tile, shared-memory layout and phase B as K1-v1. K3
 // replaces the transform with loads of v, r, d and fc from the point's row
 // (each load of a view channel is per point, as the TPU kernel had no ray
-// structure either). K4's phase A is a copy of the bf16 rows. The staged
-// exits write digests that a plain PyTorch version reproduces.
+// structure either). K4's phase A is a copy of the bf16 rows.
 
 #include "fused_render_common.cuh"
 
 namespace {
 
-template <int MODE, int STAGE>
+template <int MODE>
 int launch(const float* a, const float* m_all, const float* b,
            const void* wts, const float* bias, const float* w_rgb,
            const float* w_alpha, const float* b_out, const float* cut,
@@ -43,10 +37,10 @@ int launch(const float* a, const float* m_all, const float* b,
   const Dims d = body_dims<MODE>(nfk, nfv);
   const size_t smem = smem_bytes(d);
   cudaError_t e = cudaFuncSetAttribute(
-      fused_encode_mlp_pts_kernel<false, MODE, STAGE>,
+      fused_encode_mlp_pts_kernel<false, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  fused_encode_mlp_pts_kernel<false, MODE, STAGE>
+  fused_encode_mlp_pts_kernel<false, MODE>
       <<<(P + TM - 1) / TM, NTHREADS, smem, (cudaStream_t)stream>>>(
           a, m_all, b, reinterpret_cast<const bf16*>(wts), bias, w_rgb,
           w_alpha, b_out, cut, out, P, S, depth, skip_mask, nfk, nfv, tau,
@@ -66,9 +60,9 @@ int anerf_fused_encode_mlp_raw(const float* x, const void* wts,
                                const float* cut, float* out, int P,
                                int depth, int skip_mask, int nfk, int nfv,
                                float tau, void* stream) {
-  return launch<IN_RAW, ST_FULL>(x, nullptr, nullptr, wts, bias, w_rgb,
-                                 w_alpha, b_out, cut, out, P, 1, depth,
-                                 skip_mask, nfk, nfv, tau, stream);
+  return launch<IN_RAW>(x, nullptr, nullptr, wts, bias, w_rgb, w_alpha,
+                        b_out, cut, out, P, 1, depth, skip_mask, nfk, nfv,
+                        tau, stream);
 }
 
 // K4 on `stream`: x0 (P, k0) and xv (P, kv) bf16 -> out (P, 4).
@@ -77,32 +71,10 @@ int anerf_fused_mlp(const void* x0, const void* xv, const void* wts,
                     const float* w_alpha, const float* b_out, float* out,
                     int P, int depth, int skip_mask, int k0, int kv,
                     void* stream) {
-  return launch<IN_EMBEDDED, ST_FULL>(
+  return launch<IN_EMBEDDED>(
       reinterpret_cast<const float*>(x0), nullptr,
       reinterpret_cast<const float*>(xv), wts, bias, w_rgb, w_alpha, b_out,
       nullptr, out, P, 1, depth, skip_mask, k0, kv, 0.f, stream);
-}
-
-// K1-d on `stream`: K1's operands and `stage` (ST_*) -> out (P, 4), the
-// stage's digest (ST_FULL: K1's raw output, the same bits as K1).
-int anerf_fused_stage(int stage, const float* pts, const float* m_all,
-                      const float* aux, const void* wts, const float* bias,
-                      const float* w_rgb, const float* w_alpha,
-                      const float* b_out, const float* cut, float* out,
-                      int P, int S, int depth, int skip_mask, int nfk,
-                      int nfv, float tau, void* stream) {
-#define ANERF_STAGE(ST)                                                     \
-  launch<IN_PTS, ST>(pts, m_all, aux, wts, bias, w_rgb, w_alpha, b_out,     \
-                     cut, out, P, S, depth, skip_mask, nfk, nfv, tau, stream)
-  switch (stage) {
-    case ST_FULL: return ANERF_STAGE(ST_FULL);
-    case ST_TRANSFORM: return ANERF_STAGE(ST_TRANSFORM);
-    case ST_PE: return ANERF_STAGE(ST_PE);
-    case ST_PE_STANDIN: return ANERF_STAGE(ST_PE_STANDIN);
-    case ST_PE_FASTTRIG: return ANERF_STAGE(ST_PE_FASTTRIG);
-    default: return (int)cudaErrorInvalidValue;
-  }
-#undef ANERF_STAGE
 }
 
 const char* anerf_cuda_error_string(int e) {

@@ -1,0 +1,699 @@
+// K1 for Hopper (sm_90a): fused world->local transform + cutoff positional
+// encoding + NeRF MLP forward, with the MLP on wgmma and the weights staged
+// in shared memory by cluster-multicast bulk copies. Also K1-d, the same
+// kernel stopped after a stage (anerf_torch/kernels/stages.py).
+//
+// Replaces the Pallas TPU kernel anerf_tpu/kernels/fused_render.py:
+// fused_encode_mlp_pts (kernel body _render_kernel_pts, _transform_tile,
+// _forward_trace), and tools/kernel_bench.py:decompose for K1-d. Python
+// side: anerf_torch/kernels/fused_render.py (fused_encode_mlp_pts; the
+// plain version fused_encode_mlp_pts_ref; the weight image to_sm90_image).
+// The first version of this kernel (mma.sync, weights streamed from L2 per
+// CTA) stays in fused_render.cu as K1-v1, the comparison.
+//
+// What bounds it on an H100: operations. The flagship MLP is 1.728 MFLOP a
+// point, 1.03 ms of bf16 tensor-core work per 4096-ray bucket (S = 64 +
+// 80) at the 989 TFLOP/s dense peak; the points and raw outputs are 28 B a
+// point. K1-v1 read every weight (1.73 MB) from L2 once per 64-point CTA,
+// 64 FLOP per L2 byte, which L2 cannot feed at the tensor-core rate.
+//
+// Design:
+//  * A cluster of CL CTAs, each a tile of TM = 64 points and three
+//    warpgroups: two consumers and one producer.
+//  * The weights are a pre-packed image (to_sm90_image in Python): every MMA
+//    layer's (N, K) bf16 block, K padded to 64, cut into 64-deep k-slices,
+//    each slice in the shared-memory layout wgmma reads as B (K-major,
+//    128-byte swizzle), so a slice is one contiguous run of N x 128 bytes.
+//    The producer walks the image slice by slice into a ring of STAGES
+//    buffers guarded by full / empty mbarriers; each CTA of the cluster
+//    copies 1/CL of a slice with one 1-D bulk copy multicast to every CTA
+//    of the cluster, so each weight byte leaves L2 once per cluster.
+//    A stage is refilled only after every consumer warp of every CTA of
+//    the cluster has arrived on the empty barrier (remote arrives, mapa).
+//  * The consumers split each layer's N: wgmma m64n128k16 per warpgroup on
+//    the 256-wide layers, m64n64k16 on the 128-wide view layer; A is the
+//    bf16 activation tile in shared memory (the same swizzled layout),
+//    accumulators are f32 in registers. The epilogue adds the bias,
+//    applies ReLU, rounds to bf16 and writes the other activation buffer,
+//    then fence.proxy.async and a barrier before the next layer's wgmma.
+//  * Phase A (the consumers, fp32 CUDA cores; the same arithmetic as
+//    K1-v1: exact geometry, the overflow-safe window 1 / (1 + exp(tau (v -
+//    cut))), accurate sincosf and expf) writes X0 = [kp bands | bone dirs]
+//    while the producer already fills the ring. The view inputs XV are
+//    built late, after the feature layer, into X0 and the spent activation
+//    buffer (adjacent by the choice of ping-pong parity), so that the tile,
+//    two activation buffers and three 32 KB weight stages fit in 227 KB.
+//  * The 3-wide rgb and 1-wide alpha heads are fp32 dot products taken in
+//    the epilogues of the view layer and of the last trunk layer, from the
+//    bf16-rounded activations in registers: the view layer's output never
+//    reaches shared memory.
+
+#include "fused_render_common.cuh"
+
+namespace {
+
+constexpr int CL = 2;                    // CTAs per cluster
+constexpr int NCONS = 256;               // two consumer warpgroups
+constexpr int NT = NCONS + 128;          // + one producer warpgroup
+constexpr int KC = 64;                   // k-slice depth (128 bytes of bf16)
+constexpr int CHUNK = TM * KC;           // bf16 of one 64 x 64 A chunk
+constexpr int STAGES = 3;
+constexpr int STAGE_BYTES = W * KC * 2;  // one k-slice of a 256-wide layer
+constexpr int MAX_SMEM = 232448;         // an H100 block's opt-in maximum
+
+__host__ __device__ inline int chunks(int k) { return (k + KC - 1) / KC; }
+
+// 64-column chunks of X0, of XV, and of the region XV is built into
+// together with the activation buffer HA that follows it.
+struct Layout {
+  int k0c, kvc, xr;
+};
+
+__host__ __device__ inline Layout make_layout(const Dims& d) {
+  Layout l;
+  l.k0c = chunks(d.k0);
+  l.kvc = chunks(d.kv);
+  l.xr = l.k0c > l.kvc - W / KC ? l.k0c : l.kvc - W / KC;
+  return l;
+}
+
+inline size_t smem_bytes_sm90(const Layout& l) {
+  return (size_t)(l.xr + 2 * (W / KC)) * CHUNK * 2   // X0 region, HA, HB
+         + (size_t)TM * J * 4                        // windows
+         + (size_t)2 * TM * 4 * 4                    // head partials
+         + (size_t)STAGES * STAGE_BYTES + 2 * STAGES * 8
+         + 1024;                                     // alignment slack
+}
+
+// The bf16 element offset of (row r, column k) in a tile stored as
+// 64-column chunks of 64 rows x 128 bytes, each 16-byte group of a row
+// swizzled by the row (the wgmma K-major 128-byte swizzle; the buffer is
+// 1024-byte aligned).
+__device__ __forceinline__ int swz(int r, int k) {
+  return (k >> 6) * CHUNK + r * KC + ((((k >> 3) & 7) ^ (r & 7)) << 3)
+         + (k & 7);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` of barrier `bar` to complete. A
+// wait of more than about 10 s (2^34 clocks) can only be a fault of the
+// pipeline: it traps, so that the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// A warp's arrive on the barrier at the same offset in every CTA of the
+// cluster: lane c arrives on CTA c's, so the CL remote arrives go out
+// together (the default .release.cta semantics: a .cluster-scope release
+// is a fence of about 1,500 cycles, paid once per warp and k-slice).
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  const uint32_t lane = threadIdx.x & 31;
+  if (lane < CL) {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(remote)
+                 : "r"(bar), "r"(lane));
+    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+                 : "memory");
+  }
+}
+
+// `bytes` from global `src` to shared `dst` of every CTA of the cluster
+// (the same offset in each), completing on each CTA's barrier `bar`.
+__device__ __forceinline__ void bulk_multicast(uint32_t dst, const void* src,
+                                               int bytes, uint32_t bar) {
+  const uint16_t mask = (1 << CL) - 1;
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The 256 consumer threads only (named barrier 1).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NCONS) : "memory");
+}
+
+// Ordinary st.shared before wgmma's async-proxy reads of the same bytes.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+template <int NACC>
+__device__ __forceinline__ void fence_acc(float (&d)[NACC]) {
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define ANERF_F8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[64 x N] += A (desc a) B^T (desc b), bf16 operands, f32 accumulators;
+// NACC = N / 2 registers a thread.
+template <int NACC>
+__device__ __forceinline__ void wgmma(float (&d)[NACC], uint64_t a,
+                                      uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float (&d)[64], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ANERF_F8(0), ANERF_F8(8), ANERF_F8(16), ANERF_F8(24), ANERF_F8(32),
+        ANERF_F8(40), ANERF_F8(48), ANERF_F8(56)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<32>(float (&d)[32], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ANERF_F8(0), ANERF_F8(8), ANERF_F8(16), ANERF_F8(24)
+      : "l"(a), "l"(b), "r"(1));
+}
+#undef ANERF_F8
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// The ring as the consumers see it: shared addresses of the stages and of
+// the full / empty barriers, and the index of the next k-slice.
+struct Ring {
+  uint32_t stages, full, empty;
+  int it;
+};
+
+// One MMA layer of this warpgroup: d = A B^T over the k-slices of the
+// layer, A from two segments of the tile (n0 chunks at a0, then n1 chunks
+// at a1), B = this warpgroup's NACC * 2 rows of each staged slice. Each
+// slice is released (on every CTA of the cluster) once the wgmma group
+// after it has been issued and its own group has completed.
+template <int NACC>
+__device__ __forceinline__ void mma_layer(float (&d)[NACC], Ring& ring,
+                                          uint32_t a0, int n0, uint32_t a1,
+                                          int n1, int wg) {
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) d[i] = 0.f;
+  fence_acc(d);
+  wgmma_fence();
+  int prev = -1;
+#pragma unroll 1
+  for (int c = 0; c < n0 + n1; ++c, ++ring.it) {
+    const int s = ring.it % STAGES;
+    mbar_wait(ring.full + 8 * s, (ring.it / STAGES) & 1);
+    const uint32_t a = c < n0 ? a0 + c * CHUNK * 2 : a1 + (c - n0) * CHUNK * 2;
+    const uint32_t b = ring.stages + s * STAGE_BYTES + wg * NACC * 2 * 128;
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk)
+      wgmma<NACC>(d, gmma_desc(a + kk * 32), gmma_desc(b + kk * 32));
+    wgmma_commit();
+    if (prev >= 0) {
+      wgmma_wait<1>();
+      mbar_arrive_cluster(ring.empty + 8 * prev);
+    }
+    prev = s;
+  }
+  wgmma_wait<0>();
+  fence_acc(d);
+  mbar_arrive_cluster(ring.empty + 8 * prev);
+}
+
+// O[row, col] = bf16(act(d + bias)) for this thread's accumulators: in
+// warpgroup wg, warp w (of 4), lane (g = lane / 4, q = lane % 4), n8 block
+// j holds rows 16 w + g and 16 w + g + 8 at columns n0 + 8 j + 2 q, + 1.
+// With NH > 0, NH head outputs are also summed from the rounded values
+// (and O may be null: the values are then not stored): hd[h][o] is this
+// thread's part of row 16 w + g + 8 h's output o, the dot product with
+// the f32 head weights wh[o * ws + col].
+template <int NACC, int NH = 0>
+__device__ __forceinline__ void store_acc(
+    const float (&d)[NACC], const float* __restrict__ bias, bool relu,
+    bf16* O, int n0, const float* __restrict__ wh = nullptr, int ws = 0,
+    float (*hd)[NH > 0 ? NH : 1] = nullptr) {
+  const int t = threadIdx.x & 127, lane = t & 31;
+  const int r0 = (t >> 5) * 16 + (lane >> 2), q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NACC / 4; ++j) {
+    const int col = n0 + 8 * j + 2 * q;
+    const float b0 = __ldg(bias + col), b1 = __ldg(bias + col + 1);
+    float v0 = d[4 * j] + b0, v1 = d[4 * j + 1] + b1;
+    float v2 = d[4 * j + 2] + b0, v3 = d[4 * j + 3] + b1;
+    if (relu) {
+      v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f);
+      v2 = fmaxf(v2, 0.f); v3 = fmaxf(v3, 0.f);
+    }
+    const __nv_bfloat162 top = __floats2bfloat162_rn(v0, v1);
+    const __nv_bfloat162 bot = __floats2bfloat162_rn(v2, v3);
+    if constexpr (NH == 0) {
+      *reinterpret_cast<__nv_bfloat162*>(O + swz(r0, col)) = top;
+      *reinterpret_cast<__nv_bfloat162*>(O + swz(r0 + 8, col)) = bot;
+    } else {
+      if (O != nullptr) {
+        *reinterpret_cast<__nv_bfloat162*>(O + swz(r0, col)) = top;
+        *reinterpret_cast<__nv_bfloat162*>(O + swz(r0 + 8, col)) = bot;
+      }
+      const float2 a = __bfloat1622float2(top), b = __bfloat1622float2(bot);
+#pragma unroll
+      for (int o = 0; o < NH; ++o) {
+        const float w0 = __ldg(wh + o * ws + col);
+        const float w1 = __ldg(wh + o * ws + col + 1);
+        hd[0][o] = fmaf(a.y, w1, fmaf(a.x, w0, hd[0][o]));
+        hd[1][o] = fmaf(b.y, w1, fmaf(b.x, w0, hd[1][o]));
+      }
+    }
+  }
+}
+
+// The head partials of store_acc summed over the four lanes of a row and
+// stored per warpgroup: HD[(wg * TM + row) * 4 + o0 + o].
+template <int NH>
+__device__ __forceinline__ void store_heads(float (&hd)[2][NH], float* HD,
+                                            int wg, int o0) {
+  const int t = threadIdx.x & 127, lane = t & 31;
+  const int r0 = (t >> 5) * 16 + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int o = 0; o < NH; ++o) {
+      float v = hd[h][o];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      if ((lane & 3) == 0) HD[(wg * TM + r0 + 8 * h) * 4 + o0 + o] = v;
+    }
+}
+
+// Phase A2: the windowed view bands, the framecode and zero padding of
+// every row into XV (kvc chunks). A band's sin / cos depends on the ray
+// only, so it is computed once per ray of the tile, view channel and
+// block of 8 rows, and multiplied by each row's window: the same values,
+// bit for bit, as a per-point computation.
+template <int STAGE>
+__device__ __forceinline__ void build_xv(bf16* XV, const Dims& d,
+                                         const Layout& l,
+                                         const float* __restrict__ aux,
+                                         const float* W24, int row0, int P,
+                                         int S, int nfv, int tid) {
+  const int ray0 = last_row(row0, P) / S;
+  const int ray_tail = (P - 1) / S;       // rows past P recompute its point
+  const int n_items = (last_row(row0 + TM - 1, P) / S - ray0 + 1) * C72
+                      * (TM / 8);
+  for (int it = tid; it < n_items; it += NCONS) {
+    const int c = it % C72, rb = (it / C72) % (TM / 8);
+    const int ray = ray0 + it / (C72 * (TM / 8));
+    // the rows of block rb whose point lies on `ray`
+    const int lo = max(rb * 8, ray * S - row0);
+    const int hi = ray == ray_tail ? rb * 8 + 8
+                                   : min(rb * 8 + 8, (ray + 1) * S - row0);
+    if (lo >= hi) continue;
+    const float dv = aux[ray * AUXW + C72 + c];
+    for (int r = lo; r < hi; ++r)
+      XV[swz(r, c)] = __float2bfloat16_rn(dv * W24[r * J + c / 3]);
+    float f = 1.f;
+    for (int k = 0; k < nfv; ++k) {
+      float sn, cs;
+      pe_sincos<STAGE>(dv * f, &sn, &cs);
+      for (int r = lo; r < hi; ++r) {
+        const float w = W24[r * J + c / 3];
+        XV[swz(r, C72 + 2 * C72 * k + c)] = __float2bfloat16_rn(sn * w);
+        XV[swz(r, 2 * C72 + 2 * C72 * k + c)] = __float2bfloat16_rn(cs * w);
+      }
+      f *= 2.f;
+    }
+  }
+  // framecode and zero padding, 8 columns (16 bytes) a step: the bands
+  // end at 72 (1 + 2 nfv), a multiple of 8
+  const int c0 = d.kv - FC, n8 = (l.kvc * KC - c0) / 8;
+  for (int it = tid; it < TM * n8; it += NCONS) {
+    const int r = it / n8, g = it - (it / n8) * n8;
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (g < FC / 8) {
+      const float4* fc = reinterpret_cast<const float4*>(
+          aux + (last_row(row0 + r, P) / S) * AUXW + 2 * C72 + 8 * g);
+      const float4 lo = fc[0], hi = fc[1];
+      const __nv_bfloat162 q0 = __floats2bfloat162_rn(lo.x, lo.y);
+      const __nv_bfloat162 q1 = __floats2bfloat162_rn(lo.z, lo.w);
+      const __nv_bfloat162 q2 = __floats2bfloat162_rn(hi.x, hi.y);
+      const __nv_bfloat162 q3 = __floats2bfloat162_rn(hi.z, hi.w);
+      v = make_uint4(*reinterpret_cast<const uint32_t*>(&q0),
+                     *reinterpret_cast<const uint32_t*>(&q1),
+                     *reinterpret_cast<const uint32_t*>(&q2),
+                     *reinterpret_cast<const uint32_t*>(&q3));
+    }
+    *reinterpret_cast<uint4*>(XV + swz(r, c0 + 8 * g)) = v;
+  }
+}
+
+// The producer: every k-slice of the image in the consumers' order, 1/CL
+// of each by this CTA, multicast to the cluster.
+__device__ __forceinline__ void produce(const unsigned char* img,
+                                        const Layout& l, int depth,
+                                        int skip_mask, uint32_t stages,
+                                        uint32_t full, uint32_t empty) {
+  const uint32_t rank = cluster_rank();
+  size_t off = 0;
+  int it = 0;
+  for (int layer = 0; layer < depth + 2; ++layer) {
+    int nch = W / KC, bytes = STAGE_BYTES;
+    if (layer == 0) nch = l.k0c;
+    else if (layer < depth && ((skip_mask >> (layer - 1)) & 1))
+      nch = l.k0c + W / KC;
+    else if (layer == depth + 1) {
+      nch = W / KC + l.kvc;
+      bytes = WV * KC * 2;
+    }
+    const int piece = bytes / CL;
+    for (int c = 0; c < nch; ++c, ++it, off += bytes) {
+      const int s = it % STAGES;
+      mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+      mbar_expect_tx(full + 8 * s, bytes);
+      bulk_multicast(stages + s * STAGE_BYTES + rank * piece,
+                     img + off + rank * piece, piece, full + 8 * s);
+    }
+  }
+}
+
+template <int STAGE>
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 1)
+k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
+               const float* __restrict__ aux,
+               const unsigned char* __restrict__ img,
+               const float* __restrict__ bias,
+               const float* __restrict__ w_rgb,
+               const float* __restrict__ w_alpha,
+               const float* __restrict__ b_out, const float* __restrict__ cut,
+               float* __restrict__ out, int P, int S, int depth,
+               int skip_mask, int nfk, int nfv, float tau) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const Dims d = make_dims(nfk, nfv);
+  const Layout l = make_layout(d);
+  bf16* X0 = reinterpret_cast<bf16*>(base);   // kp bands | bone dirs; XV
+  bf16* HA = X0 + l.xr * CHUNK;               // activations (XV's tail)
+  bf16* HB = HA + (W / KC) * CHUNK;           // activations
+  float* W24 = reinterpret_cast<float*>(HB + (W / KC) * CHUNK);
+  float* HD = W24 + TM * J;                   // head partials per warpgroup
+  unsigned char* stage0 = reinterpret_cast<unsigned char*>(HD + 2 * TM * 4);
+  const uint32_t full = smem_u32(stage0 + STAGES * STAGE_BYTES);
+  const uint32_t empty = full + 8 * STAGES;
+  const int tid = threadIdx.x;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 8 * CL);   // every consumer warp of the cluster
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();
+
+  if (tid >= NCONS) {
+    // ---- producer warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if constexpr (STAGE == ST_FULL) {
+      if (tid == NCONS)
+        produce(img, l, depth, skip_mask, smem_u32(stage0), full, empty);
+    }
+    cluster_sync();
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+
+  // ---- phase A1: per (point, joint) geometry, window, kp bands ----
+  const int row0 = blockIdx.x * TM;
+  const int nb = J * (1 + 2 * nfk);  // first bone-direction column
+  for (int it = tid; it < TM * J; it += NCONS) {
+    const int r = it / J, j = it - (it / J) * J;
+    const int p = last_row(row0 + r, P);   // tail rows: finite dummy
+    const int ray = p / S;
+    const float x = pts[p * 3], y = pts[p * 3 + 1], z = pts[p * 3 + 2];
+    const float* m = m_all + ray * 3 * C72;
+    const float* tr = aux + ray * AUXW;
+    float q[3], ss = 0.f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int c = j * 3 + a;
+      q[a] = fmaf(m[2 * C72 + c], z, fmaf(m[C72 + c], y, m[c] * x)) + tr[c];
+      ss = fmaf(q[a], q[a], ss);
+    }
+    const float v = sqrtf(fmaxf(ss, 1e-24f));
+    const float inv = 1.f / fmaxf(v, 1e-12f);
+    if constexpr (STAGE == ST_TRANSFORM) {
+      // (v, unit dir) of this (point, joint), summed per point below
+      float* dg = reinterpret_cast<float*>(HA) + it * 4;
+      dg[0] = v;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) dg[1 + a] = q[a] * inv;
+      continue;
+    }
+    const float w = 1.f / (1.f + expf(tau * (v - cut[j])));
+    W24[r * J + j] = w;
+    X0[swz(r, j)] = __float2bfloat16_rn(v * w);
+    float f = 1.f;
+    for (int k = 0; k < nfk; ++k) {
+      float s, c;
+      pe_sincos<STAGE>(v * f, &s, &c);
+      X0[swz(r, J + 2 * J * k + j)] = __float2bfloat16_rn(s * w);
+      X0[swz(r, 2 * J + 2 * J * k + j)] = __float2bfloat16_rn(c * w);
+      f *= 2.f;
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a)
+      X0[swz(r, nb + j * 3 + a)] = __float2bfloat16_rn(q[a] * inv);
+  }
+  const int hr = tid >> 2, ho = tid & 3;   // a (row, output) per thread
+  if constexpr (STAGE == ST_TRANSFORM) {
+    // digest: out[p] = (sum_j v, sum_j r_x, sum_j r_y, sum_j r_z)
+    consumers_sync();
+    const float* dg = reinterpret_cast<const float*>(HA);
+    float s = 0.f;
+    for (int j = 0; j < J; ++j) s += dg[(hr * J + j) * 4 + ho];
+    if (row0 + hr < P) out[(size_t)(row0 + hr) * 4 + ho] = s;
+    cluster_sync();
+    return;
+  }
+  const int pad0 = l.k0c * KC - d.k0;
+  for (int it = tid; it < TM * pad0; it += NCONS)
+    X0[swz(it / pad0, d.k0 + it % pad0)] = __float2bfloat16_rn(0.f);
+  consumers_sync();
+
+  if constexpr (STAGE != ST_FULL) {
+    // digest of the MLP inputs: out[p, k] = sum of the row's X0 and XV
+    // columns c with c % 4 == k, in column order (XV is built into X0's
+    // place, so X0 is summed first)
+    float s = 0.f;
+    for (int c = ho; c < d.k0p; c += 4) s += __bfloat162float(X0[swz(hr, c)]);
+    consumers_sync();
+    build_xv<STAGE>(X0, d, l, aux, W24, row0, P, S, nfv, tid);
+    consumers_sync();
+    for (int c = ho; c < d.kvp; c += 4) s += __bfloat162float(X0[swz(hr, c)]);
+    if (row0 + hr < P) out[(size_t)(row0 + hr) * 4 + ho] = s;
+    cluster_sync();
+    return;
+  }
+
+  // ---- phase B: the MLP on wgmma, weights from the ring ----
+  fence_async_smem();
+  consumers_sync();
+  Ring ring{smem_u32(stage0), full, empty, 0};
+  const int wg = tid >> 7;
+  const uint32_t x0a = smem_u32(X0);
+  // the last trunk layer writes HA, so that XV can take X0 and HA
+  uint32_t hin = 0;
+  for (int i = 0; i < depth; ++i) {
+    bf16* hout = ((depth - 1 - i) & 1) ? HB : HA;
+    float acc[64];
+    if (i == 0)
+      mma_layer<64>(acc, ring, x0a, l.k0c, 0, 0, wg);
+    else if ((skip_mask >> (i - 1)) & 1)
+      mma_layer<64>(acc, ring, x0a, l.k0c, hin, W / KC, wg);
+    else
+      mma_layer<64>(acc, ring, hin, W / KC, 0, 0, wg);
+    if (i < depth - 1) {
+      store_acc<64>(acc, bias + i * W, true, hout, wg * 128);
+    } else {
+      // the last trunk layer also feeds the alpha head
+      float hd[2][1] = {{0.f}, {0.f}};
+      store_acc<64, 1>(acc, bias + i * W, true, hout, wg * 128, w_alpha, 0,
+                       hd);
+      store_heads<1>(hd, HD, wg, 3);
+    }
+    fence_async_smem();
+    consumers_sync();
+    hin = smem_u32(hout);
+  }
+
+  // feature layer (no activation): HA -> HB
+  {
+    float acc[64];
+    mma_layer<64>(acc, ring, hin, W / KC, 0, 0, wg);
+    store_acc<64>(acc, bias + depth * W, false, HB, wg * 128);
+    consumers_sync();   // HA is spent by both warpgroups
+  }
+
+  // ---- phase A2, late: the view inputs into X0 and HA ----
+  build_xv<STAGE>(X0, d, l, aux, W24, row0, P, S, nfv, tid);
+  fence_async_smem();
+  consumers_sync();
+
+  // view layer: [feature | view PE | framecode] -> 128, ReLU, straight
+  // into the rgb head
+  {
+    float acc[32];
+    mma_layer<32>(acc, ring, smem_u32(HB), W / KC, x0a, l.kvc, wg);
+    float hd[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
+    store_acc<32, 3>(acc, bias + (depth + 1) * W, true, nullptr, wg * 64,
+                     w_rgb, WV, hd);
+    store_heads<3>(hd, HD, wg, 0);
+    consumers_sync();
+  }
+
+  // one (row, output) a thread: the two warpgroups' halves and the bias
+  const int p = row0 + hr;
+  if (p < P)
+    out[p * 4 + ho] = HD[hr * 4 + ho] + HD[(TM + hr) * 4 + ho] + b_out[ho];
+  cluster_sync();
+}
+
+template <int STAGE>
+int launch(const float* pts, const float* m_all, const float* aux,
+           const void* img, const float* bias, const float* w_rgb,
+           const float* w_alpha, const float* b_out, const float* cut,
+           float* out, int P, int S, int depth, int skip_mask, int nfk,
+           int nfv, float tau, void* stream) {
+  const Layout l = make_layout(make_dims(nfk, nfv));
+  const size_t smem = smem_bytes_sm90(l);
+  if (smem > MAX_SMEM || depth < 1) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      k1_sm90_kernel<STAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = (P + TM - 1) / TM;
+  const int grid = (tiles + CL - 1) / CL * CL;   // whole clusters
+  k1_sm90_kernel<STAGE><<<grid, NT, smem, (cudaStream_t)stream>>>(
+      pts, m_all, aux, reinterpret_cast<const unsigned char*>(img), bias,
+      w_rgb, w_alpha, b_out, cut, out, P, S, depth, skip_mask, nfk, nfv,
+      tau);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K1 on `stream`: world points (P = R * S, 3), the per-ray m_all and aux,
+// the weight image -> raw (P, 4). Returns a cudaError_t code (0 on
+// success).
+int anerf_fused_encode_mlp_pts_sm90(const float* pts, const float* m_all,
+                                    const float* aux, const void* img,
+                                    const float* bias, const float* w_rgb,
+                                    const float* w_alpha, const float* b_out,
+                                    const float* cut, float* out, int P,
+                                    int S, int depth, int skip_mask, int nfk,
+                                    int nfv, float tau, void* stream) {
+  return launch<ST_FULL>(pts, m_all, aux, img, bias, w_rgb, w_alpha, b_out,
+                         cut, out, P, S, depth, skip_mask, nfk, nfv, tau,
+                         stream);
+}
+
+// K1-d on `stream`: K1's operands and `stage` (ST_*) -> out (P, 4), the
+// stage's digest (ST_FULL: K1's raw output, the same bits as K1).
+int anerf_fused_stage_sm90(int stage, const float* pts, const float* m_all,
+                           const float* aux, const void* img,
+                           const float* bias, const float* w_rgb,
+                           const float* w_alpha, const float* b_out,
+                           const float* cut, float* out, int P, int S,
+                           int depth, int skip_mask, int nfk, int nfv,
+                           float tau, void* stream) {
+#define ANERF_STAGE(ST)                                                     \
+  launch<ST>(pts, m_all, aux, img, bias, w_rgb, w_alpha, b_out, cut, out,   \
+             P, S, depth, skip_mask, nfk, nfv, tau, stream)
+  switch (stage) {
+    case ST_FULL: return ANERF_STAGE(ST_FULL);
+    case ST_TRANSFORM: return ANERF_STAGE(ST_TRANSFORM);
+    case ST_PE: return ANERF_STAGE(ST_PE);
+    case ST_PE_STANDIN: return ANERF_STAGE(ST_PE_STANDIN);
+    case ST_PE_FASTTRIG: return ANERF_STAGE(ST_PE_FASTTRIG);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef ANERF_STAGE
+}
+
+// CTAs per cluster of the kernel above.
+int anerf_sm90_cluster_size() { return CL; }
+
+const char* anerf_cuda_error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}
+
+}  // extern "C"

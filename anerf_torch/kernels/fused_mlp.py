@@ -1,8 +1,8 @@
 """K4: the NeRF MLP alone, fused into one kernel, on inputs that are
 already embedded (port of anerf_tpu/kernels/fused_mlp.py).
 
-`fused_mlp_apply` launches K4 (csrc/fused_render_modes.cu, K1's kernel
-body with its phase A replaced by a copy of bf16 input rows) on CUDA
+`fused_mlp_apply` launches K4 (csrc/fused_render_modes.cu, K1-v1's
+kernel body with its phase A replaced by a copy of bf16 input rows) on CUDA
 tensors and runs its plain PyTorch version, `fused_mlp_apply_ref`, on CPU
 tensors; it never falls back from one to the other. Its operands are
 K1's, packed in the tensor cores' fragment order by `pack_params` for

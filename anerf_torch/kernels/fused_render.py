@@ -1,15 +1,19 @@
 """K1, K2 and K3: the fused render kernels and the autograd.Function that
 ties K1 and K2 together (port of anerf_tpu/kernels/fused_render.py).
 
-K1 (`fused_encode_mlp_pts`, csrc/fused_render.cu) is the forward:
-world->local transform + cutoff PE + the full NeRF MLP in one kernel.
+K1 (`fused_encode_mlp_pts`, csrc/fused_render_sm90.cu) is the forward:
+world->local transform + cutoff PE + the full NeRF MLP in one kernel, on
+wgmma with the weights staged in shared memory by cluster-multicast bulk
+copies from the weight image 'img' (`to_sm90_image`). K1-v1
+(`fused_encode_mlp_pts_v1`, csrc/fused_render.cu) is its first, mma.sync
+version, kept as the comparison; no path of the port runs it.
 K2 (`fused_bwd`, csrc/fused_render_bwd.cu) is its backward with f32
 cotangent products (the JAX `bwd_f32=True` flavour). `FusedApply` /
 `fused_apply` run K1 forward and K2 backward, with gradients reaching
 the network's f32 parameter leaves, the points and the per-ray operands
 (and through `pack_ray_data` the skeleton transforms and framecodes).
-K3 (`fused_encode_mlp`, csrc/fused_render_modes.cu) is K1 without the
-transform: the cutoff PE + MLP of per-point raw inputs made by
+K3 (`fused_encode_mlp`, csrc/fused_render_modes.cu, K1-v1's body) is
+K1 without the transform: the cutoff PE + MLP of per-point raw inputs made by
 `build_raw_inputs`. The plain versions of K1, K3 and K4
 (kernels/fused_mlp.py) share one MLP (`mlp_trace`).
 
@@ -29,8 +33,10 @@ Layouts (no TPU lane padding):
 Packed weights are bf16 blocks of (out, in) = (N, K), each K padded to a
 multiple of 16 by zero columns (kp/bone input 432, already aligned at the
 flagship; view input 664 -> 672), each block stored in the tensor cores'
-B-fragment order (`to_fragment_order`) so that the kernel fetches a warp's
-weights with one coalesced 16-byte load per lane.
+B-fragment order (`to_fragment_order`, 'w': K1-v1, K2, K3, K4) so that
+the kernel fetches a warp's weights with one coalesced 16-byte load per
+lane. K1 reads its own image of the same blocks ('img', `image_index`),
+each input segment padded to a multiple of 64 (432 -> 448, 664 -> 704).
 
 Numerics: where the two JAX references round differently, the plain
 version here follows the Pallas kernel, not the XLA `_dense` path: each
@@ -65,6 +71,9 @@ KERNEL_WIDTH = 256            # trunk width the CUDA kernel is built for
 
 #: K1 launches since the last reset; the wrapper adds one per launch.
 LAUNCHES = 0
+#: K1-v1 launches since the last reset; `fused_encode_mlp_pts_v1` adds
+#: one per launch.
+V1_LAUNCHES = 0
 #: K2 launches since the last reset; `fused_bwd` adds one per launch of
 #: its kernel sequence.
 BWD_LAUNCHES = 0
@@ -76,7 +85,9 @@ RAW_LAUNCHES = 0
 BWD_CHUNK = 2048
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
-_SOURCES = {'fused_render': ('fused_render.cu', 'fused_render_common.cuh'),
+_SOURCES = {'fused_render_sm90': ('fused_render_sm90.cu',
+                                  'fused_render_common.cuh'),
+            'fused_render': ('fused_render.cu', 'fused_render_common.cuh'),
             'fused_render_bwd': ('fused_render_bwd.cu',
                                  'fused_render_common.cuh'),
             'fused_render_modes': ('fused_render_modes.cu',
@@ -87,6 +98,15 @@ _LIBS: Dict[str, Any] = {}
 
 def _rup16(n: int) -> int:
     return -(-n // 16) * 16
+
+
+#: depth of a k-slice of K1's weight image: one 128-byte swizzle row of
+#: bf16 (csrc/fused_render_sm90.cu: KC)
+SLICE_K = 64
+
+
+def _rup64(n: int) -> int:
+    return -(-n // SLICE_K) * SLICE_K
 
 
 def fused_render_supported(rcfg) -> bool:
@@ -169,18 +189,135 @@ def from_fragment_order(flat: torch.Tensor, N: int, K: int) -> torch.Tensor:
             .permute(1, 4, 2, 0, 5, 3, 6).reshape(N, K))
 
 
+def _swizzle_index(N: int, device) -> torch.Tensor:
+    """(N, 8) gather index of the 128-byte swizzle: row n keeps the 16-byte
+    group g of a k-slice at position g ^ (n % 8) (an involution)."""
+    n = torch.arange(N, device=device)[:, None]
+    return torch.arange(8, device=device)[None, :] ^ (n % 8)
+
+
+def to_sm90_image(w: torch.Tensor) -> torch.Tensor:
+    """An (N, K) weight block (N a multiple of 8, K of 64) -> its k-slices
+    as the shared-memory image wgmma reads as a K-major B operand with the
+    128-byte swizzle: per 64-deep slice, row n's 128 bytes at n * 128, its
+    16-byte group h holding columns 8 (h ^ (n % 8)) .. + 7 of the slice."""
+    N, K = w.shape
+    x = w.reshape(N, K // SLICE_K, 8, 8).permute(1, 0, 2, 3)
+    idx = _swizzle_index(N, w.device)[None, :, :, None].expand(x.shape)
+    return torch.gather(x, 2, idx).reshape(-1)
+
+
+def from_sm90_image(flat: torch.Tensor, N: int, K: int) -> torch.Tensor:
+    """Inverse of to_sm90_image: the flat slices back to (N, K)."""
+    x = flat.reshape(K // SLICE_K, N, 8, 8)
+    idx = _swizzle_index(N, flat.device)[None, :, :, None].expand(x.shape)
+    return torch.gather(x, 2, idx).permute(1, 0, 2, 3).reshape(N, K)
+
+
+def sm90_shapes(ncfg: NeRFConfig, nfk: int, nfv: int
+                ) -> List[Tuple[int, int]]:
+    """(N, K) of each block of K1's weight image, in `layer_shapes` order,
+    each input segment padded to a multiple of 64."""
+    k0, _, kv, _ = input_widths(nfk, nfv)
+    return mlp_shapes(ncfg, _rup64(k0), _rup64(kv))
+
+
+def image_slices(ncfg: NeRFConfig, nfk: int, nfv: int
+                 ) -> List[Tuple[int, int, int, int]]:
+    """(layer, slice, byte offset, bytes) of every k-slice of K1's weight
+    image, in the order its producer copies them and its consumers read
+    them: layer by layer, each layer's slices in k order."""
+    out, off = [], 0
+    for i, (n, k) in enumerate(sm90_shapes(ncfg, nfk, nfv)):
+        for s in range(k // SLICE_K):
+            out.append((i, s, off, 2 * n * SLICE_K))
+            off += 2 * n * SLICE_K
+    return out
+
+
+def _pad_segments(ncfg: NeRFConfig, i: int, w: torch.Tensor, k0p: int,
+                  kvp: int, k0q: int, kvq: int, fill) -> torch.Tensor:
+    """Layer i's (N, K) block with input segments of k0p / kvp columns
+    (`layer_shapes`) -> the same with segments of k0q / kvq columns
+    (`sm90_shapes`), the new columns set to `fill`."""
+    W = ncfg.width
+    pad = lambda n: w.new_full((w.shape[0], n), fill)
+    if i == 0:
+        return torch.cat([w, pad(k0q - k0p)], 1)
+    if i < ncfg.depth and (i - 1) in ncfg.skips:
+        return torch.cat([w[:, :k0p], pad(k0q - k0p), w[:, k0p:]], 1)
+    if i == ncfg.depth + 1:
+        return torch.cat([w, pad(kvq - kvp)], 1)
+    return w
+
+
+_IMAGE_INDEX: Dict[Any, torch.Tensor] = {}
+
+
+def image_index(ncfg: NeRFConfig, nfk: int, nfv: int, device
+                ) -> torch.Tensor:
+    """For each element of K1's weight image, the index of the same
+    weight in the fragment-order 'w', or len('w') for a padding zero
+    (cached per config and device): the image is cat([w, 0])[index]."""
+    key = (ncfg.width, ncfg.depth, tuple(ncfg.skips), nfk, nfv, str(device))
+    if key not in _IMAGE_INDEX:
+        k0, k0p, kv, kvp = input_widths(nfk, nfv)
+        n_w = sum(n * k for n, k in mlp_shapes(ncfg, k0p, kvp))
+        blocks, off = [], 0
+        for i, (n, k) in enumerate(mlp_shapes(ncfg, k0p, kvp)):
+            pos = from_fragment_order(torch.arange(off, off + n * k), n, k)
+            blocks.append(_pad_segments(ncfg, i, pos, k0p, kvp, _rup64(k0),
+                                        _rup64(kv), n_w))
+            off += n * k
+        _IMAGE_INDEX[key] = torch.cat(
+            [to_sm90_image(b) for b in blocks]).to(device)
+    return _IMAGE_INDEX[key]
+
+
+def weights_from_image(ncfg: NeRFConfig, packed: Dict[str, Any]
+                       ) -> List[torch.Tensor]:
+    """K1's weight image read slice by slice in the kernel's order
+    (`image_slices`) and cut back to the 16-padded blocks of
+    `layer_shapes`, as f32 (bf16 values): the same tensors as
+    `_weights_f32` reads from 'w'."""
+    nfk, nfv = packed['nfk'], packed['nfv']
+    k0p, kvp, W = packed['k0p'], packed['kvp'], ncfg.width
+    shapes = sm90_shapes(ncfg, nfk, nfv)
+    cols: List[List[torch.Tensor]] = [[] for _ in shapes]
+    img = packed['img']
+    for i, _, off, nbytes in image_slices(ncfg, nfk, nfv):
+        n = shapes[i][0]
+        cols[i].append(from_sm90_image(img[off // 2:(off + nbytes) // 2], n,
+                                       SLICE_K))
+    # the columns of each 16-padded block within its 64-padded block
+    k0q, kvq = shapes[0][1], shapes[-1][1] - W
+    ws = []
+    for i, c in enumerate(cols):
+        k16 = mlp_shapes(ncfg, k0p, kvp)[i][1]
+        where = _pad_segments(ncfg, i, torch.arange(k16)[None], k0p, kvp,
+                              k0q, kvq, -1)[0]
+        ws.append(torch.cat(c, 1)[:, where >= 0].float())
+    return ws
+
+
 def pack_render_params(params: Dict[str, Any], ncfg: NeRFConfig,
                        n_freq_kp: int, n_freq_view: int,
                        cutoff_dist: torch.Tensor) -> Dict[str, Any]:
     """One network's params -> the kernel's operands.
 
     'w' is every MMA layer's (N, K) bf16 block in fragment order, in
-    `layer_shapes` order; 'b' the matching f32 biases. The 3-wide rgb and
-    1-wide alpha heads run on the CUDA cores in f32 on bf16-rounded
-    weights ('w_rgb' (3, W/2), 'w_alpha' (W,), 'b_out' (4,)).
+    `layer_shapes` order; 'img' the same blocks as K1's weight image
+    (`sm90_shapes`, gathered from 'w' by `image_index`); 'b' the matching
+    f32 biases. The 3-wide rgb and 1-wide alpha heads run on the CUDA
+    cores in f32 on bf16-rounded weights ('w_rgb' (3, W/2), 'w_alpha'
+    (W,), 'b_out' (4,)).
     """
     _, k0p, _, kvp = input_widths(n_freq_kp, n_freq_view)
-    return {**pack_mlp_params(params, ncfg, k0p, kvp),
+    mlp = pack_mlp_params(params, ncfg, k0p, kvp)
+    w = mlp['w']
+    return {**mlp,
+            'img': torch.cat([w, w.new_zeros(1)])[
+                image_index(ncfg, n_freq_kp, n_freq_view, w.device)],
             'cut': cutoff_dist.reshape(-1)[:N_JOINTS].float()
             .to(cutoff_dist.device).contiguous(),
             'nfk': int(n_freq_kp), 'nfv': int(n_freq_view)}
@@ -319,14 +456,17 @@ def _weights_f32(ncfg: NeRFConfig, packed: Dict[str, Any]
 
 
 def mlp_trace(ncfg: NeRFConfig, packed: Dict[str, Any], x0: torch.Tensor,
-              xv: torch.Tensor) -> Dict[str, Any]:
+              xv: torch.Tensor, ws: List[torch.Tensor] | None = None
+              ) -> Dict[str, Any]:
     """The kernels' MLP (phase B) in plain torch, from the bf16-valued
     inputs x0 (..., k0p) and xv (..., kvp): bf16 operands, f32 products
     and accumulation, activations rounded to bf16 between layers. Keeps
     what K2 reads: every trunk activation hs[i], feat and hv (each
-    bf16-rounded, as f32), the weights and the raw output."""
+    bf16-rounded, as f32), the weights and the raw output. `ws` replaces
+    the weights read from 'w' (e.g. `weights_from_image`)."""
     W = ncfg.width
-    ws = _weights_f32(ncfg, packed)
+    if ws is None:
+        ws = _weights_f32(ncfg, packed)
     bs = list(packed['b'][:W * (ncfg.depth + 1)].split(W)) + \
         [packed['b'][W * (ncfg.depth + 1):]]
 
@@ -551,8 +691,9 @@ def fused_bwd_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
 
 
 def build_library(name: str) -> Tuple[Path, str]:
-    """Compile one kernel source ('fused_render' = K1, 'fused_render_bwd'
-    = K2 and K2-d, 'fused_render_modes' = K3, K4 and K1-d) for sm_90a
+    """Compile one kernel source ('fused_render_sm90' = K1 and K1-d,
+    'fused_render' = K1-v1, 'fused_render_bwd' = K2 and K2-d,
+    'fused_render_modes' = K3 and K4) for sm_90a
     into anerf_torch/_build/, once per version of its sources. Returns
     (library path, nvcc's messages, which include ptxas' register and
     spill report)."""
@@ -590,10 +731,19 @@ def _library(name: str):
         path, _ = build_library(name)
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        if name == 'fused_render':
-            lib.anerf_fused_encode_mlp_pts.argtypes = \
+        if name == 'fused_render_sm90':
+            lib.anerf_fused_encode_mlp_pts_sm90.argtypes = \
                 [p] * 10 + [i] * 6 + [f, p]
-            lib.anerf_fused_encode_mlp_pts.restype = i
+            lib.anerf_fused_encode_mlp_pts_sm90.restype = i
+            lib.anerf_fused_stage_sm90.argtypes = [i] + [p] * 10 + [i] * 6 \
+                + [f, p]
+            lib.anerf_fused_stage_sm90.restype = i
+            lib.anerf_sm90_cluster_size.argtypes = []
+            lib.anerf_sm90_cluster_size.restype = i
+        elif name == 'fused_render':
+            lib.anerf_fused_encode_mlp_pts_v1.argtypes = \
+                [p] * 10 + [i] * 6 + [f, p]
+            lib.anerf_fused_encode_mlp_pts_v1.restype = i
         elif name == 'fused_render_bwd':
             lib.anerf_fused_bwd.argtypes = [p] * 23 + [i] * 7 + [f, p]
             lib.anerf_fused_bwd.restype = i
@@ -606,9 +756,6 @@ def _library(name: str):
             lib.anerf_fused_encode_mlp_raw.restype = i
             lib.anerf_fused_mlp.argtypes = [p] * 8 + [i] * 5 + [p]
             lib.anerf_fused_mlp.restype = i
-            lib.anerf_fused_stage.argtypes = [i] + [p] * 10 + [i] * 6 \
-                + [f, p]
-            lib.anerf_fused_stage.restype = i
         lib.anerf_cuda_error_string.argtypes = [i]
         lib.anerf_cuda_error_string.restype = ctypes.c_char_p
         _LIBS[name] = lib
@@ -656,7 +803,7 @@ def check_kernel_operands(fn: str, ncfg: NeRFConfig,
 def _check_operands(fn: str, ncfg: NeRFConfig, packed: Dict[str, Any],
                     pts: torch.Tensor, m_all: torch.Tensor,
                     aux: torch.Tensor, S: int, **extra) -> None:
-    """`check_kernel_operands` for K1's operands (and K2's `extra`)."""
+    """`check_kernel_operands` for K1-v1's operands (and K2's `extra`)."""
     R = pts.shape[0]
     check_kernel_operands(
         fn, ncfg, packed, pts.device, R * S,
@@ -681,6 +828,43 @@ def _raise_on(lib, err: int, fn: str) -> None:
                            + lib.anerf_cuda_error_string(err).decode())
 
 
+def launch_k1(fn: str, stage: int | None, ncfg: NeRFConfig,
+              packed: Dict[str, Any], pts: torch.Tensor, m_all: torch.Tensor,
+              aux: torch.Tensor, S: int, tau) -> torch.Tensor:
+    """Launch K1 (`stage` None) or K1-d stopped after `stage` (ST_* of
+    csrc/fused_render_common.cuh) on CUDA tensors; returns raw or the
+    stage's digest (R, S, 4). Raises if the kernel cannot launch."""
+    n_img = sum(n * k for n, k in sm90_shapes(ncfg, packed['nfk'],
+                                              packed['nfv']))
+    _check_operands(fn, ncfg, packed, pts, m_all, aux, S,
+                    img=(packed['img'], (n_img,), torch.bfloat16))
+    if aux.data_ptr() % 16 or packed['img'].data_ptr() % 16:
+        raise ValueError(f'{fn}: aux and the weight image must be 16-byte '
+                         'aligned (the kernel reads them 16 bytes at a time)')
+    R = pts.shape[0]
+    out = torch.empty((R, S, 4), dtype=torch.float32, device=pts.device)
+    if R * S == 0:
+        return out
+    lib = _library('fused_render_sm90')
+    entry, head = ((lib.anerf_fused_encode_mlp_pts_sm90, ()) if stage is None
+                   else (lib.anerf_fused_stage_sm90, (stage,)))
+    with torch.cuda.device(pts.device):
+        err = entry(
+            *head, pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
+            packed['img'].data_ptr(), packed['b'].data_ptr(),
+            packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
+            packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
+            out.data_ptr(), R * S, S, ncfg.depth, skip_mask(ncfg),
+            packed['nfk'], packed['nfv'], float(tau), _stream(pts.device))
+    _raise_on(lib, err, fn)
+    return out
+
+
+def cluster_size() -> int:
+    """CTAs per cluster of K1 (csrc/fused_render_sm90.cu: CL)."""
+    return _library('fused_render_sm90').anerf_sm90_cluster_size()
+
+
 def fused_encode_mlp_pts(ncfg: NeRFConfig, packed: Dict[str, Any],
                          pts: torch.Tensor, m_all: torch.Tensor,
                          aux: torch.Tensor, S: int, tau) -> torch.Tensor:
@@ -692,22 +876,43 @@ def fused_encode_mlp_pts(ncfg: NeRFConfig, packed: Dict[str, Any],
     if pts.device.type == 'cpu':
         return fused_encode_mlp_pts_ref(ncfg, packed, pts, m_all, aux, S,
                                         tau)
-    _check_operands('fused_encode_mlp_pts', ncfg, packed, pts, m_all, aux, S)
+    out = launch_k1('fused_encode_mlp_pts', None, ncfg, packed, pts, m_all,
+                    aux, S, tau)
+    if out.numel():
+        LAUNCHES += 1
+    return out
+
+
+def fused_encode_mlp_pts_v1(ncfg: NeRFConfig, packed: Dict[str, Any],
+                            pts: torch.Tensor, m_all: torch.Tensor,
+                            aux: torch.Tensor, S: int, tau) -> torch.Tensor:
+    """K1-v1, K1's first (mma.sync) kernel, on the same operands: the
+    comparison chip_smoke.py measures K1 against. No path of the port
+    calls it.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (and raise if it cannot launch)."""
+    global V1_LAUNCHES
+    if pts.device.type == 'cpu':
+        return fused_encode_mlp_pts_ref(ncfg, packed, pts, m_all, aux, S,
+                                        tau)
+    _check_operands('fused_encode_mlp_pts_v1', ncfg, packed, pts, m_all,
+                    aux, S)
     R = pts.shape[0]
     out = torch.empty((R, S, 4), dtype=torch.float32, device=pts.device)
     if R * S == 0:
         return out
     lib = _library('fused_render')
     with torch.cuda.device(pts.device):
-        err = lib.anerf_fused_encode_mlp_pts(
+        err = lib.anerf_fused_encode_mlp_pts_v1(
             pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
             packed['w'].data_ptr(), packed['b'].data_ptr(),
             packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
             packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
             out.data_ptr(), R * S, S, ncfg.depth, skip_mask(ncfg),
             packed['nfk'], packed['nfv'], float(tau), _stream(pts.device))
-    _raise_on(lib, err, 'fused_encode_mlp_pts')
-    LAUNCHES += 1
+    _raise_on(lib, err, 'fused_encode_mlp_pts_v1')
+    V1_LAUNCHES += 1
     return out
 
 

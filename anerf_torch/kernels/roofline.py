@@ -6,10 +6,12 @@ operation and byte counts.
 prints the bound of every kernel in PERF.md's table at the flagship
 shapes (8 x 256 MLP, multires 7 / 4, framecodes; S = 64 coarse + S = 80
 fine), and of every stage of K1-d and K2-d at the kernel_bench tool's
-2048 rays. A bound is the larger of the operations over the peak rate of
-their type and the bytes over the HBM rate, each input read once and each
-output written once. chip_smoke.py takes the counts from here and applies
-them to its own run's inputs.
+2048 rays; then, beside K1's operations bound, the bytes of weights K1-v1
+and K1 read from L2 per launch (not part of any bound: L2 traffic is
+what the two designs differ in). A bound is the larger of the operations
+over the peak rate of their type and the bytes over the HBM rate, each
+input read once and each output written once. chip_smoke.py takes the
+counts from here and applies them to its own run's inputs.
 
 fp32 work outside the tensor cores is counted in FLOP at the 67 TFLOP/s
 peak (an FMA is 2 FLOP). An instruction of the special function unit
@@ -43,6 +45,13 @@ SQRT_DIV_FLOP = 40
 N_JOINTS, C72, FC = 24, 72, 16
 #: bytes of one ray's K1 operands: m_all (3 x 72) and aux (160) f32
 RAY_BYTES = 4 * (3 * C72 + 2 * C72 + FC)
+#: points per CTA of K1-v1 and K1, and CTAs per cluster of K1 (its
+#: weight copies are multicast to the cluster): csrc/fused_render_common.cuh
+#: TM, csrc/fused_render_sm90.cu CL
+K1_TM = 64
+K1_CLUSTER = 2
+#: K1's weight image pads each input segment to a multiple of this
+SLICE_K = 64
 
 
 def _mma_layers(ncfg: NeRFConfig):
@@ -53,6 +62,31 @@ def _mma_layers(ncfg: NeRFConfig):
         layers.append(((ncfg.dnet_input + W) if (i - 1) in ncfg.skips
                        else W, W))
     return layers + [(W, W), (ncfg.vnet_input, W // 2)]
+
+
+def weight_elems(ncfg: NeRFConfig, pad: int) -> int:
+    """bf16 elements of one network's MMA weight blocks with each input
+    segment (the density input, the trunk width, the view input) padded
+    to a multiple of `pad`: 16 for the fragment-order 'w' that K1-v1
+    reads, SLICE_K for K1's image."""
+    W = ncfg.width
+    up = lambda n: -(-n // pad) * pad
+    k0, kv = up(ncfg.dnet_input), up(ncfg.vnet_input - W)
+    blocks = [(k0, W)]
+    for i in range(1, ncfg.depth):
+        blocks.append(((k0 + W) if (i - 1) in ncfg.skips else W, W))
+    blocks += [(W, W), (W + kv, W // 2)]
+    return sum(k * n for k, n in blocks)
+
+
+def l2_weight_bytes(ncfg: NeRFConfig, n_points: int, pad: int,
+                    tm: int = K1_TM, cluster: int = 1) -> int:
+    """Bytes of weights one launch reads from L2 on n_points points when
+    each cluster of `cluster` CTAs of `tm` points reads every weight
+    once (K1-v1: tm 64, no cluster; K1: tm 64, K1_CLUSTER, whole
+    clusters)."""
+    n_clusters = -(-(-(-n_points // tm)) // cluster)
+    return n_clusters * 2 * weight_elems(ncfg, pad)
 
 
 def mlp_macs_per_point(ncfg: NeRFConfig) -> int:
@@ -230,9 +264,26 @@ def flagship_bounds(n_rays_fwd: int = 4096, n_rays_bwd: int = 2048,
     return out
 
 
+def l2_weight_lines(n_rays: int = 4096):
+    """K1-v1's and K1's weight bytes read from L2 on one render bucket of
+    n_rays rays (S = 64 + 80), with the MLP's FLOP per byte."""
+    ncfg = NeRFConfig(use_framecode=True, framecode_ch=16)
+    flop = 2.0 * mlp_macs_per_point(ncfg) * n_rays * (64 + 80)
+    lines = []
+    for name, pad, cluster in (('K1-v1', 16, 1), ('K1', SLICE_K, K1_CLUSTER)):
+        b = sum(l2_weight_bytes(ncfg, n_rays * S, pad, K1_TM, cluster)
+                for S in (64, 80))
+        lines.append(f'{name}: {b / 1e9:.3f} GB of weights from L2 per '
+                     f'{n_rays}-ray bucket (TM {K1_TM}, cluster {cluster}), '
+                     f'{flop / b:.1f} FLOP per L2 byte')
+    return lines
+
+
 def main() -> None:
     for kid, (ms, by, what) in flagship_bounds().items():
         print(f'{kid}: bound {ms:.4f} ms per {what} ({by})')
+    for line in l2_weight_lines():
+        print(line)
 
 
 if __name__ == '__main__':

@@ -10,8 +10,8 @@ version here (`*_ref`), which the CPU tests and chip_smoke.py hold the
 kernels to. On CPU tensors the wrappers run the plain versions; on CUDA
 tensors they launch the kernels or raise.
 
-K1-d (csrc/fused_render_modes.cu, `anerf_fused_stage`), digests of
-(R, S, 4):
+K1-d (csrc/fused_render_sm90.cu, `anerf_fused_stage_sm90`: the body of
+K1 itself), digests of (R, S, 4):
   transform    the geometry: per point (sum_j v, sum_j r_x, sum_j r_y,
                sum_j r_z) over the 24 joints' distances and unit dirs;
   pe           both PE phases, accurate sincosf: per point and k = 0..3,
@@ -42,7 +42,7 @@ from ..models.nerf import NeRFConfig
 from . import fused_render as fr
 
 #: K1-d stages, in order, with their codes in csrc/fused_render_common.cuh
-#: (ST_*).
+#: (ST_*), which csrc/fused_render_sm90.cu takes.
 FWD_STAGES = {'transform': 1, 'pe': 2, 'pe_notrig': 3, 'pe_fasttrig': 4,
               'full': 0}
 #: K2-d stages, in order, with their codes in csrc/fused_render_bwd.cu
@@ -99,22 +99,10 @@ def decompose_fwd(stage: str, ncfg: NeRFConfig, packed: Dict[str, Any],
     if pts.device.type == 'cpu':
         return decompose_fwd_ref(stage, ncfg, packed, pts, m_all, aux, S,
                                  tau)
-    fr._check_operands('decompose_fwd', ncfg, packed, pts, m_all, aux, S)
-    R = pts.shape[0]
-    out = torch.empty((R, S, 4), dtype=torch.float32, device=pts.device)
-    if R * S == 0:
-        return out
-    lib = fr._library('fused_render_modes')
-    with torch.cuda.device(pts.device):
-        err = lib.anerf_fused_stage(
-            FWD_STAGES[stage], pts.data_ptr(), m_all.data_ptr(),
-            aux.data_ptr(), packed['w'].data_ptr(), packed['b'].data_ptr(),
-            packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
-            packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
-            out.data_ptr(), R * S, S, ncfg.depth, fr.skip_mask(ncfg),
-            packed['nfk'], packed['nfv'], float(tau), fr._stream(pts.device))
-    fr._raise_on(lib, err, f'decompose_fwd({stage})')
-    FWD_LAUNCHES += 1
+    out = fr.launch_k1(f'decompose_fwd({stage})', FWD_STAGES[stage], ncfg,
+                       packed, pts, m_all, aux, S, tau)
+    if out.numel():
+        FWD_LAUNCHES += 1
     return out
 
 

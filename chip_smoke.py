@@ -6,10 +6,14 @@ Phases (any failure exits non-zero and prints no result):
   1. device: needs CUDA; prints the card and its power limit, turns TF32
      off, builds the hand-written kernels from the checkout (one nvcc per
      source, started together; sm_90a).
-  2. kernels: K1 (fused_encode_mlp_pts) against its plain PyTorch version
-     at the flagship width on one 4096-ray bucket, S = 64 and S = 80,
-     tau = 2000 and 35; error against a stated tolerance, median times
-     (CUDA events, inputs varied between reps) beside the bound. K2
+  2. kernels: K1 (fused_encode_mlp_pts, the wgmma kernel) and K1-v1 (its
+     first, mma.sync version, kept as the comparison) against their plain
+     PyTorch version and against each other at the flagship width on one
+     4096-ray bucket, S = 64 and S = 80, tau = 2000 and 35; error against
+     a stated tolerance, median times (CUDA events, inputs varied between
+     reps) of K1-v1 and K1 in turns (v1, K1, K1, v1) beside the bound and
+     beside the MLP's products as a chain of bf16 torch.matmul calls (a
+     yardstick for K1's phase B; never on the port's path). K2
      (fused_bwd) the same way on one training batch (2048 rays, S = 64 on
      the coarse net and S = 80 on the fine net), every output held against
      its plain version, and a second launch on the same inputs held to
@@ -181,6 +185,21 @@ def _bucket_inputs(torch, np, cfg, params, src, seed, R=4096):
             {'rays_d': rays_d[:, None], 'skts': skts_r, 'fc': fc})
 
 
+def _trunk_matmuls(torch, ncfg, packed, n_points):
+    """The MLP's products (every MMA layer of K1, K-padded as packed) as a
+    chain of bf16 torch.matmul calls at n_points rows, on random bf16
+    activations: returns a function that runs them."""
+    from anerf_torch.kernels import fused_render as fr
+    ws = [w.to(torch.bfloat16) for w in fr._weights_f32(ncfg, packed)]
+    xs = [torch.randn((n_points, w.shape[1]), device='cuda',
+                      dtype=torch.bfloat16) for w in ws]
+
+    def run():
+        for x, w in zip(xs, ws):
+            torch.matmul(x, w.t())
+    return run
+
+
 def kernel_phase(torch, np, cfg, params, src):
     from anerf_torch.kernels import fused_render as fr
     from anerf_torch.kernels import roofline as rf
@@ -190,62 +209,100 @@ def kernel_phase(torch, np, cfg, params, src):
     ncfg = cfg.nerf
     variants = [_bucket_inputs(torch, np, cfg, params, src, seed)
                 for seed in range(4)]
-    max_abs, rec = 0.0, {}
+    max_abs, max_v1, rec = 0.0, 0.0, {}
     for S, net in ((64, 'coarse'), (80, 'fine')):
         for tau in (2000.0, 35.0):
             pts, m_all, aux = variants[0][0][S], variants[0][1], \
                 variants[0][2]
             got = fr.fused_encode_mlp_pts(ncfg, packed[net], pts, m_all,
                                           aux, S, tau)
+            v1 = fr.fused_encode_mlp_pts_v1(ncfg, packed[net], pts, m_all,
+                                            aux, S, tau)
             torch.cuda.synchronize()
             want = fr.fused_encode_mlp_pts_ref(ncfg, packed[net], pts,
                                                m_all, aux, S, tau)
-            err = (got - want).abs()
-            rel = (err / want.abs().clamp_min(1e-6)).max().item()
-            ok = torch.allclose(got, want, atol=K1_ATOL, rtol=K1_RTOL)
-            print(f'K1 S={S} tau={tau:g}: max_abs={err.max().item():.3e} '
-                  f'mean_abs={err.mean().item():.3e} max_rel={rel:.3e} '
-                  f'|raw|max={want.abs().max().item():.3f} '
-                  f'tol atol=rtol={K1_ATOL} -> {"ok" if ok else "FAIL"}',
+            for name, out in (('K1', got), ('K1-v1', v1)):
+                err = (out - want).abs()
+                rel = (err / want.abs().clamp_min(1e-6)).max().item()
+                ok = torch.allclose(out, want, atol=K1_ATOL, rtol=K1_RTOL)
+                print(f'{name} S={S} tau={tau:g}: max_abs='
+                      f'{err.max().item():.3e} mean_abs='
+                      f'{err.mean().item():.3e} max_rel={rel:.3e} '
+                      f'|raw|max={want.abs().max().item():.3f} '
+                      f'tol atol=rtol={K1_ATOL} -> {"ok" if ok else "FAIL"}',
+                      flush=True)
+                if not (ok and torch.isfinite(out).all()):
+                    raise AssertionError(f'{name} disagrees with its plain '
+                                         f'version at S={S} tau={tau}')
+            err_v1 = (got - v1).abs().max().item()
+            ok = torch.allclose(got, v1, atol=CROSS_ATOL, rtol=CROSS_RTOL)
+            print(f'K1 vs K1-v1 S={S} tau={tau:g}: max_abs={err_v1:.3e} '
+                  f'(tol atol=rtol={CROSS_ATOL}) -> {"ok" if ok else "FAIL"}',
                   flush=True)
-            if not (ok and torch.isfinite(got).all()):
-                raise AssertionError(f'K1 disagrees with its plain version '
-                                     f'at S={S} tau={tau}')
-            max_abs = max(max_abs, err.max().item())
+            if not ok:
+                raise AssertionError(f'K1 disagrees with K1-v1 at S={S} '
+                                     f'tau={tau}')
+            max_abs = max(max_abs, (got - want).abs().max().item())
+            max_v1 = max(max_v1, err_v1)
         ins = [(ncfg, packed[net], v[0][S], v[1], v[2], S, 2000.0)
                for v in variants]
-        rec[S] = (_median_ms(fr.fused_encode_mlp_pts, ins, 21),
-                  _median_ms(fr.fused_encode_mlp_pts_ref, ins, 5))
-        print(f'K1 S={S}: kernel {rec[S][0]:.4f} ms, plain '
-              f'{rec[S][1]:.4f} ms (median, R=4096)', flush=True)
+        # in turns on the same buckets: v1, K1, K1, v1
+        turns = [_median_ms(fn, ins, 21) for fn in (
+            fr.fused_encode_mlp_pts_v1, fr.fused_encode_mlp_pts,
+            fr.fused_encode_mlp_pts, fr.fused_encode_mlp_pts_v1)]
+        trunk = _trunk_matmuls(torch, ncfg, packed[net], 4096 * S)
+        rec[S] = {'ms': (turns[1] + turns[2]) / 2,
+                  'v1_ms': (turns[0] + turns[3]) / 2, 'turns': turns,
+                  'plain_ms': _median_ms(fr.fused_encode_mlp_pts_ref, ins,
+                                         5),
+                  'trunk_ms': _median_ms(lambda: trunk(), [()], 21)}
+        del trunk
+        print(f'K1 S={S}: in turns v1 {turns[0]:.4f}, K1 {turns[1]:.4f}, '
+              f'K1 {turns[2]:.4f}, v1 {turns[3]:.4f} ms; plain '
+              f'{rec[S]["plain_ms"]:.4f} ms; the MLP as bf16 torch.matmul '
+              f'calls {rec[S]["trunk_ms"]:.4f} ms (medians, R=4096)',
+              flush=True)
 
     R = 4096
     flops = 2.0 * rf.mlp_macs_per_point(ncfg) * R * (64 + 80)
     io_bytes = (R * (64 + 80) * (12 + 16)
                 + 2 * (variants[0][1].numel() + variants[0][2].numel()) * 4
-                + _packed_bytes(torch, packed))
+                + _packed_bytes(torch, packed, skip='w'))
     bound_ms, bound_by = rf.bound_ms({
         'bf16': flops / rf.PEAK_BF16_FLOPS,
         'bytes': io_bytes / rf.PEAK_HBM_BYTES})
-    ms = rec[64][0] + rec[80][0]
+    ms = rec[64]['ms'] + rec[80]['ms']
+    v1_ms = rec[64]['v1_ms'] + rec[80]['v1_ms']
     print(f'K1 bucket (S=64 + S=80): {flops / 1e12:.4f} TFLOP, '
           f'{io_bytes / 1e6:.2f} MB -> bound {bound_ms:.4f} ms '
-          f'({bound_by}); kernel {ms:.4f} ms = {bound_ms / ms:.3f} of the '
-          f'bound', flush=True)
+          f'({bound_by}); K1 {ms:.4f} ms = {bound_ms / ms:.3f} of the '
+          f'bound; K1-v1 {v1_ms:.4f} ms = {bound_ms / v1_ms:.3f}; K1 is '
+          f'{"faster" if ms < v1_ms else "NOT faster"} than K1-v1 '
+          f'({v1_ms / ms:.3f}x)', flush=True)
+    for line in rf.l2_weight_lines(R):
+        print(f'  {line}', flush=True)
     return {'name': 'fused_encode_mlp_pts', 'route': 'cuda',
-            'source': 'anerf_torch/kernels/csrc/fused_render.cu',
+            'source': 'anerf_torch/kernels/csrc/fused_render_sm90.cu',
             'replaces': 'anerf_tpu/kernels/fused_render.py:677',
             'launches': None, 'max_abs_err': max_abs, 'ms': ms,
-            'plain_ms': rec[64][1] + rec[80][1], 'bound_ms': bound_ms,
-            'bound_by': bound_by, 'library_ms': None,
-            'ms_s64': rec[64][0], 'ms_s80': rec[80][0]}
+            'plain_ms': rec[64]['plain_ms'] + rec[80]['plain_ms'],
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
+            'ms_s64': rec[64]['ms'], 'ms_s80': rec[80]['ms'],
+            'cluster': fr.cluster_size(),
+            'trunk_library_ms': rec[64]['trunk_ms'] + rec[80]['trunk_ms'],
+            'v1': {'source': 'anerf_torch/kernels/csrc/fused_render.cu',
+                   'ms': v1_ms, 'ms_s64': rec[64]['v1_ms'],
+                   'ms_s80': rec[80]['v1_ms'], 'max_abs_vs_k1': max_v1}}
 
 
-def _packed_bytes(torch, packed):
-    """Bytes of both nets' kernel operands (weights, biases, heads)."""
+def _packed_bytes(torch, packed, skip='img'):
+    """Bytes of both nets' kernel operands (weights, biases, heads) that
+    a kernel reads: K1 reads the weight image, skip='w'; the others the
+    fragment-order weights, skip='img'."""
     return sum(t.numel() * t.element_size()
                for net in ('coarse', 'fine')
-               for t in packed[net].values() if torch.is_tensor(t))
+               for key, t in packed[net].items()
+               if torch.is_tensor(t) and key != skip)
 
 
 def k2_phase(torch, np, cfg, params, src):
@@ -510,6 +567,7 @@ def stages_phase(torch, np, cfg, params, src):
         dtype=torch.float32, device='cuda') for i in range(4)]
         for S in (64, 80)}
     w_net = _packed_bytes(torch, packed) // 2
+    w_net_k1 = _packed_bytes(torch, packed, skip='w') // 2
     dw_bytes = 4 * sum(r * c for _, r, c in fr.grad_blocks(ncfg, nfk, nfv))
     rec = {'K1-d': {st: {} for st in stages.FWD_STAGES},
            'K2-d': {st: {} for st in stages.BWD_STAGES}}
@@ -535,7 +593,7 @@ def stages_phase(torch, np, cfg, params, src):
                 raise AssertionError(f'K1-d {stage} disagrees at S={S}')
             ins = [(stage,) + a for a in k1_ins]
             bound = rf.bound_ms(rf.k1d_stage_seconds(
-                stage, ncfg, nfk, nfv, R * S, R, w_net))
+                stage, ncfg, nfk, nfv, R * S, R, w_net_k1))
             rec['K1-d'][stage][S] = (
                 _median_ms(stages.decompose_fwd, ins, 11),
                 _median_ms(stages.decompose_fwd_ref, ins, 3), bound, err)
@@ -574,7 +632,7 @@ def stages_phase(torch, np, cfg, params, src):
 
     out = []
     for kid, name, src_file, replaces in (
-            ('K1-d', 'decompose_fwd', 'fused_render_modes.cu',
+            ('K1-d', 'decompose_fwd', 'fused_render_sm90.cu',
              'tools/kernel_bench.py:194'),
             ('K2-d', 'decompose_bwd', 'fused_render_bwd.cu',
              'tools/kernel_bench.py:314')):
@@ -715,6 +773,7 @@ def slice_phase(torch, np, args, cfg, params, src, k1_bucket_ms):
     from anerf_torch.render.render_path import n_buckets_for
 
     launches = 0
+    fr.V1_LAUNCHES = 0
     for name, build in _requests(np, src):
         data = build()
         fr.LAUNCHES = 0
@@ -959,7 +1018,7 @@ def _ptxas_lines(log):
             name = m.group(1)
         elif 'spill' in line:
             spill = line.strip()
-        elif 'registers' in line:
+        elif 'Used' in line and 'registers' in line:
             kernels.append((name, f'{line.split(":", 1)[-1].strip()}; '
                                   f'{spill}'))
     names = [n for n, _ in kernels]
@@ -1000,7 +1059,11 @@ def main(argv) -> int:
         print(f'built {path.name}', flush=True)
         for line in _ptxas_lines(log):
             print(f'  ptxas: {line}', flush=True)
-    print(f'build took {time.perf_counter() - t0:.1f} s', flush=True)
+    print(f'build took {time.perf_counter() - t0:.1f} s; K1 runs clusters '
+          f'of {fr.cluster_size()} CTAs', flush=True)
+    from anerf_torch.kernels import roofline as rf
+    if fr.cluster_size() != rf.K1_CLUSTER:
+        raise AssertionError('roofline.K1_CLUSTER does not match the kernel')
 
     args, cfg, params, src = _flagship_render(torch, np)
     k1 = kernel_phase(torch, np, cfg, params, src)
@@ -1024,8 +1087,10 @@ def main(argv) -> int:
     k1['launches'] = render_k1 + train_k1
     k2['launches'] = train_k2
     print(f'launches on the main paths: K1 {render_k1} (render requests) + '
-          f'{train_k1} (train steps), K2 {train_k2} (train steps)',
-          flush=True)
+          f'{train_k1} (train steps), K2 {train_k2} (train steps), K1-v1 '
+          f'{fr.V1_LAUNCHES}', flush=True)
+    if fr.V1_LAUNCHES:
+        raise AssertionError('K1-v1 ran on the main path')
     k2['step_ms'] = step_s * 1e3
 
     print(json.dumps({'kernels': [k1, k2, k3, k4, k1d, k2d]}))

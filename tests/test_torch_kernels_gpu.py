@@ -1,14 +1,14 @@
-"""The CUDA kernels K1, K2, K3, K4, K1-d and K2-d against their plain
-PyTorch versions, on the card.
+"""The CUDA kernels K1, K1-v1, K2, K3, K4, K1-d and K2-d against their
+plain PyTorch versions, on the card.
 
 Needs a CUDA device and nvcc; skips elsewhere. This file imports neither
 JAX nor the JAX package, so it also runs on a machine without them:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 Tolerances:
-  * K1, K3 and K4, 2e-3 abs/rel: the kernel and its plain version round
-    the same activations to bf16 and differ by fp32 summation order and
-    sin/cos ulps (observed 5e-4 abs for K1 at the flagship width on an
-    H100).
+  * K1, K1-v1, K3 and K4, 2e-3 abs/rel (and K1-v1 against K1): the
+    kernel and its plain version round the same activations to bf16 and
+    differ by fp32 summation order and sin/cos ulps (observed 5e-4 abs
+    for K1-v1 at the flagship width on an H100).
   * K1-d's early stages: 1e-2 of the digest's largest value. A digest
     sums about 280 bf16 MLP inputs (or 24 geometry values) a column;
     the kernel and the plain version round an occasional input to the
@@ -74,6 +74,26 @@ def test_k1_kernel_matches_plain(cuda, R, S, tau):
     assert fr.LAUNCHES == before + 1
     want = fr.fused_encode_mlp_pts_ref(ncfg, packed, pts, m_all, aux, S, tau)
     torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('R,S,tau', [(3, 7, 35.0), (512, 80, 2000.0)])
+def test_k1_v1_kernel_matches_plain_and_k1(cuda, R, S, tau):
+    """K1-v1, kept as K1's comparison: against the plain version and
+    against K1 on the same operands, both at K1's tolerance."""
+    ncfg = _flagship_ncfg()
+    params = init_nerf_params(ncfg, torch.Generator().manual_seed(0), cuda)
+    packed = fr.pack_render_params(params, ncfg, 7, 4,
+                                   torch.full((24,), 0.5, device=cuda))
+    pts, m_all, aux = _operands(cuda, R, S, R + S)
+    before = (fr.LAUNCHES, fr.V1_LAUNCHES)
+    got = fr.fused_encode_mlp_pts_v1(ncfg, packed, pts, m_all, aux, S, tau)
+    k1 = fr.fused_encode_mlp_pts(ncfg, packed, pts, m_all, aux, S, tau)
+    torch.cuda.synchronize()
+    assert (fr.LAUNCHES, fr.V1_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    want = fr.fused_encode_mlp_pts_ref(ncfg, packed, pts, m_all, aux, S, tau)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(got, k1, atol=2e-3, rtol=2e-3)
 
 
 def _rel(got, want):
