@@ -1,7 +1,8 @@
-// Device code shared by K1 (fused_render.cu), K2 (fused_render_bwd.cu) and
-// K3, K4, K1-d (fused_render_modes.cu): the tile constants, the bf16
-// mma.sync helpers and K1's kernel body.
-// K1 instantiates the kernel with SAVE = false; K2's first pass
+// Device code shared by K1-v1 (fused_render.cu), K2-v1 (fused_render_bwd.cu)
+// and K3, K4 (fused_render_modes.cu): the tile constants, the bf16
+// mma.sync helpers and K1-v1's kernel body (K1, K2 and K1-d take the
+// constants and Dims; their kernels are the sm90 sources).
+// K1-v1 instantiates the kernel with SAVE = false; K2-v1's first pass
 // instantiates it with SAVE = true, which also writes every bf16 MLP
 // input and activation of the tile to device memory (the `act` rows the
 // backward products read). MODE and STAGE default to K1's (IN_PTS,

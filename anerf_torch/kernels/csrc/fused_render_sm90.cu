@@ -1,7 +1,9 @@
 // K1 for Hopper (sm_90a): fused world->local transform + cutoff positional
 // encoding + NeRF MLP forward, with the MLP on wgmma and the weights staged
 // in shared memory by cluster-multicast bulk copies. Also K1-d, the same
-// kernel stopped after a stage (anerf_torch/kernels/stages.py).
+// kernel stopped after a stage (anerf_torch/kernels/stages.py), and K2's
+// recompute, the same kernel also saving its bf16 MLP inputs and
+// activations (SAVE, anerf_k2_recompute_sm90; fused_render_bwd_sm90.cu).
 //
 // Replaces the Pallas TPU kernel anerf_tpu/kernels/fused_render.py:
 // fused_encode_mlp_pts (kernel body _render_kernel_pts, _transform_tile,
@@ -48,18 +50,13 @@
 //    bf16-rounded activations in registers: the view layer's output never
 //    reaches shared memory.
 
-#include "fused_render_common.cuh"
+#include "sm90_common.cuh"
 
 namespace {
 
 constexpr int CL = 2;                    // CTAs per cluster
-constexpr int NCONS = 256;               // two consumer warpgroups
-constexpr int NT = NCONS + 128;          // + one producer warpgroup
-constexpr int KC = 64;                   // k-slice depth (128 bytes of bf16)
-constexpr int CHUNK = TM * KC;           // bf16 of one 64 x 64 A chunk
 constexpr int STAGES = 3;
 constexpr int STAGE_BYTES = W * KC * 2;  // one k-slice of a 256-wide layer
-constexpr int MAX_SMEM = 232448;         // an H100 block's opt-in maximum
 
 __host__ __device__ inline int chunks(int k) { return (k + KC - 1) / KC; }
 
@@ -83,59 +80,6 @@ inline size_t smem_bytes_sm90(const Layout& l) {
          + (size_t)2 * TM * 4 * 4                    // head partials
          + (size_t)STAGES * STAGE_BYTES + 2 * STAGES * 8
          + 1024;                                     // alignment slack
-}
-
-// The bf16 element offset of (row r, column k) in a tile stored as
-// 64-column chunks of 64 rows x 128 bytes, each 16-byte group of a row
-// swizzled by the row (the wgmma K-major 128-byte swizzle; the buffer is
-// 1024-byte aligned).
-__device__ __forceinline__ int swz(int r, int k) {
-  return (k >> 6) * CHUNK + r * KC + ((((k >> 3) & 7) ^ (r & 7)) << 3)
-         + (k & 7);
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
-// 1024 bytes apart.
-__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
-         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-// Wait for the phase of parity `parity` of barrier `bar` to complete. A
-// wait of more than about 10 s (2^34 clocks) can only be a fault of the
-// pipeline: it traps, so that the launch fails instead of hanging.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  long long t0 = 0;
-  for (;;) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) t0 = clock64();
-    else if (clock64() - t0 > (1ll << 34)) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
 }
 
 // A warp's arrive on the barrier at the same offset in every CTA of the
@@ -175,75 +119,6 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
-}
-
-// The 256 consumer threads only (named barrier 1).
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(NCONS) : "memory");
-}
-
-// Ordinary st.shared before wgmma's async-proxy reads of the same bytes.
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-template <int NACC>
-__device__ __forceinline__ void fence_acc(float (&d)[NACC]) {
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-#define ANERF_F8(i)                                                        \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d[64 x N] += A (desc a) B^T (desc b), bf16 operands, f32 accumulators;
-// NACC = N / 2 registers a thread.
-template <int NACC>
-__device__ __forceinline__ void wgmma(float (&d)[NACC], uint64_t a,
-                                      uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma<64>(float (&d)[64], uint64_t a,
-                                          uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ANERF_F8(0), ANERF_F8(8), ANERF_F8(16), ANERF_F8(24), ANERF_F8(32),
-        ANERF_F8(40), ANERF_F8(48), ANERF_F8(56)
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<32>(float (&d)[32], uint64_t a,
-                                          uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ANERF_F8(0), ANERF_F8(8), ANERF_F8(16), ANERF_F8(24)
-      : "l"(a), "l"(b), "r"(1));
-}
-#undef ANERF_F8
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // The ring as the consumers see it: shared addresses of the stages and of
@@ -413,6 +288,36 @@ __device__ __forceinline__ void build_xv(bf16* XV, const Dims& d,
   }
 }
 
+// SAVE (K2's recompute): columns 0 .. ncols - 1 (a multiple of 8) of the
+// tile at `src` (swizzled 64-column chunks, rows = points) to act's feature
+// rows f0 .. f0 + ncols - 1 of this tile (make_act_rows). One
+// ldmatrix.trans per warp reads an 8-column group of four 8-point blocks
+// without bank conflicts and hands each lane two points of one column;
+// four lanes then store a 16-byte group of a feature row. (Gathering the
+// 16 bytes into one lane by shuffles first was slower on an H100.)
+__device__ __forceinline__ void save_cols(const bf16* src, int ncols,
+                                          bf16* __restrict__ act, int F,
+                                          int f0, int tile, int tid) {
+  const int warp = tid >> 5, lane = tid & 31;
+  const int n_items = (ncols / 8) * 2;
+  for (int item = warp; item < n_items; item += NCONS / 32) {
+    const int col = (item >> 1) * 8, pg0 = (item & 1) * 4;
+    const uint32_t addr =
+        smem_u32(src + swz(8 * (pg0 + (lane >> 3)) + (lane & 7), col));
+    uint32_t v[4];
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+        "[%4];\n"
+        : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+        : "r"(addr));
+    const int f = f0 + col + (lane >> 2);
+    bf16* row = act + ((size_t)tile * F + f) * KC + 2 * (lane & 3);
+#pragma unroll
+    for (int m = 0; m < 4; ++m)
+      *reinterpret_cast<uint32_t*>(row + (((pg0 + m) ^ (f & 7)) << 3)) = v[m];
+  }
+}
+
 // The producer: every k-slice of the image in the consumers' order, 1/CL
 // of each by this CTA, multicast to the cluster.
 __device__ __forceinline__ void produce(const unsigned char* img,
@@ -442,7 +347,10 @@ __device__ __forceinline__ void produce(const unsigned char* img,
   }
 }
 
-template <int STAGE>
+// SAVE (K2's recompute, STAGE == ST_FULL only) also writes every bf16 MLP
+// input and activation of the tile to `act` (save_cols); K1 itself is the
+// SAVE = false instantiation, in which every SAVE branch is compiled out.
+template <int STAGE, bool SAVE = false>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 1)
 k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
                const float* __restrict__ aux,
@@ -452,7 +360,9 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
                const float* __restrict__ w_alpha,
                const float* __restrict__ b_out, const float* __restrict__ cut,
                float* __restrict__ out, int P, int S, int depth,
-               int skip_mask, int nfk, int nfv, float tau) {
+               int skip_mask, int nfk, int nfv, float tau,
+               bf16* __restrict__ act) {
+  static_assert(!SAVE || STAGE == ST_FULL, "K2 saves K1's activations");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
@@ -565,6 +475,9 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
   // ---- phase B: the MLP on wgmma, weights from the ring ----
   fence_async_smem();
   consumers_sync();
+  const ActRows ar = make_act_rows(d, depth);
+  const bool save = SAVE && row0 < P;   // not the cluster's spare tile
+  if (save) save_cols(X0, l.k0c * KC, act, ar.F, ar.x0, blockIdx.x, tid);
   Ring ring{smem_u32(stage0), full, empty, 0};
   const int wg = tid >> 7;
   const uint32_t x0a = smem_u32(X0);
@@ -590,6 +503,7 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
     }
     fence_async_smem();
     consumers_sync();
+    if (save) save_cols(hout, W, act, ar.F, ar.h + i * W, blockIdx.x, tid);
     hin = smem_u32(hout);
   }
 
@@ -600,11 +514,13 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
     store_acc<64>(acc, bias + depth * W, false, HB, wg * 128);
     consumers_sync();   // HA is spent by both warpgroups
   }
+  if (save) save_cols(HB, W, act, ar.F, ar.feat, blockIdx.x, tid);
 
   // ---- phase A2, late: the view inputs into X0 and HA ----
   build_xv<STAGE>(X0, d, l, aux, W24, row0, P, S, nfv, tid);
   fence_async_smem();
   consumers_sync();
+  if (save) save_cols(X0, l.kvc * KC, act, ar.F, ar.xv, blockIdx.x, tid);
 
   // view layer: [feature | view PE | framecode] -> 128, ReLU, straight
   // into the rgb head
@@ -614,9 +530,14 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
     float hd[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
     store_acc<32, 3>(acc, bias + (depth + 1) * W, true, nullptr, wg * 64,
                      w_rgb, WV, hd);
+    if constexpr (SAVE) {
+      consumers_sync();   // HB is spent by both warpgroups
+      store_acc<32>(acc, bias + (depth + 1) * W, true, HB, wg * 64);
+    }
     store_heads<3>(hd, HD, wg, 0);
     consumers_sync();
   }
+  if (save) save_cols(HB, WV, act, ar.F, ar.hv, blockIdx.x, tid);
 
   // one (row, output) a thread: the two warpgroups' halves and the bias
   const int p = row0 + hr;
@@ -625,25 +546,25 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
   cluster_sync();
 }
 
-template <int STAGE>
+template <int STAGE, bool SAVE = false>
 int launch(const float* pts, const float* m_all, const float* aux,
            const void* img, const float* bias, const float* w_rgb,
            const float* w_alpha, const float* b_out, const float* cut,
            float* out, int P, int S, int depth, int skip_mask, int nfk,
-           int nfv, float tau, void* stream) {
+           int nfv, float tau, void* stream, bf16* act = nullptr) {
   const Layout l = make_layout(make_dims(nfk, nfv));
   const size_t smem = smem_bytes_sm90(l);
   if (smem > MAX_SMEM || depth < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      k1_sm90_kernel<STAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      k1_sm90_kernel<STAGE, SAVE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (P + TM - 1) / TM;
   const int grid = (tiles + CL - 1) / CL * CL;   // whole clusters
-  k1_sm90_kernel<STAGE><<<grid, NT, smem, (cudaStream_t)stream>>>(
+  k1_sm90_kernel<STAGE, SAVE><<<grid, NT, smem, (cudaStream_t)stream>>>(
       pts, m_all, aux, reinterpret_cast<const unsigned char*>(img), bias,
       w_rgb, w_alpha, b_out, cut, out, P, S, depth, skip_mask, nfk, nfv,
-      tau);
+      tau, act);
   return (int)cudaGetLastError();
 }
 
@@ -687,6 +608,23 @@ int anerf_fused_stage_sm90(int stage, const float* pts, const float* m_all,
     default: return (int)cudaErrorInvalidValue;
   }
 #undef ANERF_STAGE
+}
+
+// K2's recompute on `stream`: K1 with every bf16 MLP input and activation
+// also written to act (make_act_rows: F feature rows of 64 points per tile
+// of 64 points, for ceil(P / 64) tiles) -> raw (P, 4), the same bits as
+// K1.
+int anerf_k2_recompute_sm90(const float* pts, const float* m_all,
+                            const float* aux, const void* img,
+                            const float* bias, const float* w_rgb,
+                            const float* w_alpha, const float* b_out,
+                            const float* cut, float* out, int P, int S,
+                            int depth, int skip_mask, int nfk, int nfv,
+                            float tau, void* act, void* stream) {
+  return launch<ST_FULL, true>(pts, m_all, aux, img, bias, w_rgb, w_alpha,
+                               b_out, cut, out, P, S, depth, skip_mask, nfk,
+                               nfv, tau, stream,
+                               reinterpret_cast<bf16*>(act));
 }
 
 // CTAs per cluster of the kernel above.

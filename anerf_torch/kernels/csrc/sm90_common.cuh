@@ -1,0 +1,167 @@
+// Hopper (sm_90a) building blocks shared by K1 (fused_render_sm90.cu) and
+// K2 (fused_render_bwd_sm90.cu): the 128-byte-swizzled tile layout that
+// wgmma reads, its shared-memory descriptor, mbarrier waits and the
+// wgmma.m64n128k16 / m64n64k16 instructions with bf16 operands from shared
+// memory and f32 accumulators in registers.
+#pragma once
+
+#include "fused_render_common.cuh"
+
+namespace {
+
+constexpr int NCONS = 256;               // two consumer warpgroups
+constexpr int NT = NCONS + 128;          // + one producer warpgroup
+constexpr int KC = 64;                   // k-slice depth (128 bytes of bf16)
+constexpr int CHUNK = TM * KC;           // bf16 of one 64 x 64 A chunk
+constexpr int MAX_SMEM = 232448;         // an H100 block's opt-in maximum
+
+// The bf16 element offset of (row r, column k) in a tile stored as
+// 64-column chunks of 64 rows x 128 bytes, each 16-byte group of a row
+// swizzled by the row (the wgmma K-major 128-byte swizzle; the buffer is
+// 1024-byte aligned).
+__device__ __forceinline__ int swz(int r, int k) {
+  return (k >> 6) * CHUNK + r * KC + ((((k >> 3) & 7) ^ (r & 7)) << 3)
+         + (k & 7);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// wgmma shared-memory descriptor: K-major, 128-byte swizzle, 8-row groups
+// 1024 bytes apart.
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` of barrier `bar` to complete. A
+// wait of more than about 10 s (2^34 clocks) can only be a fault of the
+// pipeline: it traps, so that the launch fails instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  long long t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) t0 = clock64();
+    else if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// The 256 consumer threads only (named barrier 1).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(NCONS) : "memory");
+}
+
+// Ordinary st.shared before wgmma's async-proxy reads of the same bytes.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// K2's saved activations ('act', written by K1's SAVE instantiation and
+// read by K2's weight-gradient products as their B operand): per tile of
+// TM = 64 points, F feature rows of 64 points (128 bytes), the 16-byte
+// group h of feature row f holding points 8 (h ^ (f % 8)) .. + 7: the
+// K-major 128-byte swizzle with the points as k. Feature rows: x0
+// (padded to 64) | xv (padded to 64) | h_0 .. h_{depth-1} | feat | hv.
+struct ActRows {
+  int x0, xv, h, feat, hv, F;
+};
+
+__host__ __device__ inline ActRows make_act_rows(const Dims& d, int depth) {
+  ActRows a;
+  a.x0 = 0;
+  a.xv = (d.k0 + KC - 1) / KC * KC;
+  a.h = a.xv + (d.kv + KC - 1) / KC * KC;
+  a.feat = a.h + depth * W;
+  a.hv = a.feat + W;
+  a.F = a.hv + WV;
+  return a;
+}
+
+// The element offset of (point p, feature row f) in act.
+__device__ __forceinline__ size_t act_at(int p, int f, int F) {
+  return ((size_t)(p >> 6) * F + f) * KC + ((((p >> 3) & 7) ^ (f & 7)) << 3)
+         + (p & 7);
+}
+
+template <int NACC>
+__device__ __forceinline__ void fence_acc(float (&d)[NACC]) {
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define ANERF_F8(i)                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),              \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d[64 x N] += A (desc a) B^T (desc b), bf16 operands, f32 accumulators;
+// NACC = N / 2 registers a thread.
+template <int NACC>
+__device__ __forceinline__ void wgmma(float (&d)[NACC], uint64_t a,
+                                      uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float (&d)[64], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : ANERF_F8(0), ANERF_F8(8), ANERF_F8(16), ANERF_F8(24), ANERF_F8(32),
+        ANERF_F8(40), ANERF_F8(48), ANERF_F8(56)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<32>(float (&d)[32], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ANERF_F8(0), ANERF_F8(8), ANERF_F8(16), ANERF_F8(24)
+      : "l"(a), "l"(b), "r"(1));
+}
+#undef ANERF_F8
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+}  // namespace

@@ -7,8 +7,15 @@ wgmma with the weights staged in shared memory by cluster-multicast bulk
 copies from the weight image 'img' (`to_sm90_image`). K1-v1
 (`fused_encode_mlp_pts_v1`, csrc/fused_render.cu) is its first, mma.sync
 version, kept as the comparison; no path of the port runs it.
-K2 (`fused_bwd`, csrc/fused_render_bwd.cu) is its backward with f32
-cotangent products (the JAX `bwd_f32=True` flavour). `FusedApply` /
+K2 (`fused_bwd`, csrc/fused_render_bwd_sm90.cu after a recompute by K1's
+kernel with SAVE) is its backward with f32-accurate cotangent products
+(the JAX `bwd_f32=True` flavour) as split-bf16 wgmma GEMMs: the f32
+cotangent splits exactly into three bf16 planes (`split3_ref`), each
+multiplied by the bf16 weights or saved activations; the weights' second
+image 'W^T' (`t_image_index`) and the saved activations' tile layout
+(`act_image`) feed them. K2-v1 (`fused_bwd_v1`,
+csrc/fused_render_bwd.cu, f32 FMA GEMMs) is its first version, kept as
+the comparison; no path of the port runs it. `FusedApply` /
 `fused_apply` run K1 forward and K2 backward, with gradients reaching
 the network's f32 parameter leaves, the points and the per-ray operands
 (and through `pack_ray_data` the skeleton transforms and framecodes).
@@ -77,6 +84,9 @@ V1_LAUNCHES = 0
 #: K2 launches since the last reset; `fused_bwd` adds one per launch of
 #: its kernel sequence.
 BWD_LAUNCHES = 0
+#: K2-v1 launches since the last reset; `fused_bwd_v1` adds one per
+#: launch of its kernel sequence.
+BWD_V1_LAUNCHES = 0
 #: K3 launches since the last reset; `fused_encode_mlp` adds one per
 #: launch.
 RAW_LAUNCHES = 0
@@ -85,10 +95,15 @@ RAW_LAUNCHES = 0
 BWD_CHUNK = 2048
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
-_SOURCES = {'fused_render_sm90': ('fused_render_sm90.cu',
+_SOURCES = {'fused_render_sm90': ('fused_render_sm90.cu', 'sm90_common.cuh',
                                   'fused_render_common.cuh'),
             'fused_render': ('fused_render.cu', 'fused_render_common.cuh'),
+            'fused_render_bwd_sm90': ('fused_render_bwd_sm90.cu',
+                                      'sm90_common.cuh',
+                                      'fused_render_bwd_common.cuh',
+                                      'fused_render_common.cuh'),
             'fused_render_bwd': ('fused_render_bwd.cu',
+                                 'fused_render_bwd_common.cuh',
                                  'fused_render_common.cuh'),
             'fused_render_modes': ('fused_render_modes.cu',
                                    'fused_render_common.cuh')}
@@ -300,6 +315,137 @@ def weights_from_image(ncfg: NeRFConfig, packed: Dict[str, Any]
     return ws
 
 
+#: columns of a C tile of K2's products, and the row padding of the
+#: segments of its W^T image (csrc/fused_render_bwd_sm90.cu: NB)
+BWD_TILE_N = 256
+
+
+def _rup256(n: int) -> int:
+    return -(-n // BWD_TILE_N) * BWD_TILE_N
+
+
+def t_image_segments(ncfg: NeRFConfig, nfk: int, nfv: int
+                     ) -> List[Tuple[int, int, int, int, int]]:
+    """(layer, first input row, rows, padded rows, N) of every segment of
+    K2's W^T image, in order: each MMA layer's (K, N) transposed block cut
+    at its input segments (layer 0 [x0], a skip layer [x0 | h], the other
+    trunk layers and the feature layer [h], the view layer [feat | xv]),
+    each segment's rows padded to a multiple of 256."""
+    _, k0p, _, kvp = input_widths(nfk, nfv)
+    W = ncfg.width
+    out = []
+    for i, (n, _) in enumerate(mlp_shapes(ncfg, k0p, kvp)):
+        if i == 0:
+            segs = [(0, k0p)]
+        elif i < ncfg.depth and (i - 1) in ncfg.skips:
+            segs = [(0, k0p), (k0p, W)]
+        elif i == ncfg.depth + 1:
+            segs = [(0, W), (W, kvp)]
+        else:
+            segs = [(0, W)]
+        out += [(i, r0, rows, _rup256(rows), n) for r0, rows in segs]
+    return out
+
+
+_T_IMAGE_INDEX: Dict[Any, torch.Tensor] = {}
+
+
+def t_image_index(ncfg: NeRFConfig, nfk: int, nfv: int, device
+                  ) -> torch.Tensor:
+    """For each element of K2's W^T image, the index of the same weight in
+    the fragment-order 'w', or len('w') for a padding zero (cached per
+    config and device): the image is cat([w, 0])[index]. Each segment
+    (`t_image_segments`) is laid out as `to_sm90_image` lays out a block
+    of its padded rows and N columns: 64-deep k-slices over the layer's
+    outputs in the K-major 128-byte swizzle, so that a 256-row tile of a
+    k-slice is one contiguous 32 KB run."""
+    key = (ncfg.width, ncfg.depth, tuple(ncfg.skips), nfk, nfv, str(device))
+    if key not in _T_IMAGE_INDEX:
+        _, k0p, _, kvp = input_widths(nfk, nfv)
+        shapes = mlp_shapes(ncfg, k0p, kvp)
+        offs = [0]
+        for n, k in shapes:
+            offs.append(offs[-1] + n * k)
+        parts = []
+        for i, r0, rows, rpad, n in t_image_segments(ncfg, nfk, nfv):
+            k = shapes[i][1]
+            pos = from_fragment_order(torch.arange(offs[i], offs[i + 1]), n,
+                                      k).t()
+            parts.append(to_sm90_image(torch.cat(
+                [pos[r0:r0 + rows], pos.new_full((rpad - rows, n),
+                                                 offs[-1])])))
+        _T_IMAGE_INDEX[key] = torch.cat(parts).to(device)
+    return _T_IMAGE_INDEX[key]
+
+
+def weights_from_t_image(ncfg: NeRFConfig, packed: Dict[str, Any],
+                         img_t: torch.Tensor) -> List[torch.Tensor]:
+    """K2's W^T image back to the (N, K) blocks of `layer_shapes`, as f32
+    (bf16 values): the same tensors as `_weights_f32` reads from 'w'."""
+    blocks: Dict[int, List[torch.Tensor]] = {}
+    off = 0
+    for i, _, rows, rpad, n in t_image_segments(ncfg, packed['nfk'],
+                                                packed['nfv']):
+        seg = from_sm90_image(img_t[off:off + rpad * n], rpad, n)[:rows]
+        blocks.setdefault(i, []).append(seg)
+        off += rpad * n
+    return [torch.cat(blocks[i]).t().float() for i in sorted(blocks)]
+
+
+def act_rows(ncfg: NeRFConfig, nfk: int, nfv: int) -> Dict[str, int]:
+    """The feature rows of K2's saved activations (csrc/sm90_common.cuh:
+    make_act_rows): x0 and xv each padded to 64 rows, then h_0 ..
+    h_{depth-1}, feat and hv; 'F' is the rows of one tile of 64 points."""
+    k0, _, kv, _ = input_widths(nfk, nfv)
+    W = ncfg.width
+    xv = _rup64(k0)
+    h = xv + _rup64(kv)
+    feat = h + ncfg.depth * W
+    return {'x0': 0, 'xv': xv, 'h': h, 'feat': feat, 'hv': feat + W,
+            'F': feat + W + W // 2}
+
+
+def act_image(x: torch.Tensor) -> torch.Tensor:
+    """(P, F) features of P points (F a multiple of 8) -> K2's act layout,
+    flat: per tile of 64 points (the last one zero-padded), F feature rows
+    of 64 points, the 16-byte group h of row f holding points
+    8 (h ^ (f % 8)) .. + 7 (`to_sm90_image` with the points as k)."""
+    P, F = x.shape
+    T = -(-P // SLICE_K)
+    tiles = torch.cat([x, x.new_zeros((T * SLICE_K - P, F))])
+    return to_sm90_image(tiles.reshape(T, SLICE_K, F).transpose(1, 2)
+                         .reshape(T * F, SLICE_K))
+
+
+def from_act_image(flat: torch.Tensor, P: int, F: int) -> torch.Tensor:
+    """Inverse of act_image: the (P, F) features back."""
+    T = -(-P // SLICE_K)
+    return (from_sm90_image(flat[:T * F * SLICE_K], T * F, SLICE_K)
+            .reshape(T, F, SLICE_K).transpose(1, 2).reshape(-1, F)[:P])
+
+
+def split3_ref(x: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """f32 x -> bf16 (hi, mid, lo) with hi + mid + lo == x exactly, for x
+    in the normal range of bf16 with room for the two residuals
+    (csrc/fused_render_bwd_sm90.cu: split3): each term rounds what the
+    terms before it leave to the nearest bf16, and each residual is exact
+    in f32."""
+    hi = x.to(torch.bfloat16)
+    r = x - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
+def split_product_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version of K2's split product: a (M, K) f32 times b
+    (K, N) holding bf16 values, as the three bf16 planes of a
+    (`split3_ref`; lo, mid, hi) each times b, summed in f32."""
+    b = b.float()
+    hi, mid, lo = split3_ref(a.float())
+    return lo.float() @ b + mid.float() @ b + hi.float() @ b
+
+
 def pack_render_params(params: Dict[str, Any], ncfg: NeRFConfig,
                        n_freq_kp: int, n_freq_view: int,
                        cutoff_dist: torch.Tensor) -> Dict[str, Any]:
@@ -307,17 +453,19 @@ def pack_render_params(params: Dict[str, Any], ncfg: NeRFConfig,
 
     'w' is every MMA layer's (N, K) bf16 block in fragment order, in
     `layer_shapes` order; 'img' the same blocks as K1's weight image
-    (`sm90_shapes`, gathered from 'w' by `image_index`); 'b' the matching
-    f32 biases. The 3-wide rgb and 1-wide alpha heads run on the CUDA
-    cores in f32 on bf16-rounded weights ('w_rgb' (3, W/2), 'w_alpha'
-    (W,), 'b_out' (4,)).
+    (`sm90_shapes`, gathered from 'w' by `image_index`); 'img_t' K2's W^T
+    image of them (`t_image_segments`, gathered by `t_image_index`); 'b'
+    the matching f32 biases. The 3-wide rgb and 1-wide alpha heads run on
+    the CUDA cores in f32 on bf16-rounded weights ('w_rgb' (3, W/2),
+    'w_alpha' (W,), 'b_out' (4,)).
     """
     _, k0p, _, kvp = input_widths(n_freq_kp, n_freq_view)
     mlp = pack_mlp_params(params, ncfg, k0p, kvp)
-    w = mlp['w']
+    w0 = torch.cat([mlp['w'], mlp['w'].new_zeros(1)])
     return {**mlp,
-            'img': torch.cat([w, w.new_zeros(1)])[
-                image_index(ncfg, n_freq_kp, n_freq_view, w.device)],
+            'img': w0[image_index(ncfg, n_freq_kp, n_freq_view, w0.device)],
+            'img_t': w0[t_image_index(ncfg, n_freq_kp, n_freq_view,
+                                      w0.device)],
             'cut': cutoff_dist.reshape(-1)[:N_JOINTS].float()
             .to(cutoff_dist.device).contiguous(),
             'nfk': int(n_freq_kp), 'nfv': int(n_freq_view)}
@@ -691,8 +839,9 @@ def fused_bwd_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
 
 
 def build_library(name: str) -> Tuple[Path, str]:
-    """Compile one kernel source ('fused_render_sm90' = K1 and K1-d,
-    'fused_render' = K1-v1, 'fused_render_bwd' = K2 and K2-d,
+    """Compile one kernel source ('fused_render_sm90' = K1, K1-d and K2's
+    recompute, 'fused_render' = K1-v1, 'fused_render_bwd_sm90' = K2 and
+    K2-d after the recompute, 'fused_render_bwd' = K2-v1,
     'fused_render_modes' = K3 and K4) for sm_90a
     into anerf_torch/_build/, once per version of its sources. Returns
     (library path, nvcc's messages, which include ptxas' register and
@@ -740,16 +889,27 @@ def _library(name: str):
             lib.anerf_fused_stage_sm90.restype = i
             lib.anerf_sm90_cluster_size.argtypes = []
             lib.anerf_sm90_cluster_size.restype = i
+            lib.anerf_k2_recompute_sm90.argtypes = \
+                [p] * 10 + [i] * 6 + [f, p, p]
+            lib.anerf_k2_recompute_sm90.restype = i
         elif name == 'fused_render':
             lib.anerf_fused_encode_mlp_pts_v1.argtypes = \
                 [p] * 10 + [i] * 6 + [f, p]
             lib.anerf_fused_encode_mlp_pts_v1.restype = i
+        elif name == 'fused_render_bwd_sm90':
+            lib.anerf_fused_bwd_sm90.argtypes = \
+                [i, i] + [p] * 19 + [i] * 7 + [f, p]
+            lib.anerf_fused_bwd_sm90.restype = i
+            lib.anerf_split_gemm_probe.argtypes = \
+                [i, p, i, p, ctypes.c_longlong, i, i, i, i, p, i, i, i,
+                 ctypes.c_longlong, p]
+            lib.anerf_split_gemm_probe.restype = i
         elif name == 'fused_render_bwd':
             lib.anerf_fused_bwd.argtypes = [p] * 23 + [i] * 7 + [f, p]
             lib.anerf_fused_bwd.restype = i
-            lib.anerf_fused_bwd_staged.argtypes = \
-                [i] + [p] * 23 + [i] * 7 + [f, p]
-            lib.anerf_fused_bwd_staged.restype = i
+            lib.anerf_fma_gemm_probe.argtypes = [i, p, i, p, i, i, p, p, i,
+                                                 i, p]
+            lib.anerf_fma_gemm_probe.restype = i
         else:
             lib.anerf_fused_encode_mlp_raw.argtypes = \
                 [p] * 8 + [i] * 5 + [f, p]
@@ -948,60 +1108,97 @@ def fused_encode_mlp(ncfg: NeRFConfig, packed: Dict[str, Any],
     return out
 
 
-def launch_bwd(entry: str, stage: int, ncfg: NeRFConfig,
-               packed: Dict[str, Any], pts: torch.Tensor,
-               m_all: torch.Tensor, aux: torch.Tensor, S: int, tau,
-               g: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Launch K2's kernel sequence through `entry` of the K2 library
-    ('anerf_fused_bwd', or 'anerf_fused_bwd_staged' stopped after
-    `stage`) on CUDA tensors. Allocates the outputs and the scratch and
-    returns them by name: dW, dpts, dm, daux, act (the saved bf16
-    activations, 2 * (k0p + kvp + (depth + 1) W + W/2) bytes per point,
-    7,072 at the flagship), raw, dhv, dview, dh_a, dh_b, dx0, partial
-    (the f32 cotangents and the per-chunk dW partial sums)."""
-    R = pts.shape[0]
-    _check_operands(entry, ncfg, packed, pts, m_all, aux, S,
-                    g=(g, (R, S, 4), torch.float32))
-    nfk, nfv = packed['nfk'], packed['nfv']
-    _, k0p, _, kvp = input_widths(nfk, nfv)
-    W, WV, P = ncfg.width, ncfg.width // 2, R * S
-    dev = pts.device
-    n_grad = sum(r * c for _, r, c in grad_blocks(ncfg, nfk, nfv))
+def _bwd_scratch(ncfg: NeRFConfig, packed: Dict[str, Any], P: int,
+                 dev) -> Dict[str, torch.Tensor]:
+    """K2's and K2-v1's f32 cotangent buffers and per-chunk dW partials."""
+    _, k0p, _, kvp = input_widths(packed['nfk'], packed['nfv'])
+    W, WV = ncfg.width, ncfg.width // 2
+    n_grad = sum(r * c for _, r, c in grad_blocks(ncfg, packed['nfk'],
+                                                  packed['nfv']))
     f32 = dict(dtype=torch.float32, device=dev)
-    t = {'dW': torch.zeros((n_grad,), **f32),
-         'dpts': torch.zeros((R, S, 3), **f32),
-         'dm': torch.zeros((R * 3, C72), **f32),
-         'daux': torch.zeros((R, AUX_W), **f32)}
+    return {'dhv': torch.empty((P, WV), **f32),           # d hv
+            'dview': torch.empty((P, W + kvp), **f32),    # d [feat | xv]
+            'dh_a': torch.empty((P, W), **f32),           # d h, ping
+            'dh_b': torch.empty((P, W), **f32),           # d h, pong
+            'dx0': torch.empty((P, k0p), **f32),          # d x0
+            'partial': torch.empty((-(-P // BWD_CHUNK), n_grad), **f32)}
+
+
+def _bwd_outputs(ncfg: NeRFConfig, packed: Dict[str, Any], R: int, S: int,
+                 dev) -> Dict[str, torch.Tensor]:
+    n_grad = sum(r * c for _, r, c in grad_blocks(ncfg, packed['nfk'],
+                                                  packed['nfv']))
+    f32 = dict(dtype=torch.float32, device=dev)
+    return {'dW': torch.zeros((n_grad,), **f32),
+            'dpts': torch.zeros((R, S, 3), **f32),
+            'dm': torch.zeros((R * 3, C72), **f32),
+            'daux': torch.zeros((R, AUX_W), **f32)}
+
+
+def launch_bwd(stage: int, ncfg: NeRFConfig, packed: Dict[str, Any],
+               pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
+               S: int, tau, g: torch.Tensor, planes: int = 3
+               ) -> Dict[str, torch.Tensor]:
+    """Launch K2's sequence on CUDA tensors, stopped after `stage` (K2-d's
+    codes, kernels/stages.py: 0 full, 1 recompute, 2 mlp, 3 pe): K1's
+    kernel with SAVE (csrc/fused_render_sm90.cu), then the split-bf16
+    layer launches of csrc/fused_render_bwd_sm90.cu on `planes` bf16
+    planes of the cotangents (3, K2; 1, the hi plane alone, is the
+    control chip_smoke.py holds K2's accuracy limit to). Allocates the
+    outputs and the scratch and returns them by name: dW, dpts, dm, daux,
+    act (the saved bf16 activations in `act_image` layout, 2 F bytes a
+    point, 7,168 at the flagship, and one spare tile), raw, and the f32
+    cotangents dhv, dview, dh_a, dh_b, dx0 and the per-chunk dW partial
+    sums."""
+    R = pts.shape[0]
+    nfk, nfv = packed['nfk'], packed['nfv']
+    n_img = sum(n * k for n, k in sm90_shapes(ncfg, nfk, nfv))
+    n_img_t = sum(rpad * n for *_, rpad, n in t_image_segments(ncfg, nfk,
+                                                               nfv))
+    _check_operands('fused_bwd', ncfg, packed, pts, m_all, aux, S,
+                    g=(g, (R, S, 4), torch.float32),
+                    img=(packed['img'], (n_img,), torch.bfloat16),
+                    img_t=(packed['img_t'], (n_img_t,), torch.bfloat16))
+    if aux.data_ptr() % 16 or packed['img'].data_ptr() % 16 \
+            or packed['img_t'].data_ptr() % 16 or g.data_ptr() % 16:
+        raise ValueError('fused_bwd: aux, g and the weight images must be '
+                         '16-byte aligned')
+    P, dev = R * S, pts.device
+    t = _bwd_outputs(ncfg, packed, R, S, dev)
     if P == 0:
         return t
-    w32 = torch.cat([w.reshape(-1) for w in _weights_f32(ncfg, packed)])
-    n_chunk = -(-P // BWD_CHUNK)
-    t['act'] = torch.empty((P, k0p + kvp + (ncfg.depth + 1) * W + WV),
+    F = act_rows(ncfg, nfk, nfv)['F']
+    t['act'] = torch.empty(((-(-P // SLICE_K) + 1) * F * SLICE_K,),
                            dtype=torch.bfloat16, device=dev)
-    scratch = {'raw': torch.empty((P, 4), **f32),      # K1's raw output
-               'dhv': torch.empty((P, WV), **f32),     # d hv
-               'dview': torch.empty((P, W + kvp), **f32),   # d [feat | xv]
-               'dh_a': torch.empty((P, W), **f32),     # d h, ping
-               'dh_b': torch.empty((P, W), **f32),     # d h, pong
-               'dx0': torch.empty((P, k0p), **f32),    # d x0
-               'partial': torch.empty((n_chunk, n_grad), **f32)}
-    t.update(scratch)
-    lib = _library('fused_render_bwd')
-    fn = getattr(lib, entry)
-    head = (stage,) if entry == 'anerf_fused_bwd_staged' else ()
+    t['raw'] = torch.empty((P, 4), dtype=torch.float32, device=dev)
+    stream = _stream(dev)
+    lib = _library('fused_render_sm90')
     with torch.cuda.device(dev):
-        err = fn(*head,
-                 pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
-                 packed['w'].data_ptr(), packed['b'].data_ptr(),
-                 packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
-                 packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
-                 w32.data_ptr(), g.data_ptr(), t['act'].data_ptr(),
-                 *(x.data_ptr() for x in scratch.values()),
-                 t['dW'].data_ptr(), t['dpts'].data_ptr(),
-                 t['dm'].data_ptr(), t['daux'].data_ptr(),
-                 P, S, ncfg.depth, skip_mask(ncfg), nfk, nfv, BWD_CHUNK,
-                 float(tau), _stream(dev))
-    _raise_on(lib, err, entry)
+        err = lib.anerf_k2_recompute_sm90(
+            pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
+            packed['img'].data_ptr(), packed['b'].data_ptr(),
+            packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
+            packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
+            t['raw'].data_ptr(), P, S, ncfg.depth, skip_mask(ncfg), nfk,
+            nfv, float(tau), t['act'].data_ptr(), stream)
+    _raise_on(lib, err, 'fused_bwd (recompute)')
+    if stage == 1:
+        return t
+    scratch = _bwd_scratch(ncfg, packed, P, dev)
+    t.update(scratch)
+    lib = _library('fused_render_bwd_sm90')
+    with torch.cuda.device(dev):
+        err = lib.anerf_fused_bwd_sm90(
+            stage, planes, pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
+            packed['cut'].data_ptr(), packed['img_t'].data_ptr(),
+            t['act'].data_ptr(),
+            g.data_ptr(), packed['w_rgb'].data_ptr(),
+            packed['w_alpha'].data_ptr(),
+            *(x.data_ptr() for x in scratch.values()),
+            t['dW'].data_ptr(), t['dpts'].data_ptr(), t['dm'].data_ptr(),
+            t['daux'].data_ptr(), P, S, ncfg.depth, skip_mask(ncfg), nfk,
+            nfv, BWD_CHUNK, float(tau), stream)
+    _raise_on(lib, err, 'fused_bwd')
     return t
 
 
@@ -1014,16 +1211,147 @@ def fused_bwd(ncfg: NeRFConfig, packed: Dict[str, Any], pts: torch.Tensor,
     dm_all (R*3, 72), daux (R, 160)), all f32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    sequence of csrc/fused_render_bwd.cu (and raise if it cannot launch),
-    with the scratch `launch_bwd` allocates."""
+    sequence (`launch_bwd`; it raises if a kernel cannot launch)."""
     global BWD_LAUNCHES
     if pts.device.type == 'cpu':
         return fused_bwd_ref(ncfg, packed, pts, m_all, aux, S, tau, g)
-    t = launch_bwd('anerf_fused_bwd', 0, ncfg, packed, pts, m_all, aux, S,
-                   tau, g)
+    t = launch_bwd(0, ncfg, packed, pts, m_all, aux, S, tau, g)
     if pts.shape[0] * S:
         BWD_LAUNCHES += 1
     return t['dW'], t['dpts'], t['dm'], t['daux']
+
+
+def fused_bwd_v1(ncfg: NeRFConfig, packed: Dict[str, Any],
+                 pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
+                 S: int, tau, g: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """K2-v1, K2's first kernel sequence (K1-v1's body saving activations,
+    f32 FMA GEMMs, csrc/fused_render_bwd.cu), on the same operands and
+    with the same outputs: the comparison chip_smoke.py measures K2
+    against. No path of the port calls it.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    sequence (and raise if it cannot launch)."""
+    global BWD_V1_LAUNCHES
+    if pts.device.type == 'cpu':
+        return fused_bwd_ref(ncfg, packed, pts, m_all, aux, S, tau, g)
+    R = pts.shape[0]
+    _check_operands('fused_bwd_v1', ncfg, packed, pts, m_all, aux, S,
+                    g=(g, (R, S, 4), torch.float32))
+    _, k0p, _, kvp = input_widths(packed['nfk'], packed['nfv'])
+    W, P, dev = ncfg.width, R * S, pts.device
+    t = _bwd_outputs(ncfg, packed, R, S, dev)
+    if P == 0:
+        return t['dW'], t['dpts'], t['dm'], t['daux']
+    w32 = torch.cat([w.reshape(-1) for w in _weights_f32(ncfg, packed)])
+    act = torch.empty((P, k0p + kvp + (ncfg.depth + 1) * W + W // 2),
+                      dtype=torch.bfloat16, device=dev)
+    scratch = {'raw': torch.empty((P, 4), dtype=torch.float32, device=dev),
+               **_bwd_scratch(ncfg, packed, P, dev)}
+    lib = _library('fused_render_bwd')
+    with torch.cuda.device(dev):
+        err = lib.anerf_fused_bwd(
+            pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
+            packed['w'].data_ptr(), packed['b'].data_ptr(),
+            packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
+            packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
+            w32.data_ptr(), g.data_ptr(), act.data_ptr(),
+            *(x.data_ptr() for x in scratch.values()),
+            t['dW'].data_ptr(), t['dpts'].data_ptr(), t['dm'].data_ptr(),
+            t['daux'].data_ptr(), P, S, ncfg.depth, skip_mask(ncfg),
+            packed['nfk'], packed['nfv'], BWD_CHUNK, float(tau),
+            _stream(dev))
+    _raise_on(lib, err, 'fused_bwd_v1')
+    BWD_V1_LAUNCHES += 1
+    return t['dW'], t['dpts'], t['dm'], t['daux']
+
+
+def split_gemm_probe(kind: str, dy: torch.Tensor, b: torch.Tensor
+                     ) -> torch.Tensor:
+    """One of K2's split products alone, the way K2's layer launches run
+    it, for the tests and chip_smoke.py: 'dx': dy (P, N) f32 times b
+    (N, K), weights holding bf16 values -> (P, K); 'dw': b (P, K),
+    activations holding bf16 values, transposed times dy -> (K + 1, N),
+    the last row the column sums of dy (the bias gradient), with the
+    kernel's per-chunk partial sums added in chunk order. N is a multiple
+    of 64.
+
+    CPU tensors take the plain version (`split_product_ref`); CUDA
+    tensors launch the kernel (and raise if it cannot launch)."""
+    if kind not in ('dx', 'dw'):
+        raise ValueError(f'split_gemm_probe: unknown kind {kind!r}')
+    P, N = dy.shape
+    K = b.shape[1]
+    if dy.device.type == 'cpu':
+        if kind == 'dx':
+            return split_product_ref(dy, b)
+        return torch.cat([split_product_ref(dy.t(), b).t(),
+                          dy.sum(0, keepdim=True)])
+    if N % SLICE_K or dy.dtype != torch.float32 or not dy.is_contiguous():
+        raise ValueError('split_gemm_probe: dy must be a contiguous f32 '
+                         '(P, N) with N a multiple of 64')
+    bf, Kp = torch.bfloat16, _rup256(K)
+    f32 = dict(dtype=torch.float32, device=dy.device)
+    lib = _library('fused_render_bwd_sm90')
+    if kind == 'dx':
+        img = to_sm90_image(torch.cat([b.t(), b.new_zeros((Kp - K, N))])
+                            .to(bf).contiguous())
+        out = torch.empty((P, K), **f32)
+        args = (0, dy.data_ptr(), N, img.data_ptr(), Kp * SLICE_K,
+                N // SLICE_K, 1, Kp // BWD_TILE_N, K, out.data_ptr(), K, P,
+                BWD_CHUNK, 0)
+    else:
+        img = act_image(torch.cat([b, b.new_zeros((P, Kp - K))], 1).to(bf))
+        out = torch.empty((-(-P // BWD_CHUNK), K + 1, N), **f32)
+        args = (1, dy.data_ptr(), N, img.data_ptr(), Kp * SLICE_K, 0,
+                N // SLICE_K, Kp // BWD_TILE_N, K, out.data_ptr(), N, P,
+                BWD_CHUNK, (K + 1) * N)
+    with torch.cuda.device(dy.device):
+        err = lib.anerf_split_gemm_probe(*args, _stream(dy.device))
+    _raise_on(lib, err, 'split_gemm_probe')
+    if kind == 'dx':
+        return out
+    total = out[0].clone()
+    for c in range(1, out.shape[0]):
+        total += out[c]
+    return total
+
+
+def fma_gemm_probe(kind: str, dy: torch.Tensor, b: torch.Tensor
+                   ) -> torch.Tensor:
+    """`split_gemm_probe`'s products through K2-v1's f32 FMA GEMM (the
+    accuracy chip_smoke.py holds the split products to): 'dx' dy (P, N)
+    times b (N, K) -> (P, K); 'dw' b (P, K) transposed times dy, then the
+    column sums of dy -> (K + 1, N).
+
+    CPU tensors take the plain version (f32 products); CUDA tensors
+    launch the kernel (and raise if it cannot launch)."""
+    if kind not in ('dx', 'dw'):
+        raise ValueError(f'fma_gemm_probe: unknown kind {kind!r}')
+    P, N = dy.shape
+    K = b.shape[1]
+    if dy.device.type == 'cpu':
+        if kind == 'dx':
+            return dy @ b.float()
+        return torch.cat([b.float().t() @ dy, dy.sum(0, keepdim=True)])
+    f32 = dict(dtype=torch.float32, device=dy.device)
+    lib = _library('fused_render_bwd')
+    if kind == 'dx':
+        bb, out, part = b.float().contiguous(), torch.empty((P, K), **f32), \
+            None
+        args = (0, dy.data_ptr(), N, bb.data_ptr(), N, K, out.data_ptr(),
+                None, P, BWD_CHUNK)
+    else:
+        bb = b.to(torch.bfloat16).contiguous()
+        out = torch.empty((K + 1, N), **f32)
+        part = torch.empty((-(-P // BWD_CHUNK), (K + 1) * N), **f32)
+        args = (1, dy.data_ptr(), N, bb.data_ptr(), K, N, out.data_ptr(),
+                part.data_ptr(), P, BWD_CHUNK)
+    with torch.cuda.device(dy.device):
+        err = lib.anerf_fma_gemm_probe(*args, _stream(dy.device))
+    _raise_on(lib, err, 'fma_gemm_probe')
+    return out
 
 
 def _net_leaves(ncfg: NeRFConfig, net: Dict[str, Any]

@@ -8,11 +8,17 @@ shapes (8 x 256 MLP, multires 7 / 4, framecodes; S = 64 coarse + S = 80
 fine), and of every stage of K1-d and K2-d at the kernel_bench tool's
 2048 rays; then, beside K1's operations bound, the bytes of weights K1-v1
 and K1 read from L2 per launch (not part of any bound: L2 traffic is
-what the two designs differ in). A bound is the larger of the operations
+what the two designs differ in), and beside K2's the bytes its
+layer-by-layer design moves through HBM in a train step and its old
+fp32-FMA bound (history). A bound is the larger of the operations
 over the peak rate of their type and the bytes over the HBM rate, each
 input read once and each output written once. chip_smoke.py takes the
 counts from here and applies them to its own run's inputs.
 
+K2's cotangent products are counted at the rate of the least arithmetic
+that keeps f32 accuracy: one operand of each is exactly bf16 and the f32
+cotangent splits exactly into SPLIT_PASSES bf16 terms, so they are that
+many bf16 products at the bf16 peak (K2-v1 ran them as f32 FMAs).
 fp32 work outside the tensor cores is counted in FLOP at the 67 TFLOP/s
 peak (an FMA is 2 FLOP). An instruction of the special function unit
 (MUFU: ex2, rcp, rsqrt, sin, cos) counts 16 FLOP: an SM executes 16 of
@@ -96,6 +102,10 @@ def mlp_macs_per_point(ncfg: NeRFConfig) -> int:
     return sum(k * n for k, n in _mma_layers(ncfg)) + (W // 2) * 3 + W
 
 
+#: bf16 terms of an f32 cotangent (hi + mid + lo): K2's passes per product
+SPLIT_PASSES = 3
+
+
 def bwd_f32_macs_per_point(ncfg: NeRFConfig) -> int:
     """f32 multiply-adds of K2's cotangent products per point: dX = dY W
     and dW = X^T dY for every MMA layer (layer 0's input gradient
@@ -151,9 +161,11 @@ def bound_ms(times_s) -> tuple:
 
 
 def act_bytes_per_point(ncfg: NeRFConfig, k0p: int, kvp: int) -> int:
-    """K2's saved bf16 MLP inputs and activations per point."""
+    """K2's saved bf16 MLP inputs and activations per point (its recompute
+    pads the two inputs to 64 columns)."""
     W = ncfg.width
-    return 2 * (k0p + kvp + (ncfg.depth + 1) * W + W // 2)
+    up = lambda n: -(-n // SLICE_K) * SLICE_K
+    return 2 * (up(k0p) + up(kvp) + (ncfg.depth + 1) * W + W // 2)
 
 
 def k1d_stage_seconds(stage: str, ncfg: NeRFConfig, nfk: int, nfv: int,
@@ -186,7 +198,8 @@ def k2d_stage_seconds(stage: str, ncfg: NeRFConfig, nfk: int, nfv: int,
     writes the stage's outputs: raw and the saved activations
     (recompute); dW and the MLP inputs' f32 cotangents (mlp); dW and a
     3-float digest a point (pe); dW, dpts and the per-ray dm_all and
-    daux (full)."""
+    daux (full). The cotangent products count as SPLIT_PASSES bf16
+    products each; 'full' is K2's bound."""
     P = n_points
     fp32 = (transform_flop_per_point() + pe_flop_per_point(nfk, nfv)) * P
     n_in = (12 + (16 if stage != 'recompute' else 0)) * P \
@@ -195,15 +208,78 @@ def k2d_stage_seconds(stage: str, ncfg: NeRFConfig, nfk: int, nfv: int,
              'mlp': dw_bytes + 4 * (k0p + kvp) * P,
              'pe': dw_bytes + 12 * P,
              'full': dw_bytes + 12 * P + RAY_BYTES * n_rays}[stage]
+    bf16 = 2.0 * mlp_macs_per_point(ncfg) * P
     if stage != 'recompute':
-        fp32 += 2.0 * bwd_f32_macs_per_point(ncfg) * P
+        bf16 += SPLIT_PASSES * 2.0 * bwd_f32_macs_per_point(ncfg) * P
     if stage in ('pe', 'full'):
         fp32 += pe_bwd_flop_per_point(nfk, nfv) * P
     if stage == 'full':
         fp32 += transform_bwd_flop_per_point() * P
     return {'fp32': fp32 / PEAK_FP32_FLOPS,
-            'bf16': 2.0 * mlp_macs_per_point(ncfg) * P / PEAK_BF16_FLOPS,
+            'bf16': bf16 / PEAK_BF16_FLOPS,
             'bytes': (n_in + n_out) / PEAK_HBM_BYTES}
+
+
+def k2_fp32_ms(ncfg: NeRFConfig, n_points: int) -> float:
+    """History: K2's cotangent products as f32 FMAs at the 67 TFLOP/s
+    fp32 peak (K2-v1's design, and K2's bound until the split products),
+    ms on n_points points."""
+    return 2.0 * bwd_f32_macs_per_point(ncfg) * n_points / PEAK_FP32_FLOPS \
+        * 1e3
+
+
+def k2_design_bytes(ncfg: NeRFConfig, nfk: int, nfv: int, n_points: int,
+                    chunk: int = 2048) -> int:
+    """HBM bytes K2's layer-by-layer sequence moves on n_points points of
+    one net, with every tensor read from HBM as often as the design reads
+    it (none from L2): the recompute writes the saved activations (2 F a
+    point, `act_rows`) and raw; the heads read g, hv and the last trunk
+    activation and write dhv; each MMA layer reads its f32 cotangent dY
+    twice (the dW and dX roles), its input activations (dW's B) and the
+    masks, and writes its input's f32 cotangent (dx0's second writer
+    reads it first); the dW partial sums are written and read once per
+    chunk; the PE backward reads the points, dx0 and dxv and writes dpts."""
+    W, WV = ncfg.width, ncfg.width // 2
+    k0 = N_JOINTS * (1 + 2 * nfk) + C72
+    kv = C72 * (1 + 2 * nfv) + FC
+    up = lambda n, m: -(-n // m) * m
+    k0p, kvp = up(k0, 16), up(kv, 16)
+    F = up(k0, 64) + up(kv, 64) + (ncfg.depth + 1) * W + WV
+    per = 12 + 2 * F + 16                              # recompute
+    per += 16 + 2 * (WV + W) + 4 * WV                  # heads
+    layers = [(k0p, W)] + [((k0p + W) if (i - 1) in ncfg.skips else W, W)
+                           for i in range(1, ncfg.depth)]
+    layers += [(W, W), (W + kvp, WV)]
+    for i, (k, n) in enumerate(layers):
+        per += 2 * 4 * n + 2 * k + 4 * k
+        if 0 < i <= ncfg.depth:                        # masked input h
+            per += 2 * W
+    per += 4 * k0p                                     # dx0 accumulate
+    per += 12 + 4 * (k0p + kvp) + 12                   # PE backward
+    n_grad = sum((k + 1) * n for k, n in layers) + (WV + 1) * 3 + W + 1
+    return per * n_points + 2 * 4 * n_grad * -(-n_points // chunk)
+
+
+def k2_seconds(ncfg: NeRFConfig, nfk: int, nfv: int, n_points_by_net,
+               n_rays: int, w_bytes: int, dw_bytes: int) -> dict:
+    """{kind: seconds at its peak} of K2 on one train step: one launch per
+    net on that net's points (n_points_by_net), n_rays rays, w_bytes of
+    both nets' packed operands, dw_bytes of one net's dW. The sum of
+    `k2d_stage_seconds('full', ...)` over the nets."""
+    k0p, kvp = input_pads(nfk, nfv)
+    out: dict = {}
+    for P in n_points_by_net:
+        for kind, t in k2d_stage_seconds('full', ncfg, nfk, nfv, k0p, kvp, P,
+                                         n_rays, w_bytes // 2,
+                                         dw_bytes).items():
+            out[kind] = out.get(kind, 0.0) + t
+    return out
+
+
+def input_pads(nfk: int, nfv: int) -> tuple:
+    """(k0p, kvp): the MLP inputs' widths padded to 16."""
+    up = lambda n: -(-n // 16) * 16
+    return (up(N_JOINTS * (1 + 2 * nfk) + C72), up(C72 * (1 + 2 * nfv) + FC))
 
 
 def flagship_bounds(n_rays_fwd: int = 4096, n_rays_bwd: int = 2048,
@@ -240,15 +316,10 @@ def flagship_bounds(n_rays_fwd: int = 4096, n_rays_bwd: int = 2048,
         if kid == 'K4':
             del times['fp32']                           # no PE
         out[kid] = bound_ms(times) + (f'{n_rays_fwd}-ray bucket',)
-    Pb = n_rays_bwd * (64 + 80)
     n_grad = 2 * 4 * sum((k + 1) * n for k, n in _mma_layers(ncfg))
-    n_bytes = (Pb * (12 + 16 + 12) + 2 * 2 * n_rays_bwd * RAY_BYTES
-               + w_bytes + n_grad)
-    out['K2'] = bound_ms({
-        'fp32': 2.0 * bwd_f32_macs_per_point(ncfg) * Pb / PEAK_FP32_FLOPS,
-        'bf16': 2.0 * mlp_macs_per_point(ncfg) * Pb / PEAK_BF16_FLOPS,
-        'bytes': n_bytes / PEAK_HBM_BYTES}) + (
-        f'{n_rays_bwd}-ray train step',)
+    out['K2'] = bound_ms(k2_seconds(
+        ncfg, nfk, nfv, (n_rays_bwd * 64, n_rays_bwd * 80), n_rays_bwd,
+        w_bytes, n_grad // 2)) + (f'{n_rays_bwd}-ray train step',)
     R = n_rays_stages
     what = f'{R} rays, S = 64 + 80'
     for stage in ('transform', 'pe', 'pe_notrig', 'pe_fasttrig', 'full'):
@@ -279,10 +350,25 @@ def l2_weight_lines(n_rays: int = 4096):
     return lines
 
 
+def k2_lines(n_rays: int = 2048):
+    """Beside K2's bound: the fp32-FMA bound it had before the split
+    products (history) and its design's HBM traffic, per train step of
+    n_rays rays (S = 64 + 80)."""
+    ncfg = NeRFConfig(use_framecode=True, framecode_ch=16)
+    P = n_rays * (64 + 80)
+    b = sum(k2_design_bytes(ncfg, 7, 4, n_rays * S) for S in (64, 80))
+    return [f'K2 history: its products as f32 FMAs, '
+            f'{k2_fp32_ms(ncfg, P):.4f} ms at 67 TFLOP/s per {n_rays}-ray '
+            f'train step (K2-v1\'s design)',
+            f'K2 design traffic: {b / 1e9:.3f} GB through HBM per '
+            f'{n_rays}-ray train step, {b / PEAK_HBM_BYTES * 1e3:.4f} ms at '
+            f'3.35 TB/s (the layer-by-layer sequence, no L2 reuse)']
+
+
 def main() -> None:
     for kid, (ms, by, what) in flagship_bounds().items():
         print(f'{kid}: bound {ms:.4f} ms per {what} ({by})')
-    for line in l2_weight_lines():
+    for line in l2_weight_lines() + k2_lines():
         print(line)
 
 

@@ -24,7 +24,9 @@ K1 itself), digests of (R, S, 4):
                uses accurate sin / cos, which the digest's tolerance
                covers);
   full         K1 itself: raw (R, S, 4), the same bits as K1.
-K2-d (csrc/fused_render_bwd.cu, `anerf_fused_bwd_staged`):
+K2-d (K2's own sequence, `fused_render.launch_bwd`: K1's kernel with SAVE,
+then csrc/fused_render_bwd_sm90.cu's `anerf_fused_bwd_sm90` stopped after
+the stage):
   recompute    the forward with saved activations: raw (R, S, 4);
   mlp          + the MLP backward and the dW chunk sums: (dW, dx0
                (R, S, k0p), dxv (R, S, kvp)), the MLP inputs' cotangents;
@@ -45,8 +47,8 @@ from . import fused_render as fr
 #: (ST_*), which csrc/fused_render_sm90.cu takes.
 FWD_STAGES = {'transform': 1, 'pe': 2, 'pe_notrig': 3, 'pe_fasttrig': 4,
               'full': 0}
-#: K2-d stages, in order, with their codes in csrc/fused_render_bwd.cu
-#: (BWD_*).
+#: K2-d stages, in order, with their codes in csrc/fused_render_bwd_sm90.cu
+#: (BWD_*; the recompute, 1, stops before that library).
 BWD_STAGES = {'recompute': 1, 'mlp': 2, 'pe': 3, 'full': 0}
 
 #: K1-d launches since the last reset; `decompose_fwd` adds one a launch.
@@ -142,8 +144,8 @@ def decompose_bwd(stage: str, ncfg: NeRFConfig, packed: Dict[str, Any],
     R = pts.shape[0]
     if R * S == 0:
         raise ValueError('decompose_bwd: no points')
-    t = fr.launch_bwd('anerf_fused_bwd_staged', BWD_STAGES[stage], ncfg,
-                      packed, pts, m_all, aux, S, tau, g)
+    t = fr.launch_bwd(BWD_STAGES[stage], ncfg, packed, pts, m_all, aux, S,
+                      tau, g)
     BWD_LAUNCHES += 1
     if stage == 'recompute':
         return (t['raw'].view(R, S, 4),)

@@ -14,10 +14,15 @@ Phases (any failure exits non-zero and prints no result):
      reps) of K1-v1 and K1 in turns (v1, K1, K1, v1) beside the bound and
      beside the MLP's products as a chain of bf16 torch.matmul calls (a
      yardstick for K1's phase B; never on the port's path). K2
-     (fused_bwd) the same way on one training batch (2048 rays, S = 64 on
-     the coarse net and S = 80 on the fine net), every output held against
-     its plain version, and a second launch on the same inputs held to
-     the same bits.
+     (fused_bwd, split-bf16 wgmma products) and K2-v1 (fused_bwd_v1, its
+     first version, f32 FMA products) the same way on one training batch
+     (2048 rays, S = 64 on the coarse net and S = 80 on the fine net):
+     every output against the plain version and K2 against K2-v1, a
+     second launch on the same inputs held to the same bits, both timed
+     in turns beside the bound (roofline.k2_seconds) and beside the
+     products as f32 torch.matmul calls (TF32 off; a yardstick); the
+     launches of one call; the split products (split_gemm_probe) against
+     an f64 matmul beside K2-v1's FMA GEMM on the same inputs.
   3. modes and stages: K3 (fused_encode_mlp) and K4 (fused_mlp_apply) on
      the K1 phase's bucket, each against its plain version and against
      K1 on the same points, timed beside its bound; every stage of K1-d
@@ -38,7 +43,8 @@ Phases (any failure exits non-zero and prints no result):
      the flagship (N_rand 2048, 128 frames, pose refinement) through
      make_train_step, checked for finite and falling loss, acc in [0, 1],
      two K1 and two K2 launches per step, and poses that move only on
-     their opt_pose_step interval.
+     their opt_pose_step interval. K1-v1 and K2-v1 must not run on the
+     main paths (render and train).
 With --profile, one request and one train step run again under
 torch.profiler, and for each the device-busy share and the top kernels
 by device time are printed.
@@ -77,6 +83,17 @@ SLICE_ATOL = SLICE_RTOL = 5e-3
 K2_RTOL = 2e-2
 K2_FRO = 2e-2
 K2_BLOCK_RTOL = 0.12
+# K2 vs K2-v1 on every output, relative in the Frobenius norm. Both make
+# f32-accurate cotangent products (K2 from three bf16 planes of the
+# cotangent on the tensor cores, K2-v1 with f32 FMAs), and on this run's
+# seeded batch no ReLU mask flips between their recomputes, so they differ
+# by f32 accumulation order alone: observed at most 1.44e-6 on an H100 (a
+# dW block; dpts / dm_all / daux at most 4.1e-7). 5e-6 is 3.5x that. A K2
+# whose tensor cores summed a whole 2048-point chunk read 7.3e-6 to
+# 8.6e-6, and K2 on the hi plane alone (bf16 cotangents), which the phase
+# runs as a control, must land above the limit. A change to either
+# recompute that flips a mask breaks this gate: set it again from readings.
+K2_V1_FRO = 5e-6
 # one train step's gradients, fused branch vs plain branch: the bound of
 # the JAX package's fused-vs-XLA gradient test
 # (tests/test_fused_render.py:217-261)
@@ -267,7 +284,7 @@ def kernel_phase(torch, np, cfg, params, src):
     flops = 2.0 * rf.mlp_macs_per_point(ncfg) * R * (64 + 80)
     io_bytes = (R * (64 + 80) * (12 + 16)
                 + 2 * (variants[0][1].numel() + variants[0][2].numel()) * 4
-                + _packed_bytes(torch, packed, skip='w'))
+                + _packed_bytes(torch, packed, skip=('w', 'img_t')))
     bound_ms, bound_by = rf.bound_ms({
         'bf16': flops / rf.PEAK_BF16_FLOPS,
         'bytes': io_bytes / rf.PEAK_HBM_BYTES})
@@ -295,21 +312,174 @@ def kernel_phase(torch, np, cfg, params, src):
                    'ms_s80': rec[80]['v1_ms'], 'max_abs_vs_k1': max_v1}}
 
 
-def _packed_bytes(torch, packed, skip='img'):
+def _packed_bytes(torch, packed, skip=('img', 'img_t')):
     """Bytes of both nets' kernel operands (weights, biases, heads) that
-    a kernel reads: K1 reads the weight image, skip='w'; the others the
-    fragment-order weights, skip='img'."""
+    a kernel reads: K1 reads its weight image, skip=('w', 'img_t'); the
+    others the fragment-order weights, skip=('img', 'img_t')."""
     return sum(t.numel() * t.element_size()
                for net in ('coarse', 'fine')
                for key, t in packed[net].items()
-               if torch.is_tensor(t) and key != skip)
+               if torch.is_tensor(t) and key not in skip)
+
+
+def _cotangent_matmuls(torch, ncfg, packed, n_points):
+    """K2's cotangent products (dX = dY W and dW = X^T dY of every MMA
+    layer, K-padded as packed) as f32 torch.matmul calls with TF32 off,
+    at n_points rows on random f32 cotangents and bf16-valued
+    activations: returns a function that runs them. A yardstick for K2's
+    products only; never on the port's path."""
+    from anerf_torch.kernels import fused_render as fr
+    ws = fr._weights_f32(ncfg, packed)
+    dys = [torch.randn((n_points, w.shape[0]), device='cuda') for w in ws]
+    xs = [torch.randn((n_points, w.shape[1]), device='cuda')
+          .to(torch.bfloat16).float() for w in ws]
+
+    def run():
+        for w, dy, x in zip(ws, dys, xs):
+            torch.matmul(dy, w)
+            torch.matmul(x.t(), dy)
+    return run
+
+
+#: the kernels of K2's and K2-v1's sequences, by the names the profiler
+#: gives them
+K2_KERNELS = ('k1_sm90_kernel', 'heads_bwd_kernel', 'bwd_layer_kernel',
+              'reduce_chunks_kernel', 'pe_transform_bwd_kernel')
+K2_V1_KERNELS = ('fused_encode_mlp_pts_kernel', 'gemm_f32_kernel',
+                 'reduce_chunks_kernel', 'pe_transform_bwd_kernel')
+
+
+def _launches_per_call(torch, fn, names):
+    """The device kernels of one fn() under torch.profiler: (launches of
+    the kernels whose names contain one of `names`, all launches, and
+    [(name, device us)] of the former in launch order)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    every, ours = 0, []
+    for e in sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start):
+        every += 1
+        short = next((n for n in names if n in e.name), None)
+        if short:
+            ours.append((short, e.time_range.elapsed_us()))
+    return len(ours), every, ours
+
+
+#: the split products' accuracy probe: (kind, N, K) at K2's shapes
+#: (layer 0, the trunk, the skip layer's rows, the view layer)
+PROBE_SHAPES = (('dx', 256, 432), ('dx', 256, 256), ('dx', 128, 928),
+                ('dw', 256, 432), ('dw', 256, 688), ('dw', 128, 928))
+#: the split product may be at most this many times further from f64 than
+#: K2-v1's f32 FMA GEMM on the same inputs: both round only their f32
+#: accumulation, in another order
+SPLIT_VS_FMA = 4.0
+
+
+def split_accuracy(torch, np, n_points=16384):
+    """K2's split product (split_gemm_probe) and K2-v1's f32 FMA GEMM
+    (fma_gemm_probe) against an f64 matmul of the same inputs at every
+    PROBE_SHAPES shape: cotangents ~ N(0, 1e-3), weights ~ N(0, 0.05) and
+    ReLU'd N(0, 1) activations, both rounded to bf16. Returns the rows
+    (kind, N, K, split error, FMA error), relative in the Frobenius
+    norm."""
+    from anerf_torch.kernels import fused_render as fr
+    rows = []
+    for kind, N, K in PROBE_SHAPES:
+        rng = np.random.default_rng(N + K)
+        dy = torch.as_tensor(rng.normal(size=(n_points, N)) * 1e-3,
+                             dtype=torch.float32, device='cuda')
+        if kind == 'dx':
+            b = torch.as_tensor(rng.normal(size=(N, K)) * 0.05,
+                                dtype=torch.float32, device='cuda')
+            b = b.to(torch.bfloat16)
+            want = dy.double() @ b.double()
+        else:
+            b = torch.as_tensor(np.maximum(rng.normal(size=(n_points, K)),
+                                           0.0), dtype=torch.float32,
+                                device='cuda').to(torch.bfloat16)
+            want = torch.cat([b.double().t() @ dy.double(),
+                              dy.double().sum(0, keepdim=True)])
+        got = fr.split_gemm_probe(kind, dy, b)
+        fma = fr.fma_gemm_probe(kind, dy, b)
+        torch.cuda.synchronize()
+        err = ((got.double() - want).norm() / want.norm()).item()
+        err_fma = ((fma.double() - want).norm() / want.norm()).item()
+        ok = err <= SPLIT_VS_FMA * err_fma and bool(torch.isfinite(got).all())
+        print(f'split accuracy {kind} N={N} K={K} ({n_points} points): '
+              f'split-bf16 wgmma {err:.3e}, f32 FMA {err_fma:.3e} relative '
+              f'Frobenius vs f64 (ratio {err / err_fma:.3f}, tol '
+              f'{SPLIT_VS_FMA}) -> {"ok" if ok else "FAIL"}', flush=True)
+        if not ok:
+            raise AssertionError(f'split product {kind} {N}x{K}: {err:.3e} '
+                                 f'against the FMA GEMM\'s {err_fma:.3e}')
+        rows.append((kind, N, K, err, err_fma))
+    return rows
+
+
+def _k2_errors(torch, ncfg, packed, got, want, label, R):
+    """K2's bounds on every output of a backward against a reference:
+    each dW block within K2_FRO (Frobenius) and K2_BLOCK_RTOL (max),
+    dpts / dm_all / daux the same; prints the rays off by more than
+    K2_RTOL. Returns (max abs, worst dW max rel, worst other max rel,
+    worst fro)."""
+    from anerf_torch.kernels import fused_render as fr
+    gb = fr.split_grads(ncfg, packed['nfk'], packed['nfv'], got[0])
+    wb = fr.split_grads(ncfg, packed['nfk'], packed['nfv'], want[0])
+    max_abs, worst_blk, worst_in, worst_fro = 0.0, 0.0, 0.0, 0.0
+    for name in wb:
+        d = (gb[name] - wb[name]).abs()
+        rel = (d.max() / wb[name].abs().max().clamp_min(1e-7)).item()
+        fro = ((gb[name] - wb[name]).norm()
+               / wb[name].norm().clamp_min(1e-7)).item()
+        worst_blk, worst_fro = max(worst_blk, rel), max(worst_fro, fro)
+        max_abs = max(max_abs, d.max().item())
+        if rel >= K2_BLOCK_RTOL or fro >= K2_FRO:
+            raise AssertionError(f'{label}: dW block {name} disagrees '
+                                 f'(rel {rel:.3e}, fro {fro:.3e})')
+    for name, a, b in zip(('dpts', 'dm_all', 'daux'), got[1:], want[1:]):
+        d = (a - b).abs()
+        top = b.abs().max().clamp_min(1e-7)
+        rel = (d.max() / top).item()
+        fro = ((a - b).norm() / b.norm().clamp_min(1e-7)).item()
+        # rays (rows of dm_all / daux, ray slices of dpts) with an entry
+        # off by more than K2_RTOL of the largest value
+        off = (d.reshape(R, -1) > K2_RTOL * top).any(1).sum().item()
+        worst_in, worst_fro = max(worst_in, rel), max(worst_fro, fro)
+        max_abs = max(max_abs, d.max().item())
+        print(f'{label}: {name} max_rel={rel:.3e} fro={fro:.3e} rays off '
+              f'by >{K2_RTOL}: {off}/{R} |max|={top.item():.3e}',
+              flush=True)
+        if not (rel < K2_BLOCK_RTOL and fro < K2_FRO
+                and torch.isfinite(a).all()):
+            raise AssertionError(f'{label}: {name} disagrees')
+    return max_abs, worst_blk, worst_in, worst_fro
+
+
+def _worst_fro(ncfg, packed, got, want):
+    """The largest relative Frobenius distance of a backward's outputs
+    (each dW block, dpts, dm_all, daux) from another's."""
+    from anerf_torch.kernels import fused_render as fr
+    gb = fr.split_grads(ncfg, packed['nfk'], packed['nfv'], got[0])
+    wb = fr.split_grads(ncfg, packed['nfk'], packed['nfv'], want[0])
+    pairs = [(gb[n], wb[n]) for n in wb] + list(zip(got[1:], want[1:]))
+    return max(((a - b).norm() / b.norm().clamp_min(1e-7)).item()
+               for a, b in pairs)
 
 
 def k2_phase(torch, np, cfg, params, src):
     """K2 on one training batch's operands: 2048 rays, the coarse net at
     S = 64 and the fine net at S = 80, tau = 2000 and 35, a seeded
-    cotangent. Every output against the plain version, a second launch
-    held to the same bits, median times beside the bound."""
+    cotangent. Every output against the plain version and against K2-v1
+    (its first version; K2_V1_FRO, and K2 on the hi plane alone must
+    exceed it), a second launch held to the same bits; K2-v1
+    and K2 timed in turns (v1, K2, K2, v1) beside the bound and the
+    products as f32 torch.matmul calls; the split products' accuracy
+    against f64 beside the FMA GEMM's; the launches of one call."""
     from anerf_torch.kernels import fused_render as fr
     from anerf_torch.kernels import roofline as rf
     from anerf_torch.render.raycaster import pack_fused_params
@@ -323,8 +493,8 @@ def k2_phase(torch, np, cfg, params, src):
         np.random.default_rng(10 + i).normal(size=(R, S, 4)) * 0.1,
         dtype=torch.float32, device='cuda') for i in range(4)]
         for S in (64, 80)}
-    names = ('dpts', 'dm_all', 'daux')
-    max_abs, rec = 0.0, {}
+    max_abs, max_v1, max_v1_plain, rec = 0.0, 0.0, 0.0, {}
+    fro_v1, fro_ctl = 0.0, float('inf')
     for S, net in ((64, 'coarse'), (80, 'fine')):
         for tau in (2000.0, 35.0):
             pts, m_all, aux = variants[0][0][S], variants[0][1], \
@@ -332,88 +502,116 @@ def k2_phase(torch, np, cfg, params, src):
             args = (ncfg, packed[net], pts, m_all, aux, S, tau, gs[S][0])
             got = fr.fused_bwd(*args)
             again = fr.fused_bwd(*args)
+            v1 = fr.fused_bwd_v1(*args)
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f'K2 is not deterministic at S={S} '
                                      f'tau={tau}')
             want = fr.fused_bwd_ref(*args)
-            gb = fr.split_grads(ncfg, packed[net]['nfk'],
-                                packed[net]['nfv'], got[0])
-            wb = fr.split_grads(ncfg, packed[net]['nfk'],
-                                packed[net]['nfv'], want[0])
-            worst_blk, worst_fro, worst_in = 0.0, 0.0, 0.0
-            for name in wb:
-                d = (gb[name] - wb[name]).abs()
-                rel = (d.max() / wb[name].abs().max().clamp_min(1e-7)).item()
-                fro = ((gb[name] - wb[name]).norm()
-                       / wb[name].norm().clamp_min(1e-7)).item()
-                worst_blk, worst_fro = max(worst_blk, rel), \
-                    max(worst_fro, fro)
-                max_abs = max(max_abs, d.max().item())
-                if rel >= K2_BLOCK_RTOL or fro >= K2_FRO:
-                    raise AssertionError(f'K2 dW block {name} disagrees '
-                                         f'(rel {rel:.3e}, fro {fro:.3e}) '
-                                         f'at S={S} tau={tau}')
-            for name, a, b in zip(names, got[1:], want[1:]):
-                d = (a - b).abs()
-                top = b.abs().max().clamp_min(1e-7)
-                rel = (d.max() / top).item()
-                fro = ((a - b).norm() / b.norm().clamp_min(1e-7)).item()
-                # rays (rows of dm_all / daux, ray slices of dpts) with an
-                # entry off by more than K2_RTOL of the largest value
-                off = (d.reshape(R, -1) > K2_RTOL * top).any(1).sum().item()
-                worst_in = max(worst_in, rel)
-                worst_fro = max(worst_fro, fro)
-                max_abs = max(max_abs, d.max().item())
-                print(f'K2 S={S} tau={tau:g}: {name} max_rel={rel:.3e} '
-                      f'fro={fro:.3e} rays off by >{K2_RTOL}: {off}/{R} '
-                      f'|max|={top.item():.3e}', flush=True)
-                if not (rel < K2_BLOCK_RTOL and fro < K2_FRO
-                        and torch.isfinite(a).all()):
-                    raise AssertionError(f'K2 {name} disagrees with its '
-                                         f'plain version at S={S} tau={tau}')
-            print(f'K2 S={S} tau={tau:g}: dW blocks max_rel={worst_blk:.3e} '
+            e = _k2_errors(torch, ncfg, packed[net], got, want,
+                           f'K2 S={S} tau={tau:g}', R)
+            max_abs = max(max_abs, e[0])
+            print(f'K2 S={S} tau={tau:g}: dW blocks max_rel={e[1]:.3e} '
                   f'(tol {K2_BLOCK_RTOL}); dpts / dm_all / daux max_rel='
-                  f'{worst_in:.3e} (tol {K2_BLOCK_RTOL}); worst fro '
-                  f'{worst_fro:.3e} (tol {K2_FRO}); two launches bitwise '
-                  f'equal -> ok', flush=True)
-            del got, again, want
+                  f'{e[2]:.3e} (tol {K2_BLOCK_RTOL}); worst fro {e[3]:.3e} '
+                  f'(tol {K2_FRO}); two launches bitwise equal -> ok',
+                  flush=True)
+            e = _k2_errors(torch, ncfg, packed[net], v1, want,
+                           f'K2-v1 S={S} tau={tau:g}', R)
+            max_v1_plain = max(max_v1_plain, e[0])
+            # K2 against K2-v1: K2's bounds, then K2_V1_FRO
+            e = _k2_errors(torch, ncfg, packed[net], got, v1,
+                           f'K2 vs K2-v1 S={S} tau={tau:g}', R)
+            max_v1 = max(max_v1, e[0])
+            # the control: K2's sequence on the hi plane of the cotangents
+            t = fr.launch_bwd(0, *args, planes=1)
+            ctl = _worst_fro(ncfg, packed[net],
+                             (t['dW'], t['dpts'], t['dm'], t['daux']), v1)
+            fro_v1, fro_ctl = max(fro_v1, e[3]), min(fro_ctl, ctl)
+            ok = e[3] < K2_V1_FRO < ctl
+            print(f'K2 vs K2-v1 S={S} tau={tau:g}: dW max_rel={e[1]:.3e}, '
+                  f'dpts / dm_all / daux max_rel={e[2]:.3e} (K2\'s bounds); '
+                  f'worst fro {e[3]:.3e}, K2 on the hi plane alone '
+                  f'{ctl:.3e} (limit {K2_V1_FRO}: K2 below, the control '
+                  f'above) -> {"ok" if ok else "FAIL"}', flush=True)
+            if not ok:
+                raise AssertionError(f'K2 vs K2-v1 at S={S} tau={tau}: '
+                                     f'{e[3]:.3e}, control {ctl:.3e}')
+            del got, again, v1, want, t
         ins = [(ncfg, packed[net], v[0][S], v[1], v[2], S, 2000.0, g)
                for v, g in zip(variants, gs[S])]
-        rec[S] = (_median_ms(fr.fused_bwd, ins, 11),
-                  _median_ms(fr.fused_bwd_ref, ins, 3))
-        print(f'K2 S={S}: kernel {rec[S][0]:.4f} ms, plain '
-              f'{rec[S][1]:.4f} ms (median, R={R})', flush=True)
+        turns = [_median_ms(fn, ins, 11) for fn in (
+            fr.fused_bwd_v1, fr.fused_bwd, fr.fused_bwd, fr.fused_bwd_v1)]
+        mm = _cotangent_matmuls(torch, ncfg, packed[net], R * S)
+        rec[S] = {'ms': (turns[1] + turns[2]) / 2,
+                  'v1_ms': (turns[0] + turns[3]) / 2, 'turns': turns,
+                  'plain_ms': _median_ms(fr.fused_bwd_ref, ins, 3),
+                  'mm_ms': _median_ms(lambda: mm(), [()], 5)}
+        del mm
+        print(f'K2 S={S}: in turns v1 {turns[0]:.4f}, K2 {turns[1]:.4f}, '
+              f'K2 {turns[2]:.4f}, v1 {turns[3]:.4f} ms; plain '
+              f'{rec[S]["plain_ms"]:.4f} ms; the cotangent products as f32 '
+              f'torch.matmul calls (TF32 off) {rec[S]["mm_ms"]:.4f} ms '
+              f'(medians, R={R})', flush=True)
 
-    P = R * (64 + 80)
-    f32_flops = 2.0 * rf.bwd_f32_macs_per_point(ncfg) * P
-    bf16_flops = 2.0 * rf.mlp_macs_per_point(ncfg) * P
-    dw_bytes = 2 * 4 * sum(r * c for _, r, c in fr.grad_blocks(
-        ncfg, packed['coarse']['nfk'], packed['coarse']['nfv']))
-    io_bytes = (P * (12 + 16 + 12)
-                + 2 * 2 * (variants[0][1].numel()
-                           + variants[0][2].numel()) * 4
-                + _packed_bytes(torch, packed) + dw_bytes)
-    times = {'fp32': f32_flops / rf.PEAK_FP32_FLOPS,
-             'bf16': bf16_flops / rf.PEAK_BF16_FLOPS,
-             'bytes': io_bytes / rf.PEAK_HBM_BYTES}
+    args = (ncfg, packed['fine'], variants[1][0][80], variants[1][1],
+            variants[1][2], 80, 2000.0, gs[80][1])
+    n_k2, all_k2, by_launch = _launches_per_call(
+        torch, lambda: fr.fused_bwd(*args), K2_KERNELS)
+    n_v1, all_v1, _ = _launches_per_call(
+        torch, lambda: fr.fused_bwd_v1(*args), K2_V1_KERNELS)
+    print(f'launches per call: K2 {n_k2} kernels of its sequence '
+          f'({all_k2} device launches with the wrapper\'s allocations and '
+          f'gathers), K2-v1 {n_v1} ({all_v1})', flush=True)
+    print('K2 by launch (S=80, one call under the profiler, device ms): '
+          + ', '.join(f'{n} {us / 1e3:.4f}' for n, us in by_launch),
+          flush=True)
+    accuracy = split_accuracy(torch, np)
+
+    nfk, nfv = packed['coarse']['nfk'], packed['coarse']['nfv']
+    dw_bytes = 4 * sum(r * c for _, r, c in fr.grad_blocks(ncfg, nfk, nfv))
+    times = rf.k2_seconds(ncfg, nfk, nfv, (R * 64, R * 80), R,
+                          _packed_bytes(torch, packed), dw_bytes)
     bound_ms, bound_by = rf.bound_ms(times)
-    ms = rec[64][0] + rec[80][0]
-    print(f'K2 step (S=64 + S=80, {R} rays): {f32_flops / 1e12:.4f} TFLOP '
-          f'f32 ({times["fp32"] * 1e3:.4f} ms at 67 TFLOP/s; '
-          f'{f32_flops / rf.PEAK_BF16_FLOPS * 1e3:.4f} ms at the bf16 '
-          f'rate), {bf16_flops / 1e12:.4f} TFLOP bf16 recompute '
-          f'({times["bf16"] * 1e3:.4f} ms), {io_bytes / 1e6:.2f} MB '
-          f'({times["bytes"] * 1e3:.4f} ms) -> bound {bound_ms:.4f} ms '
-          f'({bound_by}); kernel {ms:.4f} ms = {bound_ms / ms:.3f} of the '
-          f'bound', flush=True)
+    ms = rec[64]['ms'] + rec[80]['ms']
+    v1_ms = rec[64]['v1_ms'] + rec[80]['v1_ms']
+    traffic = sum(rf.k2_design_bytes(ncfg, nfk, nfv, R * S)
+                  for S in (64, 80))
+    print(f'K2 step (S=64 + S=80, {R} rays): bound {bound_ms:.4f} ms '
+          f'({bound_by}; bf16 {times["bf16"] * 1e3:.4f} ms = 3 split passes '
+          f'of the products + the recompute, fp32 {times["fp32"] * 1e3:.4f}'
+          f' ms, bytes {times["bytes"] * 1e3:.4f} ms); K2 {ms:.4f} ms = '
+          f'{bound_ms / ms:.3f} of the bound; K2-v1 {v1_ms:.4f} ms = '
+          f'{bound_ms / v1_ms:.3f}; K2 is '
+          f'{"faster" if ms < v1_ms else "NOT faster"} than K2-v1 '
+          f'({v1_ms / ms:.3f}x)', flush=True)
+    hist = rf.k2_fp32_ms(ncfg, R * (64 + 80))
+    print(f'  history: the products as f32 FMAs, {hist:.4f} ms at 67 '
+          f'TFLOP/s (the bound before the split products)', flush=True)
+    print(f'  design traffic: {traffic / 1e9:.3f} GB through HBM, '
+          f'{traffic / rf.PEAK_HBM_BYTES * 1e3:.4f} ms at 3.35 TB/s',
+          flush=True)
     return {'name': 'fused_bwd', 'route': 'cuda',
-            'source': 'anerf_torch/kernels/csrc/fused_render_bwd.cu',
+            'source': 'anerf_torch/kernels/csrc/fused_render_bwd_sm90.cu',
             'replaces': 'anerf_tpu/kernels/fused_render.py:962',
             'launches': None, 'max_abs_err': max_abs, 'ms': ms,
-            'plain_ms': rec[64][1] + rec[80][1], 'bound_ms': bound_ms,
-            'bound_by': bound_by, 'library_ms': None,
-            'ms_s64': rec[64][0], 'ms_s80': rec[80][0]}
+            'plain_ms': rec[64]['plain_ms'] + rec[80]['plain_ms'],
+            'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
+            'ms_s64': rec[64]['ms'], 'ms_s80': rec[80]['ms'],
+            'launches_per_call': n_k2,
+            'products_library_ms': rec[64]['mm_ms'] + rec[80]['mm_ms'],
+            'split_accuracy': [{'kind': k, 'N': n, 'K': kk, 'split': e1,
+                                'fma': e2} for k, n, kk, e1, e2 in accuracy],
+            'v1': {'name': 'fused_bwd_v1', 'route': 'cuda',
+                   'source': 'anerf_torch/kernels/csrc/fused_render_bwd.cu',
+                   'replaces': 'anerf_tpu/kernels/fused_render.py:962',
+                   'launches': None, 'max_abs_err': max_v1_plain,
+                   'ms': v1_ms, 'plain_ms': rec[64]['plain_ms']
+                   + rec[80]['plain_ms'], 'bound_ms': bound_ms,
+                   'bound_by': bound_by, 'library_ms': None,
+                   'ms_s64': rec[64]['v1_ms'], 'ms_s80': rec[80]['v1_ms'],
+                   'launches_per_call': n_v1, 'max_abs_vs_k2': max_v1,
+                   'fro_vs_k2': fro_v1, 'fro_vs_hi_plane_k2': fro_ctl}}
 
 
 def modes_phase(torch, np, cfg, params, src):
@@ -567,7 +765,7 @@ def stages_phase(torch, np, cfg, params, src):
         dtype=torch.float32, device='cuda') for i in range(4)]
         for S in (64, 80)}
     w_net = _packed_bytes(torch, packed) // 2
-    w_net_k1 = _packed_bytes(torch, packed, skip='w') // 2
+    w_net_k1 = _packed_bytes(torch, packed, skip=('w', 'img_t')) // 2
     dw_bytes = 4 * sum(r * c for _, r, c in fr.grad_blocks(ncfg, nfk, nfv))
     rec = {'K1-d': {st: {} for st in stages.FWD_STAGES},
            'K2-d': {st: {} for st in stages.BWD_STAGES}}
@@ -634,7 +832,7 @@ def stages_phase(torch, np, cfg, params, src):
     for kid, name, src_file, replaces in (
             ('K1-d', 'decompose_fwd', 'fused_render_sm90.cu',
              'tools/kernel_bench.py:194'),
-            ('K2-d', 'decompose_bwd', 'fused_render_bwd.cu',
+            ('K2-d', 'decompose_bwd', 'fused_render_bwd_sm90.cu',
              'tools/kernel_bench.py:314')):
         per = {}
         for stage, by_s in rec[kid].items():
@@ -773,7 +971,7 @@ def slice_phase(torch, np, args, cfg, params, src, k1_bucket_ms):
     from anerf_torch.render.render_path import n_buckets_for
 
     launches = 0
-    fr.V1_LAUNCHES = 0
+    fr.V1_LAUNCHES = fr.BWD_V1_LAUNCHES = 0
     for name, build in _requests(np, src):
         data = build()
         fr.LAUNCHES = 0
@@ -1086,11 +1284,13 @@ def main(argv) -> int:
                                               '--profile' in argv)
     k1['launches'] = render_k1 + train_k1
     k2['launches'] = train_k2
+    k1['v1']['launches'] = fr.V1_LAUNCHES
+    k2['v1']['launches'] = fr.BWD_V1_LAUNCHES
     print(f'launches on the main paths: K1 {render_k1} (render requests) + '
           f'{train_k1} (train steps), K2 {train_k2} (train steps), K1-v1 '
-          f'{fr.V1_LAUNCHES}', flush=True)
-    if fr.V1_LAUNCHES:
-        raise AssertionError('K1-v1 ran on the main path')
+          f'{fr.V1_LAUNCHES}, K2-v1 {fr.BWD_V1_LAUNCHES}', flush=True)
+    if fr.V1_LAUNCHES or fr.BWD_V1_LAUNCHES:
+        raise AssertionError('K1-v1 or K2-v1 ran on the main path')
     k2['step_ms'] = step_s * 1e3
 
     print(json.dumps({'kernels': [k1, k2, k3, k4, k1d, k2d]}))

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1, K1-v1, K2, K3, K4, K1-d and K2-d against their
-plain PyTorch versions, on the card.
+"""The CUDA kernels K1, K1-v1, K2, K2-v1, K3, K4, K1-d and K2-d against
+their plain PyTorch versions, on the card, and K2's split products alone
+against an f64 matmul.
 
 Needs a CUDA device and nvcc; skips elsewhere. This file imports neither
 JAX nor the JAX package, so it also runs on a machine without them:
@@ -26,6 +27,19 @@ Tolerances:
     by one point's whole contribution (observed 2.4e-2 relative max on a
     block at R = 40, S = 64 on an H100); the f32 products differ only by
     summation order. Two launches on the same inputs agree bit for bit.
+    K2-v1 to the same bounds, and K2 against K2-v1: their recomputes
+    run different kernel bodies, which flip a mask as the plain version
+    does.
+  * K2's split products (`split_gemm_probe`) against f64: 1e-5 relative
+    in the Frobenius norm. The three bf16 planes of the f32 cotangent sum
+    to it exactly and each bf16 product is exact, so only the f32
+    accumulation rounds (observed on the CPU plain version: 1e-7, the
+    f32 FMA product's 3e-7); and no more than 4x K2-v1's FMA GEMM's error
+    on the same inputs.
+  * K2's saved activations against the plain `_forward_trace`: 2e-2
+    abs/rel. Both round the same f32 sums to bf16, in another summation
+    order, which moves an occasional activation by one bf16 step (2^-8
+    relative) and the layers after it by less.
 """
 import numpy as np
 import pytest
@@ -243,3 +257,88 @@ def test_k2d_stage_matches_plain(cuda, stage):
         assert _rel(blocks[name], ref) < 0.12, name
     for a, b in zip(got[1:], want[1:]):
         assert _rel_fro(a, b) < 2e-2 and _rel(a, b) < 0.12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind,N,K', [('dx', 256, 432), ('dx', 256, 256),
+                                      ('dx', 128, 256), ('dx', 128, 672),
+                                      ('dw', 256, 432), ('dw', 256, 256),
+                                      ('dw', 128, 256), ('dw', 128, 672)])
+def test_split_gemm_probe_matches_f64(cuda, kind, N, K):
+    """Every shape of K2's products: dX = dY W (W (N, K) bf16 weights)
+    and dW = X^T dY with its bias row (X (P, K) bf16 activations), over
+    P = 3000 points (two chunks, a ragged last tile)."""
+    rng = np.random.default_rng(N + K)
+    P = 3000
+    dy = torch.as_tensor(rng.normal(size=(P, N)) * 1e-3,
+                         dtype=torch.float32, device=cuda)
+    if kind == 'dx':
+        b = torch.as_tensor(rng.normal(size=(N, K)) * 0.05,
+                            dtype=torch.float32, device=cuda)
+        want = dy.double() @ b.to(torch.bfloat16).double()
+    else:
+        b = torch.as_tensor(np.maximum(rng.normal(size=(P, K)), 0.0),
+                            dtype=torch.float32, device=cuda)
+        bd = b.to(torch.bfloat16).double()
+        want = torch.cat([bd.t() @ dy.double(),
+                          dy.double().sum(0, keepdim=True)])
+    b = b.to(torch.bfloat16)
+    got = fr.split_gemm_probe(kind, dy, b)
+    fma = fr.fma_gemm_probe(kind, dy, b)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    err = ((got.double() - want).norm() / want.norm()).item()
+    err_fma = ((fma.double() - want).norm() / want.norm()).item()
+    assert err < 1e-5 and err <= 4 * err_fma, (err, err_fma)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('R,S', [(3, 7), (40, 64)])
+def test_k2_saved_activations_match_plain_trace(cuda, R, S):
+    """K2's recompute (K1 with SAVE): raw bit-equal to K1, and the saved
+    activations, with the tile layout undone, against the plain trace."""
+    ncfg, _, packed = _packed(cuda, seed=1)
+    pts, m_all, aux = _operands(cuda, R, S, 13)
+    g = torch.zeros((R, S, 4), device=cuda)
+    t = fr.launch_bwd(1, ncfg, packed, pts, m_all, aux, S, 2000.0, g)
+    k1 = fr.fused_encode_mlp_pts(ncfg, packed, pts, m_all, aux, S, 2000.0)
+    torch.cuda.synchronize()
+    assert torch.equal(t['raw'].view(R, S, 4), k1)
+    rows = fr.act_rows(ncfg, 7, 4)
+    act = fr.from_act_image(t['act'], R * S, rows['F']).float()
+    tr = fr._forward_trace(ncfg, packed, pts, m_all, aux, S, 2000.0)
+    flat = lambda x: x.reshape(R * S, -1)
+    W = ncfg.width
+    pieces = [('x0', flat(tr['x0'])), ('xv', flat(tr['xv'])),
+              ('feat', flat(tr['feat'])), ('hv', flat(tr['hv']))]
+    pieces += [(rows['h'] + i * W, flat(h)) for i, h in enumerate(tr['hs'])]
+    for at, want in pieces:
+        r0 = rows[at] if isinstance(at, str) else at
+        torch.testing.assert_close(act[:, r0:r0 + want.shape[1]], want,
+                                   atol=2e-2, rtol=2e-2)
+    # the padding rows of x0 and xv hold zeros
+    assert not act[:, 432:rows['xv']].any()
+    assert not act[:, rows['xv'] + 664:rows['h']].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('R,S,tau', [(3, 7, 35.0), (40, 64, 2000.0)])
+def test_k2_v1_matches_plain_and_k2(cuda, R, S, tau):
+    ncfg, _, packed = _packed(cuda, seed=1)
+    pts, m_all, aux = _operands(cuda, R, S, R + S)
+    g = torch.as_tensor(np.random.default_rng(3).normal(size=(R, S, 4)),
+                        dtype=torch.float32, device=cuda)
+    before = (fr.BWD_LAUNCHES, fr.BWD_V1_LAUNCHES)
+    v1 = fr.fused_bwd_v1(ncfg, packed, pts, m_all, aux, S, tau, g)
+    k2 = fr.fused_bwd(ncfg, packed, pts, m_all, aux, S, tau, g)
+    torch.cuda.synchronize()
+    assert (fr.BWD_LAUNCHES, fr.BWD_V1_LAUNCHES) == (before[0] + 1,
+                                                      before[1] + 1)
+    want = fr.fused_bwd_ref(ncfg, packed, pts, m_all, aux, S, tau, g)
+    for got in (v1, want):
+        blocks = fr.split_grads(ncfg, 7, 4, got[0])
+        for name, ref in fr.split_grads(ncfg, 7, 4, k2[0]).items():
+            assert _rel_fro(blocks[name], ref) < 2e-2, name
+            assert _rel(blocks[name], ref) < 0.12, name
+        for a, b in zip(got[1:], k2[1:]):
+            assert _rel(a, b) < 2e-2
