@@ -1,12 +1,14 @@
 // K2 for Hopper (sm_90a): the backward of K1 with f32-accurate cotangent
-// products on the tensor cores, as split-bf16 wgmma GEMMs. Also K2-d, the
+// products on the tensor cores, as split-bf16 wgmma GEMMs, or with bf16
+// cotangent operands (the --fast_grads flavour). Also K2-d, the
 // same sequence stopped after a stage (anerf_torch/kernels/stages.py), and
 // a probe entry that runs one product alone (the tests and chip_smoke.py
 // hold it to an f64 matmul).
 //
 // Replaces the Pallas TPU kernel anerf_tpu/kernels/fused_render.py:
-// _fused_bwd_impl (kernel body _render_kernel_pts_bwd), the bwd_f32=True
-// flavour, and tools/kernel_bench.py:decompose_bwd for K2-d. Python side:
+// _fused_bwd_impl (kernel body _render_kernel_pts_bwd), both of its
+// flavours (bwd_f32 True and False), and tools/kernel_bench.py:
+// decompose_bwd for K2-d. Python side:
 // anerf_torch/kernels/fused_render.py (fused_bwd; the plain version
 // fused_bwd_ref; the images t_image_index and act_image). The first
 // version (K1-v1's body saving activations, f32 FMA GEMMs) stays in
@@ -68,9 +70,20 @@
 // No float atomics: two calls give the same bits. 14 launches at the
 // flagship (recompute, heads, 10 MMA layers, reduce, PE).
 //
-// The layer kernel is a template over the planes it multiplies: 3 is K2;
-// 1 (the hi plane alone, bf16 cotangents) is the control chip_smoke.py
-// runs to show that its K2-vs-K2-v1 limit sees lost planes.
+// The two flavours (the entry's bwd_f32):
+//  bwd_f32 = 1: the layer kernel multiplies all three planes (f32-accurate
+//     products, as above; chip_smoke.py holds K2 to K2-v1's FMA GEMMs).
+//  bwd_f32 = 0: the JAX kernel's bf16 flavour (mmT / mmO cast both
+//     operands to bf16 and sum in f32). The layer kernel multiplies the hi
+//     plane alone, which is dY rounded to bf16 (RNE); the heads round g to
+//     bf16 where it enters a product (the rgb / alpha dW, dhv), and so
+//     does the DX epilogue's alpha-head term, bf16(g_alpha) w_alpha. The
+//     bias rows stay f32 sums of the unrounded cotangents, as JAX sums dh
+//     and g. Bound: one bf16 pass of the products plus the recompute,
+//     1.55 ms a 2048-ray step at S = 64 + 80 (kernels/roofline.py); the
+//     f32 cotangents still make the same HBM round trips, and the
+//     splitter still loads them and stores the one plane, so it stays
+//     far above that.
 
 #include "sm90_common.cuh"
 #include "fused_render_bwd_common.cuh"
@@ -169,8 +182,10 @@ __device__ __forceinline__ void load_a(float4 (&v)[4], const Prod& pr,
   }
 }
 
-// The slice in registers -> its three bf16 planes (hi, mid, lo) at A, in
-// the swizzled K-major layout, 8 bytes (4 k-values of one row) a store.
+// The slice in registers -> its first PLANES bf16 planes (hi, mid, lo) at
+// A, in the swizzled K-major layout, 8 bytes (4 k-values of one row) a
+// store. PLANES = 1 (bf16 cotangents) stores the hi plane alone.
+template <int PLANES>
 __device__ __forceinline__ void store_a(const float4 (&v)[4], bf16* A,
                                         int kind, int tid) {
 #pragma unroll
@@ -183,7 +198,7 @@ __device__ __forceinline__ void store_a(const float4 (&v)[4], bf16* A,
 #pragma unroll
     for (int e = 0; e < 4; ++e) split3(x[e], s[0][e], s[1][e], s[2][e]);
 #pragma unroll
-    for (int t = 0; t < 3; ++t)
+    for (int t = 0; t < PLANES; ++t)
       *reinterpret_cast<uint2*>(A + t * CHUNK + swz(r, k)) =
           *reinterpret_cast<const uint2*>(s[t]);
   }
@@ -322,7 +337,7 @@ bwd_layer_kernel(const __grid_constant__ LayerArgs L) {
   fetch_mask(0);
   load_a(vn, pr, row0(0), kk0, L.P, tid);
   add_bias(vn);
-  store_a(vn, Abuf, pr.kind, tid);
+  store_a<PLANES>(vn, Abuf, pr.kind, tid);
   fence_async_smem();
   int i1 = 0, s1 = 0;                           // slice g + 1
   advance(i1, s1);
@@ -364,7 +379,8 @@ bwd_layer_kernel(const __grid_constant__ LayerArgs L) {
       if (i2 < items) load_a(vl, pr, row0(i2), kk0 + s2 * KC, L.P, tid);
       if (i1 < items) {
         add_bias(vn);
-        store_a(vn, Abuf + ((g + 1) % ABUF) * A_ELEMS, pr.kind, tid);
+        store_a<PLANES>(vn, Abuf + ((g + 1) % ABUF) * A_ELEMS, pr.kind,
+                        tid);
         fence_async_smem();
       }
 #pragma unroll
@@ -396,7 +412,13 @@ bwd_layer_kernel(const __grid_constant__ LayerArgs L) {
             if (n >= pr.n_valid) continue;
             float val = acc[4 * jn + 2 * h + e];
             float* cp = pr.c + (size_t)p * pr.ldc + n;
-            if (pr.ga != nullptr) val += pr.ga[4 * (size_t)p] * pr.wa[n];
+            if (pr.ga != nullptr) {
+              // the alpha head's term; the bf16 flavour (one plane)
+              // rounds g_alpha as it rounds dY
+              float ga = pr.ga[4 * (size_t)p];
+              if (PLANES == 1) ga = __bfloat162float(__float2bfloat16_rn(ga));
+              val += ga * pr.wa[n];
+            }
             if (pr.accumulate) val += *cp;
             const int r = r0 + 8 * h, c = n - nt * NB;
             if (masked &&
@@ -447,9 +469,17 @@ bwd_layer_kernel(const __grid_constant__ LayerArgs L) {
 // feature row of act), then the lanes' sums are added by a fixed butterfly.
 // The other blocks: dhv = (g_rgb w_rgb) masked by hv > 0 for 64 points
 // each, staged through shared memory so that both the act reads and the
-// dhv writes are coalesced.
+// dhv writes are coalesced. With ROUND_G (the bf16 flavour) g enters every
+// product rounded to bf16; the bias rows sum it unrounded. Without it the
+// kernel is the f32 flavour's, unchanged.
 constexpr int HEAD_ROWS = WV + 1 + W + 1;
 constexpr int HEAD_BLOCKS = (HEAD_ROWS + 31) / 32;
+
+// x, or x rounded to bf16 (RNE) when `round`: a cotangent entering a
+// product in the bf16 flavour
+__device__ __forceinline__ float cot_operand(float x, bool round) {
+  return round ? __bfloat162float(__float2bfloat16_rn(x)) : x;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -457,6 +487,7 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+template <bool ROUND_G>
 __global__ void __launch_bounds__(256)
 heads_bwd_kernel(const bf16* __restrict__ act, int F, int row_hv,
                  int row_h, const float* __restrict__ g,
@@ -472,9 +503,11 @@ heads_bwd_kernel(const bf16* __restrict__ act, int F, int row_hv,
       const int u = idx / TM, r = idx % TM, p = p0 + r;
       float v = 0.f;
       if (p < P) {
-        v = g[4 * (size_t)p] * w_rgb[u];
-        v = fmaf(g[4 * (size_t)p + 1], w_rgb[WV + u], v);
-        v = fmaf(g[4 * (size_t)p + 2], w_rgb[2 * WV + u], v);
+        v = cot_operand(g[4 * (size_t)p], ROUND_G) * w_rgb[u];
+        v = fmaf(cot_operand(g[4 * (size_t)p + 1], ROUND_G), w_rgb[WV + u],
+                 v);
+        v = fmaf(cot_operand(g[4 * (size_t)p + 2], ROUND_G),
+                 w_rgb[2 * WV + u], v);
         if (!(__bfloat162float(act[act_at(p, row_hv + u, F)]) > 0.f))
           v = 0.f;
       }
@@ -495,12 +528,13 @@ heads_bwd_kernel(const bf16* __restrict__ act, int F, int row_hv,
     if (row >= HEAD_ROWS) return;
     float s0 = 0.f, s1 = 0.f, s2 = 0.f;
     if (row <= WV) {
+      const bool rd = ROUND_G && row < WV;   // the bias row: unrounded g
       for (int p = p0 + lane; p < p1; p += 32) {
         const float x = row < WV
             ? __bfloat162float(act[act_at(p, row_hv + row, F)]) : 1.f;
-        s0 = fmaf(x, g[4 * (size_t)p], s0);
-        s1 = fmaf(x, g[4 * (size_t)p + 1], s1);
-        s2 = fmaf(x, g[4 * (size_t)p + 2], s2);
+        s0 = fmaf(x, cot_operand(g[4 * (size_t)p], rd), s0);
+        s1 = fmaf(x, cot_operand(g[4 * (size_t)p + 1], rd), s1);
+        s2 = fmaf(x, cot_operand(g[4 * (size_t)p + 2], rd), s2);
       }
       s0 = warp_sum(s0);
       s1 = warp_sum(s1);
@@ -512,10 +546,11 @@ heads_bwd_kernel(const bf16* __restrict__ act, int F, int row_hv,
       }
     } else {
       const int r = row - WV - 1;
+      const bool rd = ROUND_G && r < W;
       for (int p = p0 + lane; p < p1; p += 32) {
         const float x = r < W
             ? __bfloat162float(act[act_at(p, row_h + r, F)]) : 1.f;
-        s0 = fmaf(x, g[4 * (size_t)p + 3], s0);
+        s0 = fmaf(x, cot_operand(g[4 * (size_t)p + 3], rd), s0);
       }
       s0 = warp_sum(s0);
       if (lane == 0) part[g_alpha + r] = s0;
@@ -526,7 +561,7 @@ heads_bwd_kernel(const bf16* __restrict__ act, int F, int row_hv,
 // The launches of one layer-by-layer backward, in order.
 struct Seq {
   cudaStream_t stream;
-  int planes;            // 3 (K2) or 1 (the hi-plane control)
+  int planes;            // 3 (bwd_f32) or 1 (bf16 cotangents)
   LayerArgs L;
   cudaError_t err = cudaSuccess;
 
@@ -578,9 +613,10 @@ cudaError_t set_smem() {
 
 inline int tiles256(int n) { return (n + NB - 1) / NB; }
 
-// The sequence after the recompute, up to `stage` (BWD_*), its products
-// on `planes` planes of the cotangents.
-int run_bwd(int stage, int planes, const float* pts, const float* m_all,
+// The sequence after the recompute, up to `stage` (BWD_*), in the flavour
+// bwd_f32 (1: f32-accurate products on three planes of the cotangents;
+// 0: bf16 cotangent operands, the hi plane alone).
+int run_bwd(int stage, int bwd_f32, const float* pts, const float* m_all,
             const float* aux, const float* cut, const bf16* img_t,
             const bf16* act, const float* g, const float* w_rgb,
             const float* w_alpha, float* dhv, float* dview, float* dh_a,
@@ -588,7 +624,7 @@ int run_bwd(int stage, int planes, const float* pts, const float* m_all,
             float* dm, float* daux, int P, int S, int depth, int skip_mask,
             int nfk, int nfv, int chunk, float tau, void* stream_v) {
   if ((stage != BWD_FULL && stage != BWD_MLP && stage != BWD_PE)
-      || (planes != 3 && planes != 1))
+      || (bwd_f32 != 0 && bwd_f32 != 1))
     return (int)cudaErrorInvalidValue;
   if (chunk % TM != 0 || depth < 1 || depth > 31)
     return (int)cudaErrorInvalidValue;
@@ -627,7 +663,7 @@ int run_bwd(int stage, int planes, const float* pts, const float* m_all,
   auto arow = [&](int row) { return act + (size_t)row * KC; };
   auto tseg = [&](int i, int s) { return img_t + toff[i][s]; };
 
-  Seq q{stream, planes};
+  Seq q{stream, bwd_f32 ? 3 : 1};
   q.L.n_prod = 0;
   q.L.P = P;
   q.L.F = ar.F;
@@ -636,10 +672,10 @@ int run_bwd(int stage, int planes, const float* pts, const float* m_all,
   q.L.act = act;
 
   // 2. the heads and dhv
-  heads_bwd_kernel<<<n_chunk * HEAD_BLOCKS + q.L.pt_tiles, 256, 0,
-                     stream>>>(act, ar.F, ar.hv, h_last, g, w_rgb, dhv,
-                                  partial, total, g_rgb, g_alpha, P, chunk,
-                                  n_chunk);
+  auto heads = bwd_f32 ? heads_bwd_kernel<false> : heads_bwd_kernel<true>;
+  heads<<<n_chunk * HEAD_BLOCKS + q.L.pt_tiles, 256, 0, stream>>>(
+      act, ar.F, ar.hv, h_last, g, w_rgb, dhv, partial, total, g_rgb,
+      g_alpha, P, chunk, n_chunk);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   // 3. the view layer: dW of [feat | xv], d[feat | xv] = dview
@@ -748,11 +784,11 @@ extern "C" {
 // K2 after its recompute (anerf_k2_recompute_sm90 of K1's library wrote
 // act) on `stream`, up to `stage` (0 full: dW flat in the Python
 // grad_blocks order, dpts, dm_all, daux; 2 mlp: dW, dx0 and dview; 3 pe:
-// dW and the PE digest in dpts), with `planes` 3 (K2) or 1 (the hi-plane
-// control). img_t is the W^T image (packed 'img_t'); the f32 scratch
-// buffers come from the caller. Returns a cudaError_t code (0 on
-// success).
-int anerf_fused_bwd_sm90(int stage, int planes, const float* pts,
+// dW and the PE digest in dpts), with bwd_f32 1 (f32-accurate cotangent
+// products) or 0 (bf16 cotangent operands). img_t is the W^T image
+// (packed 'img_t'); the f32 scratch buffers come from the caller. Returns
+// a cudaError_t code (0 on success).
+int anerf_fused_bwd_sm90(int stage, int bwd_f32, const float* pts,
                          const float* m_all, const float* aux,
                          const float* cut, const void* img_t,
                          const void* act, const float* g,
@@ -762,7 +798,7 @@ int anerf_fused_bwd_sm90(int stage, int planes, const float* pts,
                          float* dm, float* daux, int P, int S, int depth,
                          int skip_mask, int nfk, int nfv, int chunk,
                          float tau, void* stream) {
-  return run_bwd(stage, planes, pts, m_all, aux, cut,
+  return run_bwd(stage, bwd_f32, pts, m_all, aux, cut,
                  reinterpret_cast<const bf16*>(img_t),
                  reinterpret_cast<const bf16*>(act), g, w_rgb, w_alpha, dhv,
                  dview, dh_a, dh_b, dx0, partial, dW, dpts, dm, daux, P, S,

@@ -8,12 +8,15 @@ copies from the weight image 'img' (`to_sm90_image`). K1-v1
 (`fused_encode_mlp_pts_v1`, csrc/fused_render.cu) is its first, mma.sync
 version, kept as the comparison; no path of the port runs it.
 K2 (`fused_bwd`, csrc/fused_render_bwd_sm90.cu after a recompute by K1's
-kernel with SAVE) is its backward with f32-accurate cotangent products
-(the JAX `bwd_f32=True` flavour) as split-bf16 wgmma GEMMs: the f32
-cotangent splits exactly into three bf16 planes (`split3_ref`), each
-multiplied by the bf16 weights or saved activations; the weights' second
-image 'W^T' (`t_image_index`) and the saved activations' tile layout
-(`act_image`) feed them. K2-v1 (`fused_bwd_v1`,
+kernel with SAVE) is its backward, in the two flavours of the JAX
+kernel. With f32-accurate cotangent products (`bwd_f32=True`) they are
+split-bf16 wgmma GEMMs: the f32 cotangent splits exactly into three bf16
+planes (`split3_ref`), each multiplied by the bf16 weights or saved
+activations. With bf16 cotangent operands (`bwd_f32=False`, the
+--fast_grads numerics) the same launches multiply the hi plane alone,
+the cotangent rounded to bf16, and the heads round g the same way. The
+weights' second image 'W^T' (`t_image_index`) and the saved activations'
+tile layout (`act_image`) feed them. K2-v1 (`fused_bwd_v1`,
 csrc/fused_render_bwd.cu, f32 FMA GEMMs) is its first version, kept as
 the comparison; no path of the port runs it. `FusedApply` /
 `fused_apply` run K1 forward and K2 backward, with gradients reaching
@@ -82,8 +85,11 @@ LAUNCHES = 0
 #: one per launch.
 V1_LAUNCHES = 0
 #: K2 launches since the last reset; `fused_bwd` adds one per launch of
-#: its kernel sequence.
+#: its kernel sequence in the f32 flavour (bwd_f32).
 BWD_LAUNCHES = 0
+#: K2 launches in the bf16 flavour (not bwd_f32) since the last reset;
+#: `fused_bwd` adds one per launch of its kernel sequence.
+BWD_BF16_LAUNCHES = 0
 #: K2-v1 launches since the last reset; `fused_bwd_v1` adds one per
 #: launch of its kernel sequence.
 BWD_V1_LAUNCHES = 0
@@ -775,18 +781,51 @@ def pe_transform_bwd_ref(packed, pts, m_all, aux, S, tau, dx0, dxv,
     return dpts, dm.reshape(R * 3, C72), daux
 
 
+def round_bf16(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest bf16 value (ties to even), kept in f32:
+    the cotangent operand of K2's products in the bf16 flavour."""
+    return x.to(torch.bfloat16).float()
+
+
+def trace_from_act(ncfg: NeRFConfig, packed: Dict[str, Any],
+                   act: torch.Tensor, P: int) -> Dict[str, Any]:
+    """K2's saved activations (`launch_bwd`'s 'act', `act_image` layout)
+    of P points -> the forward trace `mlp_bwd_ref` reads (x0, xv, hs,
+    feat, hv as f32 (P, width) and the weights): the plain backward on
+    the kernel's own activations, so that a comparison sees the
+    backward's arithmetic and not the two recomputes' roundings."""
+    rows = act_rows(ncfg, packed['nfk'], packed['nfv'])
+    _, k0p, _, kvp = input_widths(packed['nfk'], packed['nfv'])
+    a = from_act_image(act, P, rows['F']).float()
+    W = ncfg.width
+    return {'x0': a[:, :k0p], 'xv': a[:, rows['xv']:rows['xv'] + kvp],
+            'hs': [a[:, rows['h'] + i * W:rows['h'] + (i + 1) * W]
+                   for i in range(ncfg.depth)],
+            'feat': a[:, rows['feat']:rows['feat'] + W],
+            'hv': a[:, rows['hv']:rows['hv'] + W // 2],
+            'ws': _weights_f32(ncfg, packed)}
+
+
 def mlp_bwd_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
                 pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
-                S: int, tau, g: torch.Tensor
+                S: int, tau, g: torch.Tensor, bwd_f32: bool = True,
+                trace: Dict[str, Any] | None = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K2's recompute and MLP backward in plain torch (f32 cotangent
-    products, ReLU masks from the bf16-rounded activations), for the
-    cotangent g (R, S, 4) of K1's output. Returns (dW flat in
-    `grad_blocks` layout, dx0 (R, S, k0p), dxv (R, S, kvp)), the
-    cotangents of the MLP inputs."""
+    """K2's recompute and MLP backward in plain torch (ReLU masks from the
+    bf16-rounded activations), for the cotangent g (R, S, 4) of K1's
+    output. With bwd_f32 the cotangent products are f32; without it (the
+    JAX `bwd_f32=False` flavour) the cotangent operand of every product
+    (g in the heads and the alpha head's term, dhv, dfeat, each trunk dh)
+    is rounded to bf16 first, the other operand being bf16 already, and
+    the sums stay f32. The bias rows are f32 sums of the unrounded
+    cotangents in both flavours. Returns (dW flat in `grad_blocks`
+    layout, dx0 (R, S, k0p), dxv (R, S, kvp)), the cotangents of the MLP
+    inputs. `trace` takes the place of the recompute (`trace_from_act`:
+    the kernel's own saved activations)."""
     R = pts.shape[0]
     P = R * S
-    t = _forward_trace(ncfg, packed, pts, m_all, aux, S, tau)
+    t = trace if trace is not None else _forward_trace(
+        ncfg, packed, pts, m_all, aux, S, tau)
     ws, hs = t['ws'], t['hs']
     flat = lambda x: x.reshape(P, x.shape[-1])
     x0, xv, feat, hv = (flat(t[k]) for k in ('x0', 'xv', 'feat', 'hv'))
@@ -794,29 +833,31 @@ def mlp_bwd_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
     g2 = g.reshape(P, 4).float()
     W, depth = ncfg.width, ncfg.depth
     k0p = x0.shape[-1]
+    cot = (lambda x: x) if bwd_f32 else round_bf16
 
     def block(x, dy):           # (K + 1, N): x^T dy, then the bias row
-        return torch.cat([x.t() @ dy, dy.sum(0, keepdim=True)])
+        return torch.cat([x.t() @ cot(dy), dy.sum(0, keepdim=True)])
 
     grads = {'rgb': block(hv, g2[:, :3]), 'alpha': block(hs[-1], g2[:, 3:])}
-    dhv = (g2[:, :3] @ packed['w_rgb']) * (hv > 0)
+    dhv = (cot(g2[:, :3]) @ packed['w_rgb']) * (hv > 0)
     grads['view'] = block(torch.cat([feat, xv], -1), dhv)
-    dview = dhv @ ws[depth + 1]
+    dview = cot(dhv) @ ws[depth + 1]
     dfeat, dxv = dview[:, :W], dview[:, W:]
     grads['feat'] = block(hs[-1], dfeat)
-    dh = (dfeat @ ws[depth] + g2[:, 3:] * packed['w_alpha']) * (hs[-1] > 0)
+    dh = (cot(dfeat) @ ws[depth] + cot(g2[:, 3:]) * packed['w_alpha']) \
+        * (hs[-1] > 0)
     dx0 = torch.zeros_like(x0)
     for i in range(depth - 1, 0, -1):
         skip = (i - 1) in ncfg.skips
         grads[f'l{i}'] = block(torch.cat([x0, hs[i - 1]], -1) if skip
                                else hs[i - 1], dh)
-        din = dh @ ws[i]
+        din = cot(dh) @ ws[i]
         if skip:
             dx0 = dx0 + din[:, :k0p]
             din = din[:, k0p:]
         dh = din * (hs[i - 1] > 0)
     grads['l0'] = block(x0, dh)
-    dx0 = dx0 + dh @ ws[0]
+    dx0 = dx0 + cot(dh) @ ws[0]
 
     dW = torch.cat([grads[nm].reshape(-1) for nm, _, _ in
                     grad_blocks(ncfg, packed['nfk'], packed['nfv'])])
@@ -825,15 +866,18 @@ def mlp_bwd_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
 
 def fused_bwd_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
                   pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
-                  S: int, tau, g: torch.Tensor
+                  S: int, tau, g: torch.Tensor, bwd_f32: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                              torch.Tensor]:
     """The plain PyTorch version of K2: recompute the forward, then the
-    backward with f32 cotangent products, for the cotangent g (R, S, 4)
-    of K1's output. ReLU masks come from the bf16-rounded activations.
-    Returns (dW flat in `grad_blocks` layout, dpts (R, S, 3),
-    dm_all (R*3, 72), daux (R, 160))."""
-    dW, dx0, dxv = mlp_bwd_ref(ncfg, packed, pts, m_all, aux, S, tau, g)
+    backward with f32 cotangent products (bwd_f32) or bf16 cotangent
+    operands (not bwd_f32; `mlp_bwd_ref`), for the cotangent g (R, S, 4)
+    of K1's output. ReLU masks come from the bf16-rounded activations;
+    the PE and transform backward is f32 in both flavours. Returns (dW
+    flat in `grad_blocks` layout, dpts (R, S, 3), dm_all (R*3, 72),
+    daux (R, 160))."""
+    dW, dx0, dxv = mlp_bwd_ref(ncfg, packed, pts, m_all, aux, S, tau, g,
+                               bwd_f32)
     return (dW,) + pe_transform_bwd_ref(packed, pts, m_all, aux, S, tau,
                                         dx0, dxv)
 
@@ -1137,14 +1181,15 @@ def _bwd_outputs(ncfg: NeRFConfig, packed: Dict[str, Any], R: int, S: int,
 
 def launch_bwd(stage: int, ncfg: NeRFConfig, packed: Dict[str, Any],
                pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
-               S: int, tau, g: torch.Tensor, planes: int = 3
+               S: int, tau, g: torch.Tensor, bwd_f32: bool = True
                ) -> Dict[str, torch.Tensor]:
     """Launch K2's sequence on CUDA tensors, stopped after `stage` (K2-d's
     codes, kernels/stages.py: 0 full, 1 recompute, 2 mlp, 3 pe): K1's
-    kernel with SAVE (csrc/fused_render_sm90.cu), then the split-bf16
-    layer launches of csrc/fused_render_bwd_sm90.cu on `planes` bf16
-    planes of the cotangents (3, K2; 1, the hi plane alone, is the
-    control chip_smoke.py holds K2's accuracy limit to). Allocates the
+    kernel with SAVE (csrc/fused_render_sm90.cu), then the layer launches
+    of csrc/fused_render_bwd_sm90.cu, whose cotangent products are
+    f32-accurate (bwd_f32: three bf16 planes of each f32 cotangent) or
+    take the cotangent rounded to bf16 (not bwd_f32: its hi plane alone,
+    the JAX `bwd_f32=False` flavour). Allocates the
     outputs and the scratch and returns them by name: dW, dpts, dm, daux,
     act (the saved bf16 activations in `act_image` layout, 2 F bytes a
     point, 7,168 at the flagship, and one spare tile), raw, and the f32
@@ -1189,7 +1234,8 @@ def launch_bwd(stage: int, ncfg: NeRFConfig, packed: Dict[str, Any],
     lib = _library('fused_render_bwd_sm90')
     with torch.cuda.device(dev):
         err = lib.anerf_fused_bwd_sm90(
-            stage, planes, pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
+            stage, int(bwd_f32), pts.data_ptr(), m_all.data_ptr(),
+            aux.data_ptr(),
             packed['cut'].data_ptr(), packed['img_t'].data_ptr(),
             t['act'].data_ptr(),
             g.data_ptr(), packed['w_rgb'].data_ptr(),
@@ -1204,20 +1250,27 @@ def launch_bwd(stage: int, ncfg: NeRFConfig, packed: Dict[str, Any],
 
 def fused_bwd(ncfg: NeRFConfig, packed: Dict[str, Any], pts: torch.Tensor,
               m_all: torch.Tensor, aux: torch.Tensor, S: int, tau,
-              g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
-                                        torch.Tensor, torch.Tensor]:
-    """K2: the backward of K1 for the cotangent g (R, S, 4) of its output.
-    Returns (dW flat in `grad_blocks` layout, dpts (R, S, 3),
-    dm_all (R*3, 72), daux (R, 160)), all f32.
+              g: torch.Tensor, bwd_f32: bool = True
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                         torch.Tensor]:
+    """K2: the backward of K1 for the cotangent g (R, S, 4) of its output,
+    with f32 cotangent products (bwd_f32) or bf16 cotangent operands (not
+    bwd_f32, the --fast_grads numerics). Returns (dW flat in
+    `grad_blocks` layout, dpts (R, S, 3), dm_all (R*3, 72),
+    daux (R, 160)), all f32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     sequence (`launch_bwd`; it raises if a kernel cannot launch)."""
-    global BWD_LAUNCHES
+    global BWD_LAUNCHES, BWD_BF16_LAUNCHES
     if pts.device.type == 'cpu':
-        return fused_bwd_ref(ncfg, packed, pts, m_all, aux, S, tau, g)
-    t = launch_bwd(0, ncfg, packed, pts, m_all, aux, S, tau, g)
+        return fused_bwd_ref(ncfg, packed, pts, m_all, aux, S, tau, g,
+                             bwd_f32)
+    t = launch_bwd(0, ncfg, packed, pts, m_all, aux, S, tau, g, bwd_f32)
     if pts.shape[0] * S:
-        BWD_LAUNCHES += 1
+        if bwd_f32:
+            BWD_LAUNCHES += 1
+        else:
+            BWD_BF16_LAUNCHES += 1
     return t['dW'], t['dpts'], t['dm'], t['daux']
 
 
@@ -1406,15 +1459,16 @@ class FusedApply(torch.autograd.Function):
     forward packs the network's f32 leaves into the kernel operands
     (no grad) and keeps only pts, m_all and aux: K2 recomputes the
     forward. cutoff_dist and tau get no gradient by design (never
-    trained; tau is a schedule)."""
+    trained; tau is a schedule); bwd_f32 picks K2's flavour."""
 
     @staticmethod
-    def forward(ctx, ncfg, S, tau, nfk, nfv, cutoff_dist, pts, m_all, aux,
-                *leaves):
+    def forward(ctx, ncfg, S, tau, nfk, nfv, bwd_f32, cutoff_dist, pts,
+                m_all, aux, *leaves):
         packed = pack_render_params(_net_from_leaves(ncfg, leaves), ncfg,
                                     nfk, nfv, cutoff_dist)
         ctx.save_for_backward(pts, m_all, aux)
         ctx.packed, ctx.ncfg, ctx.S, ctx.tau = packed, ncfg, S, tau
+        ctx.bwd_f32 = bwd_f32
         return fused_encode_mlp_pts(ncfg, packed, pts, m_all, aux, S, tau)
 
     @staticmethod
@@ -1422,18 +1476,21 @@ class FusedApply(torch.autograd.Function):
         pts, m_all, aux = ctx.saved_tensors
         p = ctx.packed
         dW, dpts, dm, daux = fused_bwd(ctx.ncfg, p, pts, m_all, aux, ctx.S,
-                                       ctx.tau, g.contiguous().float())
-        return (None,) * 6 + (dpts, dm, daux) + tuple(
+                                       ctx.tau, g.contiguous().float(),
+                                       ctx.bwd_f32)
+        return (None,) * 7 + (dpts, dm, daux) + tuple(
             _leaf_grads(ctx.ncfg, p['nfk'], p['nfv'], dW))
 
 
 def fused_apply(ncfg: NeRFConfig, S: int, net: Dict[str, Any],
                 cutoff_dist: torch.Tensor, n_freq_kp: int, n_freq_view: int,
                 pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
-                tau) -> torch.Tensor:
+                tau, bwd_f32: bool = True) -> torch.Tensor:
     """Differentiable fused transform + PE + MLP: (R, S, 3) world points
-    -> raw (R, S, 4) through K1, with K2 as its backward. Gradients reach
+    -> raw (R, S, 4) through K1, with K2 as its backward: f32 cotangent
+    products with bwd_f32, bf16 cotangent operands without (the JAX
+    `fused_apply`'s bwd_f32; the forward is the same). Gradients reach
     the leaves of `net` (one network's params), pts, m_all and aux."""
     return FusedApply.apply(ncfg, S, float(tau), int(n_freq_kp),
-                            int(n_freq_view), cutoff_dist, pts, m_all, aux,
-                            *_net_leaves(ncfg, net))
+                            int(n_freq_view), bool(bwd_f32), cutoff_dist,
+                            pts, m_all, aux, *_net_leaves(ncfg, net))

@@ -5,8 +5,9 @@ operation and byte counts.
 
 prints the bound of every kernel in PERF.md's table at the flagship
 shapes (8 x 256 MLP, multires 7 / 4, framecodes; S = 64 coarse + S = 80
-fine), and of every stage of K1-d and K2-d at the kernel_bench tool's
-2048 rays; then, beside K1's operations bound, the bytes of weights K1-v1
+fine; K1 and both flavours of K2 also at the culled shapes, S = 8 + 24),
+and of every stage of K1-d and K2-d at the kernel_bench tool's 2048
+rays; then, beside K1's operations bound, the bytes of weights K1-v1
 and K1 read from L2 per launch (not part of any bound: L2 traffic is
 what the two designs differ in), and beside K2's the bytes its
 layer-by-layer design moves through HBM in a train step and its old
@@ -18,7 +19,8 @@ counts from here and applies them to its own run's inputs.
 K2's cotangent products are counted at the rate of the least arithmetic
 that keeps f32 accuracy: one operand of each is exactly bf16 and the f32
 cotangent splits exactly into SPLIT_PASSES bf16 terms, so they are that
-many bf16 products at the bf16 peak (K2-v1 ran them as f32 FMAs).
+many bf16 products at the bf16 peak (K2-v1 ran them as f32 FMAs). K2's
+bf16 flavour (bwd_f32=False) rounds the cotangent to bf16: one pass.
 fp32 work outside the tensor cores is counted in FLOP at the 67 TFLOP/s
 peak (an FMA is 2 FLOP). An instruction of the special function unit
 (MUFU: ex2, rcp, rsqrt, sin, cos) counts 16 FLOP: an SM executes 16 of
@@ -191,15 +193,17 @@ def k1d_stage_seconds(stage: str, ncfg: NeRFConfig, nfk: int, nfv: int,
 
 def k2d_stage_seconds(stage: str, ncfg: NeRFConfig, nfk: int, nfv: int,
                       k0p: int, kvp: int, n_points: int, n_rays: int,
-                      w_bytes: int, dw_bytes: int) -> dict:
+                      w_bytes: int, dw_bytes: int,
+                      passes: int = SPLIT_PASSES) -> dict:
     """{kind: seconds at its peak} of K2's sequence stopped after `stage`
     on n_points points of n_rays rays. It reads the points, the per-ray
     operands, the weights and (after the recompute) the cotangent; it
     writes the stage's outputs: raw and the saved activations
     (recompute); dW and the MLP inputs' f32 cotangents (mlp); dW and a
     3-float digest a point (pe); dW, dpts and the per-ray dm_all and
-    daux (full). The cotangent products count as SPLIT_PASSES bf16
-    products each; 'full' is K2's bound."""
+    daux (full). The cotangent products count as `passes` bf16 products
+    each (SPLIT_PASSES for the f32 flavour, 1 for the bf16 flavour);
+    'full' is K2's bound."""
     P = n_points
     fp32 = (transform_flop_per_point() + pe_flop_per_point(nfk, nfv)) * P
     n_in = (12 + (16 if stage != 'recompute' else 0)) * P \
@@ -210,7 +214,7 @@ def k2d_stage_seconds(stage: str, ncfg: NeRFConfig, nfk: int, nfv: int,
              'full': dw_bytes + 12 * P + RAY_BYTES * n_rays}[stage]
     bf16 = 2.0 * mlp_macs_per_point(ncfg) * P
     if stage != 'recompute':
-        bf16 += SPLIT_PASSES * 2.0 * bwd_f32_macs_per_point(ncfg) * P
+        bf16 += passes * 2.0 * bwd_f32_macs_per_point(ncfg) * P
     if stage in ('pe', 'full'):
         fp32 += pe_bwd_flop_per_point(nfk, nfv) * P
     if stage == 'full':
@@ -229,7 +233,7 @@ def k2_fp32_ms(ncfg: NeRFConfig, n_points: int) -> float:
 
 
 def k2_design_bytes(ncfg: NeRFConfig, nfk: int, nfv: int, n_points: int,
-                    chunk: int = 2048) -> int:
+                    chunk: int = 2048, cot_bytes: int = 4) -> int:
     """HBM bytes K2's layer-by-layer sequence moves on n_points points of
     one net, with every tensor read from HBM as often as the design reads
     it (none from L2): the recompute writes the saved activations (2 F a
@@ -238,7 +242,11 @@ def k2_design_bytes(ncfg: NeRFConfig, nfk: int, nfv: int, n_points: int,
     twice (the dW and dX roles), its input activations (dW's B) and the
     masks, and writes its input's f32 cotangent (dx0's second writer
     reads it first); the dW partial sums are written and read once per
-    chunk; the PE backward reads the points, dx0 and dxv and writes dpts."""
+    chunk; the PE backward reads the points, dx0 and dxv and writes dpts.
+    cot_bytes is the size of a stored cotangent entry: 4, the design of
+    both flavours (f32 cotangents through HBM); 2 is what the bf16
+    flavour would move with its MMA layers' cotangents held as bf16 (dx0
+    and dxv, which the f32 PE backward reads, stay f32)."""
     W, WV = ncfg.width, ncfg.width // 2
     k0 = N_JOINTS * (1 + 2 * nfk) + C72
     kv = C72 * (1 + 2 * nfv) + FC
@@ -246,12 +254,18 @@ def k2_design_bytes(ncfg: NeRFConfig, nfk: int, nfv: int, n_points: int,
     k0p, kvp = up(k0, 16), up(kv, 16)
     F = up(k0, 64) + up(kv, 64) + (ncfg.depth + 1) * W + WV
     per = 12 + 2 * F + 16                              # recompute
-    per += 16 + 2 * (WV + W) + 4 * WV                  # heads
+    c = cot_bytes
+    per += 16 + 2 * (WV + W) + c * WV                  # heads
     layers = [(k0p, W)] + [((k0p + W) if (i - 1) in ncfg.skips else W, W)
                            for i in range(1, ncfg.depth)]
     layers += [(W, W), (W + kvp, WV)]
     for i, (k, n) in enumerate(layers):
-        per += 2 * 4 * n + 2 * k + 4 * k
+        # dY read twice; B; the input cotangent written (an MLP input's
+        # columns always f32: the PE backward reads them)
+        x_in = k0p if i == 0 else (k0p if k > W and i <= ncfg.depth
+                                   else 0)
+        x_in = kvp if i == len(layers) - 1 else x_in
+        per += 2 * c * n + 2 * k + c * (k - x_in) + 4 * x_in
         if 0 < i <= ncfg.depth:                        # masked input h
             per += 2 * W
     per += 4 * k0p                                     # dx0 accumulate
@@ -261,17 +275,20 @@ def k2_design_bytes(ncfg: NeRFConfig, nfk: int, nfv: int, n_points: int,
 
 
 def k2_seconds(ncfg: NeRFConfig, nfk: int, nfv: int, n_points_by_net,
-               n_rays: int, w_bytes: int, dw_bytes: int) -> dict:
-    """{kind: seconds at its peak} of K2 on one train step: one launch per
-    net on that net's points (n_points_by_net), n_rays rays, w_bytes of
-    both nets' packed operands, dw_bytes of one net's dW. The sum of
+               n_rays: int, w_bytes: int, dw_bytes: int,
+               bwd_f32: bool = True) -> dict:
+    """{kind: seconds at its peak} of K2 in the flavour `bwd_f32` on one
+    train step: one launch per net on that net's points
+    (n_points_by_net), n_rays rays, w_bytes of both nets' packed
+    operands, dw_bytes of one net's dW. The sum of
     `k2d_stage_seconds('full', ...)` over the nets."""
     k0p, kvp = input_pads(nfk, nfv)
+    passes = SPLIT_PASSES if bwd_f32 else 1
     out: dict = {}
     for P in n_points_by_net:
         for kind, t in k2d_stage_seconds('full', ncfg, nfk, nfv, k0p, kvp, P,
-                                         n_rays, w_bytes // 2,
-                                         dw_bytes).items():
+                                         n_rays, w_bytes // 2, dw_bytes,
+                                         passes).items():
             out[kind] = out.get(kind, 0.0) + t
     return out
 
@@ -286,9 +303,10 @@ def flagship_bounds(n_rays_fwd: int = 4096, n_rays_bwd: int = 2048,
                     n_rays_stages: int = 2048):
     """{kernel id: (bound ms, bound_by, what it covers)} at the flagship
     shapes: K1, K3 and K4 on one render bucket of `n_rays_fwd` rays, K2
-    on one train step of `n_rays_bwd` rays; both nets, S = 64 + 80; each
-    K1-d and K2-d stage on `n_rays_stages` rays, S = 64 + 80 (the coarse
-    net's weights)."""
+    (both flavours) on one train step of `n_rays_bwd` rays; both nets,
+    S = 64 + 80, and K1 and K2 again at the culled shapes S = 8 + 24
+    (cull_ratio 0.125); each K1-d and K2-d stage on `n_rays_stages`
+    rays, S = 64 + 80 (the coarse net's weights)."""
     ncfg = NeRFConfig(use_framecode=True, framecode_ch=16)
     W = ncfg.width
     nfk, nfv = 7, 4
@@ -316,10 +334,22 @@ def flagship_bounds(n_rays_fwd: int = 4096, n_rays_bwd: int = 2048,
         if kid == 'K4':
             del times['fp32']                           # no PE
         out[kid] = bound_ms(times) + (f'{n_rays_fwd}-ray bucket',)
+    Pc = n_rays_fwd * (8 + 24)
+    out['K1 culled'] = bound_ms({
+        'bf16': 2.0 * mlp_macs_per_point(ncfg) * Pc / PEAK_BF16_FLOPS,
+        'fp32': (transform_flop_per_point() + pe_flop_per_point(nfk, nfv))
+        * Pc / PEAK_FP32_FLOPS,
+        'bytes': (Pc * per_point['K1'] + w_bytes
+                  + 2 * n_rays_fwd * RAY_BYTES) / PEAK_HBM_BYTES}) + (
+        f'{n_rays_fwd}-ray bucket, S = 8 + 24',)
     n_grad = 2 * 4 * sum((k + 1) * n for k, n in _mma_layers(ncfg))
-    out['K2'] = bound_ms(k2_seconds(
-        ncfg, nfk, nfv, (n_rays_bwd * 64, n_rays_bwd * 80), n_rays_bwd,
-        w_bytes, n_grad // 2)) + (f'{n_rays_bwd}-ray train step',)
+    for kid, f32 in (('K2', True), ('K2 bf16', False)):
+        for shapes, tag in (((64, 80), ''), ((8, 24), ', S = 8 + 24')):
+            name = kid + (' culled' if tag else '')
+            out[name] = bound_ms(k2_seconds(
+                ncfg, nfk, nfv, tuple(n_rays_bwd * S for S in shapes),
+                n_rays_bwd, w_bytes, n_grad // 2, f32)) + (
+                f'{n_rays_bwd}-ray train step{tag}',)
     R = n_rays_stages
     what = f'{R} rays, S = 64 + 80'
     for stage in ('transform', 'pe', 'pe_notrig', 'pe_fasttrig', 'full'):
@@ -352,17 +382,26 @@ def l2_weight_lines(n_rays: int = 4096):
 
 def k2_lines(n_rays: int = 2048):
     """Beside K2's bound: the fp32-FMA bound it had before the split
-    products (history) and its design's HBM traffic, per train step of
-    n_rays rays (S = 64 + 80)."""
+    products (history) and its design's HBM traffic per train step of
+    n_rays rays, at S = 64 + 80 and at the culled S = 8 + 24; the bf16
+    flavour moves the same bytes (f32 cotangents), and the line beside
+    says what it would move with bf16 cotangents."""
     ncfg = NeRFConfig(use_framecode=True, framecode_ch=16)
     P = n_rays * (64 + 80)
-    b = sum(k2_design_bytes(ncfg, 7, 4, n_rays * S) for S in (64, 80))
-    return [f'K2 history: its products as f32 FMAs, '
-            f'{k2_fp32_ms(ncfg, P):.4f} ms at 67 TFLOP/s per {n_rays}-ray '
-            f'train step (K2-v1\'s design)',
-            f'K2 design traffic: {b / 1e9:.3f} GB through HBM per '
-            f'{n_rays}-ray train step, {b / PEAK_HBM_BYTES * 1e3:.4f} ms at '
-            f'3.35 TB/s (the layer-by-layer sequence, no L2 reuse)']
+    lines = [f'K2 history: its products as f32 FMAs, '
+             f'{k2_fp32_ms(ncfg, P):.4f} ms at 67 TFLOP/s per {n_rays}-ray '
+             f'train step (K2-v1\'s design)']
+    for shapes in ((64, 80), (8, 24)):
+        for cot, what in ((4, 'both flavours, f32 cotangents'),
+                          (2, 'bf16 flavour with bf16 cotangents held')):
+            b = sum(k2_design_bytes(ncfg, 7, 4, n_rays * S, cot_bytes=cot)
+                    for S in shapes)
+            lines.append(
+                f'K2 design traffic, S = {shapes[0]} + {shapes[1]} '
+                f'({what}): {b / 1e9:.3f} GB through HBM per {n_rays}-ray '
+                f'train step, {b / PEAK_HBM_BYTES * 1e3:.4f} ms at 3.35 TB/s '
+                f'(the layer-by-layer sequence, no L2 reuse)')
+    return lines
 
 
 def main() -> None:

@@ -26,7 +26,8 @@ K1 itself), digests of (R, S, 4):
   full         K1 itself: raw (R, S, 4), the same bits as K1.
 K2-d (K2's own sequence, `fused_render.launch_bwd`: K1's kernel with SAVE,
 then csrc/fused_render_bwd_sm90.cu's `anerf_fused_bwd_sm90` stopped after
-the stage):
+the stage), in either of K2's flavours (`bwd_f32`: f32-accurate cotangent
+products, or bf16 cotangent operands):
   recompute    the forward with saved activations: raw (R, S, 4);
   mlp          + the MLP backward and the dW chunk sums: (dW, dx0
                (R, S, k0p), dxv (R, S, kvp)), the MLP inputs' cotangents;
@@ -110,17 +111,20 @@ def decompose_fwd(stage: str, ncfg: NeRFConfig, packed: Dict[str, Any],
 
 def decompose_bwd_ref(stage: str, ncfg: NeRFConfig, packed: Dict[str, Any],
                       pts: torch.Tensor, m_all: torch.Tensor,
-                      aux: torch.Tensor, S: int, tau, g: torch.Tensor
-                      ) -> Tuple[torch.Tensor, ...]:
-    """The plain PyTorch version of K2-d's outputs at `stage`."""
+                      aux: torch.Tensor, S: int, tau, g: torch.Tensor,
+                      bwd_f32: bool = True) -> Tuple[torch.Tensor, ...]:
+    """The plain PyTorch version of K2-d's outputs at `stage`, in K2's
+    flavour `bwd_f32`."""
     if stage == 'recompute':
         return (fr.fused_encode_mlp_pts_ref(ncfg, packed, pts, m_all, aux, S,
                                             tau),)
     if stage == 'full':
-        return fr.fused_bwd_ref(ncfg, packed, pts, m_all, aux, S, tau, g)
+        return fr.fused_bwd_ref(ncfg, packed, pts, m_all, aux, S, tau, g,
+                                bwd_f32)
     if stage not in BWD_STAGES:
         raise ValueError(f'unknown K2-d stage {stage!r}')
-    dW, dx0, dxv = fr.mlp_bwd_ref(ncfg, packed, pts, m_all, aux, S, tau, g)
+    dW, dx0, dxv = fr.mlp_bwd_ref(ncfg, packed, pts, m_all, aux, S, tau, g,
+                                  bwd_f32)
     if stage == 'mlp':
         return dW, dx0, dxv
     return dW, fr.pe_transform_bwd_ref(packed, pts, m_all, aux, S, tau, dx0,
@@ -129,9 +133,10 @@ def decompose_bwd_ref(stage: str, ncfg: NeRFConfig, packed: Dict[str, Any],
 
 def decompose_bwd(stage: str, ncfg: NeRFConfig, packed: Dict[str, Any],
                   pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
-                  S: int, tau, g: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+                  S: int, tau, g: torch.Tensor, bwd_f32: bool = True
+                  ) -> Tuple[torch.Tensor, ...]:
     """K2-d: K2's operands -> the outputs of `stage` (see the module
-    docstring).
+    docstring), in K2's flavour `bwd_f32`.
 
     CPU tensors take the plain version; CUDA tensors launch K2's kernel
     sequence stopped after the stage (and raise if it cannot launch)."""
@@ -140,12 +145,12 @@ def decompose_bwd(stage: str, ncfg: NeRFConfig, packed: Dict[str, Any],
         raise ValueError(f'unknown K2-d stage {stage!r}')
     if pts.device.type == 'cpu':
         return decompose_bwd_ref(stage, ncfg, packed, pts, m_all, aux, S,
-                                 tau, g)
+                                 tau, g, bwd_f32)
     R = pts.shape[0]
     if R * S == 0:
         raise ValueError('decompose_bwd: no points')
     t = fr.launch_bwd(BWD_STAGES[stage], ncfg, packed, pts, m_all, aux, S,
-                      tau, g)
+                      tau, g, bwd_f32)
     BWD_LAUNCHES += 1
     if stage == 'recompute':
         return (t['raw'].view(R, S, 4),)

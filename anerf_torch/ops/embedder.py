@@ -5,8 +5,12 @@ Output layout matches the JAX package (and the reference) exactly: blocks
 of width D ordered [input, sin f0, cos f0, sin f1, cos f1, ...] along the
 last axis. Library sin/cos in f32. Ported modes: plain PE, and the cutoff
 window with the raw input windowed too (`cutoff_inputs`), with or without
-`dist_inputs`. The other branch modes and the custom-backward numerics
-knobs raise NotImplementedError until a later slice ports them.
+`dist_inputs`; `embed` raises NotImplementedError on the other window
+modes (cut_to_cutoff, shift_inputs, normalize, freq_schedule). It takes
+none of the JAX package's custom-backward numerics arguments (out_dtype,
+hifi_dtype, remat_dtype, the coarse-to-fine alpha): its backward is
+autograd's in f32. The render path's plain branch raises on the knobs
+that would ask for them (render/raycaster.py: encode_inputs).
 """
 from __future__ import annotations
 

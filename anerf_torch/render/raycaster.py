@@ -7,14 +7,20 @@ Two branches compute the encoding + MLP, as in the JAX package:
 call, once for the coarse net at S = n_samples and once for the fine net
 on the [coarse ++ importance] concatenation: through `fused_apply` (K1
 forward, K2 backward) when training, or K1 alone on operands the caller
-packed once (`packed`, the render path). Otherwise plain torch mirrors
-the JAX XLA path (encode_inputs + run_network) and autograd gives its
-backward. Randomness draws from an explicit torch.Generator.
+packed once (`packed`, the render path). K2's cotangent products are f32
+unless the MLP fast-grads knob is on (`eff_fast_mlp`: bf16 operands, as
+the JAX package's `bwd_f32=False`). Otherwise plain torch mirrors the
+JAX XLA path (encode_inputs + run_network) and autograd gives its
+backward; that branch has none of the JAX package's custom-backward
+numerics knobs (fast_pe / fast_mlp / alpha_f32 / hifi_pe / sr_grads) and
+raises on them. With `n_keep` < n_samples, `cull_samples` keeps a
+fixed budget of samples per ray before either branch. Randomness draws
+from an explicit torch.Generator.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -98,9 +104,11 @@ def encode_inputs(cfg: RenderConfig, pts: torch.Tensor,
         raise NotImplementedError(
             'anerf_torch encode_inputs: only the reldist/reldir/relray '
             'encoder family is ported yet')
-    if cfg.eff_fast_pe:
-        raise NotImplementedError('fast_pe (bf16 PE emission) is not '
-                                  'ported yet')
+    if cfg.eff_fast_pe or cfg.hifi_pe:
+        raise NotImplementedError('the plain branch has no bf16 PE '
+                                  'emission or backward (fast_pe / '
+                                  'fast_grads / hifi_pe); use_fused runs '
+                                  'without them')
     J = cfg.skel.n_joints
     _, bone_dims = make_bone_encoder(cfg.bone_type, cfg.skel)
     pts_tf = transform_batch_pts_flat(pts, skts)              # (R, S, J*3)
@@ -133,6 +141,11 @@ def run_network(cfg: RenderConfig, params: Dict[str, Any],
                 encoded: Dict[str, Optional[torch.Tensor]],
                 framecodes: Optional[torch.Tensor]) -> torch.Tensor:
     """Concatenate encodings and apply the MLP over all (R, S) points."""
+    if cfg.eff_fast_mlp or cfg.alpha_f32 or cfg.sr_grads:
+        raise NotImplementedError('the plain branch has no bf16 MLP '
+                                  'cotangents (fast_mlp / fast_grads / '
+                                  'alpha_f32 / sr_grads); use_fused gives '
+                                  'fast_mlp its bf16 K2 flavour')
     parts = [encoded['v']]
     if encoded['r'] is not None:
         parts.append(encoded['r'])
@@ -157,6 +170,52 @@ def pack_fused_params(params: Dict[str, Any], cfg: RenderConfig
     if cfg.n_importance > 0 and not cfg.single_net:
         packed['fine'] = pack_render_params(params['fine'], *args)
     return packed
+
+
+def cull_samples(cfg: RenderConfig, z_vals: torch.Tensor,
+                 pts: torch.Tensor, kps: torch.Tensor,
+                 cutoff_dist: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fixed-budget occupancy culling: keep cfg.n_keep samples per ray
+    (the JAX package's cull_samples). z_vals (R, S) ascending, pts
+    (R, S, 3), kps (R, J, 3) -> (z (R, n_keep), pts (R, n_keep, 3)).
+
+    A sample is in the window when some joint lies within
+    cutoff * (1 + cull_margin). Of a ray's c in-window samples, the one
+    of rank r (1-based, by z) is kept iff ceil(r K / c) >
+    ceil((r - 1) K / c): min(c, K) of them, spread evenly over the span.
+    When c < K the nearest samples by z of the rest fill the budget. The
+    kept set comes back in ascending z. The JAX package's arithmetic is
+    kept where a sample at the window's edge could flip: d2 is the
+    expansion |p|^2 - 2 p.k + |k|^2 in true fp32 (no TF32 matmul), the
+    ranks are divided in f32, and both sorts are stable. No gradient
+    reaches kps: the selection is discrete and the kept z / pts are the
+    input's values."""
+    K = cfg.n_keep
+    with torch.no_grad():
+        p, k = pts.detach(), kps.detach()
+        sq = lambda x: (x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) \
+            + x[..., 2] * x[..., 2]
+        pk = ((p[:, :, None, 0] * k[:, None, :, 0]
+               + p[:, :, None, 1] * k[:, None, :, 1])
+              + p[:, :, None, 2] * k[:, None, :, 2])       # (R, S, J)
+        d2 = (sq(p)[..., None] - 2.0 * pk) + sq(k)[:, None]
+        cut = cutoff_dist.detach() * (1.0 + cfg.cull_margin)
+        in_window = (d2 < (cut * cut)).any(-1)              # (R, S)
+
+        rank = torch.cumsum(in_window.int(), -1, dtype=torch.int32)
+        c = torch.clamp_min(rank[:, -1:], 1).float()
+        sel_in = in_window & (torch.ceil((rank * K).float() / c)
+                              > torch.ceil(((rank - 1) * K).float() / c))
+        # selected first, the rest after, each by z: one stable key sort
+        span = z_vals[:, -1:] - z_vals[:, :1] + 1e-6
+        key = torch.where(sel_in, 0.0, 1.0) * (span * 4.0) + z_vals
+        order = torch.sort(key, dim=-1, stable=True).indices[:, :K]
+        z_order = torch.sort(torch.gather(z_vals, 1, order), dim=-1,
+                             stable=True).indices
+        sel = torch.gather(order, 1, z_order)               # (R, K)
+    return (torch.gather(z_vals, 1, sel),
+            torch.gather(pts, 1, sel[..., None].expand(-1, -1, 3)))
 
 
 def _sample_pts(rays_o, rays_d, z_vals, ray_noise_std, generator):
@@ -185,11 +244,8 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig,
     without it the fused branch goes through fused_apply, whose backward
     is K2. Returns rgb_map / disp_map /
     acc_map / alpha (+ the coarse rgb0 / disp0 / acc0 / alpha0).
-    kp_batch and bones are accepted for the JAX signature; the ported
-    (reldist) encoders do not read them."""
-    if cfg.n_keep and cfg.n_keep < cfg.n_samples:
-        raise NotImplementedError('sample culling (cull_ratio) is not '
-                                  'ported yet')
+    kp_batch (R, J, 3) is read only by `cull_samples`; bones is accepted
+    for the JAX signature (the ported reldist encoders do not read it)."""
     if generator is None and (cfg.perturb > 0.0 or cfg.raw_noise_std > 0.0
                               or cfg.ray_noise_std > 0.0):
         raise ValueError('a stochastic RenderConfig needs a generator; '
@@ -206,6 +262,9 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig,
     cutoff_dist = params['cutoff_dist']
     act_fn = get_density_fn(cfg.density_type, cfg.softplus_shift)
 
+    if cfg.n_keep and cfg.n_keep < cfg.n_samples:
+        z_vals, pts = cull_samples(cfg, z_vals, pts, kp_batch, cutoff_dist)
+
     framecodes = None
     if cfg.nerf.use_framecode:
         if cam_idxs is None:
@@ -216,11 +275,10 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig,
                                        eval_mean=eval_framecode_mean)
 
     if cfg.use_fused:
-        if packed is None and cfg.eff_fast_mlp and torch.is_grad_enabled():
-            raise NotImplementedError(
-                'the fused backward with bf16 cotangents (fast_grads / '
-                'fast_mlp) is not ported yet; K2 runs f32 cotangents only')
         nf = (cfg.embed_kp.num_freqs, cfg.embed_view.num_freqs)
+        # K2's cotangent products follow the MLP fast-grads knob, as in
+        # the JAX package: f32 without it, bf16 operands with it
+        bwd_f32 = not cfg.eff_fast_mlp
 
         def net(name, pts_in, aux_in):
             if packed is not None:
@@ -228,7 +286,8 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig,
                                             m_all, aux_in, pts_in.shape[1],
                                             tau)
             return fused_apply(cfg.nerf, pts_in.shape[1], params[name],
-                               cutoff_dist, *nf, pts_in, m_all, aux_in, tau)
+                               cutoff_dist, *nf, pts_in, m_all, aux_in, tau,
+                               bwd_f32)
         m_all, aux = pack_ray_data(rays_d[:, None, :], skts, framecodes)
         raw = net('coarse', pts, aux)
     else:

@@ -1,0 +1,133 @@
+"""K2 of this tree against K2 of another copy of the package, in one
+process on one card: the same inputs, bit-equality of the outputs, times
+in turns, and (in the bf16 flavour) each one's MLP backward against the
+plain bf16 one on its own saved activations.
+
+    python -m anerf_torch.tools.k2_ab --other DIR [--bwd_bf16]
+        [--rays 2048] [--reps 11] [--shapes 64 80 8 24] [--device cuda]
+
+DIR holds the other copy's `anerf_torch/` (e.g. `git archive` of another
+commit, or this tree with one change to a kernel source); it is imported
+under another name and builds its own kernels into DIR/anerf_torch/
+_build. The inputs are the kernel_bench tool's (the flagship's coarse
+net, random skeletons, points and cotangents from numpy's
+default_rng(0)); times are medians of `reps` CUDA-event timings in turns
+(other, this, this, other), each launch on the next of four input sets.
+Per S it prints a row and ends with one JSON line {"metric": "k2_ab",
+"device", "power_limit", "bwd_f32", "rows": [{S, bit_equal, ms,
+other_ms, turns, fro, other_fro}]}; fro is the worst relative Frobenius
+distance of a dW block, dx0 or dxv from the plain bf16 MLP backward on
+the kernel's own activations (None in the f32 flavour). The other copy's
+`fused_bwd` must take `bwd_f32` for --bwd_bf16. --device cpu runs the
+plain versions on the host clock, for the tests.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import sys
+from pathlib import Path
+from typing import Any, Dict, List, Sequence
+
+import torch
+
+from ..kernels import fused_render as fr
+from . import kernel_bench as kb
+
+
+def load_other(root: str):
+    """The `anerf_torch` package under `root`, imported as
+    anerf_torch_other; returns its kernels.fused_render module."""
+    pkg = Path(root).resolve() / 'anerf_torch'
+    name = 'anerf_torch_other'
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / '__init__.py', submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f'{name}.kernels.fused_render')
+
+
+def mlp_fro(ofr, ncfg, packed, args, bwd_f32: bool) -> float:
+    """`ofr`'s K2 stopped after its MLP backward (on a card; the plain
+    version on the CPU) against the plain bf16 MLP backward on its saved
+    activations: the worst relative Frobenius distance of a dW block,
+    dx0 or dxv."""
+    P, W = args[2].shape[0] * args[5], ncfg.width
+    if args[2].device.type == 'cpu':
+        dW, dx0, dxv = fr.mlp_bwd_ref(*args, bwd_f32=bwd_f32)
+        got, want = (dW, dx0.reshape(P, -1), dxv.reshape(P, -1)), \
+            fr.mlp_bwd_ref(*args, bwd_f32=False)
+    else:
+        t = ofr.launch_bwd(2, *args, bwd_f32=bwd_f32)
+        got = (t['dW'], t['dx0'], t['dview'][:, W:])
+        want = fr.mlp_bwd_ref(*args, bwd_f32=False, trace=fr.trace_from_act(
+            ncfg, packed, t['act'], P))
+    nfk, nfv = packed['nfk'], packed['nfv']
+    pairs = list(zip(fr.split_grads(ncfg, nfk, nfv, got[0]).values(),
+                     fr.split_grads(ncfg, nfk, nfv, want[0]).values()))
+    pairs += [(got[1], want[1].reshape(P, -1)),
+              (got[2], want[2].reshape(P, -1))]
+    return max(((a - b).norm() / b.norm().clamp_min(1e-7)).item()
+               for a, b in pairs)
+
+
+def run(other: str, n_rays: int = 2048, reps: int = 11,
+        shapes: Sequence[int] = (64, 80, 8, 24), bwd_f32: bool = True,
+        device='cuda') -> Dict[str, Any]:
+    """Both K2s per S; prints a row per S and the JSON line, and returns
+    the JSON object."""
+    ofr = load_other(other)
+    ctx = kb.setup(n_rays, device)
+    dev = ctx['dev']
+    if dev.type == 'cuda':
+        torch.backends.cuda.matmul.allow_tf32 = False
+    kw = {} if bwd_f32 else {'bwd_f32': False}
+    this = lambda *a: fr.fused_bwd(*a, **kw)
+    that = lambda *a: ofr.fused_bwd(*a, **kw)
+    rows: List[Dict[str, Any]] = []
+    for S in shapes:
+        sets = kb.input_sets(ctx, S)
+        ins = [a + (s['g'],) for a, s in zip(kb._k1_args(ctx, sets, S),
+                                            sets)]
+        bit_equal = all(torch.equal(x, y)
+                        for x, y in zip(this(*ins[0]), that(*ins[0])))
+        turns = [kb.time_ms(fn, ins, reps, dev)
+                 for fn in (that, this, this, that)]
+        row = {'S': S, 'bit_equal': bit_equal,
+               'ms': (turns[1] + turns[2]) / 2,
+               'other_ms': (turns[0] + turns[3]) / 2, 'turns': turns,
+               'fro': None, 'other_fro': None}
+        if not bwd_f32:
+            row['fro'] = mlp_fro(fr, ctx['ncfg'], ctx['packed'], ins[0],
+                                 False)
+            row['other_fro'] = mlp_fro(ofr, ctx['ncfg'], ctx['packed'],
+                                       ins[0], False)
+        rows.append(row)
+        print(row, flush=True)
+    rec = {'metric': 'k2_ab', **kb.card(dev), 'bwd_f32': bwd_f32,
+           'other': other, 'rows': rows}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    p.add_argument('--other', required=True,
+                   help='directory holding the other anerf_torch/')
+    p.add_argument('--rays', type=int, default=2048)
+    p.add_argument('--reps', type=int, default=11)
+    p.add_argument('--shapes', nargs='+', type=int, default=[64, 80, 8, 24])
+    p.add_argument('--bwd_bf16', action='store_true',
+                   help="K2's bf16-cotangent flavour (both copies)")
+    p.add_argument('--device', default='cuda',
+                   help="'cpu' runs the plain versions (for the tests)")
+    a = p.parse_args(argv)
+    run(a.other, a.rays, a.reps, a.shapes, not a.bwd_bf16, a.device)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

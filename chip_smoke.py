@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result):
   2. kernels: K1 (fused_encode_mlp_pts, the wgmma kernel) and K1-v1 (its
      first, mma.sync version, kept as the comparison) against their plain
      PyTorch version and against each other at the flagship width on one
-     4096-ray bucket, S = 64 and S = 80, tau = 2000 and 35; error against
+     4096-ray bucket, S = 64 and S = 80 (and the culled S = 8 and 24),
+     tau = 2000 and 35; error against
      a stated tolerance, median times (CUDA events, inputs varied between
      reps) of K1-v1 and K1 in turns (v1, K1, K1, v1) beside the bound and
      beside the MLP's products as a chain of bf16 torch.matmul calls (a
@@ -22,7 +23,13 @@ Phases (any failure exits non-zero and prints no result):
      in turns beside the bound (roofline.k2_seconds) and beside the
      products as f32 torch.matmul calls (TF32 off; a yardstick); the
      launches of one call; the split products (split_gemm_probe) against
-     an f64 matmul beside K2-v1's FMA GEMM on the same inputs.
+     an f64 matmul beside K2-v1's FMA GEMM on the same inputs. K2's bf16
+     flavour (fused_bwd(..., bwd_f32=False)) on the same batch at S = 64,
+     80 and the culled 8, 24: against its plain version within
+     K2_BF16_FRO, which K2's f32 flavour (the control) must exceed, two
+     launches bit-equal, its launches a call; at S = 8 and 24 also K2's
+     f32 flavour against its plain version; both flavours timed in turns
+     (f32, bf16, bf16, f32) beside their bounds.
   3. modes and stages: K3 (fused_encode_mlp) and K4 (fused_mlp_apply) on
      the K1 phase's bucket, each against its plain version and against
      K1 on the same points, timed beside its bound; every stage of K1-d
@@ -31,13 +38,17 @@ Phases (any failure exits non-zero and prints no result):
      for bit against K1 and K2, timed beside their bounds; then the
      kernel_bench tool's three modes (anerf_torch/tools/kernel_bench.py:
      default, --decompose, --decompose_bwd) at 2048 rays, S = 64 and 80,
-     the main path of K3, K4, K1-d and K2-d.
+     the main path of K3, K4, K1-d and K2-d; K2-d's bf16 flavour at
+     S = 8 and 24 against its plain digests, and the tool's --bwd_bf16
+     rows (default and --decompose_bwd) at S = 8 and 24.
   4. render slice: the flagship SURREAL model (random weights from a seed,
      fused_kernel on, chunk 4096) answers three render_path requests at
      512 x 512 (bullet time of one pose, two selected poses, the bullet
      time again); each is checked for finite output and for two K1
      launches per ray bucket. A small ray batch through render_rays on the
-     fused branch is held against the plain-torch branch.
+     fused branch is held against the plain-torch branch, also with
+     culling (cull_ratio 0.125). The culled render: the first request
+     again at cull_ratio 0.125, its box-rays/s.
   5. train slice: one step's gradients on the fused branch (K1 + K2) held
      against the plain-torch branch on 256 rays; then 20 train steps of
      the flagship (N_rand 2048, 128 frames, pose refinement) through
@@ -45,6 +56,14 @@ Phases (any failure exits non-zero and prints no result):
      two K1 and two K2 launches per step, and poses that move only on
      their opt_pose_step interval. K1-v1 and K2-v1 must not run on the
      main paths (render and train).
+  6. culled fast-grads train slice: the same setup with cull_ratio 0.125
+     and fast_grads (the coarse net at S = 8, the fine net at 8 + 16 =
+     24, K2's bf16 flavour): one step's gradients with K2 against the
+     same step with K2's plain bf16 version (fused_bwd_ref(...,
+     bwd_f32=False) on the card's tensors); then N_CULL_STEPS steps,
+     checked as above with two K1 and two bf16 K2 launches a step and no
+     f32 K2; ms/step, rays/s, and one step under torch.profiler for the
+     device idle share.
 With --profile, one request and one train step run again under
 torch.profiler, and for each the device-busy share and the top kernels
 by device time are printed.
@@ -94,11 +113,26 @@ K2_BLOCK_RTOL = 0.12
 # runs as a control, must land above the limit. A change to either
 # recompute that flips a mask breaks this gate: set it again from readings.
 K2_V1_FRO = 5e-6
+# K2's bf16 flavour's MLP backward (its mlp stage: dW and the MLP inputs'
+# cotangents dx0 / dxv) vs the plain bf16 version run on the kernel's own
+# saved activations (fused_render.trace_from_act), worst relative
+# Frobenius distance of any dW block, dx0 or dxv. On the same activations
+# no mask can flip, so the two differ by f32 summation order and the bf16
+# roundings of cotangents it moves, which the layers after carry on:
+# observed 3.8e-4 to 5.0e-4 on an H100 (S = 64, 80, 8; the worst a dW
+# block of the first layers). K2's f32 flavour against the same plain
+# bf16 version is the control and must land above the limit: it read
+# 4.4e-3 to 4.8e-3. 1.5e-3 is 3x the readings and 3x below the control.
+# (Against the plain version's own recompute both flavours read 7.7e-3 to
+# 1.4e-2, the flipped masks' share, so that comparison cannot tell the
+# flavours apart.)
+K2_BF16_FRO = 1.5e-3
 # one train step's gradients, fused branch vs plain branch: the bound of
 # the JAX package's fused-vs-XLA gradient test
 # (tests/test_fused_render.py:217-261)
 STEP_GRAD_RTOL = 0.12
 N_TRAIN_STEPS = 20
+N_CULL_STEPS = 20
 # K3 and K4 against K1 on the same points (K3 fed build_raw_inputs of
 # them, K4 the plain version's embedded inputs): each pair computes its
 # geometry or trig in another f32 order, which flips an occasional bf16
@@ -163,9 +197,14 @@ def _flagship_render(torch, np):
 def _bucket_inputs(torch, np, cfg, params, src, seed, R=4096):
     """One bucket of K1 operands as the main path builds them: R rays
     from a camera 2.5 units from the root of pose 0 toward the body,
-    cylinder near/far, 64 stratified samples and the 64 + 16 fine set.
-    Returns ({S: pts}, m_all, aux, the per-ray inputs of pack_ray_data
+    cylinder near/far, 64 stratified samples and the 64 + 16 fine set;
+    and the culled sets of cull_ratio 0.125: the 8 samples cull_samples
+    keeps of the 64, and those 8 + the 16. Returns ({S: pts} for S = 64,
+    80, 8, 24, m_all, aux, the per-ray inputs of pack_ray_data
     {'rays_d', 'skts', 'fc'})."""
+    import dataclasses
+
+    from anerf_torch.render.raycaster import cull_samples
     from anerf_torch.kernels.fused_render import pack_ray_data
     from anerf_torch.models.nerf import lookup_framecodes
     from anerf_torch.ops.cylinder import (get_kp_bounding_cylinder,
@@ -192,13 +231,18 @@ def _bucket_inputs(torch, np, cfg, params, src, seed, R=4096):
     z64 = sample_from_lineseg(near, far, 64)
     z16 = sample_from_lineseg(near, far, 16)
     pts64 = rays_o[:, None] + rays_d[:, None] * z64[..., None]
-    pts80 = torch.cat([pts64, rays_o[:, None] + rays_d[:, None]
-                       * z16[..., None]], 1)
+    pts16 = rays_o[:, None] + rays_d[:, None] * z16[..., None]
+    pts80 = torch.cat([pts64, pts16], 1)
+    _, pts8 = cull_samples(dataclasses.replace(cfg, n_keep=8), z64, pts64,
+                           kp.to(dev).expand(R, 24, 3),
+                           params['cutoff_dist'])
     skts_r = skts.to(dev).expand(R, 24, 4, 4)
     fc = lookup_framecodes(params['coarse'],
                            torch.zeros(R, dtype=torch.long, device=dev))
     m_all, aux = pack_ray_data(rays_d[:, None], skts_r, fc)
-    return ({64: pts64.contiguous(), 80: pts80.contiguous()}, m_all, aux,
+    return ({64: pts64.contiguous(), 80: pts80.contiguous(),
+             8: pts8.contiguous(),
+             24: torch.cat([pts8, pts16], 1).contiguous()}, m_all, aux,
             {'rays_d': rays_d[:, None], 'skts': skts_r, 'fc': fc})
 
 
@@ -227,7 +271,8 @@ def kernel_phase(torch, np, cfg, params, src):
     variants = [_bucket_inputs(torch, np, cfg, params, src, seed)
                 for seed in range(4)]
     max_abs, max_v1, rec = 0.0, 0.0, {}
-    for S, net in ((64, 'coarse'), (80, 'fine')):
+    for S, net in ((64, 'coarse'), (80, 'fine'), (8, 'coarse'),
+                   (24, 'fine')):
         for tau in (2000.0, 35.0):
             pts, m_all, aux = variants[0][0][S], variants[0][1], \
                 variants[0][2]
@@ -298,6 +343,18 @@ def kernel_phase(torch, np, cfg, params, src):
           f'({v1_ms / ms:.3f}x)', flush=True)
     for line in rf.l2_weight_lines(R):
         print(f'  {line}', flush=True)
+    flops_c = 2.0 * rf.mlp_macs_per_point(ncfg) * R * (8 + 24)
+    fp32_c = (rf.transform_flop_per_point() + rf.pe_flop_per_point(
+        packed['coarse']['nfk'], packed['coarse']['nfv'])) * R * (8 + 24)
+    bound_c, by_c = rf.bound_ms({
+        'bf16': flops_c / rf.PEAK_BF16_FLOPS,
+        'fp32': fp32_c / rf.PEAK_FP32_FLOPS,
+        'bytes': (io_bytes - R * (64 + 80 - 8 - 24) * (12 + 16))
+        / rf.PEAK_HBM_BYTES})
+    ms_c = rec[8]['ms'] + rec[24]['ms']
+    print(f'K1 culled bucket (S=8 + S=24): bound {bound_c:.4f} ms '
+          f'({by_c}); K1 {ms_c:.4f} ms = {bound_c / ms_c:.3f} of the '
+          f'bound', flush=True)
     return {'name': 'fused_encode_mlp_pts', 'route': 'cuda',
             'source': 'anerf_torch/kernels/csrc/fused_render_sm90.cu',
             'replaces': 'anerf_tpu/kernels/fused_render.py:677',
@@ -305,6 +362,10 @@ def kernel_phase(torch, np, cfg, params, src):
             'plain_ms': rec[64]['plain_ms'] + rec[80]['plain_ms'],
             'bound_ms': bound_ms, 'bound_by': bound_by, 'library_ms': None,
             'ms_s64': rec[64]['ms'], 'ms_s80': rec[80]['ms'],
+            'culled': {'ms': ms_c, 'ms_s8': rec[8]['ms'],
+                       'ms_s24': rec[24]['ms'],
+                       'plain_ms': rec[8]['plain_ms'] + rec[24]['plain_ms'],
+                       'bound_ms': bound_c},
             'cluster': fr.cluster_size(),
             'trunk_library_ms': rec[64]['trunk_ms'] + rec[80]['trunk_ms'],
             'v1': {'source': 'anerf_torch/kernels/csrc/fused_render.cu',
@@ -523,17 +584,18 @@ def k2_phase(torch, np, cfg, params, src):
             e = _k2_errors(torch, ncfg, packed[net], got, v1,
                            f'K2 vs K2-v1 S={S} tau={tau:g}', R)
             max_v1 = max(max_v1, e[0])
-            # the control: K2's sequence on the hi plane of the cotangents
-            t = fr.launch_bwd(0, *args, planes=1)
+            # the control: K2's bf16 flavour (the hi plane of the
+            # cotangents alone)
+            t = fr.launch_bwd(0, *args, bwd_f32=False)
             ctl = _worst_fro(ncfg, packed[net],
                              (t['dW'], t['dpts'], t['dm'], t['daux']), v1)
             fro_v1, fro_ctl = max(fro_v1, e[3]), min(fro_ctl, ctl)
             ok = e[3] < K2_V1_FRO < ctl
             print(f'K2 vs K2-v1 S={S} tau={tau:g}: dW max_rel={e[1]:.3e}, '
                   f'dpts / dm_all / daux max_rel={e[2]:.3e} (K2\'s bounds); '
-                  f'worst fro {e[3]:.3e}, K2 on the hi plane alone '
-                  f'{ctl:.3e} (limit {K2_V1_FRO}: K2 below, the control '
-                  f'above) -> {"ok" if ok else "FAIL"}', flush=True)
+                  f'worst fro {e[3]:.3e}, K2\'s bf16 flavour (the hi plane '
+                  f'alone) {ctl:.3e} (limit {K2_V1_FRO}: K2 below, the '
+                  f'control above) -> {"ok" if ok else "FAIL"}', flush=True)
             if not ok:
                 raise AssertionError(f'K2 vs K2-v1 at S={S} tau={tau}: '
                                      f'{e[3]:.3e}, control {ctl:.3e}')
@@ -612,6 +674,192 @@ def k2_phase(torch, np, cfg, params, src):
                    'ms_s64': rec[64]['v1_ms'], 'ms_s80': rec[80]['v1_ms'],
                    'launches_per_call': n_v1, 'max_abs_vs_k2': max_v1,
                    'fro_vs_k2': fro_v1, 'fro_vs_hi_plane_k2': fro_ctl}}
+
+
+def _mlp_stage_fro(torch, ncfg, packed, args):
+    """K2's sequence stopped after the MLP backward (K2-d's mlp stage) in
+    both flavours, each against the plain bf16 MLP backward on the
+    kernel's own saved activations: the worst relative Frobenius distance
+    of any dW block, dx0 or dxv, (bf16 flavour, f32 flavour)."""
+    from anerf_torch.kernels import fused_render as fr
+    out = []
+    P, W = args[2].shape[0] * args[5], ncfg.width
+    for f32 in (False, True):
+        t = fr.launch_bwd(2, *args, bwd_f32=f32)
+        if not f32:
+            want = fr.mlp_bwd_ref(*args, bwd_f32=False,
+                                  trace=fr.trace_from_act(ncfg, packed,
+                                                          t['act'], P))
+        got = (t['dW'], t['dx0'], t['dview'][:, W:])
+        pairs = list(zip(fr.split_grads(ncfg, packed['nfk'], packed['nfv'],
+                                        got[0]).values(),
+                         fr.split_grads(ncfg, packed['nfk'], packed['nfv'],
+                                        want[0]).values()))
+        pairs += [(got[1], want[1].reshape(P, -1)),
+                  (got[2], want[2].reshape(P, -1))]
+        out.append(max(((a - b).norm() / b.norm().clamp_min(1e-7)).item()
+                       for a, b in pairs))
+        del t
+    return tuple(out)
+
+
+def k2_bf16_phase(torch, np, cfg, params, src, n_k2_f32):
+    """K2's bf16 flavour (bwd_f32=False) on the K2 phase's kind of batch
+    (2048 rays, tau = 2000 and 35, a seeded cotangent) at S = 64 / 80 and
+    at the culled S = 8 / 24 (the coarse / fine net): every output against
+    its plain bf16 version within K2's bounds; its MLP backward against
+    the plain bf16 one on its own saved activations within K2_BF16_FRO,
+    which K2's f32 flavour against the same (the control) must exceed;
+    two launches bit-equal; as many launches a call as the
+    f32 flavour (n_k2_f32). At S = 8 and 24 also K2's f32 flavour against
+    its plain version, bit-equal across launches. Both flavours timed in
+    turns (f32, bf16, bf16, f32) at every S beside their bounds. Returns
+    (the bf16 record, {S: f32 ms}, {S: f32 plain ms}, f32 max abs error
+    at the culled shapes)."""
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.kernels import roofline as rf
+    from anerf_torch.render.raycaster import pack_fused_params
+
+    packed = pack_fused_params(params, cfg)
+    ncfg = cfg.nerf
+    R = 2048
+    variants = [_bucket_inputs(torch, np, cfg, params, src, seed, R=R)
+                for seed in range(4)]
+    shapes = ((64, 'coarse'), (80, 'fine'), (8, 'coarse'), (24, 'fine'))
+    gs = {S: [torch.as_tensor(
+        np.random.default_rng(10 + i).normal(size=(R, S, 4)) * 0.1,
+        dtype=torch.float32, device='cuda') for i in range(4)]
+        for S, _ in shapes}
+    max_abs, max_abs_f32, fro_bf, fro_ctl = 0.0, 0.0, 0.0, float('inf')
+    rec = {}
+    for S, net in shapes:
+        for tau in (2000.0, 35.0):
+            args = (ncfg, packed[net], variants[0][0][S], variants[0][1],
+                    variants[0][2], S, tau, gs[S][0])
+            got = fr.fused_bwd(*args, bwd_f32=False)
+            again = fr.fused_bwd(*args, bwd_f32=False)
+            f32 = fr.fused_bwd(*args)
+            f32_again = fr.fused_bwd(*args)
+            torch.cuda.synchronize()
+            for a, b, what in ((got, again, 'bf16'),
+                               (f32, f32_again, 'f32')):
+                if not all(torch.equal(x, y) for x, y in zip(a, b)):
+                    raise AssertionError(f'K2 {what} is not deterministic '
+                                         f'at S={S} tau={tau}')
+            want = fr.fused_bwd_ref(*args, bwd_f32=False)
+            e = _k2_errors(torch, ncfg, packed[net], got, want,
+                           f'K2-bf16 S={S} tau={tau:g}', R)
+            max_abs = max(max_abs, e[0])
+            fro, ctl = _mlp_stage_fro(torch, ncfg, packed[net], args)
+            fro_bf, fro_ctl = max(fro_bf, fro), min(fro_ctl, ctl)
+            ok = fro < K2_BF16_FRO < ctl
+            print(f'K2-bf16 S={S} tau={tau:g}: vs its plain version dW '
+                  f'max_rel={e[1]:.3e}, dpts / dm_all / daux max_rel='
+                  f'{e[2]:.3e}, worst fro {e[3]:.3e} (K2\'s bounds); MLP '
+                  f'backward vs the plain bf16 version on its own '
+                  f'activations: worst fro {fro:.3e}, K2 f32 {ctl:.3e} '
+                  f'(limit {K2_BF16_FRO}: bf16 below, f32 above); two '
+                  f'launches bitwise equal -> {"ok" if ok else "FAIL"}',
+                  flush=True)
+            if not ok:
+                raise AssertionError(f'K2-bf16 at S={S} tau={tau}: '
+                                     f'{fro:.3e}, control {ctl:.3e}')
+            if S in (8, 24):
+                want32 = fr.fused_bwd_ref(*args)
+                e = _k2_errors(torch, ncfg, packed[net], f32, want32,
+                               f'K2 S={S} tau={tau:g}', R)
+                max_abs_f32 = max(max_abs_f32, e[0])
+                print(f'K2 S={S} tau={tau:g}: vs its plain version dW '
+                      f'max_rel={e[1]:.3e}, dpts / dm_all / daux max_rel='
+                      f'{e[2]:.3e}, worst fro {e[3]:.3e} (K2\'s bounds); '
+                      f'two launches bitwise equal -> ok', flush=True)
+                del want32
+            del got, again, f32, f32_again, want
+        ins = [(ncfg, packed[net], v[0][S], v[1], v[2], S, 2000.0, g)
+               for v, g in zip(variants, gs[S])]
+        bf16 = lambda *a: fr.fused_bwd(*a, bwd_f32=False)
+        turns = [_median_ms(fn, ins, 11) for fn in (
+            fr.fused_bwd, bf16, bf16, fr.fused_bwd)]
+        rec[S] = {'ms': (turns[1] + turns[2]) / 2,
+                  'f32_ms': (turns[0] + turns[3]) / 2,
+                  'plain_ms': _median_ms(
+                      lambda *a: fr.fused_bwd_ref(*a, bwd_f32=False), ins,
+                      3),
+                  'f32_plain_ms': (_median_ms(fr.fused_bwd_ref, ins, 3)
+                                   if S in (8, 24) else None)}
+        print(f'K2 flavours S={S}: in turns f32 {turns[0]:.4f}, bf16 '
+              f'{turns[1]:.4f}, bf16 {turns[2]:.4f}, f32 {turns[3]:.4f} ms; '
+              f'bf16 plain {rec[S]["plain_ms"]:.4f} ms (medians, R={R})',
+              flush=True)
+
+    args = (ncfg, packed['fine'], variants[1][0][24], variants[1][1],
+            variants[1][2], 24, 2000.0, gs[24][1])
+    before = (fr.BWD_LAUNCHES, fr.BWD_BF16_LAUNCHES)
+    n_bf, all_bf, by_launch = _launches_per_call(
+        torch, lambda: fr.fused_bwd(*args, bwd_f32=False), K2_KERNELS)
+    counted = (fr.BWD_LAUNCHES - before[0], fr.BWD_BF16_LAUNCHES - before[1])
+    print(f'launches per call: K2-bf16 {n_bf} kernels of its sequence '
+          f'({all_bf} device launches), K2 f32 {n_k2_f32}; counted '
+          f'(f32, bf16) {counted}', flush=True)
+    print('K2-bf16 by launch (S=24, one call under the profiler, device '
+          'ms): ' + ', '.join(f'{n} {us / 1e3:.4f}' for n, us in by_launch),
+          flush=True)
+    if n_bf != n_k2_f32 or counted != (0, 1):
+        raise AssertionError(f'K2-bf16: {n_bf} launches a call (f32 '
+                             f'{n_k2_f32}), counted {counted}')
+    args = (ncfg, packed['fine'], variants[1][0][80], variants[1][1],
+            variants[1][2], 80, 2000.0, gs[80][1])
+    _, _, by_launch = _launches_per_call(
+        torch, lambda: fr.fused_bwd(*args, bwd_f32=False), K2_KERNELS)
+    print('K2-bf16 by launch (S=80, one call under the profiler, device '
+          'ms): ' + ', '.join(f'{n} {us / 1e3:.4f}' for n, us in by_launch),
+          flush=True)
+
+    nfk, nfv = packed['coarse']['nfk'], packed['coarse']['nfv']
+    dw_bytes = 4 * sum(r * c for _, r, c in fr.grad_blocks(ncfg, nfk, nfv))
+    w_bytes = _packed_bytes(torch, packed)
+    bounds = {}
+    for key, pair, f32 in (('bf16', (64, 80), False),
+                           ('bf16_culled', (8, 24), False),
+                           ('f32_culled', (8, 24), True)):
+        bounds[key] = rf.bound_ms(rf.k2_seconds(
+            ncfg, nfk, nfv, tuple(R * S for S in pair), R, w_bytes,
+            dw_bytes, f32))
+    ms = rec[64]['ms'] + rec[80]['ms']
+    ms_c = rec[8]['ms'] + rec[24]['ms']
+    f32_ms = rec[64]['f32_ms'] + rec[80]['f32_ms']
+    f32_c = rec[8]['f32_ms'] + rec[24]['f32_ms']
+    for what, t, b in (('K2-bf16 step (S=64 + S=80)', ms, bounds['bf16']),
+                       ('K2-bf16 culled step (S=8 + S=24)', ms_c,
+                        bounds['bf16_culled']),
+                       ('K2 f32 culled step (S=8 + S=24)', f32_c,
+                        bounds['f32_culled'])):
+        print(f'{what}, {R} rays: {t:.4f} ms, bound {b[0]:.4f} ms '
+              f'({b[1]}) = {b[0] / t:.3f} of the bound', flush=True)
+    print(f'K2 flavours in the same turns: S=64 + S=80 f32 {f32_ms:.4f} ms, '
+          f'bf16 {ms:.4f} ms; S=8 + S=24 f32 {f32_c:.4f} ms, bf16 '
+          f'{ms_c:.4f} ms', flush=True)
+    out = {'name': 'fused_bwd(bwd_f32=False)', 'route': 'cuda',
+           'source': 'anerf_torch/kernels/csrc/fused_render_bwd_sm90.cu',
+           'replaces': 'anerf_tpu/kernels/fused_render.py:962',
+           'launches': None, 'max_abs_err': max_abs, 'ms': ms,
+           'plain_ms': rec[64]['plain_ms'] + rec[80]['plain_ms'],
+           'bound_ms': bounds['bf16'][0], 'bound_by': bounds['bf16'][1],
+           'library_ms': None, 'ms_s64': rec[64]['ms'],
+           'ms_s80': rec[80]['ms'], 'f32_ms': f32_ms,
+           'culled': {'ms': ms_c, 'ms_s8': rec[8]['ms'],
+                      'ms_s24': rec[24]['ms'], 'f32_ms': f32_c,
+                      'plain_ms': rec[8]['plain_ms'] + rec[24]['plain_ms'],
+                      'bound_ms': bounds['bf16_culled'][0]},
+           'launches_per_call': n_bf, 'fro_vs_plain': fro_bf,
+           'f32_fro_vs_plain': fro_ctl}
+    f32_culled = {'ms': f32_c, 'ms_s8': rec[8]['f32_ms'],
+                  'ms_s24': rec[24]['f32_ms'],
+                  'plain_ms': rec[8]['f32_plain_ms']
+                  + rec[24]['f32_plain_ms'],
+                  'bound_ms': bounds['f32_culled'][0],
+                  'max_abs_err': max_abs_f32}
+    return out, f32_culled
 
 
 def modes_phase(torch, np, cfg, params, src):
@@ -828,6 +1076,50 @@ def stages_phase(torch, np, cfg, params, src):
                 _median_ms(stages.decompose_bwd, ins, 7),
                 _median_ms(stages.decompose_bwd_ref, ins, 3), bound, err)
 
+    # K2-d in the bf16 flavour at the culled shapes. Every point there is
+    # in a window, where a flipped mask between two recomputes is more
+    # frequent than at S = 64 / 80, so the per-point stages are held on
+    # the kernel's own activations: mlp bit-equal to K2's sequence stopped
+    # there, whose MLP backward is within K2_BF16_FRO of the plain bf16
+    # one on its saved activations; pe's digest within K2_FRO of the plain
+    # PE backward fed that stage's own dx0 / dxv; full bit-equal to K2.
+    bf16_err = 0.0
+    for S, net in ((8, 'coarse'), (24, 'fine')):
+        g = torch.as_tensor(np.random.default_rng(20 + S).normal(
+            size=(R, S, 4)) * 0.1, dtype=torch.float32, device='cuda')
+        args = (ncfg, packed[net], variants[0][0][S], variants[0][1],
+                variants[0][2], S, tau, g)
+        got = {st: stages.decompose_bwd(st, *args, bwd_f32=False)
+               for st in stages.BWD_STAGES}
+        t = fr.launch_bwd(2, *args, bwd_f32=False)
+        torch.cuda.synchronize()
+        want = stages.decompose_bwd_ref('recompute', *args, bwd_f32=False)
+        err = (got['recompute'][0] - want[0]).abs().max().item()
+        if not torch.allclose(got['recompute'][0], want[0], atol=K1_ATOL,
+                              rtol=K1_RTOL):
+            raise AssertionError(f'K2-d bf16 recompute disagrees at S={S}')
+        mlp = (t['dW'], t['dx0'].view(R, S, -1),
+               t['dview'].view(R, S, -1)[..., ncfg.width:])
+        fro, _ = _mlp_stage_fro(torch, ncfg, packed[net], args)
+        digest = fr.pe_transform_bwd_ref(packed[net], *args[2:7], mlp[1],
+                                         mlp[2], pe_only=True)
+        pe_fro = ((got['pe'][1] - digest).norm() / digest.norm()).item()
+        ok = (all(torch.equal(a, b) for a, b in zip(got['mlp'], mlp))
+              and torch.equal(got['pe'][0], mlp[0])
+              and all(torch.equal(a, b) for a, b in zip(
+                  got['full'], fr.fused_bwd(*args, bwd_f32=False)))
+              and fro < K2_BF16_FRO and pe_fro < K2_FRO)
+        bf16_err = max(bf16_err, err)
+        print(f'K2-d bf16 S={S}: recompute max_abs={err:.3e}; mlp bit-equal '
+              f'to K2 stopped there, its MLP backward {fro:.3e} from the '
+              f'plain one on its own activations (limit {K2_BF16_FRO}); pe '
+              f'digest {pe_fro:.3e} from the plain PE backward on that '
+              f'stage\'s cotangents (limit {K2_FRO}); full bit-equal to '
+              f'K2-bf16 -> {"ok" if ok else "FAIL"}', flush=True)
+        if not ok:
+            raise AssertionError(f'K2-d bf16 disagrees at S={S}')
+        del got, t, mlp
+
     out = []
     for kid, name, src_file, replaces in (
             ('K1-d', 'decompose_fwd', 'fused_render_sm90.cu',
@@ -860,13 +1152,16 @@ def stages_phase(torch, np, cfg, params, src):
                     'bound_ms': sum(p['bound_ms'] for p in per.values()),
                     'bound_by': top['bound_by'], 'library_ms': None,
                     'stages': per})
+    out[1]['bf16_culled_max_abs_err'] = bf16_err
     return out
 
 
 def tool_phase(torch):
-    """The kernel_bench tool's three modes at 2048 rays, S = 64 and 80:
-    the main path of K3, K4, K1-d and K2-d. Their counts are set to 0
-    just before and read just after. Returns {kernel id: launches}."""
+    """The kernel_bench tool's three modes at 2048 rays, S = 64 and 80,
+    and its --bwd_bf16 rows (default mode and --decompose_bwd) at S = 8
+    and 24: the main path of K3, K4, K1-d and K2-d. Their counts are set
+    to 0 just before and read just after. Returns {kernel id:
+    launches}."""
     from anerf_torch.kernels import fused_mlp as fm
     from anerf_torch.kernels import fused_render as fr
     from anerf_torch.kernels import stages
@@ -874,8 +1169,15 @@ def tool_phase(torch):
 
     fr.RAW_LAUNCHES = fm.LAUNCHES = 0
     stages.FWD_LAUNCHES = stages.BWD_LAUNCHES = 0
-    for mode in ('bench', 'decompose', 'decompose_bwd'):
-        rec = kb.run(mode, n_rays=2048, reps=8, shapes=(64, 80))
+    runs = [(mode, (64, 80), True)
+            for mode in ('bench', 'decompose', 'decompose_bwd')]
+    runs += [(mode, (8, 24), False) for mode in ('bench', 'decompose_bwd')]
+    for mode, shapes, f32 in runs:
+        rec = kb.run(mode, n_rays=2048, reps=8, shapes=shapes, bwd_f32=f32)
+        if not f32 and not any(r.get('kind') == 'bwd_bf16'
+                               or r.get('bwd_f32') is False
+                               for r in rec['rows']):
+            raise AssertionError(f'{mode} --bwd_bf16: no bf16 rows')
         for row in rec['rows']:
             for key, val in row.items():
                 if (key.endswith('_ms') or key == 'ms') \
@@ -889,10 +1191,11 @@ def tool_phase(torch):
     return counts
 
 
-def reference_check(torch, np, cfg, params, src):
+def reference_check(torch, np, cfg, params, src, n_keep=0):
     """The rendered output against a reference: render_rays through K1 vs
     the plain-torch (XLA-mirror) branch on a small batch of rays aimed at
-    the body of the bullet-time pose."""
+    the body of the bullet-time pose; with n_keep, both culled to that
+    many samples a ray (cull_samples)."""
     import dataclasses
 
     from anerf_torch.ops.cylinder import get_kp_bounding_cylinder
@@ -923,7 +1226,7 @@ def reference_check(torch, np, cfg, params, src):
               cyls=torch.as_tensor(cyl, device=dev).expand(R, 5),
               cam_idxs=torch.zeros(R, dtype=torch.long, device=dev),
               tau=2000.0)
-    tcfg = cfg.test_mode()
+    tcfg = dataclasses.replace(cfg.test_mode(), n_keep=n_keep)
     got = render_rays(params, tcfg, **kw)
     want = render_rays(params, dataclasses.replace(tcfg, use_fused=False),
                        **kw)
@@ -931,7 +1234,8 @@ def reference_check(torch, np, cfg, params, src):
         err = (got[k] - want[k]).abs().max().item()
         ok = torch.allclose(got[k], want[k], atol=SLICE_ATOL,
                             rtol=SLICE_RTOL)
-        print(f'render_rays fused vs plain branch ({R} rays): {k} '
+        print(f'render_rays fused vs plain branch ({R} rays'
+              f'{f", culled to {n_keep}" if n_keep else ""}): {k} '
               f'max_abs={err:.3e} -> {"ok" if ok else "FAIL"}', flush=True)
         if not ok:
             raise AssertionError(f'render_rays {k}: fused branch disagrees '
@@ -963,16 +1267,18 @@ def _render(torch, args, cfg, params, data):
     return out, time.perf_counter() - t0
 
 
-def slice_phase(torch, np, args, cfg, params, src, k1_bucket_ms):
-    """Three render_path requests through the fused branch; returns the
-    K1 launches they made (counts are reset just before each request and
-    read just after it)."""
+def slice_phase(torch, np, args, cfg, params, src, k1_bucket_ms,
+                requests=None, label=''):
+    """render_path requests through the fused branch (`requests`, indices
+    into _requests; all three by default); returns the K1 launches they
+    made (counts are reset just before each request and read just after
+    it) and each request's box-rays/s."""
     from anerf_torch.kernels import fused_render as fr
     from anerf_torch.render.render_path import n_buckets_for
 
-    launches = 0
-    fr.V1_LAUNCHES = fr.BWD_V1_LAUNCHES = 0
-    for name, build in _requests(np, src):
+    launches, rates = 0, []
+    reqs = _requests(np, src)
+    for name, build in [reqs[i] for i in (requests or range(len(reqs)))]:
         data = build()
         fr.LAUNCHES = 0
         out, dt = _render(torch, args, cfg, params, data)
@@ -983,8 +1289,10 @@ def slice_phase(torch, np, args, cfg, params, src, k1_bucket_ms):
         n_img = len(data['c2ws'])
         # K1's share of the request, from its median bucket time above
         k1_share = buckets * k1_bucket_ms / 1e3 / dt
-        print(f'request "{name}": {n_img} images {H}x{W}, {sum(n_rays)} '
-              f'box rays, {buckets} buckets, {got_launches} K1 launches, '
+        rates.append(sum(n_rays) / dt)
+        print(f'request "{name}"{label}: {n_img} images {H}x{W}, '
+              f'{sum(n_rays)} box rays, {buckets} buckets, {got_launches} '
+              f'K1 launches, '
               f'{dt:.3f} s, {sum(n_rays) / dt:.1f} box-rays/s, '
               f'K1 ~{k1_share:.3f} of the time, '
               f'acc mean {out["accs"].mean():.4f}', flush=True)
@@ -1000,15 +1308,16 @@ def slice_phase(torch, np, args, cfg, params, src, k1_bucket_ms):
             raise AssertionError(f'{got_launches} K1 launches for '
                                  f'{buckets} buckets')
         launches += got_launches
-    return launches
+    return launches, rates
 
 
-def _flagship_train(torch, np):
+def _flagship_train(torch, np, **overrides):
     """The train slice's setup: the flagship on 128 frames with N_rand 2048
-    and N_sample_images 128 from configs/surreal/surreal.txt; one batch
-    of 16 rays per frame aimed at its root (as __graft_entry__._batch
-    aims them) with a constant gray target. Returns (args, cfg, pose
-    config, rest pose, state, optimizers, batch)."""
+    and N_sample_images 128 from configs/surreal/surreal.txt (and
+    `overrides` of its TrainConfig); one batch of 16 rays per frame aimed
+    at its root (as __graft_entry__._batch aims them) with a constant
+    gray target. Returns (args, cfg, pose config, rest pose, state,
+    optimizers, batch)."""
     from anerf_torch.ops.cylinder import get_kp_bounding_cylinder
     from anerf_torch.pose.pose_opt import (PoseOptConfig, init_pose_params,
                                            pose_anchor_tree)
@@ -1020,7 +1329,7 @@ def _flagship_train(torch, np):
 
     n_frames, n_rays = 128, 2048
     args, cfg, params, rest, bones, kp3d, _ = flagship(
-        n_frames, N_rand=n_rays, N_sample_images=n_frames)
+        n_frames, N_rand=n_rays, N_sample_images=n_frames, **overrides)
     cyls = get_kp_bounding_cylinder(kp3d, ext_scale=0.001, head='y')
     pose_cfg = PoseOptConfig(use_rot6d=True)
     opt = make_nerf_optimizer(args.lrate, args.lrate_decay,
@@ -1062,6 +1371,64 @@ def _flagship_train(torch, np):
             state, opt, popt, batch)
 
 
+def _step_grads(torch, setup, tcfg, R=256):
+    """One step's loss (the two rgb MSEs) on the first R rays in test
+    mode through render_rays with `tcfg`: its gradients w.r.t. every
+    param leaf (ravel order: 'coarse', 'cutoff_dist', 'fine') and the
+    per-ray skts."""
+    from anerf_torch.pose.pose_opt import fk_lookup
+    from anerf_torch.render.raycaster import render_rays
+    from anerf_torch.train.state import tree_leaves
+    from anerf_torch.train.trainer import derive_schedules
+
+    args, cfg, pose_cfg, rest, state, _, _, batch = setup
+    n_img = R // 16
+    kp, bones, skts, _, _ = fk_lookup(state.pose_params,
+                                      batch['kp_idxs'][:n_img], rest,
+                                      pose_cfg)
+    rep = lambda t: t.repeat_interleave(16, 0)
+    tau, _ = derive_schedules(args, cfg, 0)
+    leaves = tree_leaves(state.params)
+    for x in leaves:
+        x.requires_grad_(True)
+    sk = rep(skts.detach()).requires_grad_(True)
+    out = render_rays(state.params, tcfg, batch['rays'][:R], rep(kp), sk,
+                      rep(bones), batch['cyls'][:n_img].
+                      repeat_interleave(16, 0),
+                      cam_idxs=batch['cam_idxs'][:R], tau=tau)
+    loss = torch.mean((out['rgb_map'] - batch['target_s'][:R]) ** 2) \
+        + torch.mean((out['rgb0'] - batch['target_s'][:R]) ** 2)
+    grads = torch.autograd.grad(loss, leaves + [sk], allow_unused=True)
+    for x in leaves:
+        x.requires_grad_(False)
+    return grads
+
+
+def _compare_step_grads(torch, setup, got, want, label, fro_tol=None):
+    """Every leaf's gradient (and skts') of `got` against `want` within
+    STEP_GRAD_RTOL relative max (and `fro_tol` relative Frobenius);
+    cutoff_dist gets none in `got`. Returns (worst max rel, worst fro,
+    skts' max rel)."""
+    from anerf_torch.train.state import tree_leaves
+    i_cut = len(tree_leaves(setup[4].params['coarse']))
+    worst, worst_fro = 0.0, 0.0
+    for i, (gf, gp) in enumerate(zip(got, want)):
+        if i == i_cut:
+            if gf is not None and gf.abs().max().item() != 0.0:
+                raise AssertionError(f'{label}: cutoff_dist has a gradient')
+            continue
+        rel = ((gf - gp).abs().max()
+               / gp.abs().max().clamp_min(1e-7)).item()
+        fro = ((gf - gp).norm() / gp.norm().clamp_min(1e-7)).item()
+        worst, worst_fro = max(worst, rel), max(worst_fro, fro)
+        if not (rel < STEP_GRAD_RTOL
+                and (fro_tol is None or fro < fro_tol)):
+            raise AssertionError(f'{label}: step gradient {i} '
+                                 f'({tuple(gp.shape)}): max rel {rel:.3e}, '
+                                 f'fro {fro:.3e}')
+    return worst, worst_fro, rel
+
+
 def train_reference_check(torch, np, setup):
     """One step's gradients on 256 rays in test mode: every param leaf
     and the per-ray skts through the fused branch (K1 + K2) against the
@@ -1069,111 +1436,111 @@ def train_reference_check(torch, np, setup):
     branch."""
     import dataclasses
 
-    from anerf_torch.pose.pose_opt import fk_lookup
-    from anerf_torch.render.raycaster import render_rays
-    from anerf_torch.train.state import tree_leaves
-    from anerf_torch.train.trainer import derive_schedules
-
-    args, cfg, pose_cfg, rest, state, _, _, batch = setup
-    R = 256
-    n_img = R // 16
-    kp, bones, skts, _, _ = fk_lookup(state.pose_params,
-                                      batch['kp_idxs'][:n_img], rest,
-                                      pose_cfg)
-    rep = lambda t: t.repeat_interleave(16, 0)
-    tau, _ = derive_schedules(args, cfg, 0)
-    grads = {}
-    for fused in (True, False):
-        tcfg = dataclasses.replace(cfg.test_mode(), use_fused=fused)
-        leaves = tree_leaves(state.params)
-        for x in leaves:
-            x.requires_grad_(True)
-        sk = rep(skts.detach()).requires_grad_(True)
-        out = render_rays(state.params, tcfg, batch['rays'][:R], rep(kp),
-                          sk, rep(bones), batch['cyls'][:n_img].
-                          repeat_interleave(16, 0),
-                          cam_idxs=batch['cam_idxs'][:R], tau=tau)
-        loss = torch.mean((out['rgb_map'] - batch['target_s'][:R]) ** 2) \
-            + torch.mean((out['rgb0'] - batch['target_s'][:R]) ** 2)
-        grads[fused] = torch.autograd.grad(loss, leaves + [sk],
-                                           allow_unused=True)
-        for x in leaves:
-            x.requires_grad_(False)
-    # ravel order: 'coarse' leaves, then 'cutoff_dist', then 'fine'
-    i_cut = len(tree_leaves(state.params['coarse']))
-    worst = 0.0
-    for i, (gf, gp) in enumerate(zip(grads[True], grads[False])):
-        if i == i_cut:
-            if gf is not None and gf.abs().max().item() != 0.0:
-                raise AssertionError('cutoff_dist has a gradient on the '
-                                     'fused branch')
-            continue
-        rel = ((gf - gp).abs().max()
-               / gp.abs().max().clamp_min(1e-7)).item()
-        worst = max(worst, rel)
-        if not rel < STEP_GRAD_RTOL:
-            raise AssertionError(f'step gradient {i} ({tuple(gp.shape)}): '
-                                 f'fused vs plain {rel:.3e}')
-    print(f'train step gradients, fused (K1 + K2) vs plain branch ({R} '
-          f'rays, {len(grads[True])} leaves + skts): worst max_rel '
+    cfg = setup[1]
+    got, want = (_step_grads(torch, setup, dataclasses.replace(
+        cfg.test_mode(), use_fused=fused)) for fused in (True, False))
+    worst, _, rel = _compare_step_grads(torch, setup, got, want,
+                                        'fused vs plain branch')
+    print(f'train step gradients, fused (K1 + K2) vs plain branch (256 '
+          f'rays, {len(got)} leaves + skts): worst max_rel '
           f'{worst:.3e} (tol {STEP_GRAD_RTOL}), skts '
           f'{rel:.3e}; cutoff_dist gets no gradient -> ok', flush=True)
 
 
-def train_phase(torch, np, setup, profile=False):
-    """N_TRAIN_STEPS steps of make_train_step on the fused branch; the
-    counts are set to 0 just before each step and read just after it.
-    With `profile`, one more step runs under the profiler afterwards.
-    Returns (K1 launches, K2 launches, median step seconds)."""
+def culled_k2_check(torch, np, setup):
+    """The culled fast-grads step's gradients on 256 rays in test mode
+    with K2 (its bf16 flavour, on the card) against the same step with
+    K2's plain bf16 version (fused_bwd_ref(..., bwd_f32=False)) on the
+    card's tensors in its place: every param leaf and the per-ray skts
+    within STEP_GRAD_RTOL (max) and K2_FRO (Frobenius)."""
+    from anerf_torch.kernels import fused_render as fr
+
+    tcfg = setup[1].test_mode()
+    fr.BWD_LAUNCHES = fr.BWD_BF16_LAUNCHES = 0
+    got = _step_grads(torch, setup, tcfg)
+    torch.cuda.synchronize()
+    counted = (fr.BWD_LAUNCHES, fr.BWD_BF16_LAUNCHES)
+    kernel = fr.fused_bwd
+    fr.fused_bwd = lambda *a: fr.fused_bwd_ref(*a)
+    try:
+        want = _step_grads(torch, setup, tcfg)
+    finally:
+        fr.fused_bwd = kernel
+    if counted != (0, 2):
+        raise AssertionError(f'culled fast-grads step: K2 launches (f32, '
+                             f'bf16) {counted}')
+    worst, fro, rel = _compare_step_grads(
+        torch, setup, got, want, 'K2-bf16 vs its plain version', K2_FRO)
+    print(f'culled fast-grads step gradients, K2-bf16 vs its plain '
+          f'version in its place (256 rays, S = 8 + 24, {len(got)} leaves '
+          f'+ skts): worst max_rel {worst:.3e} (tol {STEP_GRAD_RTOL}), '
+          f'worst fro {fro:.3e} (tol {K2_FRO}), skts {rel:.3e}; K2 '
+          f'launches (f32, bf16) {counted} -> ok', flush=True)
+
+
+def train_phase(torch, np, setup, profile=False, n_steps=N_TRAIN_STEPS,
+                label='train'):
+    """n_steps steps of make_train_step on the fused branch; the counts
+    are set to 0 just before each step and read just after it: two K1
+    and two K2 launches a step, all of K2's in the flavour the config
+    asks for (bf16 with eff_fast_mlp). With `profile`, one more step runs
+    under the profiler afterwards. Returns (K1 launches, K2 launches,
+    median step seconds, the profiled step's idle share or None)."""
     from anerf_torch.kernels import fused_render as fr
     from anerf_torch.train.trainer import make_train_step
 
     args, cfg, pose_cfg, rest, state, opt, popt, batch = setup
     step = make_train_step(args, cfg, pose_cfg, rest, opt, popt)
     gen = torch.Generator(device='cuda').manual_seed(0)
+    bf16 = cfg.eff_fast_mlp
     losses, times, k1, k2 = [], [], 0, 0
-    for i in range(N_TRAIN_STEPS):
+    for i in range(n_steps):
         pelvis = state.pose_params['pelvis'].clone()
-        fr.LAUNCHES = fr.BWD_LAUNCHES = 0
+        fr.LAUNCHES = fr.BWD_LAUNCHES = fr.BWD_BF16_LAUNCHES = 0
         t0 = time.perf_counter()
         state, out = step(state, batch, gen)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-        n1, n2 = fr.LAUNCHES, fr.BWD_LAUNCHES
+        n1 = fr.LAUNCHES
+        n2, other = ((fr.BWD_BF16_LAUNCHES, fr.BWD_LAUNCHES) if bf16
+                     else (fr.BWD_LAUNCHES, fr.BWD_BF16_LAUNCHES))
         k1, k2 = k1 + n1, k2 + n2
         loss = out['losses']['total_loss'].item()
         acc = out['stats']['alpha'].item()
         moved = not torch.equal(pelvis, state.pose_params['pelvis'])
         losses.append(loss)
-        print(f'train step {i}: loss {loss:.5f} psnr '
+        print(f'{label} step {i}: loss {loss:.5f} psnr '
               f'{out["stats"]["psnr"].item():.3f} acc mean {acc:.4f} '
               f'kp_loss {out["losses"]["kp_loss"].item():.3e} '
-              f'{times[-1] * 1e3:.1f} ms, K1 x{n1}, K2 x{n2}, poses '
+              f'{times[-1] * 1e3:.1f} ms, K1 x{n1}, K2 '
+              f'{"bf16" if bf16 else "f32"} x{n2}, poses '
               f'{"moved" if moved else "kept"}', flush=True)
         if not np.isfinite(loss) or not 0.0 <= acc <= 1.0:
             raise AssertionError(f'step {i}: loss {loss}, acc {acc}')
-        if (n1, n2) != (2, 2):
-            raise AssertionError(f'step {i}: {n1} K1 and {n2} K2 launches')
+        if (n1, n2, other) != (2, 2, 0):
+            raise AssertionError(f'step {i}: {n1} K1, {n2} K2 and {other} '
+                                 f'K2 of the other flavour')
         if moved != (i % args.opt_pose_step == 0):
             raise AssertionError(f'step {i}: poses moved={moved} off their '
                                  f'interval')
     if not np.mean(losses[-5:]) < losses[0]:
         raise AssertionError(f'loss does not fall: {losses}')
     t = sorted(times[2:])[len(times[2:]) // 2]
-    print(f'train: {N_TRAIN_STEPS} steps, loss {losses[0]:.5f} -> mean of '
+    print(f'{label}: {n_steps} steps, loss {losses[0]:.5f} -> mean of '
           f'the last five {np.mean(losses[-5:]):.5f}; median step '
           f'{t * 1e3:.2f} ms = {args.N_rand / t:.1f} rays/s (steps 2..)',
           flush=True)
+    idle = None
     if profile:
-        profile_phase(torch, f'train step ({args.N_rand} rays)',
-                      lambda: step(state, batch, gen))
-    return k1, k2, t
+        idle = profile_phase(torch, f'{label} step ({args.N_rand} rays)',
+                             lambda: step(state, batch, gen))
+    return k1, k2, t, idle
 
 
 def profile_phase(torch, label, fn):
-    """With --profile: fn() once under torch.profiler; prints the
-    device-busy share of the wall time and the kernels that take the
-    device time."""
+    """fn() once under torch.profiler; prints the device-busy share of
+    the wall time and the kernels that take the device time, and returns
+    the idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1199,6 +1566,7 @@ def profile_phase(torch, label, fn):
     for dev_us, count, key in rows[:12]:
         print(f'  {dev_us / 1e3:10.3f} ms {100 * dev_us / 1e3 / busy_ms:5.1f}%'
               f' x{count:<6d} {key[:90]}', flush=True)
+    return 1.0 - busy_ms / (dt * 1e3)
 
 
 def _ptxas_lines(log):
@@ -1266,13 +1634,19 @@ def main(argv) -> int:
     args, cfg, params, src = _flagship_render(torch, np)
     k1 = kernel_phase(torch, np, cfg, params, src)
     k2 = k2_phase(torch, np, cfg, params, src)
+    k2['bf16'], k2['culled'] = k2_bf16_phase(
+        torch, np, cfg, params, src, k2['launches_per_call'])
     k3, k4 = modes_phase(torch, np, cfg, params, src)
     k1d, k2d = stages_phase(torch, np, cfg, params, src)
     tool = tool_phase(torch)
     for rec, kid in ((k3, 'K3'), (k4, 'K4'), (k1d, 'K1-d'), (k2d, 'K2-d')):
         rec['launches'] = tool[kid]
     reference_check(torch, np, cfg, params, src)
-    render_k1 = slice_phase(torch, np, args, cfg, params, src, k1['ms'])
+    reference_check(torch, np, cfg, params, src, n_keep=8)
+    # K1-v1 and K2-v1 must not run from here to the end (the main paths)
+    fr.V1_LAUNCHES = fr.BWD_V1_LAUNCHES = 0
+    render_k1, rates = slice_phase(torch, np, args, cfg, params, src,
+                                   k1['ms'])
     if '--profile' in argv:
         name, build = _requests(np, src)[1]
         data = build()
@@ -1280,18 +1654,45 @@ def main(argv) -> int:
                       lambda: _render(torch, args, cfg, params, data))
     setup = _flagship_train(torch, np)
     train_reference_check(torch, np, setup)
-    train_k1, train_k2, step_s = train_phase(torch, np, setup,
-                                              '--profile' in argv)
-    k1['launches'] = render_k1 + train_k1
+    train_k1, train_k2, step_s, _ = train_phase(torch, np, setup,
+                                                 '--profile' in argv)
+    del setup
+
+    # the culled paths: cull_ratio 0.125 (S = 8 coarse, 8 + 16 fine)
+    import dataclasses
+    cull_cfg = dataclasses.replace(cfg, n_keep=8)
+    cull_k1, cull_rates = slice_phase(
+        torch, np, args, cull_cfg, params, src, k1['culled']['ms'],
+        requests=(0,), label=' (culled to 8)')
+    setup = _flagship_train(torch, np, cull_ratio=0.125, fast_grads=True)
+    if not (setup[1].n_keep == 8 and setup[1].eff_fast_mlp):
+        raise AssertionError('the culled fast-grads config is not culled '
+                             'to 8 samples with fast_grads')
+    culled_k2_check(torch, np, setup)
+    cull_train_k1, cull_train_k2, cull_step_s, cull_idle = train_phase(
+        torch, np, setup, profile=True, n_steps=N_CULL_STEPS,
+        label='culled fast-grads train')
+    print(f'culled fast-grads train: median step {cull_step_s * 1e3:.2f} '
+          f'ms = {setup[0].N_rand / cull_step_s:.1f} rays/s, device idle '
+          f'share {cull_idle:.3f}; culled render '
+          + ', '.join(f'{r:.1f}' for r in cull_rates) + ' box-rays/s',
+          flush=True)
+
+    k1['launches'] = render_k1 + train_k1 + cull_k1 + cull_train_k1
     k2['launches'] = train_k2
+    k2['bf16']['launches'] = cull_train_k2
     k1['v1']['launches'] = fr.V1_LAUNCHES
     k2['v1']['launches'] = fr.BWD_V1_LAUNCHES
     print(f'launches on the main paths: K1 {render_k1} (render requests) + '
-          f'{train_k1} (train steps), K2 {train_k2} (train steps), K1-v1 '
+          f'{train_k1} (train steps) + {cull_k1} (culled request) + '
+          f'{cull_train_k1} (culled train steps), K2 {train_k2} (train '
+          f'steps), K2-bf16 {cull_train_k2} (culled train steps), K1-v1 '
           f'{fr.V1_LAUNCHES}, K2-v1 {fr.BWD_V1_LAUNCHES}', flush=True)
     if fr.V1_LAUNCHES or fr.BWD_V1_LAUNCHES:
         raise AssertionError('K1-v1 or K2-v1 ran on the main path')
     k2['step_ms'] = step_s * 1e3
+    k2['bf16']['step_ms'] = cull_step_s * 1e3
+    k1['culled']['box_rays_per_s'] = cull_rates
 
     print(json.dumps({'kernels': [k1, k2, k3, k4, k1d, k2d]}))
     print(card)

@@ -61,8 +61,9 @@ def _relfro(a, b):
     return np.linalg.norm(a - b) / max(np.linalg.norm(a), 1e-7)
 
 
-@pytest.fixture(scope='module')
-def setup():
+def make_setup():
+    """The width-256, depth-8 net of tests/test_fused_render.py in both
+    packages, 16 rays x 6 samples and a seeded cotangent weight."""
     rng = np.random.default_rng(0)
     args, cfg, params, pose = build_tiny(
         rng, netwidth=256, netdepth=8, multires=7, multires_views=4,
@@ -81,9 +82,15 @@ def setup():
                 skts=batch['skts'][batch['pose_idx']])
 
 
-def _jax_grads(s, tau):
-    """JAX fused_apply VJP w.r.t. the net's param tree, pts, skts and the
-    framecodes, through pack_render_params / pack_ray_data."""
+@pytest.fixture(scope='module')
+def setup():
+    return make_setup()
+
+
+def _jax_grads(s, tau, bwd_f32=True):
+    """JAX fused_apply VJP (in the flavour bwd_f32) w.r.t. the net's param
+    tree, pts, skts and the framecodes, through pack_render_params /
+    pack_ray_data."""
     cfg, params = s['cfg'], s['params']
     net = {k: v for k, v in params['coarse'].items() if k != 'framecodes'}
     cams = s['batch']['cam_idxs']
@@ -94,18 +101,18 @@ def _jax_grads(s, tau):
         packed = jfr.pack_render_params(full, cfg.nerf, 7, 4,
                                         params['cutoff_dist'])
         m_all, aux = jfr.pack_ray_data(s['rays_d'][:, None], skts, fc)
-        out = jfr.fused_apply(cfg.nerf, S, True, packed, pts, m_all, aux,
-                              jnp.float32(tau))
+        out = jfr.fused_apply(cfg.nerf, S, bwd_f32, packed, pts, m_all,
+                              aux, jnp.float32(tau))
         return jnp.sum(out * s['gw'])
 
     return jax.grad(loss, argnums=(0, 1, 2, 3))(
         net, s['pts'], s['skts'], params['coarse']['framecodes']['codes'])
 
 
-def _torch_grads(s, tau, through_kernel_path=True):
+def _torch_grads(s, tau, through_kernel_path=True, bwd_f32=True):
     """Gradients of sum(raw * gw) w.r.t. the same inputs on the port:
-    through fused_apply (K2's plain version on the CPU), or through
-    autograd on K1's plain version."""
+    through fused_apply (K2's plain version on the CPU, in the flavour
+    bwd_f32), or through autograd on K1's plain version."""
     tcfg, tnet = s['tcfg'], s['tparams']['coarse']
     leaves = [x.clone().requires_grad_()
               for x in tfr._net_leaves(tcfg.nerf, tnet)]
@@ -118,7 +125,7 @@ def _torch_grads(s, tau, through_kernel_path=True):
     cut = s['tparams']['cutoff_dist']
     if through_kernel_path:
         out = tfr.fused_apply(tcfg.nerf, S, net, cut, 7, 4, pts, m_all,
-                              aux, tau)
+                              aux, tau, bwd_f32)
     else:
         packed = tfr.pack_render_params(net, tcfg.nerf, 7, 4, cut)
         out = tfr.fused_encode_mlp_pts_ref(tcfg.nerf, packed, pts, m_all,

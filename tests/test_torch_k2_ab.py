@@ -1,0 +1,40 @@
+"""The K2 A/B tool (anerf_torch/tools/k2_ab.py) on the CPU, against a
+second import of this tree's own package: the other copy loads as a
+module of its own, the outputs are bit-equal, and the JSON line has the
+tool's keys. On the CPU both copies run K2's plain version, so the MLP
+backward distances are 0. This file imports neither JAX nor the JAX
+package."""
+import json
+from pathlib import Path
+
+import pytest
+
+from anerf_torch.kernels import fused_render as fr
+from anerf_torch.tools import k2_ab
+
+ROOT = str(Path(__file__).resolve().parents[1])
+ROW_KEYS = {'S', 'bit_equal', 'ms', 'other_ms', 'turns', 'fro',
+            'other_fro'}
+
+
+def test_load_other_is_a_separate_module():
+    ofr = k2_ab.load_other(ROOT)
+    assert ofr is not fr and ofr.__name__.startswith('anerf_torch_other')
+    assert ofr.fused_bwd is not fr.fused_bwd
+
+
+@pytest.mark.parametrize('flags', [(), ('--bwd_bf16',)])
+def test_k2_ab_rows(capsys, flags):
+    assert k2_ab.main(['--other', ROOT, '--device', 'cpu', '--rays', '2',
+                       '--reps', '1', '--shapes', '8', '5', *flags]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec['metric'] == 'k2_ab' and rec['device'] == 'cpu'
+    assert rec['bwd_f32'] is (not flags)
+    assert [r['S'] for r in rec['rows']] == [8, 5]
+    for r in rec['rows']:
+        assert set(r) == ROW_KEYS and r['bit_equal'] is True
+        assert len(r['turns']) == 4 and r['ms'] > 0
+        if flags:
+            assert r['fro'] == r['other_fro'] == 0.0
+        else:
+            assert r['fro'] is None and r['other_fro'] is None

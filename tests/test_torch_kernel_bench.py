@@ -74,8 +74,34 @@ def test_decompose_bwd_prints_stage_times_and_differences(capsys):
 
 
 def test_bwd_bf16_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        kb.main(['--device', 'cpu', '--decompose_bwd', '--bwd_bf16'])
+    """--bwd_bf16 no longer raises: --decompose_bwd runs K2's bf16
+    flavour, with the same keys and bwd_f32 False."""
+    assert kb.main(['--device', 'cpu', '--rays', '2', '--reps', '1',
+                    '--shapes', '8', '--decompose_bwd', '--bwd_bf16']) == 0
+
+
+@pytest.mark.parametrize('mode', ['bench', 'decompose_bwd'])
+def test_bwd_bf16_rows(capsys, mode):
+    """The JAX tool's bwd_f32=False rows: kind 'bwd_bf16' after 'bwd_f32'
+    in the default mode, and the stage times of the bf16 flavour with
+    'bwd_f32': False under --decompose_bwd."""
+    flags = ['--bwd_bf16'] + (['--decompose_bwd'] if mode != 'bench'
+                              else [])
+    rec = _run(capsys, *flags)
+    if mode == 'bench':
+        assert rec['metric'] == 'kernel_bench'
+        assert [(r['kind'], r['S']) for r in rec['rows']] == [
+            (k, S) for S in (8, 5)
+            for k in ('fwd', 'bwd_f32', 'bwd_bf16', 'fwd_raw', 'mlp')]
+        for r in rec['rows']:
+            assert set(r) == BENCH_KEYS and r['ms'] > 0
+        return
+    assert rec['metric'] == 'kernel_decompose_bwd'
+    assert [r['S'] for r in rec['rows']] == [8, 5]
+    for r in rec['rows']:
+        assert set(r) == DECOMPOSE_BWD_KEYS and r['bwd_f32'] is False
+        assert r['mlp_bwd_ms'] == r['mlp_ms'] - r['recompute_ms']
+        assert r['transform_bwd_ms'] == r['full_ms'] - r['pe_ms']
 
 
 def test_no_card_no_cpu_flag_fails(monkeypatch):
@@ -153,6 +179,20 @@ def test_bwd_stage_digests_agree_with_plain_k2(ctx):
     torch.testing.assert_close(digest[..., 1].sum(1),
                                daux[:, 72:144].sum(-1), atol=1e-4,
                                rtol=1e-4)
+
+
+def test_bwd_bf16_stage_digests_agree_with_plain_k2(ctx):
+    """K2-d in the bf16 flavour: its stages are K2's bf16 plain version
+    (dW at 'mlp' and 'pe' the same bits), and not the f32 flavour's."""
+    args = _args(ctx) + (ctx['set']['g'],)
+    want = fr.fused_bwd_ref(*args, bwd_f32=False)
+    full = stages.decompose_bwd('full', *args, bwd_f32=False)
+    assert all(torch.equal(a, b) for a, b in zip(full, want))
+    mdW, dx0, dxv = stages.decompose_bwd('mlp', *args, bwd_f32=False)
+    pdW, _ = stages.decompose_bwd('pe', *args, bwd_f32=False)
+    assert torch.equal(mdW, want[0]) and torch.equal(pdW, want[0])
+    f32dW, f32dx0, _ = stages.decompose_bwd('mlp', *args)
+    assert not torch.equal(mdW, f32dW) and not torch.equal(dx0, f32dx0)
 
 
 def test_stage_names_and_codes():

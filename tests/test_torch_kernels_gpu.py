@@ -1,6 +1,7 @@
-"""The CUDA kernels K1, K1-v1, K2, K2-v1, K3, K4, K1-d and K2-d against
-their plain PyTorch versions, on the card, and K2's split products alone
-against an f64 matmul.
+"""The CUDA kernels K1, K1-v1, K2 (both flavours), K2-v1, K3, K4, K1-d
+and K2-d against their plain PyTorch versions, on the card (K1 and K2 also
+at the culled shapes S = 8 and 24), K2's split products alone against an
+f64 matmul, and the kernel_bench tool's bf16-flavour rows.
 
 Needs a CUDA device and nvcc; skips elsewhere. This file imports neither
 JAX nor the JAX package, so it also runs on a machine without them:
@@ -27,6 +28,17 @@ Tolerances:
     by one point's whole contribution (observed 2.4e-2 relative max on a
     block at R = 40, S = 64 on an H100); the f32 products differ only by
     summation order. Two launches on the same inputs agree bit for bit.
+  * K1 and K2 at the culled shapes S = 8 and 24 (R = 256): K1 at 2e-3;
+    K2 in both flavours to chip_smoke.py's bounds: every output 2e-2
+    relative in the Frobenius norm and 0.12 relative max. With few
+    samples a ray one flipped mask weighs more in a ray's dpts: observed
+    2.5e-2 relative max on dpts at S = 24, tau = 35 on an H100.
+  * K2's bf16 flavour (bwd_f32=False): those bounds against its plain
+    version, and its MLP backward (K2-d's mlp stage) against the plain
+    bf16 one on the kernel's own saved activations within 1.5e-3 relative
+    in the Frobenius norm (chip_smoke.K2_BF16_FRO, where the readings
+    are; observed 5.8e-4 at R = 256, S = 8), which the f32 flavour must
+    exceed (observed 5.1e-3).
     K2-v1 to the same bounds, and K2 against K2-v1: their recomputes
     run different kernel bodies, which flip a mask as the plain version
     does.
@@ -73,7 +85,8 @@ def _operands(dev, R, S, seed):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize('R,S,tau', [(1, 64, 35.0), (3, 7, 2000.0),
-                                     (512, 80, 2000.0)])
+                                     (512, 80, 2000.0), (512, 8, 2000.0),
+                                     (512, 24, 35.0)])
 def test_k1_kernel_matches_plain(cuda, R, S, tau):
     ncfg = NeRFConfig(depth=8, width=256, input_ch=360, input_ch_bones=72,
                       input_ch_views=648, use_framecode=True,
@@ -146,6 +159,87 @@ def test_k2_kernel_matches_plain_and_is_deterministic(cuda, R, S, tau):
         assert _rel(a, b) < 2e-2
     for a, b in zip(got, again):
         assert torch.equal(a, b)
+
+
+def _k2_bounds(ncfg, got, want):
+    """chip_smoke.py's K2 bounds on every output: 2e-2 relative
+    Frobenius, 0.12 relative max."""
+    pairs = list(zip(fr.split_grads(ncfg, 7, 4, got[0]).values(),
+                     fr.split_grads(ncfg, 7, 4, want[0]).values()))
+    for a, b in pairs + list(zip(got[1:], want[1:])):
+        assert _rel_fro(a, b) < 2e-2 and _rel(a, b) < 0.12
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('R,S,tau', [(256, 8, 2000.0), (256, 24, 35.0)])
+def test_k1_k2_at_cull_shapes_match_plain(cuda, R, S, tau):
+    ncfg, _, packed = _packed(cuda, seed=1)
+    pts, m_all, aux = _operands(cuda, R, S, R + S)
+    g = torch.as_tensor(np.random.default_rng(3).normal(size=(R, S, 4)),
+                        dtype=torch.float32, device=cuda)
+    k1 = fr.fused_encode_mlp_pts(ncfg, packed, pts, m_all, aux, S, tau)
+    got = fr.fused_bwd(ncfg, packed, pts, m_all, aux, S, tau, g)
+    again = fr.fused_bwd(ncfg, packed, pts, m_all, aux, S, tau, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        k1, fr.fused_encode_mlp_pts_ref(ncfg, packed, pts, m_all, aux, S,
+                                        tau), atol=2e-3, rtol=2e-3)
+    _k2_bounds(ncfg, got, fr.fused_bwd_ref(ncfg, packed, pts, m_all, aux,
+                                           S, tau, g))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('R,S,tau', [(3, 7, 35.0), (40, 64, 2000.0),
+                                     (256, 8, 2000.0), (256, 24, 35.0)])
+def test_k2_bf16_matches_plain_and_is_deterministic(cuda, R, S, tau):
+    ncfg, _, packed = _packed(cuda, seed=1)
+    pts, m_all, aux = _operands(cuda, R, S, R + S)
+    g = torch.as_tensor(np.random.default_rng(3).normal(size=(R, S, 4)),
+                        dtype=torch.float32, device=cuda)
+    args = (ncfg, packed, pts, m_all, aux, S, tau, g)
+    before = (fr.BWD_LAUNCHES, fr.BWD_BF16_LAUNCHES)
+    got = fr.fused_bwd(*args, bwd_f32=False)
+    again = fr.fused_bwd(*args, bwd_f32=False)
+    torch.cuda.synchronize()
+    assert (fr.BWD_LAUNCHES, fr.BWD_BF16_LAUNCHES) == (before[0],
+                                                        before[1] + 2)
+    _k2_bounds(ncfg, got, fr.fused_bwd_ref(*args, bwd_f32=False))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    # the MLP backward on the kernel's own activations, both flavours
+    P, W = R * S, ncfg.width
+    fro = []
+    for f32 in (False, True):
+        t = fr.launch_bwd(2, *args, bwd_f32=f32)
+        want = fr.mlp_bwd_ref(*args, bwd_f32=False, trace=fr.trace_from_act(
+            ncfg, packed, t['act'], P))
+        pairs = list(zip(fr.split_grads(ncfg, 7, 4, t['dW']).values(),
+                         fr.split_grads(ncfg, 7, 4, want[0]).values()))
+        pairs += [(t['dx0'], want[1].reshape(P, -1)),
+                  (t['dview'][:, W:], want[2].reshape(P, -1))]
+        fro.append(max(_rel_fro(a, b) for a, b in pairs))
+    assert fro[0] < 1.5e-3 < fro[1], fro
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('flags', [('--bwd_bf16',),
+                                   ('--decompose_bwd', '--bwd_bf16')])
+def test_kernel_bench_bwd_bf16_rows(cuda, capsys, flags):
+    import json
+    from anerf_torch.tools import kernel_bench as kb
+    assert kb.main(['--rays', '64', '--reps', '2', '--shapes', '8', '24',
+                    *flags]) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec['device'] == torch.cuda.get_device_name(0)
+    if len(flags) == 1:
+        rows = [r for r in rec['rows'] if r['kind'] == 'bwd_bf16']
+        assert [r['S'] for r in rows] == [8, 24]
+        assert all(r['ms'] > 0 for r in rows)
+    else:
+        assert [r['S'] for r in rec['rows']] == [8, 24]
+        assert all(r['bwd_f32'] is False and r['full_ms'] > 0
+                   for r in rec['rows'])
 
 
 def _flagship_ncfg():

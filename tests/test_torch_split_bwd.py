@@ -232,3 +232,34 @@ def test_k2_bound_is_the_split_bf16_bound():
     assert ms == pytest.approx(want, rel=1e-9)
     assert roofline.k2_fp32_ms(ncfg, P) == pytest.approx(15.2314, abs=1e-3)
     assert roofline.flagship_bounds()['K2-d full'][0] == pytest.approx(ms)
+
+
+@pytest.mark.parametrize('shapes,key', [((64, 80), 'K2 bf16'),
+                                        ((8, 24), 'K2 bf16 culled'),
+                                        ((8, 24), 'K2 culled')])
+def test_k2_flavour_bounds(shapes, key):
+    """K2's bf16 flavour: one bf16 pass of the cotangent products plus the
+    recompute (1.547 ms a 2048-ray step at S = 64 + 80); both flavours at
+    the culled S = 8 + 24."""
+    ms, by, what = roofline.flagship_bounds()[key]
+    assert by == 'operations' and 'train step' in what
+    ncfg = NeRFConfig(use_framecode=True, framecode_ch=16)
+    P = 2048 * sum(shapes)
+    passes = 3 if key == 'K2 culled' else 1
+    want = (passes * 2 * roofline.bwd_f32_macs_per_point(ncfg)
+            + 2 * roofline.mlp_macs_per_point(ncfg)) * P \
+        / roofline.PEAK_BF16_FLOPS * 1e3
+    assert ms == pytest.approx(want, rel=1e-9)
+    if key == 'K2 bf16':
+        assert 1.50 < ms < 1.60
+
+
+def test_k2_design_bytes_with_bf16_cotangents():
+    """Holding the MMA layers' cotangents as bf16 halves their bytes and
+    leaves the f32 ones the PE backward reads (dx0, dxv) as they are."""
+    ncfg = NeRFConfig(use_framecode=True, framecode_ch=16)
+    P = 2048 * 64
+    f32 = roofline.k2_design_bytes(ncfg, 7, 4, P)
+    assert f32 == roofline.k2_design_bytes(ncfg, 7, 4, P, cot_bytes=4)
+    bf16 = roofline.k2_design_bytes(ncfg, 7, 4, P, cot_bytes=2)
+    assert 0.7 * f32 < bf16 < 0.85 * f32
