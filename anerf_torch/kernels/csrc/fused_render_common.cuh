@@ -1,14 +1,13 @@
 // Device code shared by K1-v1 (fused_render.cu), K2-v1 (fused_render_bwd.cu)
-// and K3, K4 (fused_render_modes.cu): the tile constants, the bf16
-// mma.sync helpers and K1-v1's kernel body (K1, K2 and K1-d take the
-// constants and Dims; their kernels are the sm90 sources).
+// and K3-v1, K4-v1 (fused_render_modes.cu): the tile constants, the bf16
+// mma.sync helpers and K1-v1's kernel body (K1, K2, K3, K4 and K1-d take
+// the constants, Dims and the input modes; their kernels are the sm90
+// sources).
 // K1-v1 instantiates the kernel with SAVE = false; K2-v1's first pass
 // instantiates it with SAVE = true, which also writes every bf16 MLP
 // input and activation of the tile to device memory (the `act` rows the
-// backward products read). MODE and STAGE default to K1's (IN_PTS,
-// ST_FULL); every branch on them is `if constexpr` or a constant
-// condition, so K1's and K2's instantiations compile to the same code as
-// before those template parameters existed.
+// backward products read). MODE defaults to K1's (IN_PTS); every branch on
+// it is `if constexpr`.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -29,17 +28,20 @@ constexpr int AUXW = 2 * C72 + FC;  // aux row: trans | view dirs | fc
 constexpr int PF = 3;               // weight k-steps in flight per warp
 constexpr int RAWW = J + 2 * C72 + FC;  // K3's input row: v | r | d | fc
 
-// Input modes of the kernel body (template parameter MODE):
+// Input modes of both kernel bodies, K1-v1's below and K1's in
+// fused_render_sm90.cu (template parameter MODE):
 //  IN_PTS       K1: world points, per-ray rotation columns and aux rows;
 //  IN_RAW       K3: per-point rows [v (24) | r (72) | d (72) | fc (16)]
 //               in `pts` (RAWW floats a point); the window and every band
 //               are computed as K1 computes them;
 //  IN_EMBEDDED  K4: the MLP inputs, already embedded, as bf16 rows of k0
 //               (in `pts`) and kv (in `aux`) columns, multiples of 8,
-//               zero-padded to 16 in shared memory; nfk and nfv carry k0
-//               and kv; phase A is a copy.
+//               zero-padded in shared memory (to 16 here, to 64 in the
+//               sm90 kernel); nfk and nfv carry k0 and kv; phase A is a
+//               copy.
 constexpr int IN_PTS = 0, IN_RAW = 1, IN_EMBEDDED = 2;
-// Where the body stops (template parameter STAGE; K1-d, the staged K1 of
+// Where K1's sm90 kernel stops (template parameter STAGE of
+// fused_render_sm90.cu; K1-d, the staged K1 of
 // anerf_torch/tools/kernel_bench.py --decompose; IN_PTS only):
 //  ST_FULL         the whole kernel (production);
 //  ST_TRANSFORM    after the geometry (local coordinates, v, unit dirs);
@@ -292,7 +294,7 @@ __device__ __forceinline__ void copy_rows(bf16* dst, int ss,
   }
 }
 
-template <bool SAVE, int MODE = IN_PTS, int STAGE = ST_FULL>
+template <bool SAVE, int MODE = IN_PTS>
 __global__ void __launch_bounds__(NTHREADS, 1)
 fused_encode_mlp_pts_kernel(const float* __restrict__ pts,
                             const float* __restrict__ m_all,
@@ -306,10 +308,8 @@ fused_encode_mlp_pts_kernel(const float* __restrict__ pts,
                             float* __restrict__ out, int P, int S,
                             int depth, int skip_mask, int nfk, int nfv,
                             float tau, bf16* __restrict__ act) {
-  static_assert(MODE == IN_PTS || STAGE == ST_FULL, "stages are K1's");
-  static_assert(!SAVE || (MODE == IN_PTS && STAGE == ST_FULL),
-                "K2 saves K1's activations");
-  static_assert(NTHREADS == 4 * TM, "digests: one thread per output");
+  static_assert(!SAVE || MODE == IN_PTS, "K2 saves K1's activations");
+  static_assert(NTHREADS == 4 * TM, "heads: one thread per output");
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const Dims d = body_dims<MODE>(nfk, nfv);
   bf16* X0 = reinterpret_cast<bf16*>(smem_raw);   // kp PE | bone dirs
@@ -358,14 +358,6 @@ fused_encode_mlp_pts_kernel(const float* __restrict__ pts,
       for (int a = 0; a < 3; ++a) q[a] = xin[J + j * 3 + a];
       inv = 1.f;
     }
-    if constexpr (STAGE == ST_TRANSFORM) {
-      // (v, unit dir) of this (point, joint), summed per point below
-      float* dg = reinterpret_cast<float*>(HA) + it * 4;
-      dg[0] = v;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) dg[1 + a] = q[a] * inv;
-      continue;
-    }
     const float w = 1.f / (1.f + expf(tau * (v - cut[j])));
     W24[r * J + j] = w;
     bf16* xr = X0 + r * d.s0;
@@ -373,7 +365,7 @@ fused_encode_mlp_pts_kernel(const float* __restrict__ pts,
     float f = 1.f;
     for (int k = 0; k < nfk; ++k) {
       float s, c;
-      pe_sincos<STAGE>(v * f, &s, &c);
+      pe_sincos<ST_FULL>(v * f, &s, &c);
       xr[J + 2 * J * k + j] = __float2bfloat16_rn(s * w);
       xr[2 * J + 2 * J * k + j] = __float2bfloat16_rn(c * w);
       f *= 2.f;
@@ -381,16 +373,6 @@ fused_encode_mlp_pts_kernel(const float* __restrict__ pts,
 #pragma unroll
     for (int a = 0; a < 3; ++a)
       xr[nb + j * 3 + a] = __float2bfloat16_rn(q[a] * inv);
-  }
-  if constexpr (STAGE == ST_TRANSFORM) {
-    // digest: out[p] = (sum_j v, sum_j r_x, sum_j r_y, sum_j r_z)
-    __syncthreads();
-    const float* dg = reinterpret_cast<const float*>(HA);
-    const int r = tid >> 2, k = tid & 3;
-    float s = 0.f;
-    for (int j = 0; j < J; ++j) s += dg[(r * J + j) * 4 + k];
-    if (row0 + r < P) out[(size_t)(row0 + r) * 4 + k] = s;
-    return;
   }
   const int pad0 = d.k0p - d.k0;
   for (int it = tid; it < TM * pad0; it += NTHREADS)
@@ -410,7 +392,7 @@ fused_encode_mlp_pts_kernel(const float* __restrict__ pts,
     float f = 1.f;
     for (int k = 0; k < nfv; ++k) {
       float s, co;
-      pe_sincos<STAGE>(dv * f, &s, &co);
+      pe_sincos<ST_FULL>(dv * f, &s, &co);
       xr[C72 + 2 * C72 * k + c] = __float2bfloat16_rn(s * w);
       xr[2 * C72 + 2 * C72 * k + c] = __float2bfloat16_rn(co * w);
       f *= 2.f;
@@ -430,16 +412,6 @@ fused_encode_mlp_pts_kernel(const float* __restrict__ pts,
   __syncthreads();
   }  // phase A
 
-  if constexpr (STAGE != ST_FULL) {
-    // digest of the MLP inputs: out[p, k] = sum of the row's X0 and XV
-    // columns c with c % 4 == k, in column order
-    const int r = tid >> 2, k = tid & 3;
-    float s = 0.f;
-    for (int c = k; c < d.k0p; c += 4) s += __bfloat162float(X0[r * d.s0 + c]);
-    for (int c = k; c < d.kvp; c += 4) s += __bfloat162float(XV[r * d.sv + c]);
-    if (row0 + r < P) out[(size_t)(row0 + r) * 4 + k] = s;
-    return;
-  }
   const ActLayout al = make_act_layout(d, depth);
   if constexpr (SAVE) {
     save_tile(X0, d.s0, act, al.width, al.x0, d.k0p, row0, P, tid);

@@ -1,18 +1,22 @@
-// K3 and K4: the other input modes of K1-v1's kernel body
-// (fused_render_common.cuh), for Hopper (sm_90a). K1-v1's library
-// (fused_render.cu) stays a library of its own; K1 and its staged exits
-// (K1-d) are fused_render_sm90.cu.
+// K3-v1 and K4-v1: the other input modes of K1-v1's kernel body
+// (fused_render_common.cuh), for Hopper (sm_90a): K3's and K4's first
+// kernels. K3 and K4 themselves are now K1's sm90 kernel in these modes
+// (fused_render_sm90.cu); these stay as the comparison that chip_smoke.py
+// measures them against, and no path of the port calls them. K1-v1's
+// library (fused_render.cu) stays a library of its own.
 //
 // K3 replaces the Pallas TPU kernel anerf_tpu/kernels/fused_render.py:
 // fused_encode_mlp (kernel body _render_kernel): the cutoff PE and the MLP
 // from pre-transformed per-point inputs [v | r | d | fc]. The TPU layout
 // is a (P, 512) f32 row of four 128-lane segments; here a point's row is
 // its 184 live floats (anerf_torch/kernels/fused_render.py:
-// build_raw_inputs). Python side: fused_encode_mlp / fused_encode_mlp_ref.
+// build_raw_inputs). Python side: fused_encode_mlp_v1 /
+// fused_encode_mlp_ref.
 //
 // K4 replaces anerf_tpu/kernels/fused_mlp.py:fused_mlp_apply (_kernel_entry,
 // _mlp_chain): the MLP alone on embedded inputs, bf16 rows of any widths
-// k0 and kv. Python side: anerf_torch/kernels/fused_mlp.py.
+// k0 and kv. Python side: anerf_torch/kernels/fused_mlp.py
+// (fused_mlp_apply_v1).
 //
 // What bounds them on an H100: K3 and K4 do K1's MLP, so operations (about
 // 1.03 ms of bf16 tensor-core work per 4096-ray bucket at S = 64 + 80);

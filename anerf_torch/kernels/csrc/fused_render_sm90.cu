@@ -1,23 +1,33 @@
 // K1 for Hopper (sm_90a): fused world->local transform + cutoff positional
 // encoding + NeRF MLP forward, with the MLP on wgmma and the weights staged
 // in shared memory by cluster-multicast bulk copies. Also K1-d, the same
-// kernel stopped after a stage (anerf_torch/kernels/stages.py), and K2's
+// kernel stopped after a stage (anerf_torch/kernels/stages.py), K2's
 // recompute, the same kernel also saving its bf16 MLP inputs and
-// activations (SAVE, anerf_k2_recompute_sm90; fused_render_bwd_sm90.cu).
+// activations (SAVE, anerf_k2_recompute_sm90; fused_render_bwd_sm90.cu),
+// and K3 and K4, the same kernel in its other input modes (MODE, as
+// fused_render_common.cuh defines them): per-point raw rows instead of the
+// transform (IN_RAW), or embedded bf16 rows copied in (IN_EMBEDDED).
 //
-// Replaces the Pallas TPU kernel anerf_tpu/kernels/fused_render.py:
+// Replaces the Pallas TPU kernels anerf_tpu/kernels/fused_render.py:
 // fused_encode_mlp_pts (kernel body _render_kernel_pts, _transform_tile,
-// _forward_trace), and tools/kernel_bench.py:decompose for K1-d. Python
-// side: anerf_torch/kernels/fused_render.py (fused_encode_mlp_pts; the
-// plain version fused_encode_mlp_pts_ref; the weight image to_sm90_image).
-// The first version of this kernel (mma.sync, weights streamed from L2 per
-// CTA) stays in fused_render.cu as K1-v1, the comparison.
+// _forward_trace), fused_encode_mlp (K3, _render_kernel) and
+// anerf_tpu/kernels/fused_mlp.py:fused_mlp_apply (K4, _kernel_entry,
+// _mlp_chain), and tools/kernel_bench.py:decompose for K1-d. Python side:
+// anerf_torch/kernels/fused_render.py (fused_encode_mlp_pts and
+// fused_encode_mlp; the plain versions fused_encode_mlp_pts_ref and
+// fused_encode_mlp_ref; the weight image to_sm90_image) and
+// anerf_torch/kernels/fused_mlp.py (fused_mlp_apply, fused_mlp_apply_ref).
+// The first versions (mma.sync, weights streamed from L2 per CTA) stay as
+// the comparison: K1-v1 in fused_render.cu, K3-v1 and K4-v1 in
+// fused_render_modes.cu.
 //
 // What bounds it on an H100: operations. The flagship MLP is 1.728 MFLOP a
 // point, 1.03 ms of bf16 tensor-core work per 4096-ray bucket (S = 64 +
 // 80) at the 989 TFLOP/s dense peak; the points and raw outputs are 28 B a
-// point. K1-v1 read every weight (1.73 MB) from L2 once per 64-point CTA,
-// 64 FLOP per L2 byte, which L2 cannot feed at the tensor-core rate.
+// point (K3's rows and output 752 B, K4's 2,208 B at the flagship widths:
+// 0.13 and 0.39 ms of HBM time a bucket, still below). The mma.sync
+// versions read every weight (1.73 MB) from L2 once per 64-point CTA, 64
+// FLOP per L2 byte, which L2 cannot feed at the tensor-core rate.
 //
 // Design:
 //  * A cluster of CL CTAs, each a tile of TM = 64 points and three
@@ -45,10 +55,23 @@
 //    built late, after the feature layer, into X0 and the spent activation
 //    buffer (adjacent by the choice of ping-pong parity), so that the tile,
 //    two activation buffers and three 32 KB weight stages fit in 227 KB.
+//  * K3 (IN_RAW) stages the tile's v | r (24 KB) by cp.async in HB, free
+//    until the first layer's epilogue, for phase A1. Its view dirs and
+//    framecodes come late, for XV, from the rows in global memory (whole
+//    rows, 47 KB a tile, have no room in shared memory): lanes run along a
+//    row's channels, so that a warp's loads coalesce, and each thread loads
+//    a group of 6 items ahead of the group it computes, so that it waits on
+//    one load latency a group. The rows carry no ray structure, so every
+//    point computes its own view bands (72 nfv sin / cos pairs), which K1
+//    shares across a ray.
+//  * K4 (IN_EMBEDDED) copies the tile's bf16 x0 rows into X0 and, late,
+//    its xv rows into XV by cp.async, all of a thread's copies in flight
+//    before it waits; it has no window.
 //  * The 3-wide rgb and 1-wide alpha heads are fp32 dot products taken in
 //    the epilogues of the view layer and of the last trunk layer, from the
 //    bf16-rounded activations in registers: the view layer's output never
 //    reaches shared memory.
+// Every mode runs the same producer, ring, MLP, epilogues and heads.
 
 #include "sm90_common.cuh"
 
@@ -227,42 +250,108 @@ __device__ __forceinline__ void store_heads(float (&hd)[2][NH], float* HD,
     }
 }
 
+// 16 bytes from global `src` to shared `dst` without registers (cp.async,
+// L2 only); with src_bytes 0 the 16 bytes are zeros. cp_async_wait_all
+// waits for this thread's copies.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// IN_RAW's phase A2 walks the tile's (point, view channel) items RAW_G at
+// a time, RAW_IT a thread; load_dirs loads the view dirs of the group that
+// starts at item i0 (lanes along a row's channels: coalesced).
+constexpr int RAW_IT = TM * C72 / NCONS, RAW_G = 6;
+static_assert(TM * C72 % NCONS == 0 && RAW_IT % RAW_G == 0,
+              "whole groups of items a thread");
+
+__device__ __forceinline__ void load_dirs(float (&dv)[RAW_G],
+                                          const float* __restrict__ raw,
+                                          int row0, int P, int tid, int i0) {
+#pragma unroll
+  for (int i = 0; i < RAW_G; ++i) {
+    const int it = tid + (i0 + i) * NCONS;
+    const int r = it / C72, c = it - (it / C72) * C72;
+    dv[i] = __ldg(raw + (size_t)last_row(row0 + r, P) * RAWW + J + C72 + c);
+  }
+}
+
 // Phase A2: the windowed view bands, the framecode and zero padding of
-// every row into XV (kvc chunks). A band's sin / cos depends on the ray
-// only, so it is computed once per ray of the tile, view channel and
-// block of 8 rows, and multiplied by each row's window: the same values,
-// bit for bit, as a per-point computation.
-template <int STAGE>
+// every row into XV (kvc chunks). IN_PTS: a band's sin / cos depends on
+// the ray only, so it is computed once per ray of the tile, view channel
+// and block of 8 rows, and multiplied by each row's window: the same
+// values, bit for bit, as a per-point computation. IN_RAW: the rows `raw`
+// carry no ray structure, so each (point, view channel) computes its own
+// bands, the lanes of a warp along the channels of a row.
+template <int STAGE, int MODE>
 __device__ __forceinline__ void build_xv(bf16* XV, const Dims& d,
                                          const Layout& l,
+                                         const float* __restrict__ raw,
                                          const float* __restrict__ aux,
                                          const float* W24, int row0, int P,
                                          int S, int nfv, int tid) {
-  const int ray0 = last_row(row0, P) / S;
-  const int ray_tail = (P - 1) / S;       // rows past P recompute its point
-  const int n_items = (last_row(row0 + TM - 1, P) / S - ray0 + 1) * C72
-                      * (TM / 8);
-  for (int it = tid; it < n_items; it += NCONS) {
-    const int c = it % C72, rb = (it / C72) % (TM / 8);
-    const int ray = ray0 + it / (C72 * (TM / 8));
-    // the rows of block rb whose point lies on `ray`
-    const int lo = max(rb * 8, ray * S - row0);
-    const int hi = ray == ray_tail ? rb * 8 + 8
-                                   : min(rb * 8 + 8, (ray + 1) * S - row0);
-    if (lo >= hi) continue;
-    const float dv = aux[ray * AUXW + C72 + c];
-    for (int r = lo; r < hi; ++r)
-      XV[swz(r, c)] = __float2bfloat16_rn(dv * W24[r * J + c / 3]);
-    float f = 1.f;
-    for (int k = 0; k < nfv; ++k) {
-      float sn, cs;
-      pe_sincos<STAGE>(dv * f, &sn, &cs);
-      for (int r = lo; r < hi; ++r) {
-        const float w = W24[r * J + c / 3];
-        XV[swz(r, C72 + 2 * C72 * k + c)] = __float2bfloat16_rn(sn * w);
-        XV[swz(r, 2 * C72 + 2 * C72 * k + c)] = __float2bfloat16_rn(cs * w);
+  if constexpr (MODE == IN_PTS) {
+    const int ray0 = last_row(row0, P) / S;
+    const int ray_tail = (P - 1) / S;     // rows past P recompute its point
+    const int n_items = (last_row(row0 + TM - 1, P) / S - ray0 + 1) * C72
+                        * (TM / 8);
+    for (int it = tid; it < n_items; it += NCONS) {
+      const int c = it % C72, rb = (it / C72) % (TM / 8);
+      const int ray = ray0 + it / (C72 * (TM / 8));
+      // the rows of block rb whose point lies on `ray`
+      const int lo = max(rb * 8, ray * S - row0);
+      const int hi = ray == ray_tail ? rb * 8 + 8
+                                     : min(rb * 8 + 8, (ray + 1) * S - row0);
+      if (lo >= hi) continue;
+      const float dv = aux[ray * AUXW + C72 + c];
+      for (int r = lo; r < hi; ++r)
+        XV[swz(r, c)] = __float2bfloat16_rn(dv * W24[r * J + c / 3]);
+      float f = 1.f;
+      for (int k = 0; k < nfv; ++k) {
+        float sn, cs;
+        pe_sincos<STAGE>(dv * f, &sn, &cs);
+        for (int r = lo; r < hi; ++r) {
+          const float w = W24[r * J + c / 3];
+          XV[swz(r, C72 + 2 * C72 * k + c)] = __float2bfloat16_rn(sn * w);
+          XV[swz(r, 2 * C72 + 2 * C72 * k + c)] =
+              __float2bfloat16_rn(cs * w);
+        }
+        f *= 2.f;
       }
-      f *= 2.f;
+    }
+  } else {
+    // RAW_IT items a thread, in groups of RAW_G whose view dirs are
+    // loaded while the group before computes its bands: one load latency
+    // a group instead of one an item
+    float cur[RAW_G], nxt[RAW_G] = {};
+    load_dirs(cur, raw, row0, P, tid, 0);
+#pragma unroll 1
+    for (int i0 = 0; i0 < RAW_IT; i0 += RAW_G) {
+      if (i0 + RAW_G < RAW_IT) load_dirs(nxt, raw, row0, P, tid, i0 + RAW_G);
+#pragma unroll
+      for (int i = 0; i < RAW_G; ++i) {
+        const int it = tid + (i0 + i) * NCONS;
+        const int r = it / C72, c = it - (it / C72) * C72;
+        const float dv = cur[i], w = W24[r * J + c / 3];
+        XV[swz(r, c)] = __float2bfloat16_rn(dv * w);
+        float f = 1.f;
+        for (int k = 0; k < nfv; ++k) {
+          float sn, cs;
+          pe_sincos<STAGE>(dv * f, &sn, &cs);
+          XV[swz(r, C72 + 2 * C72 * k + c)] = __float2bfloat16_rn(sn * w);
+          XV[swz(r, 2 * C72 + 2 * C72 * k + c)] =
+              __float2bfloat16_rn(cs * w);
+          f *= 2.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RAW_G; ++i) cur[i] = nxt[i];
     }
   }
   // framecode and zero padding, 8 columns (16 bytes) a step: the bands
@@ -272,8 +361,10 @@ __device__ __forceinline__ void build_xv(bf16* XV, const Dims& d,
     const int r = it / n8, g = it - (it / n8) * n8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
     if (g < FC / 8) {
+      const int p = last_row(row0 + r, P);
       const float4* fc = reinterpret_cast<const float4*>(
-          aux + (last_row(row0 + r, P) / S) * AUXW + 2 * C72 + 8 * g);
+          (MODE == IN_PTS ? aux + (p / S) * AUXW
+                          : raw + (size_t)p * RAWW + J) + 2 * C72 + 8 * g);
       const float4 lo = fc[0], hi = fc[1];
       const __nv_bfloat162 q0 = __floats2bfloat162_rn(lo.x, lo.y);
       const __nv_bfloat162 q1 = __floats2bfloat162_rn(lo.z, lo.w);
@@ -286,6 +377,25 @@ __device__ __forceinline__ void build_xv(bf16* XV, const Dims& d,
     }
     *reinterpret_cast<uint4*>(XV + swz(r, c0 + 8 * g)) = v;
   }
+}
+
+// IN_EMBEDDED's phases A1 and A2: the tile's rows of k bf16 columns (k a
+// multiple of 8, rows 16-byte aligned) from src into nch swizzled 64-column
+// chunks at dst, zero past column k: cp.async copies of 16 bytes,
+// neighbouring threads on neighbouring 16-byte groups of a row, all in
+// flight before this thread waits for them.
+__device__ __forceinline__ void copy_rows_swz(bf16* dst,
+                                              const bf16* __restrict__ src,
+                                              int k, int nch, int row0,
+                                              int P, int tid) {
+  const int n8 = nch * (KC / 8), k8 = k / 8;
+  for (int it = tid; it < TM * n8; it += NCONS) {
+    const int r = it / n8, g = it - (it / n8) * n8;
+    const bf16* row = src + (size_t)last_row(row0 + r, P) * k;
+    cp_async16(dst + swz(r, 8 * g), row + 8 * (g < k8 ? g : 0),
+               g < k8 ? 16 : 0);
+  }
+  cp_async_wait_all();
 }
 
 // SAVE (K2's recompute): columns 0 .. ncols - 1 (a multiple of 8) of the
@@ -350,7 +460,12 @@ __device__ __forceinline__ void produce(const unsigned char* img,
 // SAVE (K2's recompute, STAGE == ST_FULL only) also writes every bf16 MLP
 // input and activation of the tile to `act` (save_cols); K1 itself is the
 // SAVE = false instantiation, in which every SAVE branch is compiled out.
-template <int STAGE, bool SAVE = false>
+// MODE (fused_render_common.cuh) picks the inputs: IN_PTS (K1) world
+// points with the per-ray m_all and aux; IN_RAW (K3) per-point rows of
+// RAWW floats [v | r | d | fc] in `pts`; IN_EMBEDDED (K4) bf16 rows of k0
+// columns in `pts` and of kv columns in `aux`, nfk and nfv carrying k0 and
+// kv. Stages and SAVE are K1's; every branch on MODE is `if constexpr`.
+template <int STAGE, bool SAVE = false, int MODE = IN_PTS>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 1)
 k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
                const float* __restrict__ aux,
@@ -363,10 +478,12 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
                int skip_mask, int nfk, int nfv, float tau,
                bf16* __restrict__ act) {
   static_assert(!SAVE || STAGE == ST_FULL, "K2 saves K1's activations");
+  static_assert(MODE == IN_PTS || (STAGE == ST_FULL && !SAVE),
+                "stages and saves are K1's");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const Dims d = make_dims(nfk, nfv);
+  const Dims d = body_dims<MODE>(nfk, nfv);
   const Layout l = make_layout(d);
   bf16* X0 = reinterpret_cast<bf16*>(base);   // kp bands | bone dirs; XV
   bf16* HA = X0 + l.xr * CHUNK;               // activations (XV's tail)
@@ -399,62 +516,93 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
 
-  // ---- phase A1: per (point, joint) geometry, window, kp bands ----
+  // ---- phase A1: X0 = [kp bands | bone dirs], or K4's x0 rows ----
   const int row0 = blockIdx.x * TM;
-  const int nb = J * (1 + 2 * nfk);  // first bone-direction column
-  for (int it = tid; it < TM * J; it += NCONS) {
-    const int r = it / J, j = it - (it / J) * J;
-    const int p = last_row(row0 + r, P);   // tail rows: finite dummy
-    const int ray = p / S;
-    const float x = pts[p * 3], y = pts[p * 3 + 1], z = pts[p * 3 + 2];
-    const float* m = m_all + ray * 3 * C72;
-    const float* tr = aux + ray * AUXW;
-    float q[3], ss = 0.f;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      const int c = j * 3 + a;
-      q[a] = fmaf(m[2 * C72 + c], z, fmaf(m[C72 + c], y, m[c] * x)) + tr[c];
-      ss = fmaf(q[a], q[a], ss);
-    }
-    const float v = sqrtf(fmaxf(ss, 1e-24f));
-    const float inv = 1.f / fmaxf(v, 1e-12f);
-    if constexpr (STAGE == ST_TRANSFORM) {
-      // (v, unit dir) of this (point, joint), summed per point below
-      float* dg = reinterpret_cast<float*>(HA) + it * 4;
-      dg[0] = v;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) dg[1 + a] = q[a] * inv;
-      continue;
-    }
-    const float w = 1.f / (1.f + expf(tau * (v - cut[j])));
-    W24[r * J + j] = w;
-    X0[swz(r, j)] = __float2bfloat16_rn(v * w);
-    float f = 1.f;
-    for (int k = 0; k < nfk; ++k) {
-      float s, c;
-      pe_sincos<STAGE>(v * f, &s, &c);
-      X0[swz(r, J + 2 * J * k + j)] = __float2bfloat16_rn(s * w);
-      X0[swz(r, 2 * J + 2 * J * k + j)] = __float2bfloat16_rn(c * w);
-      f *= 2.f;
-    }
-#pragma unroll
-    for (int a = 0; a < 3; ++a)
-      X0[swz(r, nb + j * 3 + a)] = __float2bfloat16_rn(q[a] * inv);
-  }
   const int hr = tid >> 2, ho = tid & 3;   // a (row, output) per thread
-  if constexpr (STAGE == ST_TRANSFORM) {
-    // digest: out[p] = (sum_j v, sum_j r_x, sum_j r_y, sum_j r_z)
-    consumers_sync();
-    const float* dg = reinterpret_cast<const float*>(HA);
-    float s = 0.f;
-    for (int j = 0; j < J; ++j) s += dg[(hr * J + j) * 4 + ho];
-    if (row0 + hr < P) out[(size_t)(row0 + hr) * 4 + ho] = s;
-    cluster_sync();
-    return;
+  if constexpr (MODE == IN_EMBEDDED) {
+    copy_rows_swz(X0, reinterpret_cast<const bf16*>(pts), d.k0, l.k0c, row0,
+                  P, tid);
+  } else {
+    // K3: the tile's v | r (96 floats a row) staged in HB, which the first
+    // layer's epilogue writes only after phase A, by cp.async
+    const float* VR = reinterpret_cast<const float*>(HB);
+    if constexpr (MODE == IN_RAW) {
+      constexpr int G16 = (J + C72) / 4;   // 16-byte groups of a row
+      for (int it = tid; it < TM * G16; it += NCONS) {
+        const int r = it / G16, g = it - (it / G16) * G16;
+        cp_async16(HB + r * (J + C72) * 2 + 8 * g,
+                   pts + (size_t)last_row(row0 + r, P) * RAWW + 4 * g, 16);
+      }
+      cp_async_wait_all();
+      consumers_sync();
+    }
+    // per (point, joint): the geometry (K1) or the row's v and r (K3),
+    // the window, the kp bands and the bone direction
+    const int nb = J * (1 + 2 * nfk);  // first bone-direction column
+    for (int it = tid; it < TM * J; it += NCONS) {
+      const int r = it / J, j = it - (it / J) * J;
+      const int p = last_row(row0 + r, P);   // tail rows: finite dummy
+      float q[3], v, inv;
+      if constexpr (MODE == IN_PTS) {
+        const int ray = p / S;
+        const float x = pts[p * 3], y = pts[p * 3 + 1], z = pts[p * 3 + 2];
+        const float* m = m_all + ray * 3 * C72;
+        const float* tr = aux + ray * AUXW;
+        float ss = 0.f;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+          const int c = j * 3 + a;
+          q[a] = fmaf(m[2 * C72 + c], z, fmaf(m[C72 + c], y, m[c] * x))
+                 + tr[c];
+          ss = fmaf(q[a], q[a], ss);
+        }
+        v = sqrtf(fmaxf(ss, 1e-24f));
+        inv = 1.f / fmaxf(v, 1e-12f);
+      } else {
+        // the row's distance and unit bone direction to joint j
+        const float* xin = VR + r * (J + C72);
+        v = xin[j];
+#pragma unroll
+        for (int a = 0; a < 3; ++a) q[a] = xin[J + j * 3 + a];
+        inv = 1.f;
+      }
+      if constexpr (STAGE == ST_TRANSFORM) {
+        // (v, unit dir) of this (point, joint), summed per point below
+        float* dg = reinterpret_cast<float*>(HA) + it * 4;
+        dg[0] = v;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) dg[1 + a] = q[a] * inv;
+        continue;
+      }
+      const float w = 1.f / (1.f + expf(tau * (v - cut[j])));
+      W24[r * J + j] = w;
+      X0[swz(r, j)] = __float2bfloat16_rn(v * w);
+      float f = 1.f;
+      for (int k = 0; k < nfk; ++k) {
+        float s, c;
+        pe_sincos<STAGE>(v * f, &s, &c);
+        X0[swz(r, J + 2 * J * k + j)] = __float2bfloat16_rn(s * w);
+        X0[swz(r, 2 * J + 2 * J * k + j)] = __float2bfloat16_rn(c * w);
+        f *= 2.f;
+      }
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        X0[swz(r, nb + j * 3 + a)] = __float2bfloat16_rn(q[a] * inv);
+    }
+    if constexpr (STAGE == ST_TRANSFORM) {
+      // digest: out[p] = (sum_j v, sum_j r_x, sum_j r_y, sum_j r_z)
+      consumers_sync();
+      const float* dg = reinterpret_cast<const float*>(HA);
+      float s = 0.f;
+      for (int j = 0; j < J; ++j) s += dg[(hr * J + j) * 4 + ho];
+      if (row0 + hr < P) out[(size_t)(row0 + hr) * 4 + ho] = s;
+      cluster_sync();
+      return;
+    }
+    const int pad0 = l.k0c * KC - d.k0;
+    for (int it = tid; it < TM * pad0; it += NCONS)
+      X0[swz(it / pad0, d.k0 + it % pad0)] = __float2bfloat16_rn(0.f);
   }
-  const int pad0 = l.k0c * KC - d.k0;
-  for (int it = tid; it < TM * pad0; it += NCONS)
-    X0[swz(it / pad0, d.k0 + it % pad0)] = __float2bfloat16_rn(0.f);
   consumers_sync();
 
   if constexpr (STAGE != ST_FULL) {
@@ -464,7 +612,7 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
     float s = 0.f;
     for (int c = ho; c < d.k0p; c += 4) s += __bfloat162float(X0[swz(hr, c)]);
     consumers_sync();
-    build_xv<STAGE>(X0, d, l, aux, W24, row0, P, S, nfv, tid);
+    build_xv<STAGE, MODE>(X0, d, l, pts, aux, W24, row0, P, S, nfv, tid);
     consumers_sync();
     for (int c = ho; c < d.kvp; c += 4) s += __bfloat162float(X0[swz(hr, c)]);
     if (row0 + hr < P) out[(size_t)(row0 + hr) * 4 + ho] = s;
@@ -517,7 +665,11 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
   if (save) save_cols(HB, W, act, ar.F, ar.feat, blockIdx.x, tid);
 
   // ---- phase A2, late: the view inputs into X0 and HA ----
-  build_xv<STAGE>(X0, d, l, aux, W24, row0, P, S, nfv, tid);
+  if constexpr (MODE == IN_EMBEDDED)
+    copy_rows_swz(X0, reinterpret_cast<const bf16*>(aux), d.kv, l.kvc, row0,
+                  P, tid);
+  else
+    build_xv<STAGE, MODE>(X0, d, l, pts, aux, W24, row0, P, S, nfv, tid);
   fence_async_smem();
   consumers_sync();
   if (save) save_cols(X0, l.kvc * KC, act, ar.F, ar.xv, blockIdx.x, tid);
@@ -546,22 +698,25 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
   cluster_sync();
 }
 
-template <int STAGE, bool SAVE = false>
+// A layout whose tile, buffers and stages do not fit in a block's shared
+// memory (X0 or XV wider than the flagship's 448 / 704 columns) returns
+// cudaErrorInvalidValue, which the Python wrappers raise.
+template <int STAGE, bool SAVE = false, int MODE = IN_PTS>
 int launch(const float* pts, const float* m_all, const float* aux,
            const void* img, const float* bias, const float* w_rgb,
            const float* w_alpha, const float* b_out, const float* cut,
            float* out, int P, int S, int depth, int skip_mask, int nfk,
            int nfv, float tau, void* stream, bf16* act = nullptr) {
-  const Layout l = make_layout(make_dims(nfk, nfv));
+  const Layout l = make_layout(body_dims<MODE>(nfk, nfv));
   const size_t smem = smem_bytes_sm90(l);
   if (smem > MAX_SMEM || depth < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      k1_sm90_kernel<STAGE, SAVE>,
+      k1_sm90_kernel<STAGE, SAVE, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (P + TM - 1) / TM;
   const int grid = (tiles + CL - 1) / CL * CL;   // whole clusters
-  k1_sm90_kernel<STAGE, SAVE><<<grid, NT, smem, (cudaStream_t)stream>>>(
+  k1_sm90_kernel<STAGE, SAVE, MODE><<<grid, NT, smem, (cudaStream_t)stream>>>(
       pts, m_all, aux, reinterpret_cast<const unsigned char*>(img), bias,
       w_rgb, w_alpha, b_out, cut, out, P, S, depth, skip_mask, nfk, nfv,
       tau, act);
@@ -625,6 +780,34 @@ int anerf_k2_recompute_sm90(const float* pts, const float* m_all,
                                b_out, cut, out, P, S, depth, skip_mask, nfk,
                                nfv, tau, stream,
                                reinterpret_cast<bf16*>(act));
+}
+
+// K3 on `stream`: x (P, 184) f32 rows [v | r | d | fc] (16-byte aligned),
+// K1's weight image and heads -> out (P, 4).
+int anerf_fused_encode_mlp_raw_sm90(const float* x, const void* img,
+                                    const float* bias, const float* w_rgb,
+                                    const float* w_alpha,
+                                    const float* b_out, const float* cut,
+                                    float* out, int P, int depth,
+                                    int skip_mask, int nfk, int nfv,
+                                    float tau, void* stream) {
+  return launch<ST_FULL, false, IN_RAW>(x, nullptr, nullptr, img, bias,
+                                        w_rgb, w_alpha, b_out, cut, out, P,
+                                        1, depth, skip_mask, nfk, nfv, tau,
+                                        stream);
+}
+
+// K4 on `stream`: x0 (P, k0) and xv (P, kv) bf16 rows (k0, kv multiples
+// of 8, 16-byte aligned), the weight image of those widths -> out (P, 4).
+int anerf_fused_mlp_sm90(const void* x0, const void* xv, const void* img,
+                         const float* bias, const float* w_rgb,
+                         const float* w_alpha, const float* b_out,
+                         float* out, int P, int depth, int skip_mask,
+                         int k0, int kv, void* stream) {
+  return launch<ST_FULL, false, IN_EMBEDDED>(
+      reinterpret_cast<const float*>(x0), nullptr,
+      reinterpret_cast<const float*>(xv), img, bias, w_rgb, w_alpha, b_out,
+      nullptr, out, P, 1, depth, skip_mask, k0, kv, 0.f, stream);
 }
 
 // CTAs per cluster of the kernel above.

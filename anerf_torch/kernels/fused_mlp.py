@@ -1,13 +1,18 @@
 """K4: the NeRF MLP alone, fused into one kernel, on inputs that are
 already embedded (port of anerf_tpu/kernels/fused_mlp.py).
 
-`fused_mlp_apply` launches K4 (csrc/fused_render_modes.cu, K1-v1's
-kernel body with its phase A replaced by a copy of bf16 input rows) on CUDA
-tensors and runs its plain PyTorch version, `fused_mlp_apply_ref`, on CPU
-tensors; it never falls back from one to the other. Its operands are
-K1's, packed in the tensor cores' fragment order by `pack_params` for
-input widths k0 = dnet_input and kv = input_ch_views (+ framecode_ch),
-so that any depth and skips, input_ch_bones = 0 and no framecode work.
+`fused_mlp_apply` launches K4 (csrc/fused_render_sm90.cu, K1's wgmma
+kernel in its IN_EMBEDDED mode: phase A copies bf16 input rows, the
+weights come from the weight image 'img' by cluster-multicast bulk
+copies) on CUDA tensors and runs its plain PyTorch version,
+`fused_mlp_apply_ref`, on CPU tensors; it never falls back from one to
+the other. `fused_mlp_apply_v1` launches K4-v1, its first kernel
+(csrc/fused_render_modes.cu, K1-v1's mma.sync body on the fragment-order
+'w'), kept as the comparison; no path of the port runs it. The operands
+are K1's, packed by `pack_params` for input widths k0 = dnet_input and
+kv = input_ch_views (+ framecode_ch), so that any depth and skips,
+input_ch_bones = 0 and no framecode work, up to the widths K1's kernel
+has shared memory for (`supports_config`).
 
 Numerics, as the TPU kernel's `_mlp_chain`: bf16 operands, each product
 kept in f32 before the bias add, activations rounded to bf16 between
@@ -16,7 +21,7 @@ sums.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -25,6 +30,9 @@ from . import fused_render as fr
 
 #: K4 launches since the last reset; the wrapper adds one per launch.
 LAUNCHES = 0
+#: K4-v1 launches since the last reset; `fused_mlp_apply_v1` adds one per
+#: launch.
+V1_LAUNCHES = 0
 
 
 def view_in(cfg: NeRFConfig) -> int:
@@ -33,19 +41,27 @@ def view_in(cfg: NeRFConfig) -> int:
                                  else 0)
 
 
+def kernel_widths(cfg: NeRFConfig) -> Tuple[int, int]:
+    """(k0, kv): the row widths the kernels copy, dnet_input and
+    `view_in` rounded up to multiples of 8 (16 bytes of bf16)."""
+    return -(-cfg.dnet_input // 8) * 8, -(-view_in(cfg) // 8) * 8
+
+
 def supports_config(cfg: NeRFConfig) -> bool:
     """The JAX gate (a view head, depth 2 or more, widths multiples of the
-    TPU's 128 lanes) plus the kernel's fixed trunk width of 256."""
+    TPU's 128 lanes) plus the kernel's fixed trunk width of 256 and input
+    widths its shared memory holds (`fused_render.sm90_smem_bytes`)."""
     return (cfg.use_viewdirs and cfg.depth >= 2
-            and cfg.width == fr.KERNEL_WIDTH)
+            and cfg.width == fr.KERNEL_WIDTH
+            and fr.sm90_smem_bytes(*kernel_widths(cfg)) <= fr.SM90_MAX_SMEM)
 
 
 def pack_params(params: Dict[str, Any], cfg: NeRFConfig) -> Dict[str, Any]:
     """One network's params -> K4's operands: K1's MLP operands
-    (`fused_render.pack_mlp_params`) for input widths dnet_input and
-    `view_in(cfg)`, each padded to 16."""
-    return fr.pack_mlp_params(params, cfg, fr._rup16(cfg.dnet_input),
-                              fr._rup16(view_in(cfg)))
+    (`fused_render.pack_mlp_params`, with the weight image 'img') for
+    input widths dnet_input and `view_in(cfg)`, each padded to 16 in 'w'
+    and to 64 in 'img'."""
+    return fr.pack_mlp_params(params, cfg, cfg.dnet_input, view_in(cfg))
 
 
 def _padded_inputs(packed, x_pts, x_view):
@@ -66,6 +82,50 @@ def fused_mlp_apply_ref(cfg: NeRFConfig, packed: Dict[str, Any],
     return fr.mlp_trace(cfg, packed, x0, xv)['out']
 
 
+def _launch(fn: str, cfg: NeRFConfig, packed: Dict[str, Any],
+            x_pts: torch.Tensor, x_view: torch.Tensor, v1: bool
+            ) -> torch.Tensor:
+    """Launch K4 (K1's kernel in its IN_EMBEDDED mode, on the weight
+    image) or K4-v1 (K1-v1's body, on 'w') on x_pts and x_view of any
+    device but the CPU. Raises if the kernel cannot launch."""
+    P = x_pts.shape[0]
+    bf = torch.bfloat16
+    k0, kv = kernel_widths(cfg)
+    if not v1:
+        fr.check_sm90_layout(fn, k0, kv)
+
+    # the kernels copy 16-byte chunks: rows of a multiple of 8 columns
+    # (zero columns added here where a width is not), 16-byte aligned
+    def rows(x, k):
+        x = x.to(bf)
+        if x.shape[-1] != k:
+            x = torch.nn.functional.pad(x, (0, k - x.shape[-1]))
+        x = x.contiguous()
+        return x if x.data_ptr() % 16 == 0 else x.clone()
+
+    x0, xv = rows(x_pts, k0), rows(x_view, kv)
+    fr.check_kernel_operands(
+        fn, cfg, packed, x_pts.device, P, x_pts=(x0, (P, k0), bf),
+        x_view=(xv, (P, kv), bf),
+        **({} if v1 else {'img': fr.image_operand(cfg, packed)}))
+    if not v1 and packed['img'].data_ptr() % 16:
+        raise ValueError(f'{fn}: the weight image must be 16-byte aligned')
+    out = torch.empty((P, 4), dtype=torch.float32, device=x_pts.device)
+    if P == 0:
+        return out
+    lib = fr._library('fused_render_modes' if v1 else 'fused_render_sm90')
+    entry = lib.anerf_fused_mlp if v1 else lib.anerf_fused_mlp_sm90
+    with torch.cuda.device(x_pts.device):
+        err = entry(
+            x0.data_ptr(), xv.data_ptr(),
+            packed['w' if v1 else 'img'].data_ptr(), packed['b'].data_ptr(),
+            packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
+            packed['b_out'].data_ptr(), out.data_ptr(), P, cfg.depth,
+            fr.skip_mask(cfg), k0, kv, fr._stream(x_pts.device))
+    fr._raise_on(lib, err, fn)
+    return out
+
+
 def fused_mlp_apply(cfg: NeRFConfig, packed: Dict[str, Any],
                     x_pts: torch.Tensor, x_view: torch.Tensor
                     ) -> torch.Tensor:
@@ -77,34 +137,25 @@ def fused_mlp_apply(cfg: NeRFConfig, packed: Dict[str, Any],
     global LAUNCHES
     if x_pts.device.type == 'cpu':
         return fused_mlp_apply_ref(cfg, packed, x_pts, x_view)
-    P = x_pts.shape[0]
-    bf = torch.bfloat16
-    # the kernel copies 16-byte chunks: rows of a multiple of 8 columns
-    # (zero columns added here where a width is not), 16-byte aligned
-    k0, kv = -(-cfg.dnet_input // 8) * 8, -(-view_in(cfg) // 8) * 8
+    out = _launch('fused_mlp_apply', cfg, packed, x_pts, x_view, False)
+    if out.numel():
+        LAUNCHES += 1
+    return out
 
-    def rows(x, k):
-        x = x.to(bf)
-        if x.shape[-1] != k:
-            x = torch.nn.functional.pad(x, (0, k - x.shape[-1]))
-        x = x.contiguous()
-        return x if x.data_ptr() % 16 == 0 else x.clone()
 
-    x0, xv = rows(x_pts, k0), rows(x_view, kv)
-    fr.check_kernel_operands('fused_mlp_apply', cfg, packed, x_pts.device,
-                             P, x_pts=(x0, (P, k0), bf),
-                             x_view=(xv, (P, kv), bf))
-    out = torch.empty((P, 4), dtype=torch.float32, device=x_pts.device)
-    if P == 0:
-        return out
-    lib = fr._library('fused_render_modes')
-    with torch.cuda.device(x_pts.device):
-        err = lib.anerf_fused_mlp(
-            x0.data_ptr(), xv.data_ptr(), packed['w'].data_ptr(),
-            packed['b'].data_ptr(), packed['w_rgb'].data_ptr(),
-            packed['w_alpha'].data_ptr(), packed['b_out'].data_ptr(),
-            out.data_ptr(), P, cfg.depth, fr.skip_mask(cfg), k0, kv,
-            fr._stream(x_pts.device))
-    fr._raise_on(lib, err, 'fused_mlp_apply')
-    LAUNCHES += 1
+def fused_mlp_apply_v1(cfg: NeRFConfig, packed: Dict[str, Any],
+                       x_pts: torch.Tensor, x_view: torch.Tensor
+                       ) -> torch.Tensor:
+    """K4-v1, K4's first (mma.sync) kernel, on the same operands: the
+    comparison chip_smoke.py measures K4 against. No path of the port
+    calls it.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (and raise if it cannot launch)."""
+    global V1_LAUNCHES
+    if x_pts.device.type == 'cpu':
+        return fused_mlp_apply_ref(cfg, packed, x_pts, x_view)
+    out = _launch('fused_mlp_apply_v1', cfg, packed, x_pts, x_view, True)
+    if out.numel():
+        V1_LAUNCHES += 1
     return out

@@ -22,10 +22,13 @@ the comparison; no path of the port runs it. `FusedApply` /
 `fused_apply` run K1 forward and K2 backward, with gradients reaching
 the network's f32 parameter leaves, the points and the per-ray operands
 (and through `pack_ray_data` the skeleton transforms and framecodes).
-K3 (`fused_encode_mlp`, csrc/fused_render_modes.cu, K1-v1's body) is
-K1 without the transform: the cutoff PE + MLP of per-point raw inputs made by
-`build_raw_inputs`. The plain versions of K1, K3 and K4
-(kernels/fused_mlp.py) share one MLP (`mlp_trace`).
+K3 (`fused_encode_mlp`, csrc/fused_render_sm90.cu, K1's kernel in its
+IN_RAW mode) is K1 without the transform: the cutoff PE + MLP of
+per-point raw inputs made by `build_raw_inputs`, from the same weight
+image. K3-v1 (`fused_encode_mlp_v1`, csrc/fused_render_modes.cu, K1-v1's
+body) is its first version, kept as the comparison; no path of the port
+runs it. The plain versions of K1, K3 and K4 (kernels/fused_mlp.py)
+share one MLP (`mlp_trace`).
 
 Each source is built with nvcc for sm_90a on first use into
 anerf_torch/_build/ and loaded with ctypes. A wrapper launches its kernel
@@ -43,10 +46,11 @@ Layouts (no TPU lane padding):
 Packed weights are bf16 blocks of (out, in) = (N, K), each K padded to a
 multiple of 16 by zero columns (kp/bone input 432, already aligned at the
 flagship; view input 664 -> 672), each block stored in the tensor cores'
-B-fragment order (`to_fragment_order`, 'w': K1-v1, K2, K3, K4) so that
-the kernel fetches a warp's weights with one coalesced 16-byte load per
-lane. K1 reads its own image of the same blocks ('img', `image_index`),
-each input segment padded to a multiple of 64 (432 -> 448, 664 -> 704).
+B-fragment order (`to_fragment_order`, 'w': K1-v1, K2, K3-v1, K4-v1) so
+that the kernel fetches a warp's weights with one coalesced 16-byte load
+per lane. K1, K3 and K4 read their own image of the same blocks ('img',
+`image_index`), each input segment padded to a multiple of 64 (432 ->
+448, 664 -> 704).
 
 Numerics: where the two JAX references round differently, the plain
 version here follows the Pallas kernel, not the XLA `_dense` path: each
@@ -96,6 +100,9 @@ BWD_V1_LAUNCHES = 0
 #: K3 launches since the last reset; `fused_encode_mlp` adds one per
 #: launch.
 RAW_LAUNCHES = 0
+#: K3-v1 launches since the last reset; `fused_encode_mlp_v1` adds one per
+#: launch.
+RAW_V1_LAUNCHES = 0
 #: Points per partial sum of K2's weight gradients (one CTA row of the
 #: dW products per chunk, reduced afterwards in chunk order).
 BWD_CHUNK = 2048
@@ -235,21 +242,23 @@ def from_sm90_image(flat: torch.Tensor, N: int, K: int) -> torch.Tensor:
     return torch.gather(x, 2, idx).permute(1, 0, 2, 3).reshape(N, K)
 
 
-def sm90_shapes(ncfg: NeRFConfig, nfk: int, nfv: int
+def sm90_shapes(ncfg: NeRFConfig, k0: int, kv: int
                 ) -> List[Tuple[int, int]]:
-    """(N, K) of each block of K1's weight image, in `layer_shapes` order,
-    each input segment padded to a multiple of 64."""
-    k0, _, kv, _ = input_widths(nfk, nfv)
+    """(N, K) of each block of the weight image of MLP inputs of k0 and kv
+    columns (K1 and K3: `input_widths`; K4: dnet_input and the view
+    input), in `layer_shapes` order, each input segment padded to a
+    multiple of 64."""
     return mlp_shapes(ncfg, _rup64(k0), _rup64(kv))
 
 
-def image_slices(ncfg: NeRFConfig, nfk: int, nfv: int
+def image_slices(ncfg: NeRFConfig, k0: int, kv: int
                  ) -> List[Tuple[int, int, int, int]]:
-    """(layer, slice, byte offset, bytes) of every k-slice of K1's weight
-    image, in the order its producer copies them and its consumers read
-    them: layer by layer, each layer's slices in k order."""
+    """(layer, slice, byte offset, bytes) of every k-slice of the weight
+    image of input widths k0 and kv, in the order the producer copies
+    them and the consumers read them: layer by layer, each layer's
+    slices in k order."""
     out, off = [], 0
-    for i, (n, k) in enumerate(sm90_shapes(ncfg, nfk, nfv)):
+    for i, (n, k) in enumerate(sm90_shapes(ncfg, k0, kv)):
         for s in range(k // SLICE_K):
             out.append((i, s, off, 2 * n * SLICE_K))
             off += 2 * n * SLICE_K
@@ -275,14 +284,16 @@ def _pad_segments(ncfg: NeRFConfig, i: int, w: torch.Tensor, k0p: int,
 _IMAGE_INDEX: Dict[Any, torch.Tensor] = {}
 
 
-def image_index(ncfg: NeRFConfig, nfk: int, nfv: int, device
+def image_index(ncfg: NeRFConfig, k0: int, kv: int, device
                 ) -> torch.Tensor:
-    """For each element of K1's weight image, the index of the same
-    weight in the fragment-order 'w', or len('w') for a padding zero
-    (cached per config and device): the image is cat([w, 0])[index]."""
-    key = (ncfg.width, ncfg.depth, tuple(ncfg.skips), nfk, nfv, str(device))
+    """For each element of the weight image of MLP inputs of k0 and kv
+    columns (`sm90_shapes`), the index of the same weight in the
+    fragment-order 'w' of blocks padded to 16 (`pack_mlp_params`), or
+    len('w') for a padding zero (cached per config, widths and device):
+    the image is cat([w, 0])[index]."""
+    key = (ncfg.width, ncfg.depth, tuple(ncfg.skips), k0, kv, str(device))
     if key not in _IMAGE_INDEX:
-        k0, k0p, kv, kvp = input_widths(nfk, nfv)
+        k0p, kvp = _rup16(k0), _rup16(kv)
         n_w = sum(n * k for n, k in mlp_shapes(ncfg, k0p, kvp))
         blocks, off = [], 0
         for i, (n, k) in enumerate(mlp_shapes(ncfg, k0p, kvp)):
@@ -297,16 +308,16 @@ def image_index(ncfg: NeRFConfig, nfk: int, nfv: int, device
 
 def weights_from_image(ncfg: NeRFConfig, packed: Dict[str, Any]
                        ) -> List[torch.Tensor]:
-    """K1's weight image read slice by slice in the kernel's order
-    (`image_slices`) and cut back to the 16-padded blocks of
-    `layer_shapes`, as f32 (bf16 values): the same tensors as
+    """The weight image 'img' (K1's, K3's or K4's) read slice by slice in
+    the kernel's order (`image_slices`) and cut back to the 16-padded
+    blocks of `mlp_shapes`, as f32 (bf16 values): the same tensors as
     `_weights_f32` reads from 'w'."""
-    nfk, nfv = packed['nfk'], packed['nfv']
+    k0, kv = packed['k0'], packed['kv']
     k0p, kvp, W = packed['k0p'], packed['kvp'], ncfg.width
-    shapes = sm90_shapes(ncfg, nfk, nfv)
+    shapes = sm90_shapes(ncfg, k0, kv)
     cols: List[List[torch.Tensor]] = [[] for _ in shapes]
     img = packed['img']
-    for i, _, off, nbytes in image_slices(ncfg, nfk, nfv):
+    for i, _, off, nbytes in image_slices(ncfg, k0, kv):
         n = shapes[i][0]
         cols[i].append(from_sm90_image(img[off // 2:(off + nbytes) // 2], n,
                                        SLICE_K))
@@ -465,11 +476,10 @@ def pack_render_params(params: Dict[str, Any], ncfg: NeRFConfig,
     the CUDA cores in f32 on bf16-rounded weights ('w_rgb' (3, W/2),
     'w_alpha' (W,), 'b_out' (4,)).
     """
-    _, k0p, _, kvp = input_widths(n_freq_kp, n_freq_view)
-    mlp = pack_mlp_params(params, ncfg, k0p, kvp)
+    k0, _, kv, _ = input_widths(n_freq_kp, n_freq_view)
+    mlp = pack_mlp_params(params, ncfg, k0, kv)
     w0 = torch.cat([mlp['w'], mlp['w'].new_zeros(1)])
     return {**mlp,
-            'img': w0[image_index(ncfg, n_freq_kp, n_freq_view, w0.device)],
             'img_t': w0[t_image_index(ncfg, n_freq_kp, n_freq_view,
                                       w0.device)],
             'cut': cutoff_dist.reshape(-1)[:N_JOINTS].float()
@@ -477,12 +487,16 @@ def pack_render_params(params: Dict[str, Any], ncfg: NeRFConfig,
             'nfk': int(n_freq_kp), 'nfv': int(n_freq_view)}
 
 
-def pack_mlp_params(params: Dict[str, Any], ncfg: NeRFConfig, k0p: int,
-                    kvp: int) -> Dict[str, torch.Tensor]:
-    """The MLP operands of `pack_render_params` for input blocks of k0p
-    (the density input, dnet_input columns padded) and kvp (the view
-    input and framecode, padded) columns; it records both widths."""
+def pack_mlp_params(params: Dict[str, Any], ncfg: NeRFConfig, k0: int,
+                    kv: int) -> Dict[str, Any]:
+    """The MLP operands of `pack_render_params` for inputs of k0 (the
+    density input: dnet_input columns, and padding) and kv (the view
+    input and framecode, and padding) columns: 'w' with blocks padded to
+    k0p / kvp (multiples of 16), 'img' the weight image of K1's kernel
+    for widths k0 and kv (`image_index`), the biases and the heads. It
+    records the four widths."""
     W = ncfg.width
+    k0p, kvp = _rup16(k0), _rup16(kv)
     dnet = ncfg.dnet_input
 
     def rows(w, n):          # zero-pad the input (row) axis to n
@@ -508,9 +522,10 @@ def pack_mlp_params(params: Dict[str, Any], ncfg: NeRFConfig, k0p: int,
     biases.append(vl['b'])
 
     bf = torch.bfloat16
+    w = torch.cat([to_fragment_order(b.to(bf)) for b in blocks]).contiguous()
+    w0 = torch.cat([w, w.new_zeros(1)])
     return {
-        'w': torch.cat([to_fragment_order(b.to(bf)) for b in blocks])
-        .contiguous(),
+        'w': w, 'img': w0[image_index(ncfg, k0, kv, w.device)],
         'b': torch.cat(biases).float().contiguous(),
         'w_rgb': params['rgb_linear']['w'].t().to(bf).float().contiguous(),
         'w_alpha': params['alpha_linear']['w'][:, 0].to(bf).float()
@@ -518,7 +533,7 @@ def pack_mlp_params(params: Dict[str, Any], ncfg: NeRFConfig, k0p: int,
         'b_out': torch.cat([params['rgb_linear']['b'],
                             params['alpha_linear']['b']]).float()
         .contiguous(),
-        'k0p': k0p, 'kvp': kvp,
+        'k0': k0, 'kv': kv, 'k0p': k0p, 'kvp': kvp,
     }
 
 
@@ -883,10 +898,10 @@ def fused_bwd_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
 
 
 def build_library(name: str) -> Tuple[Path, str]:
-    """Compile one kernel source ('fused_render_sm90' = K1, K1-d and K2's
-    recompute, 'fused_render' = K1-v1, 'fused_render_bwd_sm90' = K2 and
-    K2-d after the recompute, 'fused_render_bwd' = K2-v1,
-    'fused_render_modes' = K3 and K4) for sm_90a
+    """Compile one kernel source ('fused_render_sm90' = K1, K1-d, K2's
+    recompute, K3 and K4, 'fused_render' = K1-v1, 'fused_render_bwd_sm90'
+    = K2 and K2-d after the recompute, 'fused_render_bwd' = K2-v1,
+    'fused_render_modes' = K3-v1 and K4-v1) for sm_90a
     into anerf_torch/_build/, once per version of its sources. Returns
     (library path, nvcc's messages, which include ptxas' register and
     spill report)."""
@@ -936,6 +951,11 @@ def _library(name: str):
             lib.anerf_k2_recompute_sm90.argtypes = \
                 [p] * 10 + [i] * 6 + [f, p, p]
             lib.anerf_k2_recompute_sm90.restype = i
+            lib.anerf_fused_encode_mlp_raw_sm90.argtypes = \
+                [p] * 8 + [i] * 5 + [f, p]
+            lib.anerf_fused_encode_mlp_raw_sm90.restype = i
+            lib.anerf_fused_mlp_sm90.argtypes = [p] * 8 + [i] * 5 + [p]
+            lib.anerf_fused_mlp_sm90.restype = i
         elif name == 'fused_render':
             lib.anerf_fused_encode_mlp_pts_v1.argtypes = \
                 [p] * 10 + [i] * 6 + [f, p]
@@ -1017,6 +1037,39 @@ def _check_operands(fn: str, ncfg: NeRFConfig, packed: Dict[str, Any],
         cut=(packed['cut'], (N_JOINTS,), torch.float32), **extra)
 
 
+#: an H100 block's opt-in shared-memory maximum (csrc/sm90_common.cuh:
+#: MAX_SMEM)
+SM90_MAX_SMEM = 232448
+#: weight stages of K1's ring (csrc/fused_render_sm90.cu: STAGES)
+SM90_STAGES = 3
+
+
+def sm90_smem_bytes(k0: int, kv: int) -> int:
+    """Shared memory of K1's kernel (and K3's, K4's) for MLP inputs of k0
+    and kv columns, as csrc/fused_render_sm90.cu plans it (make_layout,
+    smem_bytes_sm90): the X0 region (X0's 64-column chunks, or XV's less
+    the activation buffer it spills into), two activation buffers, the
+    windows, the head partials, the weight stages and their barriers, and
+    the alignment slack."""
+    W, TM = KERNEL_WIDTH, 64
+    chunk = TM * SLICE_K * 2                  # bytes of a 64 x 64 bf16 chunk
+    xr = max(_rup64(k0), _rup64(kv) - W) // SLICE_K
+    return ((xr + 2 * W // SLICE_K) * chunk + TM * N_JOINTS * 4
+            + 2 * TM * 4 * 4 + SM90_STAGES * W * SLICE_K * 2
+            + 2 * SM90_STAGES * 8 + 1024)
+
+
+def check_sm90_layout(fn: str, k0: int, kv: int) -> None:
+    """Raise unless K1's kernel has room in shared memory for MLP inputs
+    of k0 and kv columns (`sm90_smem_bytes`): X0 up to 448 columns and XV
+    up to 704, the flagship's padded widths."""
+    need = sm90_smem_bytes(k0, kv)
+    if need > SM90_MAX_SMEM:
+        raise ValueError(f'{fn}: MLP inputs of {k0} and {kv} columns need '
+                         f'{need} bytes of shared memory, more than the '
+                         f'{SM90_MAX_SMEM} of a block')
+
+
 def skip_mask(ncfg: NeRFConfig) -> int:
     """The kernels' skip bits: bit s set for every skip after layer s."""
     return sum(1 << s for s in ncfg.skips)
@@ -1038,10 +1091,9 @@ def launch_k1(fn: str, stage: int | None, ncfg: NeRFConfig,
     """Launch K1 (`stage` None) or K1-d stopped after `stage` (ST_* of
     csrc/fused_render_common.cuh) on CUDA tensors; returns raw or the
     stage's digest (R, S, 4). Raises if the kernel cannot launch."""
-    n_img = sum(n * k for n, k in sm90_shapes(ncfg, packed['nfk'],
-                                              packed['nfv']))
+    check_sm90_layout(fn, packed['k0'], packed['kv'])
     _check_operands(fn, ncfg, packed, pts, m_all, aux, S,
-                    img=(packed['img'], (n_img,), torch.bfloat16))
+                    img=image_operand(ncfg, packed))
     if aux.data_ptr() % 16 or packed['img'].data_ptr() % 16:
         raise ValueError(f'{fn}: aux and the weight image must be 16-byte '
                          'aligned (the kernel reads them 16 bytes at a time)')
@@ -1062,6 +1114,14 @@ def launch_k1(fn: str, stage: int | None, ncfg: NeRFConfig,
             packed['nfk'], packed['nfv'], float(tau), _stream(pts.device))
     _raise_on(lib, err, fn)
     return out
+
+
+def image_operand(ncfg: NeRFConfig, packed: Dict[str, Any]):
+    """The weight image as `check_kernel_operands` takes it: (tensor, its
+    shape for the packed widths, bf16)."""
+    n_img = sum(n * k for n, k in sm90_shapes(ncfg, packed['k0'],
+                                              packed['kv']))
+    return packed['img'], (n_img,), torch.bfloat16
 
 
 def cluster_size() -> int:
@@ -1120,6 +1180,41 @@ def fused_encode_mlp_pts_v1(ncfg: NeRFConfig, packed: Dict[str, Any],
     return out
 
 
+def _launch_k3(fn: str, ncfg: NeRFConfig, packed: Dict[str, Any],
+               x_raw: torch.Tensor, tau, v1: bool) -> torch.Tensor:
+    """Launch K3 (K1's kernel in its IN_RAW mode, on the weight image) or
+    K3-v1 (K1-v1's body, on 'w') on CUDA tensors. Raises if the kernel
+    cannot launch."""
+    lead = x_raw.shape[:-1]
+    P = x_raw[..., 0].numel()
+    if not v1:
+        check_sm90_layout(fn, packed['k0'], packed['kv'])
+    check_kernel_operands(
+        fn, ncfg, packed, x_raw.device, P,
+        x_raw=(x_raw, (*lead, RAW_W), torch.float32),
+        cut=(packed['cut'], (N_JOINTS,), torch.float32),
+        **({} if v1 else {'img': image_operand(ncfg, packed)}))
+    if not v1 and (x_raw.data_ptr() % 16 or packed['img'].data_ptr() % 16):
+        raise ValueError(f'{fn}: x_raw and the weight image must be 16-byte '
+                         'aligned (the kernel reads them 16 bytes at a time)')
+    out = torch.empty((*lead, 4), dtype=torch.float32, device=x_raw.device)
+    if P == 0:
+        return out
+    lib = _library('fused_render_modes' if v1 else 'fused_render_sm90')
+    entry = (lib.anerf_fused_encode_mlp_raw if v1
+             else lib.anerf_fused_encode_mlp_raw_sm90)
+    with torch.cuda.device(x_raw.device):
+        err = entry(
+            x_raw.data_ptr(), packed['w' if v1 else 'img'].data_ptr(),
+            packed['b'].data_ptr(), packed['w_rgb'].data_ptr(),
+            packed['w_alpha'].data_ptr(), packed['b_out'].data_ptr(),
+            packed['cut'].data_ptr(), out.data_ptr(), P, ncfg.depth,
+            skip_mask(ncfg), packed['nfk'], packed['nfv'], float(tau),
+            _stream(x_raw.device))
+    _raise_on(lib, err, fn)
+    return out
+
+
 def fused_encode_mlp(ncfg: NeRFConfig, packed: Dict[str, Any],
                      x_raw: torch.Tensor, tau) -> torch.Tensor:
     """K3: raw inputs (..., 184) from `build_raw_inputs` -> raw (..., 4):
@@ -1130,25 +1225,26 @@ def fused_encode_mlp(ncfg: NeRFConfig, packed: Dict[str, Any],
     global RAW_LAUNCHES
     if x_raw.device.type == 'cpu':
         return fused_encode_mlp_ref(ncfg, packed, x_raw, tau)
-    lead = x_raw.shape[:-1]
-    P = x_raw[..., 0].numel()
-    check_kernel_operands(
-        'fused_encode_mlp', ncfg, packed, x_raw.device, P,
-        x_raw=(x_raw, (*lead, RAW_W), torch.float32),
-        cut=(packed['cut'], (N_JOINTS,), torch.float32))
-    out = torch.empty((*lead, 4), dtype=torch.float32, device=x_raw.device)
-    if P == 0:
-        return out
-    lib = _library('fused_render_modes')
-    with torch.cuda.device(x_raw.device):
-        err = lib.anerf_fused_encode_mlp_raw(
-            x_raw.data_ptr(), packed['w'].data_ptr(), packed['b'].data_ptr(),
-            packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
-            packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
-            out.data_ptr(), P, ncfg.depth, skip_mask(ncfg), packed['nfk'],
-            packed['nfv'], float(tau), _stream(x_raw.device))
-    _raise_on(lib, err, 'fused_encode_mlp')
-    RAW_LAUNCHES += 1
+    out = _launch_k3('fused_encode_mlp', ncfg, packed, x_raw, tau, False)
+    if out.numel():
+        RAW_LAUNCHES += 1
+    return out
+
+
+def fused_encode_mlp_v1(ncfg: NeRFConfig, packed: Dict[str, Any],
+                        x_raw: torch.Tensor, tau) -> torch.Tensor:
+    """K3-v1, K3's first (mma.sync) kernel, on the same operands: the
+    comparison chip_smoke.py measures K3 against. No path of the port
+    calls it.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (and raise if it cannot launch)."""
+    global RAW_V1_LAUNCHES
+    if x_raw.device.type == 'cpu':
+        return fused_encode_mlp_ref(ncfg, packed, x_raw, tau)
+    out = _launch_k3('fused_encode_mlp_v1', ncfg, packed, x_raw, tau, True)
+    if out.numel():
+        RAW_V1_LAUNCHES += 1
     return out
 
 
@@ -1197,12 +1293,12 @@ def launch_bwd(stage: int, ncfg: NeRFConfig, packed: Dict[str, Any],
     sums."""
     R = pts.shape[0]
     nfk, nfv = packed['nfk'], packed['nfv']
-    n_img = sum(n * k for n, k in sm90_shapes(ncfg, nfk, nfv))
     n_img_t = sum(rpad * n for *_, rpad, n in t_image_segments(ncfg, nfk,
                                                                nfv))
+    check_sm90_layout('fused_bwd', packed['k0'], packed['kv'])
     _check_operands('fused_bwd', ncfg, packed, pts, m_all, aux, S,
                     g=(g, (R, S, 4), torch.float32),
-                    img=(packed['img'], (n_img,), torch.bfloat16),
+                    img=image_operand(ncfg, packed),
                     img_t=(packed['img_t'], (n_img_t,), torch.bfloat16))
     if aux.data_ptr() % 16 or packed['img'].data_ptr() % 16 \
             or packed['img_t'].data_ptr() % 16 or g.data_ptr() % 16:

@@ -1,6 +1,7 @@
 """The flagship SURREAL model at full width with random weights, on a
 synthetic skeleton: the setup of chip_smoke.py and of the kernel_bench
-tool (the port's counterpart of __graft_entry__._flagship)."""
+tool (the port's counterpart of __graft_entry__._flagship); and the
+overrides that make it configs/surreal/surreal_single.txt's network."""
 from __future__ import annotations
 
 import numpy as np
@@ -10,6 +11,14 @@ from ..config import TrainConfig
 from ..ops.fk import fk
 from ..render.factory import build_render_config, init_render_params
 from ..skeleton import SMPLSkeleton, smpl_rest_pose
+
+#: configs/surreal/surreal_single.txt over the flagship (the port reads no
+#: config files yet): one network for the coarse and the fine samples,
+#: no view PE bands (multires_views 0: 72 + 16 view inputs), 96 + 48
+#: samples. Width 256, multires 7, framecodes, N_rand 2048 and
+#: raw_noise_std 1 are the flagship's already.
+SURREAL_SINGLE = dict(single_net=True, multires_views=0, N_samples=96,
+                      N_importance=48)
 
 
 def flagship(n_frames: int, device='cuda', **overrides):
@@ -43,5 +52,6 @@ def flagship(n_frames: int, device='cuda', **overrides):
     # head's bias (as tests/test_mesh_render.py does) so the body shows up
     # in the images and the output checks are not vacuous
     for net in ('coarse', 'fine'):
-        params[net]['alpha_linear']['b'] += 2.0
+        if params[net] is not None:          # no fine net with single_net
+            params[net]['alpha_linear']['b'] += 2.0
     return args, cfg, params, rest, bones, kp3d.numpy(), skts.numpy()

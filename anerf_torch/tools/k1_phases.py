@@ -3,6 +3,7 @@ boundaries, and variants of its design, on one GPU.
 
     python -m anerf_torch.tools.k1_phases [--variants base cl1 ...]
         [--rays 4096] [--S 64] [--source other.cu ...]
+        [--modes pts raw embedded]
 
 Builds, for each variant, a copy of csrc/fused_render_sm90.cu (and of
 each `--source`, another version of the same kernel, e.g. a parent
@@ -17,7 +18,11 @@ largest difference from K1-v1 on the same inputs (the nomma / nowait
 variants compute garbage on purpose). Phases: clsync (barrier set-up,
 the first cluster barrier and the register hand-over), phase_a (geometry,
 window, kp bands), trunk, feat, xv (the late view-input build), view
-(view layer and heads), out.
+(view layer and heads), out. `--modes` stamps the kernel in each input
+mode given: pts (K1), raw (K3, on build_raw_inputs of the same points;
+phase_a is its v | r staging, window and kp bands, xv its per-point view
+bands) and embedded (K4, on the points' embedded inputs; phase_a and xv
+are its copies), each against its first version (K1-v1, K3-v1, K4-v1).
 
 Variants (source edits of the copy):
   base          the kernel as it is;
@@ -52,12 +57,12 @@ PHASES = ['clsync', 'phase_a', 'trunk', 'feat', 'xv', 'view', 'out']
 #: lines of the kernel after which a stamp is taken, in PHASES order
 ANCHORS = [
     '  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\\n" ::: "memory");\n',
-    '    X0[swz(it / pad0, d.k0 + it % pad0)] = __float2bfloat16_rn(0.f);\n'
-    '  consumers_sync();\n',
+    '      X0[swz(it / pad0, d.k0 + it % pad0)] = __float2bfloat16_rn(0.f);\n'
+    '  }\n  consumers_sync();\n',
     '    hin = smem_u32(hout);\n  }\n',
     '    consumers_sync();   // HA is spent by both warpgroups\n  }\n',
-    '  build_xv<STAGE>(X0, d, l, aux, W24, row0, P, S, nfv, tid);\n'
-    '  fence_async_smem();\n  consumers_sync();\n',
+    '    build_xv<STAGE, MODE>(X0, d, l, pts, aux, W24, row0, P, S, nfv, '
+    'tid);\n  fence_async_smem();\n  consumers_sync();\n',
     '    store_heads<3>(hd, HD, wg, 0);\n    consumers_sync();\n  }\n',
     '[(TM + hr) * 4 + ho] + b_out[ho];\n',
 ]
@@ -132,11 +137,18 @@ def build(job: Tuple[str, str, str | None]) -> ctypes.CDLL:
     so = ctypes.CDLL(str(lib))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     so.anerf_fused_encode_mlp_pts_sm90.argtypes = [p] * 10 + [i] * 6 + [f, p]
+    for entry, types in (('anerf_fused_encode_mlp_raw_sm90',
+                          [p] * 8 + [i] * 5 + [f, p]),
+                         ('anerf_fused_mlp_sm90', [p] * 8 + [i] * 5 + [p])):
+        if hasattr(so, entry):      # a --source may predate K3's and K4's
+            getattr(so, entry).argtypes = types
     so.anerf_read_stamps.argtypes = [p, ctypes.c_size_t]
     return so
 
 
 def _operands(dev, R, S, seed=1):
+    """K1's operands of R random rays of S points, and the same points'
+    K3 rows (build_raw_inputs)."""
     from ..ops.rotations import axisang_to_rot
     rng = np.random.default_rng(seed)
     t = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -144,13 +156,48 @@ def _operands(dev, R, S, seed=1):
     skts[..., :3, :3] = axisang_to_rot(t(rng.normal(size=(R, 24, 3))))
     skts[..., :3, 3] = t(rng.normal(size=(R, 24, 3)) * 0.3)
     skts[..., 3, 3] = 1.0
-    m_all, aux = fr.pack_ray_data(t(rng.normal(size=(R, 1, 3))), skts,
-                                  t(rng.normal(size=(R, 16))))
-    return t(rng.normal(size=(R, S, 3)) * 0.4), m_all, aux
+    rays_d, fc = t(rng.normal(size=(R, 1, 3))), t(rng.normal(size=(R, 16)))
+    m_all, aux = fr.pack_ray_data(rays_d, skts, fc)
+    pts = t(rng.normal(size=(R, S, 3)) * 0.4)
+    return pts, m_all, aux, fr.build_raw_inputs(pts, rays_d, skts, fc)
+
+
+def _launchers(mode, ncfg, packed, pts, m_all, aux, x_raw, S, out):
+    """(entry point name, its arguments, the first version's output, the
+    tensors the arguments point into) of K1 (pts), K3 (raw) or K4
+    (embedded) on the same points."""
+    from ..kernels import fused_mlp as fm
+    tau, stream = 2000.0, torch.cuda.current_stream().cuda_stream
+    heads = (packed['b'].data_ptr(), packed['w_rgb'].data_ptr(),
+             packed['w_alpha'].data_ptr(), packed['b_out'].data_ptr())
+    P, sm = pts.shape[0] * S, fr.skip_mask(ncfg)
+    if mode == 'pts':
+        return ('anerf_fused_encode_mlp_pts_sm90', (
+            pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
+            packed['img'].data_ptr(), *heads, packed['cut'].data_ptr(),
+            out.data_ptr(), P, S, ncfg.depth, sm, 7, 4, tau, stream),
+            fr.fused_encode_mlp_pts_v1(ncfg, packed, pts, m_all, aux, S,
+                                       tau), ())
+    if mode == 'raw':
+        return ('anerf_fused_encode_mlp_raw_sm90', (
+            x_raw.data_ptr(), packed['img'].data_ptr(), *heads,
+            packed['cut'].data_ptr(), out.data_ptr(), P, ncfg.depth, sm, 7,
+            4, tau, stream),
+            fr.fused_encode_mlp_v1(ncfg, packed, x_raw, tau), ())
+    k0, kv = fm.kernel_widths(ncfg)
+    x0, xv = fr._encode(packed, pts, m_all, aux, S, tau)
+    bf = torch.bfloat16
+    x0 = x0[..., :k0].reshape(P, k0).to(bf).contiguous()
+    xv = xv[..., :kv].reshape(P, kv).to(bf).contiguous()
+    return ('anerf_fused_mlp_sm90', (
+        x0.data_ptr(), xv.data_ptr(), packed['img'].data_ptr(), *heads,
+        out.data_ptr(), P, ncfg.depth, sm, k0, kv, stream),
+        fm.fused_mlp_apply_v1(ncfg, packed, x0, xv).reshape(out.shape),
+        (x0, xv))
 
 
 def run(variants, n_rays: int = 4096, S: int = 64, reps: int = 9,
-        sources=()):
+        sources=(), modes=('pts',)):
     from ..models.nerf import NeRFConfig, init_nerf_params
     if not torch.cuda.is_available():
         raise RuntimeError('k1_phases needs a CUDA device')
@@ -165,26 +212,24 @@ def run(variants, n_rays: int = 4096, S: int = 64, reps: int = 9,
     params = init_nerf_params(ncfg, torch.Generator().manual_seed(0), dev)
     packed = fr.pack_render_params(params, ncfg, 7, 4,
                                    torch.full((24,), 0.5, device=dev))
-    pts, m_all, aux = _operands(dev, n_rays, S)
+    pts, m_all, aux, x_raw = _operands(dev, n_rays, S)
     out = torch.empty((n_rays, S, 4), device=dev)
-    v1 = fr.fused_encode_mlp_pts_v1(ncfg, packed, pts, m_all, aux, S,
-                                    2000.0)
     n_cta = -(-n_rays * S // 64)
     rows = []
-    for name, lib in libs.items():
-        args = (pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
-                packed['img'].data_ptr(), packed['b'].data_ptr(),
-                packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
-                packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
-                out.data_ptr(), n_rays * S, S, ncfg.depth,
-                fr.skip_mask(ncfg), 7, 4, 2000.0,
-                torch.cuda.current_stream().cuda_stream)
+    for (name, lib), mode in [(nl, m) for m in modes for nl in libs.items()]:
+        # `inputs` holds the tensors `args` points into while they launch
+        entry, args, v1, inputs = _launchers(mode, ncfg, packed, pts, m_all,
+                                             aux, x_raw, S, out)
+        if not hasattr(lib, entry):
+            continue
+        if mode != 'pts':
+            name = f'{name}:{mode}'
         times = []
         for _ in range(reps):
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            if lib.anerf_fused_encode_mlp_pts_sm90(*args):
+            if getattr(lib, entry)(*args):
                 raise RuntimeError(f'{name}: launch failed')
             e1.record()
             e1.synchronize()
@@ -213,12 +258,15 @@ def main(argv=None) -> int:
     ap.add_argument('--S', type=int, default=64)
     ap.add_argument('--source', nargs='*', default=[],
                     help='other versions of csrc/fused_render_sm90.cu')
+    ap.add_argument('--modes', nargs='+', default=['pts'],
+                    choices=['pts', 'raw', 'embedded'],
+                    help='input modes: K1 (pts), K3 (raw), K4 (embedded)')
     a = ap.parse_args(argv)
     card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                            '--format=csv,noheader'], capture_output=True,
                           text=True).stdout.strip()
     print(f'card: {card}', flush=True)
-    run(a.variants, a.rays, a.S, sources=a.source)
+    run(a.variants, a.rays, a.S, sources=a.source, modes=a.modes)
     return 0
 
 

@@ -1,9 +1,9 @@
-"""K2 of this tree against K2 of another copy of the package, in one
-process on one card: the same inputs, bit-equality of the outputs, times
-in turns, and (in the bf16 flavour) each one's MLP backward against the
-plain bf16 one on its own saved activations.
+"""K2 and K1 of this tree against K2 and K1 of another copy of the
+package, in one process on one card: the same inputs, bit-equality of the
+outputs, times in turns, and (in the bf16 flavour) each K2's MLP backward
+against the plain bf16 one on its own saved activations.
 
-    python -m anerf_torch.tools.k2_ab --other DIR [--bwd_bf16]
+    python -m anerf_torch.tools.k2_ab --other DIR [--bwd_bf16] [--v1]
         [--rays 2048] [--reps 11] [--shapes 64 80 8 24] [--device cuda]
 
 DIR holds the other copy's `anerf_torch/` (e.g. `git archive` of another
@@ -13,13 +13,17 @@ _build. The inputs are the kernel_bench tool's (the flagship's coarse
 net, random skeletons, points and cotangents from numpy's
 default_rng(0)); times are medians of `reps` CUDA-event timings in turns
 (other, this, this, other), each launch on the next of four input sets.
-Per S it prints a row and ends with one JSON line {"metric": "k2_ab",
-"device", "power_limit", "bwd_f32", "rows": [{S, bit_equal, ms,
-other_ms, turns, fro, other_fro}]}; fro is the worst relative Frobenius
+Per S it prints a row for K2 and one for K1's forward
+(`fused_encode_mlp_pts` on the same points), and ends with one JSON line
+{"metric": "k2_ab", "device", "power_limit", "bwd_f32", "rows": [{S,
+bit_equal, ms, other_ms, turns, fro, other_fro}], "k1_rows": [{S,
+bit_equal, ms, other_ms, turns}]}; fro is the worst relative Frobenius
 distance of a dW block, dx0 or dxv from the plain bf16 MLP backward on
-the kernel's own activations (None in the f32 flavour). The other copy's
-`fused_bwd` must take `bwd_f32` for --bwd_bf16. --device cpu runs the
-plain versions on the host clock, for the tests.
+the kernel's own activations (None in the f32 flavour). With --v1 the
+line also holds "v1_rows": [{kernel, S, bit_equal, ms, other_ms,
+turns}], the first versions K1-v1 and K2-v1 (f32) compared the same
+way. The other copy's `fused_bwd` must take `bwd_f32` for --bwd_bf16.
+--device cpu runs the plain versions on the host clock, for the tests.
 """
 from __future__ import annotations
 
@@ -74,11 +78,26 @@ def mlp_fro(ofr, ncfg, packed, args, bwd_f32: bool) -> float:
                for a, b in pairs)
 
 
+def ab_row(S: int, this, that, ins, reps: int, dev) -> Dict[str, Any]:
+    """`this` against `that` on the input sets `ins`: bit-equality of
+    their outputs on the first set, and their times in turns (that,
+    this, this, that)."""
+    a, b = this(*ins[0]), that(*ins[0])
+    if torch.is_tensor(a):
+        a, b = (a,), (b,)
+    bit_equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    turns = [kb.time_ms(fn, ins, reps, dev) for fn in (that, this, this,
+                                                       that)]
+    return {'S': S, 'bit_equal': bit_equal, 'ms': (turns[1] + turns[2]) / 2,
+            'other_ms': (turns[0] + turns[3]) / 2, 'turns': turns}
+
+
 def run(other: str, n_rays: int = 2048, reps: int = 11,
         shapes: Sequence[int] = (64, 80, 8, 24), bwd_f32: bool = True,
-        device='cuda') -> Dict[str, Any]:
-    """Both K2s per S; prints a row per S and the JSON line, and returns
-    the JSON object."""
+        device='cuda', v1: bool = False) -> Dict[str, Any]:
+    """Both K2s and both K1s per S (with `v1`, both K1-v1s and K2-v1s
+    too); prints their rows per S and the JSON line, and returns the
+    JSON object."""
     ofr = load_other(other)
     ctx = kb.setup(n_rays, device)
     dev = ctx['dev']
@@ -88,18 +107,18 @@ def run(other: str, n_rays: int = 2048, reps: int = 11,
     this = lambda *a: fr.fused_bwd(*a, **kw)
     that = lambda *a: ofr.fused_bwd(*a, **kw)
     rows: List[Dict[str, Any]] = []
+    k1_rows: List[Dict[str, Any]] = []
+    v1_rows: List[Dict[str, Any]] = []
     for S in shapes:
         sets = kb.input_sets(ctx, S)
-        ins = [a + (s['g'],) for a, s in zip(kb._k1_args(ctx, sets, S),
-                                            sets)]
-        bit_equal = all(torch.equal(x, y)
-                        for x, y in zip(this(*ins[0]), that(*ins[0])))
-        turns = [kb.time_ms(fn, ins, reps, dev)
-                 for fn in (that, this, this, that)]
-        row = {'S': S, 'bit_equal': bit_equal,
-               'ms': (turns[1] + turns[2]) / 2,
-               'other_ms': (turns[0] + turns[3]) / 2, 'turns': turns,
-               'fro': None, 'other_fro': None}
+        k1_ins = kb._k1_args(ctx, sets, S)
+        k1 = ab_row(S, fr.fused_encode_mlp_pts, ofr.fused_encode_mlp_pts,
+                    k1_ins, reps, dev)
+        k1_rows.append(k1)
+        print({'kernel': 'K1', **k1}, flush=True)
+        ins = [a + (s['g'],) for a, s in zip(k1_ins, sets)]
+        row = {**ab_row(S, this, that, ins, reps, dev), 'fro': None,
+               'other_fro': None}
         if not bwd_f32:
             row['fro'] = mlp_fro(fr, ctx['ncfg'], ctx['packed'], ins[0],
                                  False)
@@ -107,8 +126,18 @@ def run(other: str, n_rays: int = 2048, reps: int = 11,
                                        ins[0], False)
         rows.append(row)
         print(row, flush=True)
+        if v1:
+            for kernel, args, name in (
+                    ('K1-v1', k1_ins, 'fused_encode_mlp_pts_v1'),
+                    ('K2-v1', ins, 'fused_bwd_v1')):
+                v1_rows.append({'kernel': kernel, **ab_row(
+                    S, getattr(fr, name), getattr(ofr, name), args, reps,
+                    dev)})
+                print(v1_rows[-1], flush=True)
     rec = {'metric': 'k2_ab', **kb.card(dev), 'bwd_f32': bwd_f32,
-           'other': other, 'rows': rows}
+           'other': other, 'rows': rows, 'k1_rows': k1_rows}
+    if v1:
+        rec['v1_rows'] = v1_rows
     print(json.dumps(rec), flush=True)
     return rec
 
@@ -122,10 +151,13 @@ def main(argv=None) -> int:
     p.add_argument('--shapes', nargs='+', type=int, default=[64, 80, 8, 24])
     p.add_argument('--bwd_bf16', action='store_true',
                    help="K2's bf16-cotangent flavour (both copies)")
+    p.add_argument('--v1', action='store_true',
+                   help='also K1-v1 and K2-v1 against the other copy')
     p.add_argument('--device', default='cuda',
                    help="'cpu' runs the plain versions (for the tests)")
     a = p.parse_args(argv)
-    run(a.other, a.rays, a.reps, a.shapes, not a.bwd_bf16, a.device)
+    run(a.other, a.rays, a.reps, a.shapes, not a.bwd_bf16, a.device,
+        a.v1)
     return 0
 
 

@@ -30,9 +30,16 @@ Phases (any failure exits non-zero and prints no result):
      launches bit-equal, its launches a call; at S = 8 and 24 also K2's
      f32 flavour against its plain version; both flavours timed in turns
      (f32, bf16, bf16, f32) beside their bounds.
-  3. modes and stages: K3 (fused_encode_mlp) and K4 (fused_mlp_apply) on
-     the K1 phase's bucket, each against its plain version and against
-     K1 on the same points, timed beside its bound; every stage of K1-d
+  3. modes and stages: K3 (fused_encode_mlp) and K4 (fused_mlp_apply),
+     K1's kernel in its other input modes, on the K1 phase's bucket, each
+     against its plain version, against K1 on the same points and against
+     its first version (K3-v1, K4-v1: K1-v1's body), timed in turns with
+     it (v1, new, new, v1) beside its bound, K4 also beside its function
+     as a chain of bf16 torch.matmul calls on its own inputs; the
+     surreal_single network (single_net, multires_views 0) on one
+     512-ray bucket: K1, K3 and K4 against their plain versions at S = 96,
+     48 and 144, K2 in both flavours against its plain version at S = 96
+     and 144; every stage of K1-d
      and K2-d (the staged kernels of anerf_torch/kernels/stages.py) on
      the K2 phase's batch against its plain digest, the full stages bit
      for bit against K1 and K2, timed beside their bounds; then the
@@ -54,8 +61,9 @@ Phases (any failure exits non-zero and prints no result):
      the flagship (N_rand 2048, 128 frames, pose refinement) through
      make_train_step, checked for finite and falling loss, acc in [0, 1],
      two K1 and two K2 launches per step, and poses that move only on
-     their opt_pose_step interval. K1-v1 and K2-v1 must not run on the
-     main paths (render and train).
+     their opt_pose_step interval. K1-v1, K2-v1, K3-v1 and K4-v1 must not
+     run on the main paths (render and train), nor K3-v1 and K4-v1 on
+     the kernel_bench path.
   6. culled fast-grads train slice: the same setup with cull_ratio 0.125
      and fast_grads (the coarse net at S = 8, the fine net at 8 + 16 =
      24, K2's bf16 flavour): one step's gradients with K2 against the
@@ -174,17 +182,17 @@ def _median_ms(fn, inputs, reps):
     return times[len(times) // 2]
 
 
-def _flagship_render(torch, np):
+def _flagship_render(torch, np, **overrides):
     """The render slice's setup: the flagship (anerf_torch/tools/
-    flagship.py) on 8 frames at the render chunk of surreal.txt, a camera
-    2.5 units in front of each root. Returns (args, cfg, params, pose
-    source)."""
+    flagship.py, with `overrides`) on 8 frames at the render chunk of
+    surreal.txt, a camera 2.5 units in front of each root. Returns (args,
+    cfg, params, pose source)."""
     from anerf_torch.render.modes import PoseSource
     from anerf_torch.tools.flagship import flagship
 
     n_frames = 8
-    args, cfg, params, rest, bones, kp3d, _ = flagship(n_frames,
-                                                       chunk=4096)
+    args, cfg, params, rest, bones, kp3d, _ = flagship(
+        n_frames, chunk=4096, **overrides)
     # cameras 2.5 units in front of each root, looking at it (NeRF: -z)
     c2ws = np.tile(np.eye(4, dtype=np.float32), (n_frames, 1, 1))
     c2ws[:, :3, 3] = kp3d[:, 0] + np.array([0.0, 0.0, 2.5], np.float32)
@@ -194,14 +202,16 @@ def _flagship_render(torch, np):
     return args, cfg, params, src
 
 
-def _bucket_inputs(torch, np, cfg, params, src, seed, R=4096):
+def _bucket_inputs(torch, np, cfg, params, src, seed, R=4096,
+                   samples=(64, 16), culled=True):
     """One bucket of K1 operands as the main path builds them: R rays
     from a camera 2.5 units from the root of pose 0 toward the body,
-    cylinder near/far, 64 stratified samples and the 64 + 16 fine set;
-    and the culled sets of cull_ratio 0.125: the 8 samples cull_samples
-    keeps of the 64, and those 8 + the 16. Returns ({S: pts} for S = 64,
-    80, 8, 24, m_all, aux, the per-ray inputs of pack_ray_data
-    {'rays_d', 'skts', 'fc'})."""
+    cylinder near/far, n0 = samples[0] stratified samples, n1 =
+    samples[1] more, and the n0 + n1 fine set; with `culled`, the sets of
+    cull_ratio 0.125: the 8 samples cull_samples keeps of the n0, and
+    those 8 + the n1. Returns ({S: pts} for S = n0, n0 + n1, n1 (and 8,
+    8 + n1), m_all, aux, the per-ray inputs of pack_ray_data {'rays_d',
+    'skts', 'fc'})."""
     import dataclasses
 
     from anerf_torch.render.raycaster import cull_samples
@@ -228,21 +238,24 @@ def _bucket_inputs(torch, np, cfg, params, src, seed, R=4096):
                                    bot_expand_ratio=1.1)
     cyls = torch.as_tensor(cyl, device=dev).expand(R, 5)
     near, far = get_near_far_in_cylinder(rays_o, rays_d, cyls, 0.0, 1.0)
-    z64 = sample_from_lineseg(near, far, 64)
-    z16 = sample_from_lineseg(near, far, 16)
-    pts64 = rays_o[:, None] + rays_d[:, None] * z64[..., None]
-    pts16 = rays_o[:, None] + rays_d[:, None] * z16[..., None]
-    pts80 = torch.cat([pts64, pts16], 1)
-    _, pts8 = cull_samples(dataclasses.replace(cfg, n_keep=8), z64, pts64,
-                           kp.to(dev).expand(R, 24, 3),
-                           params['cutoff_dist'])
+    n0, n1 = samples
+    z0 = sample_from_lineseg(near, far, n0)
+    z1 = sample_from_lineseg(near, far, n1)
+    pts0 = rays_o[:, None] + rays_d[:, None] * z0[..., None]
+    pts1 = rays_o[:, None] + rays_d[:, None] * z1[..., None]
+    pts = {n0: pts0.contiguous(), n1: pts1.contiguous(),
+           n0 + n1: torch.cat([pts0, pts1], 1).contiguous()}
+    if culled:
+        _, pts8 = cull_samples(dataclasses.replace(cfg, n_keep=8), z0, pts0,
+                               kp.to(dev).expand(R, 24, 3),
+                               params['cutoff_dist'])
+        pts[8] = pts8.contiguous()
+        pts[8 + n1] = torch.cat([pts8, pts1], 1).contiguous()
     skts_r = skts.to(dev).expand(R, 24, 4, 4)
     fc = lookup_framecodes(params['coarse'],
                            torch.zeros(R, dtype=torch.long, device=dev))
     m_all, aux = pack_ray_data(rays_d[:, None], skts_r, fc)
-    return ({64: pts64.contiguous(), 80: pts80.contiguous(),
-             8: pts8.contiguous(),
-             24: torch.cat([pts8, pts16], 1).contiguous()}, m_all, aux,
+    return (pts, m_all, aux,
             {'rays_d': rays_d[:, None], 'skts': skts_r, 'fc': fc})
 
 
@@ -862,11 +875,118 @@ def k2_bf16_phase(torch, np, cfg, params, src, n_k2_f32):
     return out, f32_culled
 
 
+def _mlp_chain(torch, ncfg, packed):
+    """K4's function as a chain of bf16 torch.matmul calls, one addmm (the
+    product and the bias) a layer, ReLU, the skip concat and the heads, on
+    K4's own inputs x0 (P, dnet_input) and xv (P, view_in) in bf16:
+    returns fn(x0, xv) -> raw (P, 4). A yardstick for K4 (its
+    library_ms); never on the port's path. Its roundings differ from
+    K4's (the library's bias is bf16, its heads bf16 products)."""
+    from anerf_torch.kernels import fused_mlp as fm
+    from anerf_torch.kernels import fused_render as fr
+    bf, W = torch.bfloat16, ncfg.width
+    k0, kv = ncfg.dnet_input, fm.view_in(ncfg)
+    k0p = packed['k0p']
+    ws = fr._weights_f32(ncfg, packed)
+    # each block's live input columns only, transposed to (K, N)
+    wts = []
+    for i, w in enumerate(ws):
+        if i == 0:
+            w = w[:, :k0]
+        elif i < ncfg.depth and (i - 1) in ncfg.skips:
+            w = torch.cat([w[:, :k0], w[:, k0p:]], 1)
+        elif i == ncfg.depth + 1:
+            w = w[:, :W + kv]
+        wts.append(w.t().to(bf).contiguous())
+    bs = [b.to(bf) for b in packed['b'][:W * (ncfg.depth + 1)].split(W)]
+    bs.append(packed['b'][W * (ncfg.depth + 1):].to(bf))
+    w_rgb = packed['w_rgb'].t().to(bf).contiguous()
+    w_alpha = packed['w_alpha'][:, None].to(bf).contiguous()
+    b_out = packed['b_out']
+
+    def run(x0, xv):
+        h = torch.relu(torch.addmm(bs[0], x0, wts[0]))
+        for i in range(1, ncfg.depth):
+            x = torch.cat([x0, h], -1) if (i - 1) in ncfg.skips else h
+            h = torch.relu(torch.addmm(bs[i], x, wts[i]))
+        alpha = torch.matmul(h, w_alpha)
+        feat = torch.addmm(bs[ncfg.depth], h, wts[ncfg.depth])
+        hv = torch.relu(torch.addmm(bs[-1], torch.cat([feat, xv], -1),
+                                    wts[-1]))
+        return torch.cat([torch.matmul(hv, w_rgb), alpha], -1).float() \
+            + b_out
+    return run
+
+
+def _hold_modes(torch, kernels, v, S, net, tau, k1, R, label=''):
+    """Each of `kernels` ({id: (kernel, first version, plain version,
+    args maker)}) on bucket `v` at S and tau: against its plain version
+    (K1_ATOL), against K1's output `k1` on the same points and against
+    its first version (CROSS_ATOL); the first version against the plain
+    version (K1_ATOL). Returns {id: max abs error against the plain
+    version}."""
+    errs = {}
+    for kid, (kernel, v1, plain, make) in kernels.items():
+        args = make(v, S, net, tau)
+        got = kernel(*args).reshape(R, S, 4)
+        old = v1(*args).reshape(R, S, 4)
+        torch.cuda.synchronize()
+        want = plain(*args).reshape(R, S, 4)
+        err = (got - want).abs().max().item()
+        err_k1 = (got - k1).abs().max().item()
+        err_v1 = (got - old).abs().max().item()
+        err_old = (old - want).abs().max().item()
+        ok = (torch.allclose(got, want, atol=K1_ATOL, rtol=K1_RTOL)
+              and torch.allclose(got, k1, atol=CROSS_ATOL, rtol=CROSS_RTOL)
+              and torch.allclose(got, old, atol=CROSS_ATOL, rtol=CROSS_RTOL)
+              and torch.allclose(old, want, atol=K1_ATOL, rtol=K1_RTOL)
+              and bool(torch.isfinite(got).all()))
+        print(f'{kid}{label} S={S} tau={tau:g}: max_abs={err:.3e} vs plain '
+              f'(tol atol=rtol={K1_ATOL}), {err_k1:.3e} vs K1, {err_v1:.3e} '
+              f'vs {kid}-v1 ({kid}-v1 {err_old:.3e} vs plain) (tol '
+              f'atol=rtol={CROSS_ATOL}) -> {"ok" if ok else "FAIL"}',
+              flush=True)
+        if not ok:
+            raise AssertionError(f'{kid}{label} disagrees at S={S} '
+                                 f'tau={tau}')
+        errs[kid] = err
+    return errs
+
+
+def _mode_kernels(torch, ncfg, packed, packed4):
+    """K3 and K4 with their first versions, plain versions and makers of
+    their arguments from a bucket of _bucket_inputs: K3 on
+    build_raw_inputs of its points, K4 on their embedded inputs."""
+    from anerf_torch.kernels import fused_mlp as fm
+    from anerf_torch.kernels import fused_render as fr
+    k0, kv = ncfg.dnet_input, fm.view_in(ncfg)
+    bf = torch.bfloat16
+
+    def k3_args(v, S, net, tau):
+        x = fr.build_raw_inputs(v[0][S], v[3]['rays_d'], v[3]['skts'],
+                                v[3]['fc'])
+        return ncfg, packed[net], x, tau
+
+    def k4_args(v, S, net, tau):
+        x0, xv = fr._encode(packed[net], v[0][S], v[1], v[2], S, tau)
+        return (ncfg, packed4[net], x0[..., :k0].reshape(-1, k0).to(bf),
+                xv[..., :kv].reshape(-1, kv).to(bf))
+
+    return {'K3': (fr.fused_encode_mlp, fr.fused_encode_mlp_v1,
+                   fr.fused_encode_mlp_ref, k3_args),
+            'K4': (fm.fused_mlp_apply, fm.fused_mlp_apply_v1,
+                   fm.fused_mlp_apply_ref, k4_args)}
+
+
 def modes_phase(torch, np, cfg, params, src):
-    """K3 and K4 at the flagship width on one 4096-ray bucket (the coarse
-    net at S = 64, the fine net at S = 80; tau = 2000 and 35): each held
-    to its plain version and to K1 on the same points; median times
-    beside the bounds. Returns their `kernels` records."""
+    """K3 and K4 (K1's kernel in its IN_RAW and IN_EMBEDDED modes) at the
+    flagship width on one 4096-ray bucket (the coarse net at S = 64, the
+    fine net at S = 80; tau = 2000 and 35): each held to its plain
+    version, to K1 on the same points and to its first version (K3-v1,
+    K4-v1: K1-v1's body); each pair timed in turns (v1, new, new, v1)
+    beside the bound, and K4 beside its function as a chain of bf16
+    torch.matmul calls on its own inputs (library_ms). Returns their
+    `kernels` records."""
     from anerf_torch.kernels import fused_mlp as fm
     from anerf_torch.kernels import fused_render as fr
     from anerf_torch.kernels import roofline as rf
@@ -880,21 +1000,7 @@ def modes_phase(torch, np, cfg, params, src):
     R = 4096
     variants = [_bucket_inputs(torch, np, cfg, params, src, seed)
                 for seed in range(4)]
-    bf = torch.bfloat16
-
-    def k3_args(v, S, net, tau):
-        x = fr.build_raw_inputs(v[0][S], v[3]['rays_d'], v[3]['skts'],
-                                v[3]['fc'])
-        return ncfg, packed[net], x, tau
-
-    def k4_args(v, S, net, tau):
-        x0, xv = fr._encode(packed[net], v[0][S], v[1], v[2], S, tau)
-        return (ncfg, packed4[net], x0[..., :k0].reshape(-1, k0).to(bf),
-                xv[..., :kv].reshape(-1, kv).to(bf))
-
-    kernels = {'K3': (fr.fused_encode_mlp, fr.fused_encode_mlp_ref,
-                      k3_args),
-               'K4': (fm.fused_mlp_apply, fm.fused_mlp_apply_ref, k4_args)}
+    kernels = _mode_kernels(torch, ncfg, packed, packed4)
     max_abs = {kid: 0.0 for kid in kernels}
     rec = {kid: {} for kid in kernels}
     for S, net in ((64, 'coarse'), (80, 'fine')):
@@ -902,63 +1008,149 @@ def modes_phase(torch, np, cfg, params, src):
             v = variants[0]
             k1 = fr.fused_encode_mlp_pts(ncfg, packed[net], v[0][S], v[1],
                                          v[2], S, tau)
-            for kid, (kernel, plain, make) in kernels.items():
-                args = make(v, S, net, tau)
-                got = kernel(*args).reshape(R, S, 4)
-                torch.cuda.synchronize()
-                want = plain(*args).reshape(R, S, 4)
-                err = (got - want).abs().max().item()
-                err_k1 = (got - k1).abs().max().item()
-                ok = (torch.allclose(got, want, atol=K1_ATOL, rtol=K1_RTOL)
-                      and torch.allclose(got, k1, atol=CROSS_ATOL,
-                                         rtol=CROSS_RTOL)
-                      and bool(torch.isfinite(got).all()))
-                print(f'{kid} S={S} tau={tau:g}: max_abs={err:.3e} vs plain '
-                      f'(tol atol=rtol={K1_ATOL}), {err_k1:.3e} vs K1 '
-                      f'(tol atol=rtol={CROSS_ATOL}) -> '
-                      f'{"ok" if ok else "FAIL"}', flush=True)
-                if not ok:
-                    raise AssertionError(f'{kid} disagrees at S={S} '
-                                         f'tau={tau}')
+            for kid, err in _hold_modes(torch, kernels, v, S, net, tau,
+                                        k1, R).items():
                 max_abs[kid] = max(max_abs[kid], err)
-        for kid, (kernel, plain, make) in kernels.items():
+        for kid, (kernel, v1, plain, make) in kernels.items():
             ins = [make(v, S, net, 2000.0) for v in variants]
-            rec[kid][S] = (_median_ms(kernel, ins, 21),
-                           _median_ms(plain, ins, 5))
-            print(f'{kid} S={S}: kernel {rec[kid][S][0]:.4f} ms, plain '
-                  f'{rec[kid][S][1]:.4f} ms (median, R={R})', flush=True)
+            # in turns on the same buckets: v1, new, new, v1
+            turns = [_median_ms(fn, ins, 21)
+                     for fn in (v1, kernel, kernel, v1)]
+            rec[kid][S] = {'ms': (turns[1] + turns[2]) / 2,
+                           'v1_ms': (turns[0] + turns[3]) / 2,
+                           'turns': turns,
+                           'plain_ms': _median_ms(plain, ins, 5),
+                           'v1_vs_new': (kernel(*ins[0]) - v1(*ins[0]))
+                           .abs().max().item()}
+            line = (f'{kid} S={S}: in turns v1 {turns[0]:.4f}, {kid} '
+                    f'{turns[1]:.4f}, {kid} {turns[2]:.4f}, v1 '
+                    f'{turns[3]:.4f} ms; plain {rec[kid][S]["plain_ms"]:.4f}'
+                    f' ms')
+            if kid == 'K4':
+                chain = _mlp_chain(torch, ncfg, packed4[net])
+                xs = [a[2:] for a in ins]
+                rec[kid][S]['library_ms'] = _median_ms(chain, xs, 21)
+                dev = (chain(*xs[0]) - kernel(*ins[0])).abs().max().item()
+                line += (f'; the bf16 torch.matmul chain '
+                         f'{rec[kid][S]["library_ms"]:.4f} ms (max_abs '
+                         f'{dev:.3e} from K4, other roundings)')
+            print(f'{line} (medians, R={R})', flush=True)
             del ins
 
     P = R * (64 + 80)
     bf16_s = 2.0 * rf.mlp_macs_per_point(ncfg) * P / rf.PEAK_BF16_FLOPS
+    img_only = ('w', 'img_t')      # K3 and K4 read the weight image
     times = {
         'K3': {'bf16': bf16_s,
                'fp32': rf.pe_flop_per_point(7, 4) * P / rf.PEAK_FP32_FLOPS,
                'bytes': (P * (4 * fr.RAW_W + 16)
-                         + _packed_bytes(torch, packed)) / rf.PEAK_HBM_BYTES},
+                         + _packed_bytes(torch, packed, skip=img_only))
+               / rf.PEAK_HBM_BYTES},
         'K4': {'bf16': bf16_s,
                'bytes': (P * (2 * (k0 + kv) + 16)
-                         + _packed_bytes(torch, packed4)) / rf.PEAK_HBM_BYTES}}
+                         + _packed_bytes(torch, packed4, skip=img_only))
+               / rf.PEAK_HBM_BYTES}}
     out = []
-    for kid, name, src_file, replaces in (
-            ('K3', 'fused_encode_mlp', 'fused_render_modes.cu',
+    for kid, name, replaces in (
+            ('K3', 'fused_encode_mlp',
              'anerf_tpu/kernels/fused_render.py:555'),
-            ('K4', 'fused_mlp_apply', 'fused_render_modes.cu',
-             'anerf_tpu/kernels/fused_mlp.py:146')):
+            ('K4', 'fused_mlp_apply', 'anerf_tpu/kernels/fused_mlp.py:146')):
         bound, bound_by = rf.bound_ms(times[kid])
-        ms = rec[kid][64][0] + rec[kid][80][0]
+        r = rec[kid]
+        ms, v1_ms = r[64]['ms'] + r[80]['ms'], r[64]['v1_ms'] + r[80]['v1_ms']
+        lib_ms = (r[64]['library_ms'] + r[80]['library_ms']
+                  if kid == 'K4' else None)
         print(f'{kid} bucket (S=64 + S=80): bound {bound:.4f} ms '
-              f'({bound_by}); kernel {ms:.4f} ms = {bound / ms:.3f} of the '
-              f'bound', flush=True)
+              f'({bound_by}); {kid} {ms:.4f} ms = {bound / ms:.3f} of the '
+              f'bound; {kid}-v1 {v1_ms:.4f} ms = {bound / v1_ms:.3f}; {kid} '
+              f'is {"faster" if ms < v1_ms else "NOT faster"} than {kid}-v1 '
+              f'({v1_ms / ms:.3f}x)'
+              + (f'; the matmul chain {lib_ms:.4f} ms' if lib_ms else ''),
+              flush=True)
         out.append({'name': name, 'route': 'cuda',
-                    'source': f'anerf_torch/kernels/csrc/{src_file}',
+                    'source': 'anerf_torch/kernels/csrc/fused_render_sm90.cu',
                     'replaces': replaces, 'launches': None,
                     'max_abs_err': max_abs[kid], 'ms': ms,
-                    'plain_ms': rec[kid][64][1] + rec[kid][80][1],
+                    'plain_ms': r[64]['plain_ms'] + r[80]['plain_ms'],
                     'bound_ms': bound, 'bound_by': bound_by,
-                    'library_ms': None, 'ms_s64': rec[kid][64][0],
-                    'ms_s80': rec[kid][80][0]})
+                    'library_ms': lib_ms, 'ms_s64': r[64]['ms'],
+                    'ms_s80': r[80]['ms'],
+                    'v1': {'source':
+                           'anerf_torch/kernels/csrc/fused_render_modes.cu',
+                           'ms': v1_ms, 'ms_s64': r[64]['v1_ms'],
+                           'ms_s80': r[80]['v1_ms'], 'max_abs_vs_new': max(
+                               r[64]['v1_vs_new'], r[80]['v1_vs_new'])}})
     return out
+
+
+def single_net_phase(torch, np):
+    """configs/surreal/surreal_single.txt's network (anerf_torch/tools/
+    flagship.py: SURREAL_SINGLE: one net for both passes, multires_views
+    0, 96 + 48 samples) at full width on one 512-ray bucket: K1, K3 and
+    K4 against their plain versions, K3 and K4 against K1 and their
+    first versions at S = 96 (the coarse pass), 48 (the fine pass:
+    single_net renders the new samples alone) and 144, tau = 2000 and
+    35; K2 in both flavours against its plain version of the same
+    flavour at K2's bounds, S = 96 and 144. Returns the worst errors."""
+    from anerf_torch.kernels import fused_mlp as fm
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.render.raycaster import pack_fused_params
+    from anerf_torch.tools.flagship import SURREAL_SINGLE
+
+    _, cfg, params, src = _flagship_render(torch, np, **SURREAL_SINGLE)
+    ncfg = cfg.nerf
+    if not (cfg.single_net and cfg.embed_view.num_freqs == 0
+            and fm.view_in(ncfg) == 88):
+        raise AssertionError('SURREAL_SINGLE is not the single-net, '
+                             'multires_views 0 network')
+    packed = pack_fused_params(params, cfg)
+    packed['fine'] = packed['coarse']            # one net for both passes
+    p4 = fm.pack_params(params['coarse'], ncfg)
+    kernels = _mode_kernels(torch, ncfg, packed, {'coarse': p4, 'fine': p4})
+    R = 512
+    v = _bucket_inputs(torch, np, cfg, params, src, 0, R=R,
+                       samples=(96, 48), culled=False)
+    worst = {'K1': 0.0, 'K3': 0.0, 'K4': 0.0, 'K2': 0.0, 'K2-bf16': 0.0}
+    for S in (96, 48, 144):
+        for tau in (2000.0, 35.0):
+            k1 = fr.fused_encode_mlp_pts(ncfg, packed['coarse'], v[0][S],
+                                         v[1], v[2], S, tau)
+            torch.cuda.synchronize()
+            want = fr.fused_encode_mlp_pts_ref(ncfg, packed['coarse'],
+                                               v[0][S], v[1], v[2], S, tau)
+            err = (k1 - want).abs().max().item()
+            ok = (torch.allclose(k1, want, atol=K1_ATOL, rtol=K1_RTOL)
+                  and bool(torch.isfinite(k1).all()))
+            print(f'K1 (single net) S={S} tau={tau:g}: max_abs={err:.3e} '
+                  f'(tol atol=rtol={K1_ATOL}) -> {"ok" if ok else "FAIL"}',
+                  flush=True)
+            if not ok:
+                raise AssertionError(f'K1 (single net) disagrees at S={S}')
+            worst['K1'] = max(worst['K1'], err)
+            for kid, e in _hold_modes(torch, kernels, v, S, 'coarse',
+                                      tau, k1, R, ' (single net)').items():
+                worst[kid] = max(worst[kid], e)
+    for S in (96, 144):
+        g = torch.as_tensor(np.random.default_rng(30 + S).normal(
+            size=(R, S, 4)) * 0.1, dtype=torch.float32, device='cuda')
+        args = (ncfg, packed['coarse'], v[0][S], v[1], v[2], S, 2000.0, g)
+        for f32, kid in ((True, 'K2'), (False, 'K2-bf16')):
+            got = fr.fused_bwd(*args, bwd_f32=f32)
+            again = fr.fused_bwd(*args, bwd_f32=f32)
+            torch.cuda.synchronize()
+            want = fr.fused_bwd_ref(*args, bwd_f32=f32)
+            err = _k2_errors(torch, ncfg, packed['coarse'], got, want,
+                             f'{kid} (single net) S={S}', R)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f'{kid} (single net) is not '
+                                     f'deterministic at S={S}')
+            print(f'{kid} (single net) S={S}: max_abs={err[0]:.3e}, worst '
+                  f'dW max_rel {err[1]:.3e}, worst fro {err[3]:.3e} (bounds '
+                  f'{K2_BLOCK_RTOL} / {K2_FRO}); relaunch bit-equal -> ok',
+                  flush=True)
+            worst[kid] = max(worst[kid], err[0])
+            del got, again, want
+    return worst
 
 
 def _k2_style_errors(torch, ncfg, nfk, nfv, got, want, label, per_point):
@@ -1159,15 +1351,16 @@ def stages_phase(torch, np, cfg, params, src):
 def tool_phase(torch):
     """The kernel_bench tool's three modes at 2048 rays, S = 64 and 80,
     and its --bwd_bf16 rows (default mode and --decompose_bwd) at S = 8
-    and 24: the main path of K3, K4, K1-d and K2-d. Their counts are set
-    to 0 just before and read just after. Returns {kernel id:
-    launches}."""
+    and 24: the main path of K3, K4, K1-d and K2-d. Their counts (K3-v1's
+    and K4-v1's too, which must stay 0) are set to 0 just before and read
+    just after. Returns {kernel id: launches}."""
     from anerf_torch.kernels import fused_mlp as fm
     from anerf_torch.kernels import fused_render as fr
     from anerf_torch.kernels import stages
     from anerf_torch.tools import kernel_bench as kb
 
     fr.RAW_LAUNCHES = fm.LAUNCHES = 0
+    fr.RAW_V1_LAUNCHES = fm.V1_LAUNCHES = 0
     stages.FWD_LAUNCHES = stages.BWD_LAUNCHES = 0
     runs = [(mode, (64, 80), True)
             for mode in ('bench', 'decompose', 'decompose_bwd')]
@@ -1185,10 +1378,14 @@ def tool_phase(torch):
                     raise AssertionError(f'{mode}: {key} = {val}')
     counts = {'K3': fr.RAW_LAUNCHES, 'K4': fm.LAUNCHES,
               'K1-d': stages.FWD_LAUNCHES, 'K2-d': stages.BWD_LAUNCHES}
-    print(f'launches on the kernel_bench path: {counts}', flush=True)
+    v1 = {'K3-v1': fr.RAW_V1_LAUNCHES, 'K4-v1': fm.V1_LAUNCHES}
+    print(f'launches on the kernel_bench path: {counts}, by the first '
+          f'versions {v1}', flush=True)
     if not all(counts.values()):
         raise AssertionError(f'a kernel did not run on its path: {counts}')
-    return counts
+    if any(v1.values()):
+        raise AssertionError(f'K3-v1 or K4-v1 ran on the path: {v1}')
+    return {**counts, **v1}
 
 
 def reference_check(torch, np, cfg, params, src, n_keep=0):
@@ -1607,6 +1804,7 @@ def main(argv) -> int:
         return 1
     import numpy as np
 
+    from anerf_torch.kernels import fused_mlp as fm
     from anerf_torch.kernels import fused_render as fr
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1637,14 +1835,23 @@ def main(argv) -> int:
     k2['bf16'], k2['culled'] = k2_bf16_phase(
         torch, np, cfg, params, src, k2['launches_per_call'])
     k3, k4 = modes_phase(torch, np, cfg, params, src)
+    single = single_net_phase(torch, np)
     k1d, k2d = stages_phase(torch, np, cfg, params, src)
     tool = tool_phase(torch)
     for rec, kid in ((k3, 'K3'), (k4, 'K4'), (k1d, 'K1-d'), (k2d, 'K2-d')):
         rec['launches'] = tool[kid]
+    k3['v1']['launches'], k4['v1']['launches'] = tool['K3-v1'], tool['K4-v1']
+    k1['single_net_max_abs_err'] = single['K1']
+    k2['single_net_max_abs_err'] = single['K2']
+    k2['bf16']['single_net_max_abs_err'] = single['K2-bf16']
+    k3['single_net_max_abs_err'] = single['K3']
+    k4['single_net_max_abs_err'] = single['K4']
     reference_check(torch, np, cfg, params, src)
     reference_check(torch, np, cfg, params, src, n_keep=8)
-    # K1-v1 and K2-v1 must not run from here to the end (the main paths)
+    # K1-v1, K2-v1, K3-v1 and K4-v1 must not run from here to the end (the
+    # main paths)
     fr.V1_LAUNCHES = fr.BWD_V1_LAUNCHES = 0
+    fr.RAW_V1_LAUNCHES = fm.V1_LAUNCHES = 0
     render_k1, rates = slice_phase(torch, np, args, cfg, params, src,
                                    k1['ms'])
     if '--profile' in argv:
@@ -1687,9 +1894,11 @@ def main(argv) -> int:
           f'{train_k1} (train steps) + {cull_k1} (culled request) + '
           f'{cull_train_k1} (culled train steps), K2 {train_k2} (train '
           f'steps), K2-bf16 {cull_train_k2} (culled train steps), K1-v1 '
-          f'{fr.V1_LAUNCHES}, K2-v1 {fr.BWD_V1_LAUNCHES}', flush=True)
-    if fr.V1_LAUNCHES or fr.BWD_V1_LAUNCHES:
-        raise AssertionError('K1-v1 or K2-v1 ran on the main path')
+          f'{fr.V1_LAUNCHES}, K2-v1 {fr.BWD_V1_LAUNCHES}, K3-v1 '
+          f'{fr.RAW_V1_LAUNCHES}, K4-v1 {fm.V1_LAUNCHES}', flush=True)
+    if fr.V1_LAUNCHES or fr.BWD_V1_LAUNCHES or fr.RAW_V1_LAUNCHES \
+            or fm.V1_LAUNCHES:
+        raise AssertionError('a first version ran on the main path')
     k2['step_ms'] = step_s * 1e3
     k2['bf16']['step_ms'] = cull_step_s * 1e3
     k1['culled']['box_rays_per_s'] = cull_rates

@@ -1,14 +1,19 @@
-"""K1's weight image (anerf_torch/kernels/fused_render.py: 'img', the
-operand csrc/fused_render_sm90.cu stages in shared memory) on the CPU.
+"""The weight image of K1, K3 and K4 (anerf_torch/kernels/fused_render.py:
+'img', the operand csrc/fused_render_sm90.cu stages in shared memory) on
+the CPU.
 
 The image holds the same bf16 blocks as the fragment-order 'w' that K1-v1,
-K2, K3 and K4 read, each input segment padded to a multiple of 64 and cut
-into 64-deep k-slices in the layout wgmma reads as a K-major B operand with
-the 128-byte swizzle. These tests hold the packer, its inverse and the
-kernel's read order (`image_slices`, `weights_from_image`) to the
-fragment-order weights and to the JAX package's parameters, bit for bit:
-no tolerance, since both sides hold the same bf16 values.
+K2, K3-v1 and K4-v1 read, each input segment padded to a multiple of 64
+and cut into 64-deep k-slices in the layout wgmma reads as a K-major B
+operand with the 128-byte swizzle. These tests hold the packer, its
+inverse and the kernel's read order (`image_slices`, `weights_from_image`)
+to the fragment-order weights and to the JAX package's parameters, bit for
+bit: no tolerance, since both sides hold the same bf16 values. They also
+hold the Python mirror of the kernel's shared-memory plan
+(`sm90_smem_bytes`) to the kernel source, and the wrappers' refusal of a
+layout that does not fit.
 """
+import re
 import dataclasses
 
 import numpy as np
@@ -19,6 +24,7 @@ import jax
 
 from anerf_torch.config import TrainConfig as TorchTrainConfig
 from anerf_torch.convert import params_from_numpy
+from anerf_torch.kernels import fused_mlp as tfm
 from anerf_torch.kernels import fused_render as tfr
 from anerf_torch.models.nerf import NeRFConfig, init_nerf_params
 from anerf_torch.render.factory import build_render_config
@@ -41,6 +47,10 @@ def flagship():
     packed = tfr.pack_render_params(params, ncfg, 7, 4,
                                     torch.full((24,), 0.5))
     return ncfg, params, packed
+
+
+#: K1's and K3's image widths at the flagship (nfk 7, nfv 4): 432, 664
+FLAGSHIP_K = tfr.input_widths(7, 4)[0::2]
 
 
 def _swizzled_offset(n, k, N):
@@ -75,10 +85,10 @@ def test_image_layout_is_the_kernel_swizzle():
 
 def test_flagship_shapes_and_slices_are_16_byte_aligned(flagship):
     ncfg, _, packed = flagship
-    shapes = tfr.sm90_shapes(ncfg, 7, 4)
+    shapes = tfr.sm90_shapes(ncfg, *FLAGSHIP_K)
     assert shapes[0] == (256, 448) and shapes[5] == (256, 448 + 256)
     assert shapes[-1] == (128, 256 + 704) and len(shapes) == 10
-    slices = tfr.image_slices(ncfg, 7, 4)
+    slices = tfr.image_slices(ncfg, *FLAGSHIP_K)
     assert len(slices) == 7 + 6 * 4 + 11 + 4 + 15
     off = 0
     for layer, s, o, nbytes in slices:
@@ -100,7 +110,7 @@ def test_weights_from_image_equal_fragment_weights(flagship):
 
 def test_image_padding_holds_no_weight(flagship):
     ncfg, _, packed = flagship
-    shapes = tfr.sm90_shapes(ncfg, 7, 4)
+    shapes = tfr.sm90_shapes(ncfg, *FLAGSHIP_K)
     off = sum(n * k for n, k in shapes[:-1])
     view = tfr.from_sm90_image(packed['img'][off:], 128, 960)
     assert not view[:, 256 + 664:].any()
@@ -124,10 +134,12 @@ def test_plain_k1_from_image_gives_the_same_bits(flagship, tau):
 
 
 @pytest.mark.parametrize('depth,skips,nfk,nfv', [(4, (2,), 5, 3),
-                                                 (3, (), 7, 4)])
+                                                 (3, (), 7, 4),
+                                                 (8, (4,), 7, 0)])
 def test_image_of_other_configs(depth, skips, nfk, nfv):
     """Other depths, skips and frequencies: X0 of 24 (1 + 2 nfk) + 72
-    columns and XV of 72 (1 + 2 nfv) + 16, each padded to 64."""
+    columns and XV of 72 (1 + 2 nfv) + 16, each padded to 64; nfv = 0 is
+    the surreal_single network (XV 88 -> 128 columns)."""
     ncfg = NeRFConfig(depth=depth, width=256, input_ch=24 * (1 + 2 * nfk),
                       input_ch_bones=72, input_ch_views=72 * (1 + 2 * nfv),
                       skips=skips, use_framecode=True, framecode_ch=16,
@@ -170,3 +182,116 @@ def test_image_holds_the_jax_weights():
     assert torch.equal(ws[ncfg.depth], bf(jp['feature_linear']['w']).t())
     vw = bf(jp['views_linears'][0]['w']).t()
     assert torch.equal(ws[-1][:, :vw.shape[1]], vw)
+
+
+#: K4's configs (tests/test_torch_kernels_gpu.py): the flagship, a small
+#: net without bones, and widths the kernels' 16-byte copies pad to 8
+K4_CONFIGS = {
+    'flagship': dict(depth=8, width=256, input_ch=360, input_ch_bones=72,
+                     input_ch_views=648, use_framecode=True,
+                     framecode_ch=16, n_framecodes=4),
+    'small': dict(depth=4, width=256, input_ch=24, input_ch_bones=0,
+                  input_ch_views=72, skips=(2,), use_viewdirs=True),
+    'odd_widths': dict(depth=3, width=256, input_ch=30, input_ch_bones=0,
+                       input_ch_views=70, skips=(), use_viewdirs=True)}
+
+
+def _k4_packed(name):
+    ncfg = NeRFConfig(**K4_CONFIGS[name])
+    params = init_nerf_params(ncfg, torch.Generator().manual_seed(2), 'cpu')
+    return ncfg, tfm.pack_params(params, ncfg)
+
+
+@pytest.mark.parametrize('name', sorted(K4_CONFIGS))
+def test_k4_image_equals_fragment_weights(name):
+    """K4's image, built for widths dnet_input and view_in, read back in
+    the kernel's slice order, holds the fragment-order weights."""
+    ncfg, packed = _k4_packed(name)
+    k0, kv = ncfg.dnet_input, tfm.view_in(ncfg)
+    assert (packed['k0'], packed['kv']) == (k0, kv)
+    shapes = tfr.sm90_shapes(ncfg, k0, kv)
+    assert packed['img'].numel() == sum(n * k for n, k in shapes)
+    got = tfr.weights_from_image(ncfg, packed)
+    want = tfr._weights_f32(ncfg, packed)
+    assert [tuple(w.shape) for w in got] == tfr.mlp_shapes(
+        ncfg, packed['k0p'], packed['kvp'])
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize('name', sorted(K4_CONFIGS))
+def test_k4_image_padding_holds_no_weight(name):
+    """Every column of K4's image past the live inputs of layer 0, of a
+    skip layer's x0 segment and of the view layer's xv segment is zero,
+    and no weight is lost: the image holds as many nonzero values as
+    'w'."""
+    ncfg, packed = _k4_packed(name)
+    k0, kv, W = ncfg.dnet_input, tfm.view_in(ncfg), ncfg.width
+    shapes = tfr.sm90_shapes(ncfg, k0, kv)
+    off = 0
+    for i, (n, k) in enumerate(shapes):
+        blk = tfr.from_sm90_image(packed['img'][off:off + n * k], n, k)
+        off += n * k
+        if i == 0 or (i < ncfg.depth and (i - 1) in ncfg.skips):
+            assert not blk[:, k0:shapes[0][1]].any()
+        if i == len(shapes) - 1:
+            assert not blk[:, W + kv:].any()
+    assert torch.count_nonzero(packed['img']) == \
+        torch.count_nonzero(packed['w'])
+
+
+def _source_int(name, path):
+    text = (tfr._CSRC / path).read_text()
+    return int(re.search(rf'constexpr int {name} = (\d+);', text).group(1))
+
+
+def test_smem_mirror_follows_the_kernel_source():
+    """The mirror's constants are the kernel's, and its sums are the ones
+    the layout gives: the flagship's 7 X0 chunks (432 and 664 columns,
+    XV spilling 7 chunks past HA's start) fit with 2,000 bytes to spare;
+    one more kp frequency (480 columns, 8 chunks) does not; 88 and 88
+    columns take 2 chunks each, XV within X0."""
+    assert tfr.SM90_STAGES == _source_int('STAGES', 'fused_render_sm90.cu')
+    assert tfr.SM90_MAX_SMEM == _source_int('MAX_SMEM', 'sm90_common.cuh')
+    assert tfr.KERNEL_WIDTH == _source_int('W', 'fused_render_common.cuh')
+    assert tfr.SLICE_K == _source_int('KC', 'sm90_common.cuh')
+    fixed = 64 * 24 * 4 + 2 * 64 * 16 + 3 * 32768 + 48 + 1024
+    assert tfr.sm90_smem_bytes(*FLAGSHIP_K) == 15 * 8192 + fixed
+    assert tfr.sm90_smem_bytes(*FLAGSHIP_K) == tfr.SM90_MAX_SMEM - 2000
+    assert tfr.sm90_smem_bytes(88, 88) == 10 * 8192 + fixed
+    assert tfr.sm90_smem_bytes(432, 704) == tfr.sm90_smem_bytes(*FLAGSHIP_K)
+    k0 = tfr.input_widths(8, 4)[0]
+    assert k0 == 480 and tfr.sm90_smem_bytes(k0, 664) > tfr.SM90_MAX_SMEM
+    assert tfr.sm90_smem_bytes(432, 768) > tfr.SM90_MAX_SMEM
+
+
+def test_layout_over_the_limit_raises_from_the_wrappers():
+    """A network whose inputs do not fit K1's kernel: K4's gate says no,
+    and on a device other than the CPU (here the meta device, which no
+    kernel takes) the K1, K3 and K4 wrappers raise before anything
+    launches; on the CPU they run the plain version."""
+    kw = dict(K4_CONFIGS['small'], input_ch=480)    # x0 480 columns
+    ncfg = NeRFConfig(**kw)
+    assert not tfm.supports_config(ncfg)
+    assert tfm.supports_config(NeRFConfig(**K4_CONFIGS['small']))
+    params = init_nerf_params(ncfg, torch.Generator().manual_seed(0), 'cpu')
+    packed = tfm.pack_params(params, ncfg)
+    x0, xv = torch.zeros((5, 480)), torch.zeros((5, 72))
+    assert tfm.fused_mlp_apply(ncfg, packed, x0, xv).shape == (5, 4)
+    for fn in (tfm.fused_mlp_apply, tfm.fused_mlp_apply_v1):
+        with pytest.raises(ValueError, match='shared memory' if
+                           fn is tfm.fused_mlp_apply else 'no kernel'):
+            fn(ncfg, packed, x0.to('meta'), xv.to('meta'))
+    rcfg = NeRFConfig(depth=8, width=256, input_ch=24 * 17,
+                      input_ch_bones=72, input_ch_views=648,
+                      use_framecode=True, framecode_ch=16, n_framecodes=4)
+    rparams = init_nerf_params(rcfg, torch.Generator().manual_seed(0), 'cpu')
+    rpacked = tfr.pack_render_params(rparams, rcfg, 8, 4,
+                                     torch.full((24,), 0.5))
+    x_raw = torch.zeros((2, 3, tfr.RAW_W), device='meta')
+    with pytest.raises(ValueError, match='shared memory'):
+        tfr.fused_encode_mlp(rcfg, rpacked, x_raw, 35.0)
+    pts = torch.zeros((2, 3, 3), device='meta')
+    m_all = torch.zeros((6, 72), device='meta')
+    aux = torch.zeros((2, tfr.AUX_W), device='meta')
+    with pytest.raises(ValueError, match='shared memory'):
+        tfr.fused_encode_mlp_pts(rcfg, rpacked, pts, m_all, aux, 3, 35.0)

@@ -1,13 +1,17 @@
-"""The CUDA kernels K1, K1-v1, K2 (both flavours), K2-v1, K3, K4, K1-d
-and K2-d against their plain PyTorch versions, on the card (K1 and K2 also
-at the culled shapes S = 8 and 24), K2's split products alone against an
-f64 matmul, and the kernel_bench tool's bf16-flavour rows.
+"""The CUDA kernels K1, K1-v1, K2 (both flavours), K2-v1, K3, K3-v1, K4,
+K4-v1, K1-d and K2-d against their plain PyTorch versions, on the card (K1
+and K2 also at the culled shapes S = 8 and 24; K1, K2 in both flavours, K3
+and K4 also at the surreal_single network, multires_views 0, S = 96, 144
+and 48), K2's split products alone against an f64 matmul, the kernel_bench
+tool's bf16-flavour rows, and K1's kernel refusing a layout that does not
+fit its shared memory.
 
 Needs a CUDA device and nvcc; skips elsewhere. This file imports neither
 JAX nor the JAX package, so it also runs on a machine without them:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 Tolerances:
-  * K1, K1-v1, K3 and K4, 2e-3 abs/rel (and K1-v1 against K1): the
+  * K1, K1-v1, K3, K3-v1, K4 and K4-v1, 2e-3 abs/rel (and K1-v1 against
+    K1, K3 and K4 against K3-v1, K4-v1 and K1): the
     kernel and its plain version round the same activations to bf16 and
     differ by fp32 summation order and sin/cos ulps (observed 5e-4 abs
     for K1-v1 at the flagship width on an H100).
@@ -70,7 +74,9 @@ def cuda():
     return torch.device('cuda')
 
 
-def _operands(dev, R, S, seed):
+def _rays(dev, R, S, seed):
+    """Random points (R, S, 3), ray directions, skeletons and
+    framecodes."""
     rng = np.random.default_rng(seed)
     f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
     pts = f(rng.normal(size=(R, S, 3)) * 0.4)
@@ -78,9 +84,13 @@ def _operands(dev, R, S, seed):
     skts[..., :3, :3] = axisang_to_rot(f(rng.normal(size=(R, 24, 3))))
     skts[..., :3, 3] = f(rng.normal(size=(R, 24, 3)) * 0.3)
     skts[..., 3, 3] = 1.0
-    m_all, aux = fr.pack_ray_data(f(rng.normal(size=(R, 1, 3))), skts,
-                                  f(rng.normal(size=(R, 16))))
-    return pts, m_all, aux
+    return pts, f(rng.normal(size=(R, 1, 3))), skts, \
+        f(rng.normal(size=(R, 16)))
+
+
+def _operands(dev, R, S, seed):
+    pts, rays_d, skts, fc = _rays(dev, R, S, seed)
+    return (pts, *fr.pack_ray_data(rays_d, skts, fc))
 
 
 @pytest.mark.gpu
@@ -161,11 +171,11 @@ def test_k2_kernel_matches_plain_and_is_deterministic(cuda, R, S, tau):
         assert torch.equal(a, b)
 
 
-def _k2_bounds(ncfg, got, want):
+def _k2_bounds(ncfg, got, want, nfk=7, nfv=4):
     """chip_smoke.py's K2 bounds on every output: 2e-2 relative
     Frobenius, 0.12 relative max."""
-    pairs = list(zip(fr.split_grads(ncfg, 7, 4, got[0]).values(),
-                     fr.split_grads(ncfg, 7, 4, want[0]).values()))
+    pairs = list(zip(fr.split_grads(ncfg, nfk, nfv, got[0]).values(),
+                     fr.split_grads(ncfg, nfk, nfv, want[0]).values()))
     for a, b in pairs + list(zip(got[1:], want[1:])):
         assert _rel_fro(a, b) < 2e-2 and _rel(a, b) < 0.12
 
@@ -256,30 +266,47 @@ def _packed(dev, seed=0):
         params, ncfg, 7, 4, torch.full((24,), 0.5, device=dev))
 
 
+def _raw_inputs(dev, R, S, seed):
+    """K3's rows (build_raw_inputs) of `_rays`."""
+    return fr.build_raw_inputs(*_rays(dev, R, S, seed))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('R,S,tau', [(3, 7, 35.0), (256, 80, 2000.0)])
 def test_k3_kernel_matches_plain(cuda, R, S, tau):
+    """K3 (K1's kernel, IN_RAW) against its plain version and, at the same
+    tolerance, K3-v1; K3-v1's count stays."""
     ncfg, _, packed = _packed(cuda)
-    rng = np.random.default_rng(R + S)
-    f = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=cuda)
-    skts = torch.zeros((R, 24, 4, 4), device=cuda)
-    skts[..., :3, :3] = axisang_to_rot(f(rng.normal(size=(R, 24, 3))))
-    skts[..., :3, 3] = f(rng.normal(size=(R, 24, 3)) * 0.3)
-    skts[..., 3, 3] = 1.0
-    x = fr.build_raw_inputs(f(rng.normal(size=(R, S, 3)) * 0.4),
-                            f(rng.normal(size=(R, 1, 3))), skts,
-                            f(rng.normal(size=(R, 16))))
-    before = fr.RAW_LAUNCHES
+    x = _raw_inputs(cuda, R, S, R + S)
+    before = (fr.RAW_LAUNCHES, fr.RAW_V1_LAUNCHES)
     got = fr.fused_encode_mlp(ncfg, packed, x, tau)
     torch.cuda.synchronize()
-    assert fr.RAW_LAUNCHES == before + 1 and got.shape == (R, S, 4)
+    assert (fr.RAW_LAUNCHES, fr.RAW_V1_LAUNCHES) == (before[0] + 1,
+                                                      before[1])
+    assert got.shape == (R, S, 4)
+    want = fr.fused_encode_mlp_ref(ncfg, packed, x, tau)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(got, fr.fused_encode_mlp_v1(ncfg, packed, x,
+                                                           tau),
+                               atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('R,S,tau', [(3, 7, 35.0), (256, 80, 2000.0)])
+def test_k3_v1_kernel_matches_plain(cuda, R, S, tau):
+    """K3-v1, kept as K3's comparison: the checks K3 had on K1-v1's
+    body."""
+    ncfg, _, packed = _packed(cuda)
+    x = _raw_inputs(cuda, R, S, R + S)
+    before = fr.RAW_V1_LAUNCHES
+    got = fr.fused_encode_mlp_v1(ncfg, packed, x, tau)
+    torch.cuda.synchronize()
+    assert fr.RAW_V1_LAUNCHES == before + 1 and got.shape == (R, S, 4)
     want = fr.fused_encode_mlp_ref(ncfg, packed, x, tau)
     torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize('config', ['flagship', 'small', 'odd_widths'])
-def test_k4_kernel_matches_plain(cuda, config):
+def _k4_setup(dev, config):
     from anerf_torch.kernels import fused_mlp as fm
     ncfg = {'flagship': _flagship_ncfg(),
             'small': NeRFConfig(depth=4, width=256, input_ch=24,
@@ -289,20 +316,148 @@ def test_k4_kernel_matches_plain(cuda, config):
             'odd_widths': NeRFConfig(depth=3, width=256, input_ch=30,
                                      input_ch_bones=0, input_ch_views=70,
                                      skips=(), use_viewdirs=True)}[config]
-    params = init_nerf_params(ncfg, torch.Generator().manual_seed(2), cuda)
+    params = init_nerf_params(ncfg, torch.Generator().manual_seed(2), dev)
     packed = fm.pack_params(params, ncfg)
     rng = np.random.default_rng(4)
     P = 1500
     x_pts = torch.as_tensor(rng.normal(size=(P, ncfg.dnet_input)),
-                            dtype=torch.float32, device=cuda)
+                            dtype=torch.float32, device=dev)
     x_view = torch.as_tensor(rng.normal(size=(P, fm.view_in(ncfg))),
-                             dtype=torch.float32, device=cuda)
-    before = fm.LAUNCHES
+                             dtype=torch.float32, device=dev)
+    return fm, ncfg, packed, x_pts, x_view
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('config', ['flagship', 'small', 'odd_widths'])
+def test_k4_kernel_matches_plain(cuda, config):
+    """K4 (K1's kernel, IN_EMBEDDED, on K4's weight image) against its
+    plain version and, at the same tolerance, K4-v1; K4-v1's count
+    stays."""
+    fm, ncfg, packed, x_pts, x_view = _k4_setup(cuda, config)
+    before = (fm.LAUNCHES, fm.V1_LAUNCHES)
     got = fm.fused_mlp_apply(ncfg, packed, x_pts, x_view)
     torch.cuda.synchronize()
-    assert fm.LAUNCHES == before + 1
+    assert (fm.LAUNCHES, fm.V1_LAUNCHES) == (before[0] + 1, before[1])
     want = fm.fused_mlp_apply_ref(ncfg, packed, x_pts, x_view)
     torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(
+        got, fm.fused_mlp_apply_v1(ncfg, packed, x_pts, x_view), atol=2e-3,
+        rtol=2e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('config', ['flagship', 'small', 'odd_widths'])
+def test_k4_v1_kernel_matches_plain(cuda, config):
+    """K4-v1, kept as K4's comparison: the checks K4 had on K1-v1's
+    body."""
+    fm, ncfg, packed, x_pts, x_view = _k4_setup(cuda, config)
+    before = fm.V1_LAUNCHES
+    got = fm.fused_mlp_apply_v1(ncfg, packed, x_pts, x_view)
+    torch.cuda.synchronize()
+    assert fm.V1_LAUNCHES == before + 1
+    want = fm.fused_mlp_apply_ref(ncfg, packed, x_pts, x_view)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.gpu
+def test_layout_over_the_limit_raises_on_the_card(cuda):
+    """K4 of x0 480 columns wide: the wrapper raises before launching,
+    and the launcher itself refuses the layout (cudaErrorInvalidValue)."""
+    import ctypes
+    from anerf_torch.kernels import fused_mlp as fm
+    ncfg = NeRFConfig(depth=4, width=256, input_ch=480, input_ch_bones=0,
+                      input_ch_views=72, skips=(2,), use_viewdirs=True)
+    params = init_nerf_params(ncfg, torch.Generator().manual_seed(2), cuda)
+    packed = fm.pack_params(params, ncfg)
+    x0 = torch.zeros((100, 480), device=cuda, dtype=torch.bfloat16)
+    xv = torch.zeros((100, 72), device=cuda, dtype=torch.bfloat16)
+    before = fm.LAUNCHES
+    with pytest.raises(ValueError, match='shared memory'):
+        fm.fused_mlp_apply(ncfg, packed, x0, xv)
+    out = torch.empty((100, 4), device=cuda)
+    lib = fr._library('fused_render_sm90')
+    err = lib.anerf_fused_mlp_sm90(
+        x0.data_ptr(), xv.data_ptr(), packed['img'].data_ptr(),
+        packed['b'].data_ptr(), packed['w_rgb'].data_ptr(),
+        packed['w_alpha'].data_ptr(), packed['b_out'].data_ptr(),
+        out.data_ptr(), 100, ncfg.depth, fr.skip_mask(ncfg), 480, 72,
+        torch.cuda.current_stream().cuda_stream)
+    assert err != 0 and fm.LAUNCHES == before
+    assert b'invalid' in lib.anerf_cuda_error_string(err)
+    assert isinstance(lib, ctypes.CDLL)
+
+
+def _single(dev):
+    """configs/surreal/surreal_single.txt's network (anerf_torch/tools/
+    flagship.py: SURREAL_SINGLE): nfk 7, nfv 0, K1's operands and K4's."""
+    from anerf_torch.kernels import fused_mlp as fm
+    from anerf_torch.tools.flagship import SURREAL_SINGLE, flagship
+    _, cfg, params, *_ = flagship(8, device=dev, **SURREAL_SINGLE)
+    nfk, nfv = cfg.embed_kp.num_freqs, cfg.embed_view.num_freqs
+    assert (nfk, nfv) == (7, 0) and cfg.single_net
+    packed = fr.pack_render_params(params['coarse'], cfg.nerf, nfk, nfv,
+                                   params['cutoff_dist'])
+    return cfg.nerf, packed, fm.pack_params(params['coarse'], cfg.nerf)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('S,tau', [(96, 2000.0), (144, 35.0), (48, 2000.0)])
+def test_surreal_single_forward_kernels_match_plain(cuda, S, tau):
+    """K1, K3 and K4 at the surreal_single network (XV 88 columns, padded
+    to 128 in the kernel) against their plain versions, and K3, K4
+    against K1 and their first versions on the same points; S = 96 and
+    48 are its coarse and fine passes (single_net renders the 48 new
+    samples alone), 144 both."""
+    from anerf_torch.kernels import fused_mlp as fm
+    ncfg, packed, packed4 = _single(cuda)
+    R = 64
+    pts, rays_d, skts, fc = _rays(cuda, R, S, S)
+    m_all, aux = fr.pack_ray_data(rays_d, skts, fc)
+    k1 = fr.fused_encode_mlp_pts(ncfg, packed, pts, m_all, aux, S, tau)
+    x = fr.build_raw_inputs(pts, rays_d, skts, fc)
+    k3 = fr.fused_encode_mlp(ncfg, packed, x, tau)
+    x0, xv = fr._encode(packed, pts, m_all, aux, S, tau)
+    k0, kv = ncfg.dnet_input, fm.view_in(ncfg)
+    assert (k0, kv) == (432, 88)
+    bf = torch.bfloat16
+    x0, xv = (x0[..., :k0].reshape(-1, k0).to(bf),
+              xv[..., :kv].reshape(-1, kv).to(bf))
+    k4 = fm.fused_mlp_apply(ncfg, packed4, x0, xv).reshape(R, S, 4)
+    torch.cuda.synchronize()
+    like = dict(atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(k1, fr.fused_encode_mlp_pts_ref(
+        ncfg, packed, pts, m_all, aux, S, tau), **like)
+    torch.testing.assert_close(k3, fr.fused_encode_mlp_ref(ncfg, packed, x,
+                                                           tau), **like)
+    torch.testing.assert_close(k4, fm.fused_mlp_apply_ref(
+        ncfg, packed4, x0, xv).reshape(R, S, 4), **like)
+    torch.testing.assert_close(k3, k1, **like)
+    torch.testing.assert_close(k4, k1, **like)
+    # and the first versions on the same inputs
+    torch.testing.assert_close(k3, fr.fused_encode_mlp_v1(ncfg, packed, x,
+                                                          tau), **like)
+    torch.testing.assert_close(k4, fm.fused_mlp_apply_v1(
+        ncfg, packed4, x0, xv).reshape(R, S, 4), **like)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('S,bwd_f32', [(96, True), (144, True), (96, False),
+                                       (144, False), (48, True)])
+def test_surreal_single_k2_matches_plain(cuda, S, bwd_f32):
+    """K2 in both flavours at the surreal_single network against its plain
+    version of the same flavour, at chip_smoke.py's K2 bounds; two
+    launches bit-equal."""
+    ncfg, packed, _ = _single(cuda)
+    R = 64
+    pts, m_all, aux = _operands(cuda, R, S, S + 1)
+    g = torch.as_tensor(np.random.default_rng(S).normal(size=(R, S, 4)),
+                        dtype=torch.float32, device=cuda)
+    args = (ncfg, packed, pts, m_all, aux, S, 2000.0, g)
+    got = fr.fused_bwd(*args, bwd_f32=bwd_f32)
+    again = fr.fused_bwd(*args, bwd_f32=bwd_f32)
+    torch.cuda.synchronize()
+    _k2_bounds(ncfg, got, fr.fused_bwd_ref(*args, bwd_f32=bwd_f32), 7, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.gpu
