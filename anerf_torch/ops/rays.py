@@ -1,5 +1,6 @@
 """Camera ray helpers (numpy copies of anerf_tpu/ops/rays.py's host
-functions: per-pixel rays and the NeRF <-> CV convention swap)."""
+functions: per-pixel rays, the NeRF <-> CV convention swap and the
+projection of world points to pixels)."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -52,3 +53,19 @@ def swap_mat(mat: np.ndarray) -> np.ndarray:
 def nerf_c2w_to_extrinsic(c2w: np.ndarray) -> np.ndarray:
     """NeRF-convention camera-to-world -> CV extrinsic (world-to-camera)."""
     return np.linalg.inv(swap_mat(c2w))
+
+
+def world_to_cam_np(pts: np.ndarray, extrinsic: np.ndarray, H: int, W: int,
+                    focal, center=None) -> np.ndarray:
+    """Project world points to pixel coordinates with a CV extrinsic."""
+    if center is None:
+        offset_x, offset_y = W * 0.5, H * 0.5
+    else:
+        offset_x, offset_y = center
+    focal_x, focal_y = _focal_xy(focal)
+    pts_h = np.concatenate([pts, np.ones_like(pts[..., :1])], axis=-1)
+    cam = pts_h @ extrinsic.T
+    xy = cam[..., :2] / np.maximum(cam[..., 2:3], 1e-12)
+    x = xy[..., 0] * focal_x + offset_x
+    y = xy[..., 1] * focal_y + offset_y
+    return np.stack([x, y], axis=-1)

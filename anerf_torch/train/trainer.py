@@ -7,7 +7,8 @@ host integer, so the pose-interval rules (accumulate pose gradients until
 `step % opt_pose_step == 0`, drop them during `opt_pose_warmup`) are
 plain Python branches where the JAX package uses masked selects; the
 results are the same. With `RenderConfig.use_fused` the MLP runs through
-`fused_apply` (K1 forward, K2 backward).
+`fused_apply` (K1 forward, K2 backward). `make_train_step_scan` runs the
+step over a batch stacked (unroll, ...), the loop's one dispatch.
 
 Batch contract (R rays, NI images per batch), torch tensors on the device:
   rays        (R, 11)  packed [o, d, near, far, viewdirs]
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..config import TrainConfig
@@ -262,3 +264,33 @@ def make_train_step(args: TrainConfig, cfg: RenderConfig,
             'stats': {k: v.detach() for k, v in stats.items()}}
 
     return train_step
+
+
+def make_train_step_scan(*args_mk, unroll: int = 8, **kwargs_mk):
+    """The multi-step train function of the JAX package's scanned step:
+    `scan_step(state, batches, generator)` takes a batch whose leaves are
+    stacked (unroll, ...) (None leaves stay None), runs the single step
+    on each of the `unroll` batches in turn, threading one generator
+    through them, and returns the new state and the last step's
+    {'losses', 'stats'}. The same as calling the step `unroll` times; the
+    loop uploads one stacked batch per dispatch."""
+    inner = make_train_step(*args_mk, **kwargs_mk)
+
+    def scan_step(state: TrainState, batches: Dict[str, Any],
+                  generator: Optional[torch.Generator]
+                  ) -> Tuple[TrainState, Dict[str, Any]]:
+        out = None
+        for i in range(unroll):
+            batch = {k: None if v is None else v[i]
+                     for k, v in batches.items()}
+            state, out = inner(state, batch, generator)
+        return state, out
+    return scan_step
+
+
+def stack_batches(batches):
+    """Stack a list of numpy batch dicts along a new leading axis
+    (host-side); None leaves stay None."""
+    keys = batches[0].keys()
+    return {k: (np.stack([np.asarray(b[k]) for b in batches])
+                if batches[0][k] is not None else None) for k in keys}

@@ -72,6 +72,20 @@ Phases (any failure exits non-zero and prints no result):
      checked as above with two K1 and two bf16 K2 launches a step and no
      f32 K2; ms/step, rays/s, and one step under torch.profiler for the
      device idle share.
+  7. training loop: `python -m anerf_torch.run_nerf`'s main, in this
+     process, on the synthetic SURREAL grid (64 poses x 4 cameras at
+     512 x 512, make_synthetic_h5, or its arrays in memory where h5py is
+     absent) with configs/surreal/surreal.txt and the flagship's
+     overrides (fused kernel, pose refinement): run 1 trains 48 steps in
+     scanned dispatches of 8 (checkpoints and pose snapshots at 24 and
+     48, a validation render at 48), run 2 resumes from 48 to 64. Gates:
+     psnr rises, every logged value finite; checkpoint 48 restores run
+     1's final state bit for bit; the pose snapshots load; the
+     validation PSNR / SSIM finite (16 pngs where imageio is present);
+     every batch from the native super-batch assembler; K1 and K2 (f32)
+     two launches a step, K1 two more a validation bucket. Prints the
+     loop's rays/s, one dispatch's loader wait / upload / steps split and
+     the idle share of run 2's second dispatch under torch.profiler.
 With --profile, one request and one train step run again under
 torch.profiler, and for each the device-busy share and the top kernels
 by device time are printed.
@@ -1738,7 +1752,6 @@ def profile_phase(torch, label, fn):
     """fn() once under torch.profiler; prints the device-busy share of
     the wall time and the kernels that take the device time, and returns
     the idle share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1747,6 +1760,14 @@ def profile_phase(torch, label, fn):
         fn()
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
+    return _profile_report(torch, prof, label, dt)
+
+
+def _profile_report(torch, prof, label, dt):
+    """The device-busy share of a profiled window of dt seconds, and the
+    kernels that take the device time, printed; returns the idle share."""
+    from torch.autograd import DeviceType
+
     rows = []
     for e in prof.key_averages():
         # device-side entries only: an aten op's device time is its
@@ -1764,6 +1785,323 @@ def profile_phase(torch, label, fn):
         print(f'  {dev_us / 1e3:10.3f} ms {100 * dev_us / 1e3 / busy_ms:5.1f}%'
               f' x{count:<6d} {key[:90]}', flush=True)
     return 1.0 - busy_ms / (dt * 1e3)
+
+
+# the loop phase: python -m anerf_torch.run_nerf's main on the synthetic
+# SURREAL grid (configs/surreal/surreal.txt's catalog layout: N_cams x
+# N_kps images at H x W), under a git-ignored working directory
+LOOP_KPS, LOOP_CAMS = 64, 4
+LOOP_DIR = 'logs/chip_loop'
+LOOP_UNROLL = 8
+LOOP_STEPS = (48, 64)           # run 1 ends at 48, run 2 resumes to 64
+
+
+class _Tee:
+    """stdout that also keeps what was written (to read the loop's
+    'resumed from step' line)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _loop_argv(n_iters):
+    """run_nerf's argv: surreal.txt, the flagship's overrides
+    (anerf_torch/tools/flagship.py), scanned dispatches of LOOP_UNROLL
+    steps, a print per dispatch, checkpoints and pose snapshots every 24
+    steps, a validation render at 48."""
+    import os
+    cfg = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       'configs', 'surreal', 'surreal.txt')
+    return ['--config', cfg, '--basedir', 'logs', '--expname', 'flagship',
+            '--fused_kernel', '--compute_dtype', 'bfloat16', '--opt_pose',
+            '--opt_rot6d', '--opt_pose_step', '2', '--opt_framecode',
+            '--opt_pose_coef', '2.0', '--opt_pose_tol', '0.01',
+            '--scan_unroll', str(LOOP_UNROLL), '--i_print',
+            str(LOOP_UNROLL), '--i_weights', '24', '--i_pose_weights', '24',
+            '--i_testset', '48', '--n_iters', str(n_iters)]
+
+
+def _val_buckets(ctx):
+    """The ray buckets of the last validation render, from the boxes it
+    recorded (ctx.val_bboxes), i.e. half its K1 launches: an empty box
+    launches nothing."""
+    from anerf_torch.render.render_path import n_buckets_for
+
+    total = 0
+    for tl, br in ctx.val_bboxes:
+        n = max(int(br[0] - tl[0]), 0) * max(int(br[1] - tl[1]), 0)
+        total += n_buckets_for(n, ctx.args.chunk) if n else 0
+    return total
+
+
+def _print_uploads(label, ups):
+    """The upload's parts per dispatch (ms): the pinned buffer's
+    allocation, the packing without it, and the rest of upload_batch
+    (the non-blocking copy's issue and the per-leaf views)."""
+    parts = ['/'.join(f'{x * 1e3:.2f}' for x in (
+        u['alloc'], u['pack'] - u['alloc'], u['upload'] - u['pack']))
+        for u in ups]
+    print(f'loop {label} upload per dispatch (alloc/pack/copy ms): '
+          + ' '.join(parts), flush=True)
+
+
+def _same_state(torch, a, b):
+    from anerf_torch.train.checkpoint import state_tree
+    from anerf_torch.train.state import tree_leaves
+    la, lb = tree_leaves(state_tree(a)), tree_leaves(state_tree(b))
+    return len(la) == len(lb) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+        for x, y in zip(la, lb))
+
+
+def loop_phase(torch, np):
+    """The training entry point on the card: run_nerf.main twice in this
+    process (run 1: 48 steps; run 2: resumed to 64), the counts set to 0
+    just before each run and read just after it. Gates: psnr rises and
+    every logged loss is finite; checkpoints 24 and 48 exist and 48
+    restores run 1's final state bit for bit; the pose snapshots load;
+    the validation render at 48 is finite; every dispatch's batch came
+    from the native super-batch assembler; K1 / K2 (f32) launch 2 each a
+    step plus K1's 2 a validation bucket, K2-bf16 none. Prints the loop's
+    rays/s (all the rays of dispatches 2-6 over their wall time), one
+    dispatch's wait / upload / step split, the upload's parts per
+    dispatch and the idle share of run 2's second dispatch under a
+    device-only profiler. Returns (K1, K2) launches and those numbers."""
+    import contextlib
+    import importlib.util
+    import os
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from anerf_torch.config import load_config
+    from anerf_torch.data import pipeline
+    from anerf_torch.data.fixtures import make_synthetic_h5, synthetic_data
+    from anerf_torch.data.schema import h5_arrays
+    from anerf_torch.data.surreal import SurrealDataset
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.run_nerf import main as run_nerf_main
+    from anerf_torch.train import loop as loop_mod
+    from anerf_torch.train.checkpoint import (load_pose_checkpoint,
+                                              restore_checkpoint)
+
+    root = os.path.abspath(LOOP_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(os.path.join(root, 'data', 'surreal'))
+    has_h5py = importlib.util.find_spec('h5py') is not None
+    has_imageio = importlib.util.find_spec('imageio') is not None
+    kw = dict(n_kps=LOOP_KPS, n_cams=LOOP_CAMS, H=H, W=W)
+    t0 = time.perf_counter()
+    if has_h5py:
+        make_synthetic_h5(os.path.join(
+            root, 'data', 'surreal', 'surreal_train_h5py.h5'), **kw)
+        source = 'h5 (data/surreal/surreal_train_h5py.h5)'
+        data = None
+    else:
+        data = h5_arrays(synthetic_data(**kw))
+        source = 'arrays (h5py absent)'
+    print(f'loop: data source: {source}; {LOOP_KPS * LOOP_CAMS} images '
+          f'{H}x{W} ({LOOP_CAMS} cameras x {LOOP_KPS} poses) made in '
+          f'{time.perf_counter() - t0:.1f} s; validation pngs: '
+          + ('written' if has_imageio else 'none (imageio absent)'),
+          flush=True)
+
+    # the upload's parts, timed on the host's clock per call: the pinned
+    # buffer's allocation, the packing (allocation included) and the
+    # whole upload_batch (the non-blocking copy's issue and the views)
+    ups = []
+    alloc_fn, pack_fn, upload_fn = (loop_mod._host_buffer,
+                                    loop_mod.pack_batch,
+                                    loop_mod.upload_batch)
+
+    def timed(fn, key, new_row=False):
+        def call(*a):
+            if new_row:
+                ups.append({})
+            t = time.perf_counter()
+            r = fn(*a)
+            ups[-1][key] = time.perf_counter() - t
+            return r
+        return call
+
+    recs = []
+
+    def log_fn(rec):
+        recs.append(dict(rec, t=time.perf_counter()))
+        steps_s = rec['dispatch_s'] - rec['wait_s'] - rec['upload_s']
+        print(f"loop step {rec['step']}: loss {rec['total_loss']:.5f} psnr "
+              f"{rec['psnr']:.3f} rays/s {rec['rays_per_sec']:.1f}; "
+              f"dispatch {rec['dispatch_s'] * 1e3:.1f} ms = wait "
+              f"{rec['wait_s'] * 1e3:.1f} + upload "
+              f"{rec['upload_s'] * 1e3:.2f} + steps {steps_s * 1e3:.1f}",
+              flush=True)
+
+    def run(n_iters, log):
+        args = load_config(_loop_argv(n_iters))
+        ds = None if data is None else SurrealDataset(
+            data, N_samples=args.N_rand // args.N_sample_images,
+            split='train')
+        tee = _Tee(sys.stdout)
+        pipeline.SUPER_BATCHES = pipeline.ITEM_BATCHES = 0
+        fr.LAUNCHES = fr.BWD_LAUNCHES = fr.BWD_BF16_LAUNCHES = 0
+        cwd = os.getcwd()
+        os.chdir(root)
+        ups.clear()
+        loop_mod.upload_batch = timed(upload_fn, 'upload', True)
+        loop_mod.pack_batch = timed(pack_fn, 'pack')
+        loop_mod._host_buffer = timed(alloc_fn, 'alloc')
+        try:
+            with contextlib.redirect_stdout(tee):
+                ctx = run_nerf_main(_loop_argv(n_iters), dataset=ds,
+                                    log_fn=log, save_images=has_imageio)
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+            (loop_mod._host_buffer, loop_mod.pack_batch,
+             loop_mod.upload_batch) = alloc_fn, pack_fn, upload_fn
+        counts = (fr.LAUNCHES, fr.BWD_LAUNCHES, fr.BWD_BF16_LAUNCHES,
+                  pipeline.SUPER_BATCHES, pipeline.ITEM_BATCHES)
+        return ctx, counts, ''.join(tee.parts)
+
+    # ---- run 1: 48 steps, 6 dispatches
+    n1 = LOOP_STEPS[0]
+    t0 = time.perf_counter()
+    ctx1, (k1, k2, k2b, sup, item), _ = run(n1, log_fn)
+    wall1 = time.perf_counter() - t0
+    exp = os.path.join(root, 'logs', 'flagship')
+    for r in recs:
+        bad = [k for k, v in r.items() if not np.isfinite(v)]
+        if bad:
+            raise AssertionError(f'loop step {r["step"]}: non-finite {bad}')
+    if [r['step'] for r in recs] != list(range(LOOP_UNROLL, n1 + 1,
+                                               LOOP_UNROLL)):
+        raise AssertionError(f'loop prints at {[r["step"] for r in recs]}')
+    if not recs[-1]['psnr'] > recs[0]['psnr']:
+        raise AssertionError(f'loop psnr does not rise: {recs[0]["psnr"]} '
+                             f'-> {recs[-1]["psnr"]}')
+    ckpts = sorted(os.listdir(os.path.join(exp, 'checkpoints')))
+    if ckpts != ['24', '48']:
+        raise AssertionError(f'checkpoints {ckpts}')
+    back = restore_checkpoint(exp, ctx1.state, step=48)
+    if not _same_state(torch, back, ctx1.state):
+        raise AssertionError('checkpoint 48 does not restore run 1\'s '
+                             'final state bit for bit')
+    for step in (24, 48):
+        snap = load_pose_checkpoint(os.path.join(
+            exp, 'pose_checkpoints', f'{step:08d}.npz'))
+        if int(snap['global_step']) != step or snap['pose_params'][
+                'bones'].shape != tuple(ctx1.state.pose_params['bones']
+                                        .shape):
+            raise AssertionError(f'pose snapshot {step}')
+    if not np.array_equal(snap['pose_params']['pelvis'],
+                          ctx1.state.pose_params['pelvis'].cpu().numpy()):
+        raise AssertionError('pose snapshot 48 is not run 1\'s poses')
+    with open(os.path.join(exp, 'metrics.jsonl')) as f:
+        val = [r for r in map(json.loads, f) if 'val/psnr' in r]
+    if len(val) != 1 or val[0]['step'] != 48 or not all(
+            np.isfinite(val[0][k]) for k in ('val/psnr', 'val/ssim')):
+        raise AssertionError(f'validation records {val}')
+    val_dir = os.path.join(exp, 'val', f'{48:08d}')
+    pngs = sorted(os.listdir(val_dir)) if os.path.isdir(val_dir) else []
+    if len(pngs) != (16 if has_imageio else 0):
+        raise AssertionError(f'validation pngs {pngs}')
+    dispatches = n1 // LOOP_UNROLL
+    if item or sup < dispatches:
+        raise AssertionError(f'loader: {sup} native super-batches, {item} '
+                             f'per-item batches for {dispatches} dispatches')
+    buckets = _val_buckets(ctx1)
+    if (k1, k2, k2b) != (2 * n1 + 2 * buckets, 2 * n1, 0):
+        raise AssertionError(f'run 1: K1 {k1}, K2 {k2}, K2-bf16 {k2b}; '
+                             f'want {2 * n1 + 2 * buckets}, {2 * n1}, 0 '
+                             f'({buckets} validation buckets)')
+    print(f'loop run 1: {n1} steps in {wall1:.1f} s; psnr '
+          f'{recs[0]["psnr"]:.3f} -> {recs[-1]["psnr"]:.3f}; validation '
+          f'at 48: psnr {val[0]["val/psnr"]:.3f} ssim '
+          f'{val[0]["val/ssim"]:.4f} ({buckets} buckets); checkpoints '
+          f'{ckpts}, 48 restored bit for bit; pose snapshots 24, 48 '
+          f'loaded; {sup} native super-batches, {item} per-item; K1 x{k1}, '
+          f'K2 x{k2}, K2-bf16 x{k2b} -> ok', flush=True)
+
+    # the loop's rate: all the rays of dispatches 2-6 over their whole
+    # wall time (the print at 8 to the print at 48; the checkpoint and
+    # pose snapshot at 24 inside, the validation at 48 after). Beside it:
+    # the median of the per-dispatch rates, run 1 whole (set-up, the
+    # first dispatch, checkpoints and the validation included) and
+    # metrics.jsonl's cumulative rays/s at 48. One dispatch's split: the
+    # one ending at 40 (no checkpoint inside it)
+    rays = ctx1.args.N_rand * LOOP_UNROLL
+    per = sorted(rays / (b['t'] - a['t']) for a, b in zip(recs, recs[1:]))
+    d = next(r for r in recs if r['step'] == 40)
+    steps_s = d['dispatch_s'] - d['wait_s'] - d['upload_s']
+    loop = {'rays_per_s': rays * (len(recs) - 1)
+            / (recs[-1]['t'] - recs[0]['t']),
+            'rays_per_s_dispatch_median': per[len(per) // 2],
+            'rays_per_s_run1': ctx1.args.N_rand * n1 / wall1,
+            'rays_per_s_logged': recs[-1]['rays_per_sec'],
+            'dispatch_ms': d['dispatch_s'] * 1e3,
+            'wait_ms': d['wait_s'] * 1e3, 'upload_ms': d['upload_s'] * 1e3,
+            'steps_ms': steps_s * 1e3}
+    print(f'loop rays/s: {loop["rays_per_s"]:.1f} (all rays of dispatches '
+          f'2-6 over their wall time); per-dispatch median '
+          f'{loop["rays_per_s_dispatch_median"]:.1f}; run 1 whole '
+          f'{loop["rays_per_s_run1"]:.1f}; metrics.jsonl at 48 '
+          f'{loop["rays_per_s_logged"]:.1f} (cumulative from the start); '
+          f'dispatch 33-40: {loop["dispatch_ms"]:.1f} ms = loader wait '
+          f'{loop["wait_ms"]:.2f} + upload {loop["upload_ms"]:.2f} + '
+          f'{LOOP_UNROLL} steps {loop["steps_ms"]:.1f} '
+          f'({loop["steps_ms"] / LOOP_UNROLL:.2f} ms a step)', flush=True)
+    _print_uploads('run 1', ups)
+
+    # ---- run 2: resumed at 48, 2 dispatches; the second one profiled
+    n2 = LOOP_STEPS[1]
+    # device activity only, so that the host's own time is barely
+    # touched: the profiled dispatch's wall stays comparable with the
+    # unprofiled ones
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    window = {}
+
+    def log_fn2(rec):
+        log_fn(rec)
+        if rec['step'] == n1 + LOOP_UNROLL:
+            prof.start()
+            window['t0'] = time.perf_counter()
+        elif rec['step'] == n2:
+            torch.cuda.synchronize()
+            window['dt'] = time.perf_counter() - window['t0']
+            prof.stop()
+
+    recs.clear()
+    ctx2, (k1b, k2_2, k2b_2, sup2, item2), out = run(n2, log_fn2)
+    if 'resumed from step 48' not in out or ctx2.start_step != 48 \
+            or ctx2.state.step != n2:
+        raise AssertionError(f'run 2 did not resume from 48 (start '
+                             f'{ctx2.start_step}, step {ctx2.state.step})')
+    n_run2 = n2 - n1
+    if (k1b, k2_2, k2b_2) != (2 * n_run2, 2 * n_run2, 0) or item2 \
+            or sup2 < n_run2 // LOOP_UNROLL:
+        raise AssertionError(f'run 2: K1 {k1b}, K2 {k2_2}, K2-bf16 '
+                             f'{k2b_2}, {sup2} super-batches, {item2} '
+                             f'per-item')
+    idle = _profile_report(torch, prof, f'loop dispatch {n1 + 9}-{n2} '
+                           f'(run 2, resumed)', window['dt'])
+    if not idle < 1.0:
+        raise AssertionError('the profiler saw no device time in the loop')
+    loop['idle_share'] = idle
+    loop['profiled_ms'] = window['dt'] * 1e3
+    _print_uploads('run 2', ups)
+    print(f'loop run 2: printed "resumed from step 48", {n_run2} steps; '
+          f'K1 x{k1b}, K2 x{k2_2}; {sup2} native super-batches -> ok; '
+          f'profiled dispatch: wall {window["dt"] * 1e3:.1f} ms (dispatch '
+          f'33-40 unprofiled: {loop["dispatch_ms"]:.1f}), idle share '
+          f'{idle:.3f}', flush=True)
+    return k1 + k1b, k2 + k2_2, loop
 
 
 def _ptxas_lines(log):
@@ -1885,17 +2223,24 @@ def main(argv) -> int:
           + ', '.join(f'{r:.1f}' for r in cull_rates) + ' box-rays/s',
           flush=True)
 
-    k1['launches'] = render_k1 + train_k1 + cull_k1 + cull_train_k1
-    k2['launches'] = train_k2
+    del setup
+    loop_k1, loop_k2, loop = loop_phase(torch, np)
+
+    k1['launches'] = (render_k1 + train_k1 + cull_k1 + cull_train_k1
+                      + loop_k1)
+    k2['launches'] = train_k2 + loop_k2
     k2['bf16']['launches'] = cull_train_k2
     k1['v1']['launches'] = fr.V1_LAUNCHES
     k2['v1']['launches'] = fr.BWD_V1_LAUNCHES
+    k1['loop_launches'], k2['loop_launches'] = loop_k1, loop_k2
     print(f'launches on the main paths: K1 {render_k1} (render requests) + '
           f'{train_k1} (train steps) + {cull_k1} (culled request) + '
-          f'{cull_train_k1} (culled train steps), K2 {train_k2} (train '
-          f'steps), K2-bf16 {cull_train_k2} (culled train steps), K1-v1 '
+          f'{cull_train_k1} (culled train steps) + {loop_k1} (training '
+          f'loop), K2 {train_k2} (train steps) + {loop_k2} (training '
+          f'loop), K2-bf16 {cull_train_k2} (culled train steps), K1-v1 '
           f'{fr.V1_LAUNCHES}, K2-v1 {fr.BWD_V1_LAUNCHES}, K3-v1 '
           f'{fr.RAW_V1_LAUNCHES}, K4-v1 {fm.V1_LAUNCHES}', flush=True)
+    print('loop: ' + json.dumps(loop), flush=True)
     if fr.V1_LAUNCHES or fr.BWD_V1_LAUNCHES or fr.RAW_V1_LAUNCHES \
             or fm.V1_LAUNCHES:
         raise AssertionError('a first version ran on the main path')

@@ -42,9 +42,16 @@ def test_scan_finds_the_port():
     assert 'anerf_torch/pose/pose_opt.py' in FILES
     for mod in ('kernels/fused_mlp.py', 'kernels/stages.py',
                 'tools/__init__.py', 'tools/flagship.py',
-                'tools/kernel_bench.py'):
+                'tools/kernel_bench.py',
+                # the training entry point and its data layer
+                'data/__init__.py', 'data/schema.py', 'data/fixtures.py',
+                'data/dataset.py', 'data/surreal.py', 'data/catalog.py',
+                'data/pipeline.py', 'native/__init__.py',
+                'train/checkpoint.py', 'train/loop.py', 'run_nerf.py',
+                'utils/__init__.py', 'utils/metrics.py', 'utils/logging.py',
+                'utils/skeleton_draw.py'):
         assert f'anerf_torch/{mod}' in FILES
-    assert len(FILES) >= 31
+    assert len(FILES) >= 46
     tree = ast.parse('import jax.numpy as jnp\nfrom anerf_tpu.ops import fk')
     assert [m for m in _imported_modules(tree)] == ['jax.numpy',
                                                     'anerf_tpu.ops']
