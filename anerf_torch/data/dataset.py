@@ -500,10 +500,15 @@ class PoseRefinedDataset(BaseH5Dataset):
     def _load_pose_data(self, f):
         if not self.load_refined:
             return super()._load_pose_data(f)
-        raise NotImplementedError(
-            'load_refined reads a reference pose checkpoint through '
-            'pose/ckpt_compat.py, which is not ported yet (ROADMAP.md '
-            'Queue 1 item 6, checkpoint import and eval)')
+        assert self.subject in self.refined_paths, \
+            f'no refined pose path for {self.subject}'
+        from ..pose.ckpt_compat import pose_ckpt_to_pose_data
+        refined_path, legacy = self.refined_paths[self.subject]
+        kp3d, bones, skts, cyls = pose_ckpt_to_pose_data(
+            refined_path, legacy=legacy)[:4]
+        if self.multiview:
+            return self._load_multiview_pose(f, kp3d, bones, skts, cyls)
+        return kp3d, bones, skts, cyls
 
     def get_render_data(self):
         render_data = super().get_render_data()

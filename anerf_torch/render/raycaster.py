@@ -26,7 +26,8 @@ import torch
 
 from ..kernels.fused_render import (fused_apply, fused_encode_mlp_pts,
                                     pack_ray_data, pack_render_params)
-from ..models.nerf import NeRFConfig, apply_nerf, lookup_framecodes
+from ..models.nerf import (NeRFConfig, _dense, apply_nerf, forward_density,
+                           lookup_framecodes)
 from ..ops.compositing import get_density_fn, raw2outputs
 from ..ops.cylinder import get_near_far_in_cylinder
 from ..ops.embedder import EmbedConfig, embed
@@ -93,11 +94,12 @@ class RenderConfig:
 
 def encode_inputs(cfg: RenderConfig, pts: torch.Tensor,
                   rays_d: torch.Tensor, skts: torch.Tensor,
-                  cutoff_dist: torch.Tensor, tau
+                  cutoff_dist: torch.Tensor, tau, views: bool = True
                   ) -> Dict[str, Optional[torch.Tensor]]:
     """Skeleton-relative encoding of query points on the flat joint-major
     path: pts (R, S, 3), rays_d (R, 1, 3), skts (R, J, 4, 4).
-    Returns {'v', 'r', 'd'} embedded features in the compute dtype."""
+    Returns {'v', 'r', 'd'} embedded features in the compute dtype; 'd'
+    is None with views=False (a density query, which never reads it)."""
     if not (cfg.kp_dist_type == 'reldist'
             and cfg.bone_type in ('reldir', 'Nope')
             and cfg.view_type == 'relray'):
@@ -116,9 +118,6 @@ def encode_inputs(cfg: RenderConfig, pts: torch.Tensor,
     r = None
     if bone_dims > 0:
         r = pts_tf * _expand3(1.0 / torch.clamp_min(v, 1e-12), J)
-    rays_f = rotate_flat(rays_d, rot_cols(skts))              # (R, 1, J*3)
-    dss = _group3_sumsq(rays_f, J)
-    d = rays_f * _expand3(torch.rsqrt(torch.clamp_min(dss, 1e-24)), J)
 
     enc_dtype = cfg.dtype or torch.float32
     v_e, _ = embed(cfg.embed_kp, v, dists=v, cutoff_dist=cutoff_dist,
@@ -129,7 +128,10 @@ def encode_inputs(cfg: RenderConfig, pts: torch.Tensor,
                        tau=tau)
         r_e = r_e.to(enc_dtype)
     d_e = None
-    if cfg.use_viewdirs and cfg.embed_view is not None:
+    if views and cfg.use_viewdirs and cfg.embed_view is not None:
+        rays_f = rotate_flat(rays_d, rot_cols(skts))          # (R, 1, J*3)
+        dss = _group3_sumsq(rays_f, J)
+        d = rays_f * _expand3(torch.rsqrt(torch.clamp_min(dss, 1e-24)), J)
         d_e, _ = embed(cfg.embed_view, d, dists=v, cutoff_dist=cutoff_dist,
                        tau=tau)
         d_e = d_e.to(enc_dtype).expand(pts.shape[0], pts.shape[1],
@@ -343,3 +345,65 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig,
         out.update({'rgb0': ret0['rgb_map'], 'disp0': ret0['disp_map'],
                     'acc0': ret0['acc_map'], 'alpha0': ret0['alpha']})
     return out
+
+
+#: points a density query encodes and runs through the MLP at once: the
+#: JAX package evaluates all (res + 1)^3 mesh points in one call, which at
+#: res 255 (16.8M points, each encoded against 24 joint frames) would
+#: take tens of GB of intermediates
+MESH_CHUNK = 1 << 18
+
+
+@torch.no_grad()
+def render_pts_density(params: Dict[str, Any], cfg: RenderConfig,
+                       pts: torch.Tensor, kps: torch.Tensor,
+                       skts: torch.Tensor, bones: Optional[torch.Tensor],
+                       tau=2000.0, use_fine: bool = True,
+                       chunk: int = MESH_CHUNK) -> torch.Tensor:
+    """Raw density of arbitrary query points (the JAX package's
+    render_pts_density; plain torch, as the JAX package computes it on
+    the XLA path with no Pallas kernel).
+
+    pts: (R, S, 3) with skts broadcast (R may be 1). Returns (R, S, 1)
+    f32. The points go through the encoder and the density trunk `chunk`
+    at a time along S. kps and bones are accepted for the JAX signature
+    (the ported reldist encoders do not read them)."""
+    cutoff_dist = params['cutoff_dist']
+    net = params['fine'] if (use_fine and params.get('fine') is not None) \
+        else params['coarse']
+    zeros_d = torch.zeros_like(pts[:, :1])
+    outs = []
+    for s0 in range(0, pts.shape[1], chunk):
+        p = pts[:, s0:s0 + chunk]
+        encoded = encode_inputs(cfg, p, zeros_d, skts, cutoff_dist, tau,
+                                views=False)
+        parts = [encoded['v']]
+        if encoded['r'] is not None:
+            parts.append(encoded['r'])
+        pts_in = torch.cat(parts, -1) if len(parts) > 1 else parts[0]
+        h = forward_density(net, cfg.nerf, pts_in, cfg.dtype)
+        if 'alpha_linear' in net:
+            outs.append(_dense(net['alpha_linear'], h, cfg.dtype))
+        else:
+            # use_viewdirs=False head: density is output_linear's last
+            # channel
+            outs.append(_dense(net['output_linear'], h, cfg.dtype)[..., 3:4])
+    return torch.cat(outs, 1)
+
+
+def render_mesh_density(params: Dict[str, Any], cfg: RenderConfig,
+                        kps: torch.Tensor, skts: torch.Tensor,
+                        bones: Optional[torch.Tensor],
+                        radius: float = 1.0, res: int = 64, tau=2000.0,
+                        chunk: int = MESH_CHUNK) -> torch.Tensor:
+    """Density on a res^3 grid centered at the root joint, on the device
+    of `kps`. Returns (res+1, res+1, res+1) raw density (f32)."""
+    t = torch.linspace(-radius, radius, res + 1, dtype=torch.float32,
+                       device=kps.device)
+    grid = torch.stack(torch.meshgrid(t, t, t, indexing='xy'), -1)
+    sh = grid.shape
+    pts = grid.reshape(1, -1, 3) + kps[0:1, 0:1]
+    sigma = render_pts_density(params, cfg, pts, kps[:1], skts[:1],
+                               None if bones is None else bones[:1], tau,
+                               chunk=chunk)
+    return sigma.reshape(sh[:-1]).transpose(0, 1)

@@ -162,15 +162,20 @@ def restore_from_path(path: str, target: TrainState
     raycasters.py:125-126: ft_path replaces the expdir ckpt search).
 
     Accepts an experiment dir (containing checkpoints/), a checkpoints
-    dir, or a specific step dir. Weights only: the step and the params
-    (and pose params / anchors when this run has them) come from the
-    checkpoint, the optimizer states stay `target`'s.
+    dir, a specific step dir, or a reference torch .tar. Weights only:
+    the step and the params (and pose params / anchors when this run has
+    them) come from the checkpoint, the optimizer states stay `target`'s.
+    A .tar's params replace `target`'s whole, on its device, as the JAX
+    package replaces them.
     """
     if path.endswith('.tar'):
-        raise NotImplementedError(
-            'reading a reference .tar checkpoint needs pose/ckpt_compat.py, '
-            'which is not ported yet (ROADMAP.md Queue 1 item 6, checkpoint '
-            'import and eval)')
+        from ..convert import params_from_numpy
+        from ..pose.ckpt_compat import load_reference_checkpoint
+        params, extras = load_reference_checkpoint(path)
+        return dataclasses.replace(
+            target, step=int(extras.get('global_step') or 0),
+            params=params_from_numpy(
+                params, target.params['cutoff_dist'].device))
     p = os.path.abspath(path)
     step = None
     if os.path.basename(p).isdigit():

@@ -306,11 +306,16 @@ def test_catalog_raises_on_unported_types(kind):
         tcat.get_dataset_from_catalog(args, 8, kind, 'x')
 
 
-def test_load_refined_raises(h5_path):
+def test_load_refined_raises(h5_path, tmp_path):
+    """load_refined reads its pose checkpoint (pose/ckpt_compat.py; held
+    against the JAX package in tests/test_torch_ckpt_compat.py): a
+    missing one raises, an unlisted subject fails the assert."""
     class Refined(tds.PoseRefinedDataset):
-        refined_paths = {'s': ('x.tar', False)}
-    with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
+        refined_paths = {'s': (str(tmp_path / 'x.tar'), False)}
+    with pytest.raises(FileNotFoundError):
         Refined(h5_path, subject='s', load_refined=True)
+    with pytest.raises(AssertionError, match='no refined pose path'):
+        Refined(h5_path, subject='t', load_refined=True)
     ds = Refined(h5_path, subject='s', N_samples=N_PER, seed=0)
     assert len(ds) == N_KPS * N_CAMS
 

@@ -49,9 +49,13 @@ def test_scan_finds_the_port():
                 'data/pipeline.py', 'native/__init__.py',
                 'train/checkpoint.py', 'train/loop.py', 'run_nerf.py',
                 'utils/__init__.py', 'utils/metrics.py', 'utils/logging.py',
-                'utils/skeleton_draw.py'):
+                'utils/skeleton_draw.py',
+                # the render entry point and the modules behind it
+                'run_render.py', 'render_mesh.py', 'render/catalog.py',
+                'render/modes.py', 'pose/ckpt_compat.py',
+                'utils/marching.py', 'utils/mesh_render.py'):
         assert f'anerf_torch/{mod}' in FILES
-    assert len(FILES) >= 46
+    assert len(FILES) >= 58
     tree = ast.parse('import jax.numpy as jnp\nfrom anerf_tpu.ops import fk')
     assert [m for m in _imported_modules(tree)] == ['jax.numpy',
                                                     'anerf_tpu.ops']

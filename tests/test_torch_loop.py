@@ -328,8 +328,15 @@ def test_restore_from_path_forms(plain_pair, tmp_path):
                            tckpt.restore_checkpoint(
                                tctx.exp_dir, fresh,
                                step=step).pose_params['bones'])
-    with pytest.raises(NotImplementedError, match='Queue 1 item 6'):
-        tckpt.restore_from_path(str(tmp_path / 'ref.tar'), fresh)
+    # a reference .tar: its params replace the target's, its step read
+    from anerf_torch.pose.ckpt_compat import export_reference_checkpoint
+    tar = str(tmp_path / 'ref.tar')
+    export_reference_checkpoint(tar, tctx.state.params, global_step=5)
+    got = tckpt.restore_from_path(tar, fresh)
+    assert got.step == 5 and got.opt_state is fresh.opt_state
+    assert torch.equal(tst.flatten_tree(got.params), want)
+    with pytest.raises(FileNotFoundError):
+        tckpt.restore_from_path(str(tmp_path / 'missing.tar'), fresh)
     with pytest.raises(FileNotFoundError):
         tckpt.restore_from_path(str(tmp_path / 'nowhere'), fresh)
     # full wiring: setup(--ft_path --finetune) loads weights, resets step
