@@ -2,9 +2,9 @@
 (torch port's copy of anerf_tpu/data/catalog.py).
 
 Mirrors reference core/load_data.py:22-143. Paths are relative to the
-working directory, same layout as the reference's data/ tree. The port
-builds the 'h5' and 'surreal' types; the others raise until their dataset
-classes are ported (ROADMAP.md Queue 1 item 4, the other dataset types).
+working directory, same layout as the reference's data/ tree.
+`get_dataset_from_catalog(..., source=...)` builds from in-memory
+`schema.H5Arrays` instead of the catalog's file (a machine without h5py).
 """
 from __future__ import annotations
 
@@ -41,33 +41,48 @@ DATASET_CATALOG = {
     'h5': {},
 }
 
-#: the JAX package's dataset classes for the types the port does not build
-UNPORTED = {'h36m': 'H36MDataset', 'perfcap': 'MonoPerfCapDataset',
-            'mixamo': 'MixamoDataset', 'zju': 'ZJUMocapDataset',
-            '3dhp': 'ThreeDHPDataset'}
-
 
 def get_dataset_from_catalog(args: TrainConfig, n_samples: int,
                              dataset_type: str, subject: Optional[str] = None,
-                             n_nms: float = 0):
+                             n_nms: float = 0, source=None):
+    """The dataset of a catalog entry. `source` (an H5Arrays) stands in
+    for the entry's h5 file; an H5Arrays without a path takes the
+    catalog's, so the files beside it resolve as from the file."""
     from .dataset import BaseH5Dataset
+    from .h36m import H36MDataset
+    from .mixamo import MixamoDataset
+    from .mpi3dhp import ThreeDHPDataset
+    from .perfcap import MonoPerfCapDataset
+    from .schema import H5Arrays
     from .surreal import SurrealDataset
+    from .zju import ZJUMocapDataset
 
     split = 'full' if not args.use_val else 'train'
     shared = dict(N_samples=n_samples, split=split, mask_img=args.mask_image,
                   patch_size=args.patch_size, subject=subject, N_nms=n_nms,
                   multiview=args.multiview)
+    refined = dict(load_refined=args.load_refined)
 
     if dataset_type == 'h5':
-        return BaseH5Dataset(subject, **shared)
-    if dataset_type in UNPORTED:
-        raise NotImplementedError(
-            f'dataset type {dataset_type!r} ({UNPORTED[dataset_type]}) is '
-            f'not ported yet (ROADMAP.md Queue 1 item 4, the other dataset '
-            f'types); the port builds the h5 and surreal types')
+        return BaseH5Dataset(subject if source is None else source, **shared)
+    path = DATASET_CATALOG[dataset_type][subject]
+    if source is not None:
+        if source.path is None:
+            source = H5Arrays(source)
+            source.path = path
+        path = source
+    if dataset_type == 'h36m':
+        return H36MDataset(path, **shared, **refined)
+    if dataset_type == 'perfcap':
+        return MonoPerfCapDataset(path, **shared, **refined)
+    if dataset_type == 'mixamo':
+        return MixamoDataset(path, **shared, **refined)
     if dataset_type == 'surreal':
         shared['split'] = 'train'
-        return SurrealDataset(DATASET_CATALOG['surreal'][subject],
-                              N_cams=args.N_cams,
+        return SurrealDataset(path, N_cams=args.N_cams,
                               N_rand_kps=args.rand_train_kps, **shared)
+    if dataset_type == 'zju':
+        return ZJUMocapDataset(path, **shared)
+    if dataset_type == '3dhp':
+        return ThreeDHPDataset(path, **shared)
     raise NotImplementedError(f'dataset {dataset_type} is not implemented')

@@ -392,9 +392,13 @@ class BaseH5Dataset:
             'fgs': fg[..., :1], 'bgs': bg,
         }
         if self.temp_validity is not None:
-            nxt = (idx + 1) % len(self.temp_validity)
+            # indexed by the image's place in the split, as kp_idx is:
+            # the temporal loss reads the pose rows kp_idx -/+ 1. (The JAX
+            # package indexes by the image; Mixamo's validity covers its
+            # selection only, which that overruns.)
+            nxt = (q_idx + 1) % len(self.temp_validity)
             out['temp_val'] = np.float32(
-                (self.temp_validity[idx] + self.temp_validity[nxt]) // 2)
+                (self.temp_validity[q_idx] + self.temp_validity[nxt]) // 2)
         return out
 
     # ---- meta / render contracts ----

@@ -279,3 +279,137 @@ def synthetic_data(n_kps: int = 8, n_cams: int = 3, H: int = 64,
         'ext_scale': float(ext_scale),
     }
     return data
+
+
+# ------------------------------------------- the other dataset types' layouts
+
+H36M_CAMERAS = ('54138969', '55011271', '58860488', '60457274')
+_SHARED = ('rest_pose', 'betas', 'ext_scale')
+
+
+def _grid(base, n_kps, n_cams, H, W, seed):
+    """The synthetic (n_cams, n_kps) grid to rearrange: `base` as given,
+    else synthetic_data at these sizes."""
+    if base is None:
+        base = synthetic_data(n_kps=n_kps, n_cams=n_cams, H=H, W=W,
+                              seed=seed)
+    n = len(base['kp3d'])
+    if len(base['imgs']) < n_cams * n or n < n_kps:
+        raise ValueError(f'the base grid has {len(base["imgs"]) // n} '
+                         f'cameras x {n} poses; {n_cams} x {n_kps} needed')
+    return base
+
+
+def _pick(base, cams, poses, pose_rows=None):
+    """Images (cams[i], poses[i]) of the grid, in that order, with their
+    cameras; the pose tables at `pose_rows` (default: one row per image,
+    its pose)."""
+    n = len(base['kp3d'])
+    img = np.asarray(cams) * n + np.asarray(poses)
+    rows = np.asarray(poses if pose_rows is None else pose_rows)
+    out = {k: base[k][img] for k in ('imgs', 'masks', 'sampling_masks',
+                                     'c2ws', 'focals')}
+    out.update({k: base[k][rows] for k in ('kp3d', 'bones', 'skts',
+                                            'cyls')})
+    out.update({k: base[k] for k in _SHARED})
+    return out
+
+
+def h36m_data(n_instants: int = 2, H: int = 64, W: int = 64, seed: int = 0,
+              subject: str = 'S9',
+              seqs=('Directions-1', 'Walking-1'), base=None) -> dict:
+    """A Human3.6M layout (data/process_h36m.py): sequence-named
+    img_paths (<subject>/<Seq>/imageSequence/<cam>/img_%06d.jpg), 4
+    cameras in camera-major order within a sequence, one pose row per
+    image with the 4 views of an instant sharing the body pose, 8
+    background plates (4 clean, 4 chair; bkgd_idxs the camera).
+    len(seqs) x 4 x n_instants images."""
+    n_seq = len(seqs)
+    base = _grid(base, n_seq * n_instants, 4, H, W, seed)
+    cams, poses, paths = [], [], []
+    for s, seq in enumerate(seqs):
+        for c, cam in enumerate(H36M_CAMERAS):
+            for k in range(n_instants):
+                cams.append(c)
+                poses.append(s * n_instants + k)
+                paths.append(f'{subject}/{seq}/imageSequence/{cam}/'
+                             f'img_{k:06d}.jpg')
+    data = _pick(base, cams, poses)
+    data['img_paths'] = np.array(paths)
+    data['bkgds'] = np.repeat(base['bkgds'][:1], 2 * len(H36M_CAMERAS), 0)
+    data['bkgd_idxs'] = np.array(cams, np.int64)
+    return data
+
+
+def perfcap_data(n_frames: int = 8, H: int = 64, W: int = 64, seed: int = 0,
+                 base=None) -> dict:
+    """A MonoPerfCap layout (data/process_perfcap.py): one camera, one
+    pose row a frame, one background plate."""
+    base = _grid(base, n_frames, 1, H, W, seed)
+    data = _pick(base, [0] * n_frames, np.arange(n_frames))
+    data.update(kp_idxs=np.arange(n_frames), cam_idxs=np.arange(n_frames),
+                bkgds=base['bkgds'][:1],
+                bkgd_idxs=np.zeros((n_frames,), np.int64))
+    return data
+
+
+def mixamo_data(n_frames: int = 3, n_cams: int = 2, H: int = 64,
+                W: int = 64, seed: int = 0, subject: str = 'James',
+                seqs=('Jab', 'Kick'), base=None):
+    """A Mixamo layout (data/process_mixamo.py) and its selection:
+    img_paths <subject>/<seq>/Camera_<c>/ImageNNNN.png (sequence, camera,
+    frame order), one pose row an image, kp_idxs the sequence-offset
+    frame, cam_idxs the camera, white-composited images. Returns (data,
+    selected): `selected` drops every 8th image, so the subset has
+    temporal gaps; save it as data/mixamo.selected_path(h5 path)."""
+    n_seq = len(seqs)
+    base = _grid(base, n_seq * n_frames, n_cams, H, W, seed)
+    cams, poses, paths = [], [], []
+    for s, seq in enumerate(seqs):
+        for c in range(n_cams):
+            for fr in range(n_frames):
+                cams.append(c)
+                poses.append(s * n_frames + fr)
+                paths.append(f'{subject}/{seq}/Camera_{c}/'
+                             f'Image{fr + 1:04d}.png')
+    data = _pick(base, cams, poses)
+    m = data['masks'].astype(np.uint8)
+    data['imgs'] = (data['imgs'] * m + (1 - m) * 255).astype(np.uint8)
+    data.update(img_paths=np.array(paths), kp_idxs=np.array(poses),
+                cam_idxs=np.array(cams))
+    n = len(paths)
+    selected = np.array([i for i in range(n) if i % 8 != 7], np.int64)
+    return data, selected
+
+
+def zju_data(n_frames: int = 2, n_cams: int = 3, H: int = 64, W: int = 64,
+             seed: int = 0, base=None) -> dict:
+    """A ZJU-MoCap layout (data/process_zju.py): frame-major images (the
+    cameras of a frame together), kp_idxs the frame, img_pose_indices the
+    camera; per-camera c2ws, focals (n_cams, 2), centers (n_cams, 2) and
+    background plates (bkgd_idxs the camera); one pose row a frame."""
+    base = _grid(base, n_frames, n_cams, H, W, seed)
+    frames = np.repeat(np.arange(n_frames), n_cams)
+    cams = np.tile(np.arange(n_cams), n_frames)
+    data = _pick(base, cams, frames, pose_rows=np.arange(n_frames))
+    n = len(base['kp3d'])
+    first = np.arange(n_cams) * n            # one image of each camera
+    f = base['focals'][first]
+    data.update(
+        c2ws=base['c2ws'][first],
+        focals=np.stack([f, f], -1).astype(np.float32),
+        centers=np.tile(np.array([[W * 0.5, H * 0.5]], np.float32),
+                        (n_cams, 1)),
+        kp_idxs=frames, img_pose_indices=cams,
+        bkgds=np.repeat(base['bkgds'][:1], n_cams, 0),
+        bkgd_idxs=cams.astype(np.int64))
+    return data
+
+
+def mpi3dhp_data(n_frames: int = 9, H: int = 64, W: int = 64, seed: int = 0,
+                 base=None) -> dict:
+    """An MPI-INF-3DHP layout (data/process_3dhp.py): one camera, one pose
+    row a frame, gt_kp3d, one background plate."""
+    data = perfcap_data(n_frames=n_frames, H=H, W=W, seed=seed, base=base)
+    data['gt_kp3d'] = data['kp3d'].copy()
+    return data

@@ -15,11 +15,14 @@ c2ws (N, 4, 4), focals (N,) [optional centers (N, 2)], ext_scale ().
 `h5_arrays` gives the same keys, shapes and dtypes as numpy arrays in
 memory: the datasets read it wherever they take an h5 path, so a machine
 without h5py can still train from a fixture's arrays. h5py is imported
-only where a file is written or read.
+only where a file is written or read. An H5Arrays may name the path its
+file would have (`path`): the files a dataset finds beside its h5
+(Mixamo's selected.npy, ZJU's and SURREAL's other splits) resolve from it,
+as they do from the file's own path (`source_path`).
 """
 from __future__ import annotations
 
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Optional
 
 import numpy as np
 
@@ -31,7 +34,23 @@ _REDUNDANT = ('index', 'img_path')
 class H5Arrays(dict):
     """A dataset file's contents held as numpy arrays: a mapping with the
     h5py.File calls the datasets make (`keys`, `in`, `[key]`, `with`,
-    `close`)."""
+    `close`). `path` is where the file these arrays stand for would lie,
+    or None.
+
+    `[key]` reads as h5py reads a file: the small tables as a copy (the
+    datasets change what they read in place, as MonoPerfCap's camera fix
+    does), the pixel tables as read-only views (too large to copy on
+    every per-item read; nothing writes them)."""
+
+    path = None
+
+    def __getitem__(self, key):
+        v = dict.__getitem__(self, key)
+        if key in IMG_TO_CHUNK or key in IMG_TO_KEEP_WHOLE:
+            v = v.view()
+            v.flags.writeable = False
+            return v
+        return v.copy()
 
     def __enter__(self):
         return self
@@ -43,13 +62,16 @@ class H5Arrays(dict):
         pass
 
 
-def h5_arrays(data: Dict[str, np.ndarray]) -> H5Arrays:
+def h5_arrays(data: Dict[str, np.ndarray],
+              path: Optional[str] = None) -> H5Arrays:
     """A dataset dict in the stored layout: what reading back
     write_h5(data) returns, key for key (images flattened to (N, H*W, C),
-    other floats float32, other integers int64, scalars as they are)."""
+    other floats float32, other integers int64, scalars as they are).
+    `path` names where its file would lie (H5Arrays.path)."""
     imgs = data['imgs']
     H, W = imgs.shape[1:3]
     out = H5Arrays(img_shape=np.array(imgs.shape, np.int32))
+    out.path = path
     for k, v in data.items():
         if k in _REDUNDANT:
             continue
@@ -104,6 +126,18 @@ def open_h5(source):
         return source
     import h5py
     return h5py.File(source, 'r', swmr=True)
+
+
+def source_path(source) -> str:
+    """The path of a dataset's h5: `source` itself, or an H5Arrays'
+    `path`. The files found beside the h5 resolve from it."""
+    if isinstance(source, H5Arrays):
+        if source.path is None:
+            raise ValueError('these in-memory arrays name no file path '
+                             '(h5_arrays(..., path=...)); the dataset '
+                             'looks for a file beside it')
+        return source.path
+    return source
 
 
 def dataset_keys(source):

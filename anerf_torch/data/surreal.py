@@ -2,8 +2,8 @@
 (torch port's copy of anerf_tpu/data/surreal.py).
 
 Mirrors reference core/load_surreal.py:302-387 (SurrealDataset). The
-offline processing of raw SURREAL dumps (anerf_tpu/data/
-process_surreal.py) is not ported: it writes the h5 both packages read.
+offline processing of raw SURREAL dumps, which writes the h5 this class
+reads, is data/process_surreal.py.
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 
 from .dataset import BaseH5Dataset
+from .schema import source_path
 
 
 class SurrealDataset(BaseH5Dataset):
@@ -37,7 +38,8 @@ class SurrealDataset(BaseH5Dataset):
     def init_meta(self):
         if self.split == 'val':
             # the val split lives in its own file beside the train file
-            self.h5_path = self.h5_path.replace('train_h5py', 'val_h5py')
+            self.h5_path = source_path(self.h5_path).replace('train_h5py',
+                                                             'val_h5py')
         super().init_meta()
 
         N_total_cams = len(self.c2ws) // len(self.kp3d)

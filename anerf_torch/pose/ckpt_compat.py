@@ -120,11 +120,16 @@ def export_reference_checkpoint(path: str, params: Dict[str, Any],
                                 global_step: int = 0,
                                 tau: float = 2000.0,
                                 pose_params: Optional[Dict[str, Any]] = None,
-                                rest_pose: Optional[np.ndarray] = None
+                                rest_pose: Optional[np.ndarray] = None,
+                                kp_map: Optional[np.ndarray] = None,
+                                kp_uidxs: Optional[np.ndarray] = None
                                 ) -> None:
     """Write a model as a reference-format torch .tar, so models trained
     here can be consumed by reference tooling (the inverse of
-    load_reference_checkpoint, in the reference's key scheme)."""
+    load_reference_checkpoint, in the reference's key scheme). Poses
+    shared across views ('root_bones' (N, ...) beside 'bones' (U, J-1,
+    ...)) are written in the reference's multiview form, with the
+    kp_map / kp_uidxs tables that must then be given."""
     ckpt: Dict[str, Any] = {
         'global_step': int(global_step),
         'network_fn_state_dict': _params_to_state_dict(params['coarse']),
@@ -137,10 +142,16 @@ def export_reference_checkpoint(path: str, params: Dict[str, Any],
         ckpt['network_fine_state_dict'] = _params_to_state_dict(
             params['fine'])
     if pose_params is not None:
-        popt_sd = {
-            'pelvis': _t(pose_params['pelvis']),
-            'bones': _t(pose_params['bones']),
-        }
+        popt_sd = {k: _t(pose_params[k]) for k in
+                   ('pelvis', 'root_bones', 'bones') if k in pose_params}
+        if 'root_bones' in pose_params:
+            if kp_map is None or kp_uidxs is None:
+                raise ValueError('shared poses (root_bones) are written '
+                                 'with their kp_map and kp_uidxs')
+            popt_sd['kp_map'] = torch.as_tensor(np.asarray(kp_map,
+                                                           np.int64))
+            popt_sd['kp_uidxs'] = torch.as_tensor(np.asarray(kp_uidxs,
+                                                             np.int64))
         if rest_pose is not None:
             popt_sd['rest_pose'] = _t(_to_np(rest_pose).reshape(1, -1, 3))
         ckpt['poseopt_layer_state_dict'] = popt_sd

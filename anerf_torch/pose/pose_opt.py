@@ -7,6 +7,13 @@ multi-view sharing, 'root_bones' (N, 3|6) and 'bones' (U, J-1, 3|6)).
 (ops/fk.py, plain torch); the RGB loss reaches the pose parameters by
 ordinary autograd through the skeleton-relative encodings. The
 dual-optimizer stepping rules live in train/trainer.py.
+
+The batch's rows of the pose tables are gathered by `gather_rows`, whose
+backward sums a row's cotangents in a fixed order (the order the rows
+occur in the batch) on every device: with multi-view sharing, the 4 views
+of an instant read one 'bones' row, and a repeated image repeats every
+row, so the gradient is a sum over duplicate rows that must come out the
+same bits on every run.
 """
 from __future__ import annotations
 
@@ -54,17 +61,49 @@ def init_pose_params(kp3d: np.ndarray, bones: np.ndarray,
     return params
 
 
+class _GatherRows(torch.autograd.Function):
+    """table[idx] whose backward is a sort-and-segment sum: the stable
+    sort of idx keeps each row's cotangents in batch order, per-row counts
+    come from an integer scatter (exact in any order) and
+    torch.segment_reduce adds each segment sequentially from 0. That is
+    the order and the value of autograd's own CPU backward of indexing (a
+    serial accumulating index_put_), and on a GPU it involves no float
+    atomics."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        order = torch.argsort(idx, stable=True)
+        counts = torch.zeros(ctx.n_rows, dtype=torch.int64,
+                             device=idx.device).scatter_add_(
+            0, idx, torch.ones_like(idx))
+        return torch.segment_reduce(g[order], 'sum', lengths=counts,
+                                    axis=0), None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx] for a 1-d index, with a deterministic backward
+    (_GatherRows)."""
+    return _GatherRows.apply(table, idx)
+
+
 def pose_params_to_bones(params: Dict[str, torch.Tensor],
                          idxs: torch.Tensor, cfg: PoseOptConfig,
                          kp_map: Optional[torch.Tensor] = None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gather (pelvis, bones) for frame indices (reference idx_to_params,
     pose_opt.py:318-332)."""
-    pelvis = params['pelvis'][idxs]
+    pelvis = gather_rows(params['pelvis'], idxs)
     if kp_map is None:
-        return pelvis, params['bones'][idxs]
-    root_bones = params['root_bones'][idxs][:, None]
-    bones = params['bones'][kp_map[idxs]]
+        return pelvis, gather_rows(params['bones'], idxs)
+    root_bones = gather_rows(params['root_bones'], idxs)[:, None]
+    bones = gather_rows(params['bones'], kp_map[idxs])
     return pelvis, torch.cat([root_bones, bones], 1)
 
 

@@ -214,10 +214,16 @@ def setup(args: TrainConfig, dataset=None, device='cuda') -> TrainContext:
         # finetune keeps the annealed tau (effectively saturated)
         tau_fixed = 2000.0 if args.finetune else None
     rp_idxs = data_attrs.get('rest_pose_idxs')
+    # multi-view pose sharing: the step gathers a frame's shared bones
+    # through kp_map (the JAX loop leaves it out, so its step reads the
+    # (U, J-1) shared table as per-frame bones and fails to trace)
+    kp_map = data_attrs.get('kp_map') if pose_cfg is not None else None
     step_kwargs = dict(
         tau_fixed=tau_fixed,
         rest_pose_idxs=None if rp_idxs is None
-        else torch.as_tensor(np.asarray(rp_idxs), device=dev))
+        else torch.as_tensor(np.asarray(rp_idxs), device=dev),
+        kp_map=None if kp_map is None
+        else torch.as_tensor(np.asarray(kp_map, np.int64), device=dev))
     step_fn = _make_step(args, cfg, pose_cfg, rest_pose, optimizer,
                          pose_optimizer, pose_frozen, step_kwargs)
 

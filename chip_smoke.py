@@ -86,6 +86,18 @@ Phases (any failure exits non-zero and prints no result):
      two launches a step, K1 two more a validation bucket. Prints the
      loop's rays/s, one dispatch's loader wait / upload / steps split and
      the idle share of run 2's second dispatch under torch.profiler.
+  8. render entry point: python -m anerf_torch.run_render's one-shot CLI,
+     stdin and TCP servers and .tar round trip on the loop phase's
+     experiment (render_entry_phase).
+  9. dataset types: K1 and K2 (f32) at the configs' 3072-ray batches
+     against their plain versions; then run_nerf.main on fixtures of the
+     other dataset types' layouts (anerf_torch/data/fixtures.py) made from
+     the loop phase's grid: H36M with configs/h36m/h36m_prot2.txt through
+     the catalog (48 steps, checkpoint and validation at 48, a
+     DeviceProfiler window over dispatches 3-4, resumed to 56), H36M with
+     --multiview twice (bit-equal), MonoPerfCap, Mixamo, ZJU and 3DHP 16
+     steps each, and a run_render val request through the h36m / S9 render
+     catalog entry (datasets_phase).
 With --profile, one request and one train step run again under
 torch.profiler, and for each the device-busy share and the top kernels
 by device time are printed.
@@ -2581,6 +2593,402 @@ def render_entry_phase(torch, np, data):
     return k1, numbers
 
 
+# the datasets phase: every other dataset type of the training entry point,
+# on fixtures that rearrange the loop phase's synthetic grid (LOOP_KPS
+# poses x LOOP_CAMS cameras at H x W) into each type's layout
+# (anerf_torch/data/fixtures.py), under a git-ignored working directory
+DATA_DIR = 'logs/chip_datasets'
+DATA_UNROLL = 8
+DATA_STEPS = (48, 56)           # run (a) ends at 48; resumed to 56
+DATA_SHORT = 16                 # runs (a') and (b)
+DATA_PROFILE = 16               # DeviceProfiler: the prints at 16 and 32
+DATA_RAYS = 3072                # N_rand of the configs below
+# run (b): (type, subject, config, argv added to it); ZJU and 3DHP have
+# no config of their own and take h36m_prot2.txt's network
+OTHER_TYPES = (
+    ('perfcap', 'weipeng', 'perfcap/perfcap.txt', ()),
+    ('mixamo', 'james', 'mixamo/mixamo.txt', ()),
+    ('zju', '377', 'h36m/h36m_prot2.txt',
+     ('--dataset_type', 'zju', '--subject', '377')),
+    ('3dhp', 'S1', 'h36m/h36m_prot2.txt',
+     ('--dataset_type', '3dhp', '--subject', 'S1')),
+)
+
+
+def _data_argv(config, expname, n_iters, *extra):
+    """run_nerf's argv: the config as written, the flagship's overrides
+    (the fused kernel, bf16), scanned dispatches of DATA_UNROLL steps with
+    a print each, checkpoints, pose snapshots and a validation render at
+    DATA_STEPS[0] (48)."""
+    import os
+    cfg = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       'configs', config)
+    at = str(DATA_STEPS[0])
+    return ['--config', cfg, '--basedir', 'logs', '--expname', expname,
+            '--fused_kernel', '--compute_dtype', 'bfloat16',
+            '--scan_unroll', str(DATA_UNROLL), '--i_print',
+            str(DATA_UNROLL), '--i_weights', at, '--i_pose_weights', at,
+            '--i_testset', at, '--n_iters', str(n_iters), *extra]
+
+
+def _grid_dict(arrays):
+    """The loop phase's H5Arrays as a synthetic_data dict (images
+    unflattened), the base the type fixtures rearrange."""
+    n, h, w = (int(x) for x in arrays['img_shape'][:3])
+    out = {}
+    for k in arrays:
+        if k == 'img_shape':
+            continue
+        v = arrays[k]
+        if k in ('imgs', 'masks', 'sampling_masks', 'bkgds'):
+            v = v.reshape(v.shape[0], h, w, v.shape[-1])
+        out[k] = float(v) if k == 'ext_scale' else v
+    return out
+
+
+def _check_3072(torch, np, cfg, params, src):
+    """K1 and K2 (f32) on one bucket of the configs' 3072-ray batches at
+    S = 64 (coarse) and 80 (fine), against their plain versions within
+    K1_ATOL / K2's bounds; the launch geometry (points, 64-row tiles,
+    K2's 2048-point chunks) and the device memory K2's call peaks at.
+    These launches are comparisons: the runs' counts start after them."""
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.render.raycaster import pack_fused_params
+
+    packed = pack_fused_params(params, cfg)
+    ncfg, R = cfg.nerf, DATA_RAYS
+    pts, m_all, aux, _ = _bucket_inputs(torch, np, cfg, params, src, 30,
+                                        R=R, culled=False)
+    out = {}
+    for S, net in ((64, 'coarse'), (80, 'fine')):
+        P = R * S
+        args = (ncfg, packed[net], pts[S], m_all, aux, S, 2000.0)
+        got = fr.fused_encode_mlp_pts(*args)
+        want = fr.fused_encode_mlp_pts_ref(*args)
+        err = (got - want).abs().max().item()
+        if not (torch.allclose(got, want, atol=K1_ATOL, rtol=K1_RTOL)
+                and torch.isfinite(got).all()):
+            raise AssertionError(f'K1 at {R} rays, S={S}: max_abs {err}')
+        g = torch.as_tensor(np.random.default_rng(40 + S).normal(
+            size=(R, S, 4)) * 0.1, dtype=torch.float32, device='cuda')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        k2 = fr.fused_bwd(*args, g)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        e = _k2_errors(torch, ncfg, packed[net], k2,
+                       fr.fused_bwd_ref(*args, g), f'K2 {R} rays S={S}', R)
+        out[S] = {'k1_max_abs': err, 'k2_max_abs': e[0],
+                  'k2_worst_fro': e[3], 'k2_peak_bytes': peak}
+        print(f'{R} rays S={S}: {P} points = {P // 64} tiles of 64 rows '
+              f'(remainder {P % 64}), {-(-P // fr.BWD_CHUNK)} K2 chunks of '
+              f'{fr.BWD_CHUNK} (remainder {P % fr.BWD_CHUNK}); K1 max_abs '
+              f'{err:.3e} (tol {K1_ATOL}); K2 worst fro {e[3]:.3e} (tol '
+              f'{K2_FRO}); K2 call peak {peak / 2 ** 30:.3f} GiB above '
+              f'its inputs -> ok', flush=True)
+        del got, want, k2, g
+    return out
+
+
+def datasets_phase(torch, np, data, cfg, params, src):
+    """Every other dataset type through run_nerf.main on the card, in
+    DATA_DIR, on fixtures of each type's layout made from the loop
+    phase's grid (`data`, its H5Arrays, or the same grid made anew when
+    h5py held it in a file). First K1 and K2 at the configs' 3072 rays
+    against their plain versions (_check_3072). Then:
+      (a) H36M, configs/h36m/h36m_prot2.txt as written with the
+          flagship's overrides, through the catalog entry h36m / S9 with
+          the fixture (2 sequences x 4 cameras x 32 instants) standing in
+          for its file: 48 steps (checkpoint, pose snapshot, validation
+          at 48; DeviceProfiler over dispatches 3-4), then resumed to 56;
+      (a') H36M with --multiview, 16 steps, twice (one loader thread,
+          seeded datasets): the two final states bit-equal;
+      (b) MonoPerfCap, Mixamo (their configs), ZJU 377 and 3DHP S1
+          (h36m_prot2.txt's network), 16 steps each;
+      (c) one run_render val request from run (a)'s checkpoint 48
+          through the render catalog's h36m / S9 entry.
+    Gates: every logged value finite; H36M's loss falls; checkpoint 48
+    restores run (a)'s state bit for bit; the loader's route (native
+    super-batches for H36M and ZJU, per-item batches for the temporal
+    types); K1 2 a step + 2 a validation bucket, K2 (f32) 2 a step,
+    K2-bf16 none; the render's K1 2 a bucket. Prints per run the loop's
+    rays/s over dispatches 2 onward, one dispatch's wait / upload /
+    steps, the route and the launches. Returns (K1, K2) launches and the
+    numbers."""
+    import contextlib
+    import os
+    import shutil
+
+    from anerf_torch import run_render as rr
+    from anerf_torch.config import load_config
+    from anerf_torch.data import fixtures as fx
+    from anerf_torch.data import pipeline
+    from anerf_torch.data.catalog import (DATASET_CATALOG,
+                                          get_dataset_from_catalog)
+    from anerf_torch.data.fixtures import synthetic_data
+    from anerf_torch.data.h36m import H36MDataset
+    from anerf_torch.data.mixamo import selected_path
+    from anerf_torch.data.schema import h5_arrays
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.run_nerf import main as run_nerf_main
+    from anerf_torch.train.checkpoint import restore_checkpoint
+    from anerf_torch.utils.logging import DeviceProfiler
+
+    t_phase = time.perf_counter()
+    checks = _check_3072(torch, np, cfg, params, src)
+    root = os.path.abspath(DATA_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    t0 = time.perf_counter()
+    base = (_grid_dict(data) if data is not None else synthetic_data(
+        n_kps=LOOP_KPS, n_cams=LOOP_CAMS, H=H, W=W))
+
+    def arrays(kind, subject, d):
+        return h5_arrays(d, path=os.path.join(
+            root, DATASET_CATALOG[kind][subject]))
+    n_inst = LOOP_KPS // 2
+    fixtures = {'h36m': arrays('h36m', 'S9', fx.h36m_data(
+        n_instants=n_inst, base=base))}
+    fixtures['perfcap'] = arrays('perfcap', 'weipeng', fx.perfcap_data(
+        n_frames=LOOP_KPS, base=base))
+    mix, selected = fx.mixamo_data(n_frames=LOOP_KPS // 2, n_cams=2,
+                                   base=base)
+    fixtures['mixamo'] = arrays('mixamo', 'james', mix)
+    os.makedirs(os.path.dirname(fixtures['mixamo'].path))
+    np.save(selected_path(fixtures['mixamo'].path), selected)
+    fixtures['zju'] = arrays('zju', '377', fx.zju_data(
+        n_frames=LOOP_KPS // 2, n_cams=LOOP_CAMS, base=base))
+    fixtures['3dhp'] = arrays('3dhp', 'S1', fx.mpi3dhp_data(
+        n_frames=LOOP_KPS, base=base))
+    del base, mix
+    print('datasets: fixtures ' + ', '.join(
+        f'{k} {len(v["imgs"])} images' for k, v in fixtures.items())
+        + f' at {H}x{W}, made in {time.perf_counter() - t0:.1f} s from the '
+        f'loop grid', flush=True)
+
+    runs = {}
+
+    def run(label, argv, ds, log=None):
+        """run_nerf.main with the counts set to 0 just before it and read
+        just after it; returns (ctx, records, counts)."""
+        recs = []
+
+        def log_fn(rec):
+            recs.append(dict(rec, t=time.perf_counter()))
+            if log is not None:
+                log(rec)
+
+        pipeline.SUPER_BATCHES = pipeline.ITEM_BATCHES = 0
+        fr.LAUNCHES = fr.BWD_LAUNCHES = fr.BWD_BF16_LAUNCHES = 0
+        cwd = os.getcwd()
+        os.chdir(root)
+        tee = _Tee(sys.stdout)
+        try:
+            with contextlib.redirect_stdout(tee):
+                ctx = run_nerf_main(argv, dataset=ds, log_fn=log_fn,
+                                    save_images=False)
+            torch.cuda.synchronize()
+        finally:
+            os.chdir(cwd)
+        counts = {'K1': fr.LAUNCHES, 'K2': fr.BWD_LAUNCHES,
+                  'K2-bf16': fr.BWD_BF16_LAUNCHES,
+                  'super': pipeline.SUPER_BATCHES,
+                  'item': pipeline.ITEM_BATCHES}
+        for r in recs:
+            bad = [k for k, v in r.items() if not np.isfinite(v)]
+            if bad:
+                raise AssertionError(f'{label} step {r["step"]}: '
+                                     f'non-finite {bad}')
+        return ctx, recs, counts, ''.join(tee.parts)
+
+    def report(label, ctx, recs, counts, n_steps, native, val_buckets=0,
+               skip_s=0.0):
+        """The run's gates on its launches and route, and its numbers."""
+        k1_want = 2 * n_steps + 2 * val_buckets
+        if (counts['K1'], counts['K2'], counts['K2-bf16']) != (
+                k1_want, 2 * n_steps, 0):
+            raise AssertionError(f'{label}: launches {counts}; want K1 '
+                                 f'{k1_want}, K2 {2 * n_steps}, K2-bf16 0')
+        dispatches = n_steps // DATA_UNROLL
+        route = 'native' if native else 'per-item'
+        if native and (counts['item'] or counts['super'] < dispatches) or \
+                not native and (counts['super'] or counts['item']
+                                < dispatches * DATA_UNROLL):
+            raise AssertionError(f'{label}: loader {counts}, want the '
+                                 f'{route} route')
+        rays = ctx.args.N_rand * DATA_UNROLL
+        last = recs[-1]
+        num = {'rays_per_s': rays * (len(recs) - 1)
+               / (last['t'] - recs[0]['t'] - skip_s),
+               'dispatch_ms': last['dispatch_s'] * 1e3,
+               'wait_ms': last['wait_s'] * 1e3,
+               'upload_ms': last['upload_s'] * 1e3,
+               'steps_ms': (last['dispatch_s'] - last['wait_s']
+                            - last['upload_s']) * 1e3,
+               'route': route, 'super_batches': counts['super'],
+               'item_batches': counts['item'], 'k1': counts['K1'],
+               'k2': counts['K2'], 'loss_first': recs[0]['total_loss'],
+               'loss_last': last['total_loss']}
+        print(f'{label}: rays/s {num["rays_per_s"]:.1f} (dispatches 2-'
+              f'{len(recs)}, the loop clock); dispatch {last["step"]}: '
+              f'{num["dispatch_ms"]:.1f} ms = wait {num["wait_ms"]:.2f} + '
+              f'upload {num["upload_ms"]:.2f} + steps '
+              f'{num["steps_ms"]:.1f}; loader {route} ({counts["super"]} '
+              f'super-batches, {counts["item"]} per-item batches); loss '
+              f'{num["loss_first"]:.5f} -> {num["loss_last"]:.5f}; K1 '
+              f'x{counts["K1"]}, K2 x{counts["K2"]} -> ok', flush=True)
+        return num
+
+    # ---- (a) H36M at full width through the catalog, 48 then 56 steps
+    n1, n2 = DATA_STEPS
+    args = load_config(_data_argv('h36m/h36m_prot2.txt', 'h36m', n1))
+    n_samples = args.N_rand // args.N_sample_images
+    if (args.N_rand, args.netwidth) != (DATA_RAYS, 256):
+        raise AssertionError('h36m_prot2.txt is not the full-width '
+                             '3072-ray config')
+    ds = get_dataset_from_catalog(args, n_samples, 'h36m', 'S9',
+                                  source=fixtures['h36m'])
+    prof = DeviceProfiler(os.path.join(root, 'logs', 'h36m'),
+                          start_step=DATA_PROFILE, num_steps=DATA_PROFILE)
+    window = {'hooks_s': 0.0}
+
+    def profile_hooks(rec):
+        # the profiler's start (the tracer's set-up) and its stop (the
+        # trace written) run between two dispatches: their time is left
+        # out of the loop's rate
+        t = time.perf_counter()
+        prof.maybe_stop(rec['step'])
+        if prof.last is not None and 'dt' not in window:
+            window['dt'] = t - window['t0']
+        prof.maybe_start(rec['step'])
+        if prof.active and 't0' not in window:
+            window['t0'] = time.perf_counter()
+        window['hooks_s'] += time.perf_counter() - t
+
+    t0 = time.perf_counter()
+    ctx, recs, counts, _ = run('datasets h36m', _data_argv(
+        'h36m/h36m_prot2.txt', 'h36m', n1), ds, profile_hooks)
+    wall = time.perf_counter() - t0
+    exp = os.path.join(root, 'logs', 'h36m')
+    if not recs[-1]['total_loss'] < recs[0]['total_loss']:
+        raise AssertionError(f'H36M loss does not fall: '
+                             f'{recs[0]["total_loss"]} -> '
+                             f'{recs[-1]["total_loss"]}')
+    back = restore_checkpoint(exp, ctx.state, step=n1)
+    if not _same_state(torch, back, ctx.state):
+        raise AssertionError(f'H36M checkpoint {n1} does not restore bit '
+                             f'for bit')
+    buckets = _val_buckets(ctx)
+    num = report('datasets h36m run 1', ctx, recs, counts, n1, True,
+                 buckets, window['hooks_s'])
+    idle = _profile_report(torch, prof.last, f'datasets h36m dispatches '
+                           f'{DATA_PROFILE + 1}-{2 * DATA_PROFILE} '
+                           '(DeviceProfiler)', window['dt'])
+    if not idle < 1.0 or not os.path.exists(prof.trace_path):
+        raise AssertionError('DeviceProfiler saw no device time')
+    num.update(idle_share=idle, profiled_ms=window['dt'] * 1e3,
+               profiler_hooks_ms=window['hooks_s'] * 1e3,
+               dispatches_ms=[r['dispatch_s'] * 1e3 for r in recs],
+               trace=os.path.relpath(prof.trace_path, root),
+               wall_s=wall, val_buckets=buckets, checks=checks)
+    print(f'datasets h36m run 1: {n1} steps in {wall:.1f} s, checkpoint '
+          f'{n1} restored bit for bit, validation at {n1} ({buckets} '
+          f'buckets); DeviceProfiler trace {num["trace"]} (its start and '
+          f'stop {window["hooks_s"] * 1e3:.1f} ms, left out of the rate); '
+          f'dispatch ms ' + ' '.join(f'{r["dispatch_s"] * 1e3:.1f}'
+                                     for r in recs), flush=True)
+    ctx2, recs2, counts2, out = run('datasets h36m run 2', _data_argv(
+        'h36m/h36m_prot2.txt', 'h36m', n2), ds)
+    if f'resumed from step {n1}' not in out or ctx2.start_step != n1:
+        raise AssertionError(f'H36M run 2 did not resume from {n1}')
+    if (counts2['K1'], counts2['K2']) != (2 * (n2 - n1), 2 * (n2 - n1)):
+        raise AssertionError(f'H36M run 2 launches {counts2}')
+    k1, k2 = counts['K1'] + counts2['K1'], counts['K2'] + counts2['K2']
+    runs['h36m'] = num
+    del ctx, ctx2, back
+
+    # ---- (a') H36M --multiview, twice: bit-equal
+    states = []
+    for i in range(2):
+        mv = H36MDataset(fixtures['h36m'], N_samples=n_samples,
+                         split='full', subject='S9', multiview=True, seed=0)
+        ctx, recs, counts, _ = run(f'datasets h36m multiview {i + 1}',
+                                   _data_argv('h36m/h36m_prot2.txt',
+                                              f'h36m_mv{i}', DATA_SHORT,
+                                              '--multiview',
+                                              '--num_workers', '1'), mv)
+        runs[f'h36m_multiview_{i + 1}'] = report(
+            f'datasets h36m multiview run {i + 1}', ctx, recs, counts,
+            DATA_SHORT, True)
+        k1, k2 = k1 + counts['K1'], k2 + counts['K2']
+        states.append(ctx.state)
+        shape = tuple(ctx.state.pose_params['bones'].shape)
+    if shape[:2] != (n_inst * 2, 23) or \
+            'root_bones' not in states[0].pose_params:
+        raise AssertionError(f'the shared pose table is {shape}')
+    if not _same_state(torch, states[0], states[1]):
+        raise AssertionError('two identical multiview runs differ')
+    print(f'datasets h36m multiview: pose table bones {shape} (shared by '
+          f'the 4 views of each instant), root_bones '
+          f'{tuple(states[0].pose_params["root_bones"].shape)}; two runs '
+          f'bit-equal (params, Adam states, pose accumulators) -> ok',
+          flush=True)
+    del states, ctx
+
+    # ---- (b) the other types, 16 steps each
+    for kind, subject, config, extra in OTHER_TYPES:
+        argv = _data_argv(config, kind, DATA_SHORT, *extra)
+        a = load_config(argv)
+        ds_b = get_dataset_from_catalog(a, a.N_rand // a.N_sample_images,
+                                        kind, subject,
+                                        source=fixtures[kind])
+        ctx, recs, counts, _ = run(f'datasets {kind}', argv, ds_b)
+        runs[kind] = report(f'datasets {kind} ({subject}, '
+                            f'{os.path.basename(config)})', ctx, recs,
+                            counts, DATA_SHORT, kind == 'zju')
+        k1, k2 = k1 + counts['K1'], k2 + counts['K2']
+        del ctx, ds_b
+
+    # ---- (c) a render request from run (a)'s checkpoint 48
+    fr.LAUNCHES = 0
+    cwd = os.getcwd()
+    os.chdir(root)
+    log = open(os.path.join(root, 'render.log'), 'w')
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(log):
+            out = rr.main(['--nerf_args', os.path.join(
+                'logs', 'h36m', 'args.txt'), '--ckptpath', os.path.join(
+                'logs', 'h36m', 'checkpoints'), '--dataset', 'h36m',
+                '--entry', 'S9', '--render_type', 'val', '--selected_idxs',
+                '0', str(4 * n_inst), '--runname', 'h36m_val', '--no_save'],
+                dataset=ds, h5=fixtures['h36m'])
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+        log.close()
+    rays, buckets = _box_rays_buckets(out['bboxes'], args.chunk)
+    if not (np.isfinite(out['rgbs']).all() and out['accs'].min() >= 0.0
+            and out['accs'].max() <= 1.0) or buckets == 0 \
+            or fr.LAUNCHES != 2 * buckets or len(out['rgbs']) != 2:
+        raise AssertionError(f'H36M render: {fr.LAUNCHES} K1 launches for '
+                             f'{buckets} buckets')
+    k1 += fr.LAUNCHES
+    runs['render'] = {'seconds': render_s, 'rays': rays,
+                      'buckets': buckets, 'k1': fr.LAUNCHES,
+                      'shape': list(out['rgbs'].shape)}
+    print(f'datasets h36m render (val, images 0 and {4 * n_inst}, from '
+          f'checkpoint {n1}, session load included): {render_s:.3f} s, '
+          f'{rays} box rays, {buckets} buckets, K1 x{fr.LAUNCHES}, images '
+          f'{tuple(out["rgbs"].shape)} -> ok', flush=True)
+    runs['wall_s'] = time.perf_counter() - t_phase
+    print(f'datasets: K1 x{k1}, K2 x{k2}; phase wall '
+          f'{runs["wall_s"]:.1f} s', flush=True)
+    return k1, k2, runs
+
+
 def _density_probe(torch, np, sess, res=32):
     """The least and the largest raw density of image 0's pose on a
     res^3 version of render_mesh_mode's grid (plain torch, no kernel)."""
@@ -2728,26 +3136,31 @@ def main(argv) -> int:
     del setup
     loop_k1, loop_k2, loop, loop_data = loop_phase(torch, np)
     entry_k1, entry = render_entry_phase(torch, np, loop_data)
+    data_k1, data_k2, datasets = datasets_phase(torch, np, loop_data, cfg,
+                                                params, src)
     del loop_data
 
     k1['launches'] = (render_k1 + train_k1 + cull_k1 + cull_train_k1
-                      + loop_k1 + entry_k1)
-    k2['launches'] = train_k2 + loop_k2
+                      + loop_k1 + entry_k1 + data_k1)
+    k2['launches'] = train_k2 + loop_k2 + data_k2
     k2['bf16']['launches'] = cull_train_k2
     k1['v1']['launches'] = fr.V1_LAUNCHES
     k2['v1']['launches'] = fr.BWD_V1_LAUNCHES
     k1['loop_launches'], k2['loop_launches'] = loop_k1, loop_k2
     k1['render_entry_launches'] = entry_k1
+    k1['datasets_launches'], k2['datasets_launches'] = data_k1, data_k2
     print(f'launches on the main paths: K1 {render_k1} (render requests) + '
           f'{train_k1} (train steps) + {cull_k1} (culled request) + '
           f'{cull_train_k1} (culled train steps) + {loop_k1} (training '
-          f'loop) + {entry_k1} (render entry point), K2 {train_k2} (train '
-          f'steps) + {loop_k2} (training loop), K2-bf16 {cull_train_k2} '
+          f'loop) + {entry_k1} (render entry point) + {data_k1} (dataset '
+          f'types), K2 {train_k2} (train steps) + {loop_k2} (training '
+          f'loop) + {data_k2} (dataset types), K2-bf16 {cull_train_k2} '
           f'(culled train steps), K1-v1 '
           f'{fr.V1_LAUNCHES}, K2-v1 {fr.BWD_V1_LAUNCHES}, K3-v1 '
           f'{fr.RAW_V1_LAUNCHES}, K4-v1 {fm.V1_LAUNCHES}', flush=True)
     print('loop: ' + json.dumps(loop), flush=True)
     print('render entry: ' + json.dumps(entry), flush=True)
+    print('datasets: ' + json.dumps(datasets), flush=True)
     if fr.V1_LAUNCHES or fr.BWD_V1_LAUNCHES or fr.RAW_V1_LAUNCHES \
             or fm.V1_LAUNCHES:
         raise AssertionError('a first version ran on the main path')

@@ -299,13 +299,6 @@ def test_native_sampler_is_built_from_the_ports_source():
         fs.sample_mask_pixels(mask.astype(np.int32), 4, 0)
 
 
-@pytest.mark.parametrize('kind', sorted(tcat.UNPORTED))
-def test_catalog_raises_on_unported_types(kind):
-    args = TrainConfig(dataset_type=(kind,), subject=('x',))
-    with pytest.raises(NotImplementedError, match='Queue 1 item 4'):
-        tcat.get_dataset_from_catalog(args, 8, kind, 'x')
-
-
 def test_load_refined_raises(h5_path, tmp_path):
     """load_refined reads its pose checkpoint (pose/ckpt_compat.py; held
     against the JAX package in tests/test_torch_ckpt_compat.py): a

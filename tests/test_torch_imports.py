@@ -53,9 +53,17 @@ def test_scan_finds_the_port():
                 # the render entry point and the modules behind it
                 'run_render.py', 'render_mesh.py', 'render/catalog.py',
                 'render/modes.py', 'pose/ckpt_compat.py',
-                'utils/marching.py', 'utils/mesh_render.py'):
+                'utils/marching.py', 'utils/mesh_render.py',
+                # the other dataset types, their converters, evaluation
+                'data/h36m.py', 'data/perfcap.py', 'data/mixamo.py',
+                'data/zju.py', 'data/mpi3dhp.py', 'data/process_mask.py',
+                'data/smpl_tables.py', 'data/process_spin.py',
+                'data/process_h36m.py', 'data/process_perfcap.py',
+                'data/process_mixamo.py', 'data/process_zju.py',
+                'data/process_3dhp.py', 'data/process_surreal.py',
+                'utils/eval_helpers.py'):
         assert f'anerf_torch/{mod}' in FILES
-    assert len(FILES) >= 58
+    assert len(FILES) >= 73
     tree = ast.parse('import jax.numpy as jnp\nfrom anerf_tpu.ops import fk')
     assert [m for m in _imported_modules(tree)] == ['jax.numpy',
                                                     'anerf_tpu.ops']
