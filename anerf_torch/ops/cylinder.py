@@ -106,6 +106,28 @@ def get_near_far_in_cylinder(rays_o: torch.Tensor, rays_d: torch.Tensor,
     return new_near, new_far
 
 
+def get_near_far_in_cylinder_np(rays_o, rays_d, cyl, near=0.35, far=2.75):
+    """Host numpy twin of get_near_far_in_cylinder on the (x, z) ground
+    plane: near / far where each ray enters and leaves the circle."""
+    g = [0, -1]
+    r_near = (rays_o + rays_d * near)[..., g]
+    r_far = (rays_o + rays_d * far)[..., g]
+    radius = cyl[..., 2:3]
+    center = cyl[..., :2]
+    nc = center - r_near
+    nf = r_far - r_near
+    nf_norm = np.linalg.norm(nf, axis=-1)
+    scale = np.linalg.norm(rays_d[..., g], axis=-1)[..., None]
+    cross = nc[..., 0] * nf[..., 1] - nc[..., 1] * nf[..., 0]
+    dist = (np.abs(cross) / nf_norm)[..., None]
+    Q = (radius ** 2 - dist ** 2) ** 0.5
+    K = ((nc * nf).sum(-1) / nf_norm)[..., None]
+    mask = (Q < K).astype(np.float32)
+    new_near = near + mask * (K - Q) / scale
+    new_far = near + (K + Q) / scale
+    return new_near, new_far
+
+
 def focal_to_intrinsic_np(focal) -> np.ndarray:
     """(3, 4) projection matrix from focal length(s)."""
     if isinstance(focal, (int, float)) or np.asarray(focal).size < 2:

@@ -119,3 +119,12 @@ def isample_from_lineseg(z_vals: torch.Tensor, weights: torch.Tensor,
     merge_ranks = stable_ranks(z_cat)
     z_all = scatter_rows(z_cat, merge_ranks)
     return z_all, z_samples, merge_ranks
+
+
+def merge_sorted(coarse: torch.Tensor, fine: torch.Tensor,
+                 merge_ranks: torch.Tensor) -> torch.Tensor:
+    """Reorder concatenated per-sample tensors into sorted-z order:
+    coarse (R, S, ...), fine (R, I, ...), merge_ranks (R, S + I) the
+    stable ranks from isample_from_lineseg (a stable sort's inverse).
+    Gradients flow through the scatter."""
+    return scatter_rows(torch.cat([coarse, fine], 1), merge_ranks)

@@ -10,12 +10,14 @@ forward, K2 backward) when training, or K1 alone on operands the caller
 packed once (`packed`, the render path). K2's cotangent products are f32
 unless the MLP fast-grads knob is on (`eff_fast_mlp`: bf16 operands, as
 the JAX package's `bwd_f32=False`). Otherwise plain torch mirrors the
-JAX XLA path (encode_inputs + run_network) and autograd gives its
-backward; that branch has none of the JAX package's custom-backward
-numerics knobs (fast_pe / fast_mlp / alpha_f32 / hifi_pe / sr_grads) and
-raises on them. With `n_keep` < n_samples, `cull_samples` keeps a
-fixed budget of samples per ray before either branch. Randomness draws
-from an explicit torch.Generator.
+JAX XLA path (encode_inputs + run_network) with every encoder kind and
+embedder mode, and autograd gives its backward, through the JAX
+package's custom backwards where its numerics knobs ask for them
+(fast_pe / hifi_pe / remat_pe in ops/embedder.py; fast_mlp / alpha_f32
+/ sr_grads in models/nerf.py). With `n_keep` < n_samples,
+`cull_samples` keeps a fixed budget of samples per ray before either
+branch. Randomness draws from an explicit torch.Generator, the SR keys
+of --sr_grads too.
 """
 from __future__ import annotations
 
@@ -27,12 +29,14 @@ import torch
 from ..kernels.fused_render import (fused_apply, fused_encode_mlp_pts,
                                     pack_ray_data, pack_render_params)
 from ..models.nerf import (NeRFConfig, _dense, apply_nerf, forward_density,
-                           lookup_framecodes)
+                           lookup_framecodes, sr_salt)
 from ..ops.compositing import get_density_fn, raw2outputs
 from ..ops.cylinder import get_near_far_in_cylinder
 from ..ops.embedder import EmbedConfig, embed
-from ..ops.encoding import (_expand3, _group3_sumsq, make_bone_encoder,
-                            rot_cols, rotate_flat, transform_batch_pts_flat)
+from ..ops.encoding import (_expand3, _group3_sumsq, _norm, make_bone_encoder,
+                            make_kp_encoder, make_view_encoder, rot_cols,
+                            rotate_flat, transform_batch_pts,
+                            transform_batch_pts_flat, transform_batch_rays)
 from ..ops.sampling import (isample_from_lineseg, sample_from_lineseg,
                             scatter_rows)
 from ..skeleton import Skeleton, SMPLSkeleton
@@ -93,61 +97,85 @@ class RenderConfig:
 
 
 def encode_inputs(cfg: RenderConfig, pts: torch.Tensor,
-                  rays_d: torch.Tensor, skts: torch.Tensor,
-                  cutoff_dist: torch.Tensor, tau, views: bool = True
+                  rays_d: torch.Tensor, kps: torch.Tensor,
+                  skts: torch.Tensor, bones: Optional[torch.Tensor],
+                  cutoff_dist: torch.Tensor, tau, alpha_sched=None,
+                  views: bool = True
                   ) -> Dict[str, Optional[torch.Tensor]]:
-    """Skeleton-relative encoding of query points on the flat joint-major
-    path: pts (R, S, 3), rays_d (R, 1, 3), skts (R, J, 4, 4).
-    Returns {'v', 'r', 'd'} embedded features in the compute dtype; 'd'
-    is None with views=False (a density query, which never reads it)."""
-    if not (cfg.kp_dist_type == 'reldist'
-            and cfg.bone_type in ('reldir', 'Nope')
-            and cfg.view_type == 'relray'):
-        raise NotImplementedError(
-            'anerf_torch encode_inputs: only the reldist/reldir/relray '
-            'encoder family is ported yet')
-    if cfg.eff_fast_pe or cfg.hifi_pe:
-        raise NotImplementedError('the plain branch has no bf16 PE '
-                                  'emission or backward (fast_pe / '
-                                  'fast_grads / hifi_pe); use_fused runs '
-                                  'without them')
-    J = cfg.skel.n_joints
-    _, bone_dims = make_bone_encoder(cfg.bone_type, cfg.skel)
-    pts_tf = transform_batch_pts_flat(pts, skts)              # (R, S, J*3)
-    v = torch.sqrt(torch.clamp_min(_group3_sumsq(pts_tf, J), 0.0))
-    r = None
-    if bone_dims > 0:
-        r = pts_tf * _expand3(1.0 / torch.clamp_min(v, 1e-12), J)
+    """Skeleton-relative encoding of query points: pts (R, S, 3), rays_d
+    (R, 1, 3), kps (R, J, 3), skts (R, J, 4, 4), bones (R, J, 3) (read by
+    'axisang' only). The reldist / reldir|Nope / relray family takes the
+    flat joint-major path, every other the (R, S, J, 3) one. alpha_sched
+    is the frequency schedule's value (None at render time). Returns
+    {'v', 'r', 'd'} embedded features in the compute dtype; 'd' is None
+    with views=False (a density query, which never reads it).
 
-    enc_dtype = cfg.dtype or torch.float32
-    v_e, _ = embed(cfg.embed_kp, v, dists=v, cutoff_dist=cutoff_dist,
-                   tau=tau)
-    r_e = None
+    'world' gets the world-frame ray direction: the JAX package hands it
+    the per-joint rays, 24 times the width its spec declares, and fails
+    in the MLP's first view layer."""
+    kp_spec, _, _ = make_kp_encoder(cfg.kp_dist_type, cfg.skel)
+    bone_spec, bone_dims = make_bone_encoder(cfg.bone_type, cfg.skel)
+    view_spec, _ = make_view_encoder(cfg.view_type, cfg.skel)
+    views = views and cfg.use_viewdirs and cfg.embed_view is not None
+    J = cfg.skel.n_joints
+    r = d = None
+    if (cfg.kp_dist_type == 'reldist' and cfg.bone_type in ('reldir', 'Nope')
+            and cfg.view_type == 'relray'):
+        pts_tf = transform_batch_pts_flat(pts, skts)          # (R, S, J*3)
+        v = torch.sqrt(torch.clamp_min(_group3_sumsq(pts_tf, J), 0.0))
+        if bone_dims > 0:
+            r = pts_tf * _expand3(1.0 / torch.clamp_min(v, 1e-12), J)
+        if views:
+            rays_f = rotate_flat(rays_d, rot_cols(skts))      # (R, 1, J*3)
+            dss = _group3_sumsq(rays_f, J)
+            d = rays_f * _expand3(torch.rsqrt(torch.clamp_min(dss, 1e-24)),
+                                  J)
+        j_dists = v
+    else:
+        pts_t = transform_batch_pts(pts, skts)                # (R, S, J, 3)
+        v = kp_spec(pts, pts_t, kps)
+        if bone_dims > 0:
+            r = bone_spec(pts_t, bones=bones, refs=pts)
+        if views:
+            rays_t = (rays_d if cfg.view_type == 'world'
+                      else transform_batch_rays(rays_d, skts))
+            d = view_spec(rays_t, pts_t=pts_t,
+                          refs=None if cfg.view_type == 'relray' else pts)
+        # per-joint distances for the cutoff windows
+        j_dists = (v if 'Dist' in kp_spec.name
+                   else _norm(pts[:, :, None] - kps[:, None]))
+
+    # PE numerics: bf16 emission and backward with fast_pe; hifi_pe keeps
+    # the default forward and lowers only the backward; remat_pe keeps
+    # both f32 and recomputes sin / cos in the backward
+    dt = cfg.dtype
+    pe_dtype = dt if cfg.eff_fast_pe else None
+    hifi = cfg.hifi_pe and dt is not None
+    remat = cfg.remat_pe and dt is not None and pe_dtype is None and not hifi
+    pe_kw = dict(dists=j_dists, cutoff_dist=cutoff_dist, tau=tau,
+                 alpha=alpha_sched, out_dtype=pe_dtype,
+                 hifi_dtype=dt if hifi else None,
+                 remat_dtype=dt if remat else None)
+    enc_dtype = dt or torch.float32
+    v_e = embed(cfg.embed_kp, v, **pe_kw)[0].to(enc_dtype)
+    r_e = d_e = None
     if r is not None and cfg.embed_bone is not None:
-        r_e, _ = embed(cfg.embed_bone, r, dists=v, cutoff_dist=cutoff_dist,
-                       tau=tau)
-        r_e = r_e.to(enc_dtype)
-    d_e = None
-    if views and cfg.use_viewdirs and cfg.embed_view is not None:
-        rays_f = rotate_flat(rays_d, rot_cols(skts))          # (R, 1, J*3)
-        dss = _group3_sumsq(rays_f, J)
-        d = rays_f * _expand3(torch.rsqrt(torch.clamp_min(dss, 1e-24)), J)
-        d_e, _ = embed(cfg.embed_view, d, dists=v, cutoff_dist=cutoff_dist,
-                       tau=tau)
-        d_e = d_e.to(enc_dtype).expand(pts.shape[0], pts.shape[1],
-                                       d_e.shape[-1])
-    return {'v': v_e.to(enc_dtype), 'r': r_e, 'd': d_e}
+        r_e = embed(cfg.embed_bone, r, **pe_kw)[0].to(enc_dtype)
+    if d is not None:
+        d_e = embed(cfg.embed_view, d, **pe_kw)[0].to(enc_dtype)
+        if d_e.shape[1] == 1:
+            d_e = d_e.expand(pts.shape[0], pts.shape[1], d_e.shape[-1])
+    return {'v': v_e, 'r': r_e, 'd': d_e}
 
 
 def run_network(cfg: RenderConfig, params: Dict[str, Any],
                 encoded: Dict[str, Optional[torch.Tensor]],
-                framecodes: Optional[torch.Tensor]) -> torch.Tensor:
-    """Concatenate encodings and apply the MLP over all (R, S) points."""
-    if cfg.eff_fast_mlp or cfg.alpha_f32 or cfg.sr_grads:
-        raise NotImplementedError('the plain branch has no bf16 MLP '
-                                  'cotangents (fast_mlp / fast_grads / '
-                                  'alpha_f32 / sr_grads); use_fused gives '
-                                  'fast_mlp its bf16 K2 flavour')
+                framecodes: Optional[torch.Tensor],
+                sr_key: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Concatenate encodings and apply the MLP over all (R, S) points.
+    The MLP's cotangents are bf16 with eff_fast_mlp, stochastically
+    rounded with sr_grads and a key (which implies fast_grads there, as
+    in the JAX package); alpha_f32 keeps the alpha head's f32."""
     parts = [encoded['v']]
     if encoded['r'] is not None:
         parts.append(encoded['r'])
@@ -156,8 +184,12 @@ def run_network(cfg: RenderConfig, params: Dict[str, Any],
     if framecodes is not None:
         fc = framecodes[:, None].expand(pts_in.shape[0], pts_in.shape[1],
                                         framecodes.shape[-1])
+    use_sr = cfg.sr_grads and sr_key is not None
     return apply_nerf(params, cfg.nerf, pts_in, encoded['d'], fc,
-                      compute_dtype=cfg.dtype)
+                      compute_dtype=cfg.dtype,
+                      fast_grads=cfg.eff_fast_mlp or use_sr,
+                      alpha_f32=cfg.alpha_f32,
+                      sr_key=sr_key if use_sr else None)
 
 
 def pack_fused_params(params: Dict[str, Any], cfg: RenderConfig
@@ -236,6 +268,7 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig,
                 cam_idxs: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
                 tau=2000.0,
+                alpha_sched=None,
                 eval_framecode_mean: bool = False,
                 packed: Optional[Dict[str, Any]] = None,
                 ) -> Dict[str, torch.Tensor]:
@@ -246,8 +279,11 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig,
     without it the fused branch goes through fused_apply, whose backward
     is K2. Returns rgb_map / disp_map /
     acc_map / alpha (+ the coarse rgb0 / disp0 / acc0 / alpha0).
-    kp_batch (R, J, 3) is read only by `cull_samples`; bones is accepted
-    for the JAX signature (the ported reldist encoders do not read it)."""
+    kp_batch (R, J, 3) is read by `cull_samples` and the encoders that
+    need the joints, bones (R, J, 3) by 'axisang'; alpha_sched is the
+    frequency schedule's value (None at render time). With sr_grads on
+    the plain branch, the coarse and the fine net's SR keys are drawn
+    from `generator` (none without it: the deterministic fast path)."""
     if generator is None and (cfg.perturb > 0.0 or cfg.raw_noise_std > 0.0
                               or cfg.ray_noise_std > 0.0):
         raise ValueError('a stochastic RenderConfig needs a generator; '
@@ -293,9 +329,14 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig,
         m_all, aux = pack_ray_data(rays_d[:, None, :], skts, framecodes)
         raw = net('coarse', pts, aux)
     else:
-        encoded = encode_inputs(cfg, pts, rays_d[:, None, :], skts,
-                                cutoff_dist, tau)
-        raw = run_network(cfg, params['coarse'], encoded, framecodes)
+        enc = lambda p: encode_inputs(cfg, p, rays_d[:, None, :], kp_batch,
+                                      skts, bones, cutoff_dist, tau,
+                                      alpha_sched)
+        draw_sr = cfg.sr_grads and generator is not None
+        sr_key = lambda: sr_salt(generator) if draw_sr else None
+        encoded = enc(pts)
+        raw = run_network(cfg, params['coarse'], encoded, framecodes,
+                          sr_key())
     ret = raw2outputs(raw, z_vals, rays_d, cfg.raw_noise_std, generator,
                       cfg.density_scale, act_fn, cfg.rgb_eps)
 
@@ -324,16 +365,15 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig,
             else:
                 raw_all = torch.cat([raw, net('coarse', pts_is, aux)], 1)
         elif not cfg.single_net:
-            encoded_is = encode_inputs(cfg, pts_is, rays_d[:, None, :],
-                                       skts, cutoff_dist, tau)
+            encoded_is = enc(pts_is)
             cat_enc = {k: torch.cat([encoded[k], encoded_is[k]], 1)
                        if encoded[k] is not None else None
                        for k in encoded}
-            raw_all = run_network(cfg, fine_params, cat_enc, fc_fine)
+            raw_all = run_network(cfg, fine_params, cat_enc, fc_fine,
+                                  sr_key())
         else:
-            encoded_is = encode_inputs(cfg, pts_is, rays_d[:, None, :],
-                                       skts, cutoff_dist, tau)
-            raw_is = run_network(cfg, fine_params, encoded_is, fc_fine)
+            raw_is = run_network(cfg, fine_params, enc(pts_is), fc_fine,
+                                 sr_key())
             raw_all = torch.cat([raw, raw_is], 1)
         raw_fine = scatter_rows(raw_all, merge_ranks)
         ret = raw2outputs(raw_fine, z_all, rays_d, cfg.raw_noise_std,
@@ -366,8 +406,7 @@ def render_pts_density(params: Dict[str, Any], cfg: RenderConfig,
 
     pts: (R, S, 3) with skts broadcast (R may be 1). Returns (R, S, 1)
     f32. The points go through the encoder and the density trunk `chunk`
-    at a time along S. kps and bones are accepted for the JAX signature
-    (the ported reldist encoders do not read them)."""
+    at a time along S."""
     cutoff_dist = params['cutoff_dist']
     net = params['fine'] if (use_fine and params.get('fine') is not None) \
         else params['coarse']
@@ -375,8 +414,8 @@ def render_pts_density(params: Dict[str, Any], cfg: RenderConfig,
     outs = []
     for s0 in range(0, pts.shape[1], chunk):
         p = pts[:, s0:s0 + chunk]
-        encoded = encode_inputs(cfg, p, zeros_d, skts, cutoff_dist, tau,
-                                views=False)
+        encoded = encode_inputs(cfg, p, zeros_d, kps, skts, bones,
+                                cutoff_dist, tau, views=False)
         parts = [encoded['v']]
         if encoded['r'] is not None:
             parts.append(encoded['r'])

@@ -145,13 +145,10 @@ def make_train_step(args: TrainConfig, cfg: RenderConfig,
     then), detaching the pose params (reference popt_detach,
     trainer.py:240).
     """
-    if cfg.embed_kp.freq_schedule:
-        raise NotImplementedError('the frequency schedule (freq_schedule) '
-                                  'is not ported yet')
     use_pose = pose_cfg is not None and not pose_frozen and args.opt_pose
 
     def loss_fn(params, pose_params, batch, generator, step):
-        tau, _ = derive_schedules(args, cfg, step, tau_fixed)
+        tau, alpha = derive_schedules(args, cfg, step, tau_fixed)
         if pose_cfg is not None:
             pp = pose_params if use_pose else _detached(pose_params)
             kps_i, bones_i, skts_i, _, rots_i = fk_lookup(
@@ -167,7 +164,7 @@ def make_train_step(args: TrainConfig, cfg: RenderConfig,
             params, cfg, batch['rays'], per_ray['kp3d'], per_ray['skts'],
             per_ray['bones'], per_ray['cyls'],
             cam_idxs=batch.get('cam_idxs') if args.opt_framecode else None,
-            generator=generator, tau=tau)
+            generator=generator, tau=tau, alpha_sched=alpha)
 
         losses, stats = compute_nerf_loss(args, batch, preds['rgb_map'],
                                           preds['acc_map'])

@@ -4,7 +4,7 @@
 
 Phases (any failure exits non-zero and prints no result):
   1. device: needs CUDA; prints the card and its power limit, turns TF32
-     off, builds the hand-written kernels from the checkout (one nvcc per
+     and cuBLAS's reduced-precision bf16 sums off, builds the hand-written kernels from the checkout (one nvcc per
      source, started together; sm_90a).
   2. kernels: K1 (fused_encode_mlp_pts, the wgmma kernel) and K1-v1 (its
      first, mma.sync version, kept as the comparison) against their plain
@@ -98,6 +98,22 @@ Phases (any failure exits non-zero and prints no result):
      --multiview twice (bit-equal), MonoPerfCap, Mixamo, ZJU and 3DHP 16
      steps each, and a run_render val request through the h36m / S9 render
      catalog entry (datasets_phase).
+ 10. plain-branch knobs (knobs_phase), the flagship's width (8 x 256,
+     multires 7 / 4, 64 + 16 samples, N_rand 2048) with the fused kernel
+     off: (a) the JAX bench's headline_xla (cull_ratio 0.125,
+     fast_grads): one step's gradients on 256 rays against the fused
+     step (K1 + K2-bf16) within STEP_GRAD_RTOL (max) and KNOB_FRO
+     (Frobenius), N_KNOB_STEPS steps finite with the loss falling and no
+     K1 / K2 launch, ms and rays/s beside phase 6's fused step, one
+     step's idle share under torch.profiler; (b) sr_grads: the SR cast of
+     a fixed tensor and key on the card bit-equal to the CPU's, then
+     N_KNOB_STEPS steps; (c) hifi_pe and remat_pe (culled, no
+     fast_grads): the 256-ray forward bit-equal to the default's,
+     remat_pe's gradients within REMAT_RTOL, and one step each of
+     fast_pe and alpha_f32; (d) KNOB_ENCODERS (relpos, cat, querypts,
+     axisang, rayangle, world, freq_schedule, normalize, cut_to_cutoff,
+     shift_inputs) N_ENCODER_STEPS steps each, unculled: finite, loss
+     falling.
 With --profile, one request and one train step run again under
 torch.profiler, and for each the device-busy share and the top kernels
 by device time are printed.
@@ -1554,7 +1570,7 @@ def _flagship_train(torch, np, **overrides):
     args, cfg, params, rest, bones, kp3d, _ = flagship(
         n_frames, N_rand=n_rays, N_sample_images=n_frames, **overrides)
     cyls = get_kp_bounding_cylinder(kp3d, ext_scale=0.001, head='y')
-    pose_cfg = PoseOptConfig(use_rot6d=True)
+    pose_cfg = PoseOptConfig(use_rot6d=args.opt_rot6d)
     opt = make_nerf_optimizer(args.lrate, args.lrate_decay,
                               args.lrate_decay_rate, args.decay_unit)
     popt = make_pose_optimizer(args.opt_pose_lrate,
@@ -1594,11 +1610,11 @@ def _flagship_train(torch, np, **overrides):
             state, opt, popt, batch)
 
 
-def _step_grads(torch, setup, tcfg, R=256):
+def _step_grads(torch, setup, tcfg, R=256, outputs=False):
     """One step's loss (the two rgb MSEs) on the first R rays in test
     mode through render_rays with `tcfg`: its gradients w.r.t. every
     param leaf (ravel order: 'coarse', 'cutoff_dist', 'fine') and the
-    per-ray skts."""
+    per-ray skts (with `outputs`, also render_rays' outputs)."""
     from anerf_torch.pose.pose_opt import fk_lookup
     from anerf_torch.render.raycaster import render_rays
     from anerf_torch.train.state import tree_leaves
@@ -1624,6 +1640,8 @@ def _step_grads(torch, setup, tcfg, R=256):
     grads = torch.autograd.grad(loss, leaves + [sk], allow_unused=True)
     for x in leaves:
         x.requires_grad_(False)
+    if outputs:
+        return grads, {k: v.detach() for k, v in out.items()}
     return grads
 
 
@@ -1703,13 +1721,15 @@ def culled_k2_check(torch, np, setup):
 
 def train_phase(torch, np, setup, profile=False, n_steps=N_TRAIN_STEPS,
                 label='train'):
-    """n_steps steps of make_train_step on the fused branch; the counts
-    are set to 0 just before each step and read just after it: two K1
+    """n_steps steps of make_train_step; the counts are set to 0 just
+    before each step and read just after it: on the fused branch two K1
     and two K2 launches a step, all of K2's in the flavour the config
-    asks for (bf16 with eff_fast_mlp). With `profile`, one more step runs
-    under the profiler afterwards. Returns (K1 launches, K2 launches,
-    median step seconds, the profiled step's idle share or None)."""
+    asks for (bf16 with eff_fast_mlp), on the plain branch none. With
+    `profile`, one more step runs under the profiler afterwards. Returns
+    (K1 launches, K2 launches, median step seconds, the profiled step's
+    idle share or None)."""
     from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.train.state import flatten_tree
     from anerf_torch.train.trainer import make_train_step
 
     args, cfg, pose_cfg, rest, state, opt, popt, batch = setup
@@ -1718,7 +1738,7 @@ def train_phase(torch, np, setup, profile=False, n_steps=N_TRAIN_STEPS,
     bf16 = cfg.eff_fast_mlp
     losses, times, k1, k2 = [], [], 0, 0
     for i in range(n_steps):
-        pelvis = state.pose_params['pelvis'].clone()
+        poses = flatten_tree(state.pose_params)
         fr.LAUNCHES = fr.BWD_LAUNCHES = fr.BWD_BF16_LAUNCHES = 0
         t0 = time.perf_counter()
         state, out = step(state, batch, gen)
@@ -1730,7 +1750,7 @@ def train_phase(torch, np, setup, profile=False, n_steps=N_TRAIN_STEPS,
         k1, k2 = k1 + n1, k2 + n2
         loss = out['losses']['total_loss'].item()
         acc = out['stats']['alpha'].item()
-        moved = not torch.equal(pelvis, state.pose_params['pelvis'])
+        moved = not torch.equal(poses, flatten_tree(state.pose_params))
         losses.append(loss)
         print(f'{label} step {i}: loss {loss:.5f} psnr '
               f'{out["stats"]["psnr"].item():.3f} acc mean {acc:.4f} '
@@ -1740,7 +1760,8 @@ def train_phase(torch, np, setup, profile=False, n_steps=N_TRAIN_STEPS,
               f'{"moved" if moved else "kept"}', flush=True)
         if not np.isfinite(loss) or not 0.0 <= acc <= 1.0:
             raise AssertionError(f'step {i}: loss {loss}, acc {acc}')
-        if (n1, n2, other) != (2, 2, 0):
+        want = (2, 2, 0) if cfg.use_fused else (0, 0, 0)
+        if (n1, n2, other) != want:
             raise AssertionError(f'step {i}: {n1} K1, {n2} K2 and {other} '
                                  f'K2 of the other flavour')
         if moved != (i % args.opt_pose_step == 0):
@@ -1749,6 +1770,11 @@ def train_phase(torch, np, setup, profile=False, n_steps=N_TRAIN_STEPS,
     if not np.mean(losses[-5:]) < losses[0]:
         raise AssertionError(f'loss does not fall: {losses}')
     t = sorted(times[2:])[len(times[2:]) // 2]
+    finite = all(torch.isfinite(flatten_tree(x)).all().item()
+                 for x in (state.params, state.pose_params))
+    if not finite:
+        raise AssertionError(f'{label}: non-finite params after {n_steps} '
+                             f'steps')
     print(f'{label}: {n_steps} steps, loss {losses[0]:.5f} -> mean of '
           f'the last five {np.mean(losses[-5:]):.5f}; median step '
           f'{t * 1e3:.2f} ms = {args.N_rand / t:.1f} rays/s (steps 2..)',
@@ -1797,6 +1823,193 @@ def _profile_report(torch, prof, label, dt):
         print(f'  {dev_us / 1e3:10.3f} ms {100 * dev_us / 1e3 / busy_ms:5.1f}%'
               f' x{count:<6d} {key[:90]}', flush=True)
     return 1.0 - busy_ms / (dt * 1e3)
+
+
+# phase 10, the plain branch's knobs. The (d) configurations: every
+# encoder kind and PE mode of the JAX package at least once (the fused
+# branch refuses them all); 'cat' needs use_cutoff off (its 75 inputs are
+# not a multiple of the 24 joints' windows), 'querypts' and 'world' a view
+# window off (theirs are 3 wide), 'axisang' axis-angle poses (rot6d bones
+# are 6 wide)
+KNOB_ENCODERS = (
+    ('relpos / axisang / rayangle, freq_schedule, normalize',
+     dict(kp_dist_type='relpos', bone_type='axisang', view_type='rayangle',
+          cutoff_bones=True, freq_schedule=True, normalize_cutoff=True,
+          opt_rot6d=False)),
+    ('cat / reldir / world', dict(kp_dist_type='cat', view_type='world',
+                                  use_cutoff=False)),
+    ('querypts / Nope / relray, cut_to_cutoff, shift_inputs',
+     dict(kp_dist_type='querypts', bone_type='Nope', cut_to_dist=True,
+          cutoff_shift=True, cutoff_viewdir=False)),
+)
+N_KNOB_STEPS = 20
+N_ENCODER_STEPS = 8
+# (a)'s fused (K1 + K2-bf16) vs plain fast_grads step gradients, worst
+# relative Frobenius distance of a leaf (STEP_GRAD_RTOL bounds the max).
+# K2_FRO does not fit: the branches round at other points (the fused
+# kernels keep each product in f32 before the bf16 activation, the plain
+# branch rounds the product to bf16 as XLA does; fast_grads adds bf16
+# cotangent roundings at other sites in each). A CPU run with the
+# kernels' plain versions on this phase's 256 rays read 2.3e-2, and the
+# same pair without fast_grads (fused f32 vs plain default) already 1.9e-2
+# (plain fast_grads vs plain default: 2.0e-2); an H100 read 2.0e-2.
+# 4e-2 is 1.75x the largest reading.
+KNOB_FRO = 4e-2
+# remat_pe's gradients vs the default's (autograd through the same f32
+# chain), worst max relative over the leaves and skts: the two differ by
+# f32 summation order alone (observed 1.8e-7 on the CPU test's inputs,
+# tests/test_torch_knobs.py)
+REMAT_RTOL = 1e-5
+
+
+def _sr_card_vs_cpu(torch, np):
+    """_sr_cast of a fixed (2048 x 256) tensor and key on the card against
+    the CPU's, bit for bit (the hash's int64 arithmetic on both)."""
+    from anerf_torch.models.nerf import _sr_cast
+    rng = np.random.default_rng(11)
+    x = torch.as_tensor(rng.normal(size=(2048, 256)).astype(np.float32)
+                        * 30.0)
+    key = torch.as_tensor(np.array([0x9E3779B9, 12345], np.uint32).view(
+        np.int32))
+    cpu = _sr_cast(x, key).float().view(torch.int32)
+    card = _sr_cast(x.cuda(), key.cuda()).float().view(torch.int32).cpu()
+    if not torch.equal(cpu, card):
+        raise AssertionError(f'SR cast: card differs from the CPU in '
+                             f'{int((cpu != card).sum())} elements')
+    ups = int((card != x.to(torch.bfloat16).float().view(torch.int32)).sum())
+    print(f'SR cast (2048 x 256, one key): card == CPU bit for bit; '
+          f'{ups} of {x.numel()} elements off round-to-nearest -> ok',
+          flush=True)
+
+
+def _one_step(torch, np, setup, label):
+    """One plain-branch make_train_step step: finite loss, no kernel."""
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.train.trainer import make_train_step
+
+    args, cfg, pose_cfg, rest, state, opt, popt, batch = setup
+    step = make_train_step(args, cfg, pose_cfg, rest, opt, popt)
+    fr.LAUNCHES = fr.BWD_LAUNCHES = fr.BWD_BF16_LAUNCHES = 0
+    t0 = time.perf_counter()
+    _, out = step(state, batch, torch.Generator(device='cuda').manual_seed(0))
+    loss = out['losses']['total_loss'].item()
+    dt = time.perf_counter() - t0
+    n = (fr.LAUNCHES, fr.BWD_LAUNCHES, fr.BWD_BF16_LAUNCHES)
+    print(f'{label}: one step, loss {loss:.5f}, {dt * 1e3:.1f} ms '
+          f'(first call), kernel launches {n}', flush=True)
+    if not np.isfinite(loss) or n != (0, 0, 0):
+        raise AssertionError(f'{label}: loss {loss}, launches {n}')
+
+
+def knobs_phase(torch, np, fused_step_s):
+    """Phase 10: the plain branch at the settings only it runs, at the
+    flagship's width (8 x 256, multires 7 / 4, 64 + 16 samples, N_rand
+    2048). (a) JAX's headline_xla (cull_ratio 0.125, fast_grads, no fused
+    kernel): one step's gradients against the fused step (K1 + K2-bf16)
+    on the same batch, N_KNOB_STEPS steps with no kernel launched, ms
+    and rays/s beside phase 6's fused step, one step's idle share. (b)
+    sr_grads on that step: the SR cast on the card equal to the CPU's,
+    N_KNOB_STEPS steps. (c) hifi_pe and remat_pe (culled, no fast_grads):
+    forwards bit-equal to the default's, remat's gradients within
+    REMAT_RTOL; fast_pe and alpha_f32 one step each. (d) KNOB_ENCODERS,
+    N_ENCODER_STEPS steps each, unculled. Returns the phase's numbers."""
+    import dataclasses
+
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.train.state import tree_leaves
+
+    t_phase = time.perf_counter()
+    rec = {}
+    setup = _flagship_train(torch, np, cull_ratio=0.125, fast_grads=True,
+                            fused_kernel=False)
+    cfg = setup[1]
+    if cfg.use_fused or cfg.n_keep != 8 or not cfg.eff_fast_pe:
+        raise AssertionError('phase 10 (a) is not headline_xla')
+    fr.LAUNCHES = fr.BWD_LAUNCHES = fr.BWD_BF16_LAUNCHES = 0
+    want = _step_grads(torch, setup, cfg.test_mode())
+    torch.cuda.synchronize()
+    plain_n = (fr.LAUNCHES, fr.BWD_LAUNCHES, fr.BWD_BF16_LAUNCHES)
+    got = _step_grads(torch, setup, dataclasses.replace(cfg.test_mode(),
+                                                        use_fused=True))
+    if plain_n != (0, 0, 0):
+        raise AssertionError(f'plain headline_xla step launched {plain_n}')
+    worst, fro, rel = _compare_step_grads(
+        torch, setup, got, want, 'fused (K1 + K2-bf16) vs plain fast_grads',
+        KNOB_FRO)
+    print(f'(a) headline_xla step gradients, fused (K1 + K2-bf16) vs plain '
+          f'fast_grads (256 rays, S = 8 + 24): worst max_rel {worst:.3e} '
+          f'(tol {STEP_GRAD_RTOL}), worst fro {fro:.3e} (tol {KNOB_FRO}), '
+          f'skts {rel:.3e}; plain launches {plain_n} -> ok', flush=True)
+    _, _, step_s, idle = train_phase(torch, np, setup, profile=True,
+                                     n_steps=N_KNOB_STEPS,
+                                     label='(a) plain headline_xla train')
+    rays = setup[0].N_rand
+    rec['headline_xla'] = {'step_ms': step_s * 1e3,
+                           'rays_per_s': rays / step_s, 'idle_share': idle,
+                           'fused_step_ms': fused_step_s * 1e3,
+                           'grad_max_rel': worst, 'grad_fro': fro}
+    print(f'(a) plain headline_xla: {step_s * 1e3:.2f} ms/step = '
+          f'{rays / step_s:.1f} rays/s, device idle share {idle:.3f}; '
+          f'fused (phase 6) {fused_step_s * 1e3:.2f} ms/step = '
+          f'{rays / fused_step_s:.1f} rays/s', flush=True)
+    del setup
+
+    _sr_card_vs_cpu(torch, np)
+    setup = _flagship_train(torch, np, cull_ratio=0.125, fast_grads=True,
+                            fused_kernel=False, sr_grads=True)
+    _, _, sr_s, _ = train_phase(torch, np, setup, n_steps=N_KNOB_STEPS,
+                                label='(b) plain sr_grads train')
+    rec['sr_grads'] = {'step_ms': sr_s * 1e3, 'rays_per_s': rays / sr_s}
+    print(f'(b) sr_grads: {sr_s * 1e3:.2f} ms/step beside (a) '
+          f'{step_s * 1e3:.2f} ms/step', flush=True)
+    del setup
+
+    setup = _flagship_train(torch, np, cull_ratio=0.125, fused_kernel=False)
+    cfg = setup[1].test_mode()
+    base_g, base_out = _step_grads(torch, setup, cfg, outputs=True)
+    for knob in ('hifi_pe', 'remat_pe'):
+        g, out = _step_grads(torch, setup,
+                             dataclasses.replace(cfg, **{knob: True}),
+                             outputs=True)
+        same = all(torch.equal(out[k], base_out[k]) for k in base_out)
+        if not same:
+            raise AssertionError(f'(c) {knob}: forward not bit-equal to '
+                                 f'the default')
+        if knob == 'remat_pe':
+            rels = [((a - b).abs().max() / b.abs().max().clamp_min(1e-30)
+                     ).item() for a, b in zip(g, base_g) if b is not None]
+            rec['remat_grad_max_rel'] = max(rels)
+            if not max(rels) < REMAT_RTOL:
+                raise AssertionError(f'(c) remat_pe gradients: max rel '
+                                     f'{max(rels):.3e}')
+    print(f'(c) hifi_pe and remat_pe forwards bit-equal to the default '
+          f'(256 rays, culled); remat_pe gradients worst max_rel '
+          f'{rec["remat_grad_max_rel"]:.3e} (tol {REMAT_RTOL}, '
+          f'{len(tree_leaves(setup[4].params))} leaves + skts) -> ok',
+          flush=True)
+    del setup
+    for knob in ('fast_pe', 'alpha_f32'):
+        over = dict(fast_mlp=True) if knob == 'alpha_f32' else {}
+        setup = _flagship_train(torch, np, cull_ratio=0.125,
+                                fused_kernel=False, **{knob: True}, **over)
+        _one_step(torch, np, setup, f'(c) {knob}')
+        del setup
+
+    rec['encoders'] = {}
+    for name, over in KNOB_ENCODERS:
+        setup = _flagship_train(torch, np, fused_kernel=False, **over)
+        ncfg = setup[1].nerf
+        _, _, enc_s, _ = train_phase(torch, np, setup,
+                                     n_steps=N_ENCODER_STEPS,
+                                     label=f'(d) {name}')
+        rec['encoders'][name] = {'step_ms': enc_s * 1e3,
+                                 'dnet_input': ncfg.dnet_input,
+                                 'input_ch_views': ncfg.input_ch_views}
+        del setup
+    rec['seconds'] = time.perf_counter() - t_phase
+    print(f'phase 10 (plain-branch knobs) took {rec["seconds"]:.1f} s',
+          flush=True)
+    return rec
 
 
 # the loop phase: python -m anerf_torch.run_nerf's main on the synthetic
@@ -3057,9 +3270,14 @@ def main(argv) -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the plain branch's bf16 products sum in f32, as XLA's do
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     print(f'torch {torch.__version__} cuda {torch.version.cuda}; '
           f'tf32 matmul={torch.backends.cuda.matmul.allow_tf32} '
-          f'cudnn={torch.backends.cudnn.allow_tf32}', flush=True)
+          f'cudnn={torch.backends.cudnn.allow_tf32}; bf16 reduced-precision '
+          f'reduction='
+          f'{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}',
+          flush=True)
     card = subprocess.run(
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
@@ -3139,6 +3357,7 @@ def main(argv) -> int:
     data_k1, data_k2, datasets = datasets_phase(torch, np, loop_data, cfg,
                                                 params, src)
     del loop_data
+    knobs = knobs_phase(torch, np, cull_step_s)
 
     k1['launches'] = (render_k1 + train_k1 + cull_k1 + cull_train_k1
                       + loop_k1 + entry_k1 + data_k1)
@@ -3161,6 +3380,7 @@ def main(argv) -> int:
     print('loop: ' + json.dumps(loop), flush=True)
     print('render entry: ' + json.dumps(entry), flush=True)
     print('datasets: ' + json.dumps(datasets), flush=True)
+    print('knobs: ' + json.dumps(knobs), flush=True)
     if fr.V1_LAUNCHES or fr.BWD_V1_LAUNCHES or fr.RAW_V1_LAUNCHES \
             or fm.V1_LAUNCHES:
         raise AssertionError('a first version ran on the main path')

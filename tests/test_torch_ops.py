@@ -185,13 +185,22 @@ def test_embed_cutoff_modes(rng, tau):
     np.testing.assert_allclose(_n(got), want, **PE)
 
 
-def test_embed_unported_modes_raise():
-    cfg, _ = temb.make_embedder(4, 24, 0, {'cutoff': True,
-                                           'cutoff_inputs': True,
-                                           'freq_schedule': True})
-    x = torch.zeros((2, 24))
-    with pytest.raises(NotImplementedError):
-        temb.embed(cfg, x, dists=x, cutoff_dist=torch.ones(24), tau=1.0)
+@pytest.mark.parametrize('alpha', [0.0, 1.5, 3.0])
+def test_embed_freq_schedule_matches_jax(rng, alpha):
+    """The coarse-to-fine schedule on the kp window (make_embedder's
+    config, as the factory builds it): bands above alpha closed, the one
+    at alpha partly open."""
+    ck = {'cutoff': True, 'cutoff_inputs': True, 'freq_schedule': True}
+    jcfg, _ = jemb.make_embedder(4, 24, 0, ck)
+    tcfg, _ = temb.make_embedder(4, 24, 0, ck)
+    x = rng.uniform(0.05, 0.6, size=(3, 5, 24)).astype(np.float32)
+    cut = np.full((24,), 0.3, np.float32)
+    want, _ = jemb.embed(jcfg, jnp.asarray(x), dists=jnp.asarray(x),
+                         cutoff_dist=jnp.asarray(cut), tau=20.0,
+                         alpha=jnp.float32(alpha))
+    got, _ = temb.embed(tcfg, _t(x), dists=_t(x), cutoff_dist=_t(cut),
+                        tau=20.0, alpha=alpha)
+    np.testing.assert_allclose(_n(got), want, **PE)
 
 
 @pytest.mark.parametrize('density_type', ['relu', 'softplus'])
