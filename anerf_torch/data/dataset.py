@@ -77,6 +77,24 @@ class BaseH5Dataset:
         if self.N_nms > 0.0:
             self.init_box2d()
 
+    def __getstate__(self):
+        """A dataset crosses to spawned data-parallel ranks by value:
+        without its lock, native library handle and open file, which
+        __setstate__ makes anew."""
+        state = dict(self.__dict__, _rng_lock=None,
+                     _native=self._native is not None, dataset=None)
+        state.pop('_h', None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+        self._rng_lock = threading.Lock()
+        if self._native:
+            from ..native import get_fast_sampler
+            self._native = get_fast_sampler()
+        else:
+            self._native = None
+
     # ---- setup ----
 
     def init_len(self):

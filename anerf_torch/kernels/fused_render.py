@@ -1523,6 +1523,16 @@ def _net_from_leaves(ncfg: NeRFConfig, leaves) -> Dict[str, Any]:
             'alpha_linear': lin[d + 3]}
 
 
+def mesh_averaged_leaves(ncfg: NeRFConfig, params: Dict[str, Any]
+                         ) -> List[torch.Tensor]:
+    """The leaves of render params whose whole gradient FusedApply's
+    backward gives, already averaged over a data-parallel mesh: every
+    weight and bias of the coarse and the fine network (a data-parallel
+    step leaves them out of its own all-reduce)."""
+    return [x for name in ('coarse', 'fine') if name in params
+            for x in _net_leaves(ncfg, params[name])]
+
+
 def _leaf_grads(ncfg: NeRFConfig, nfk: int, nfv: int, dW: torch.Tensor
                 ) -> List[torch.Tensor]:
     """K2's weight-gradient blocks -> gradients of `_net_leaves`: drop the
@@ -1555,16 +1565,21 @@ class FusedApply(torch.autograd.Function):
     forward packs the network's f32 leaves into the kernel operands
     (no grad) and keeps only pts, m_all and aux: K2 recomputes the
     forward. cutoff_dist and tau get no gradient by design (never
-    trained; tau is a schedule); bwd_f32 picks K2's flavour."""
+    trained; tau is a schedule); bwd_f32 picks K2's flavour. With a
+    data-parallel `mesh` (each rank's points a block of one batch) the
+    ranks' K2 weight gradients are averaged before their bf16 rounding,
+    as JAX's partitioner sums them over the sharded batch before the
+    VJP's cast; this is the only average those leaves get
+    (mesh_averaged_leaves)."""
 
     @staticmethod
-    def forward(ctx, ncfg, S, tau, nfk, nfv, bwd_f32, cutoff_dist, pts,
-                m_all, aux, *leaves):
+    def forward(ctx, ncfg, S, tau, nfk, nfv, bwd_f32, mesh, cutoff_dist,
+                pts, m_all, aux, *leaves):
         packed = pack_render_params(_net_from_leaves(ncfg, leaves), ncfg,
                                     nfk, nfv, cutoff_dist)
         ctx.save_for_backward(pts, m_all, aux)
         ctx.packed, ctx.ncfg, ctx.S, ctx.tau = packed, ncfg, S, tau
-        ctx.bwd_f32 = bwd_f32
+        ctx.bwd_f32, ctx.mesh = bwd_f32, mesh
         return fused_encode_mlp_pts(ncfg, packed, pts, m_all, aux, S, tau)
 
     @staticmethod
@@ -1574,19 +1589,24 @@ class FusedApply(torch.autograd.Function):
         dW, dpts, dm, daux = fused_bwd(ctx.ncfg, p, pts, m_all, aux, ctx.S,
                                        ctx.tau, g.contiguous().float(),
                                        ctx.bwd_f32)
-        return (None,) * 7 + (dpts, dm, daux) + tuple(
+        if ctx.mesh is not None:
+            from ..parallel.mesh import all_reduce_mean
+            dW = all_reduce_mean(ctx.mesh, dW)
+        return (None,) * 8 + (dpts, dm, daux) + tuple(
             _leaf_grads(ctx.ncfg, p['nfk'], p['nfv'], dW))
 
 
 def fused_apply(ncfg: NeRFConfig, S: int, net: Dict[str, Any],
                 cutoff_dist: torch.Tensor, n_freq_kp: int, n_freq_view: int,
                 pts: torch.Tensor, m_all: torch.Tensor, aux: torch.Tensor,
-                tau, bwd_f32: bool = True) -> torch.Tensor:
+                tau, bwd_f32: bool = True, mesh=None) -> torch.Tensor:
     """Differentiable fused transform + PE + MLP: (R, S, 3) world points
     -> raw (R, S, 4) through K1, with K2 as its backward: f32 cotangent
     products with bwd_f32, bf16 cotangent operands without (the JAX
     `fused_apply`'s bwd_f32; the forward is the same). Gradients reach
-    the leaves of `net` (one network's params), pts, m_all and aux."""
+    the leaves of `net` (one network's params), pts, m_all and aux.
+    mesh: data parallel (FusedApply)."""
     return FusedApply.apply(ncfg, S, float(tau), int(n_freq_kp),
-                            int(n_freq_view), bool(bwd_f32), cutoff_dist,
-                            pts, m_all, aux, *_net_leaves(ncfg, net))
+                            int(n_freq_view), bool(bwd_f32), mesh,
+                            cutoff_dist, pts, m_all, aux,
+                            *_net_leaves(ncfg, net))

@@ -261,6 +261,17 @@ def _sample_pts(rays_o, rays_d, z_vals, ray_noise_std, generator):
     return pts
 
 
+def ray_near_far(ray_batch: torch.Tensor, cyls: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The (R, 1) near / far of a packed ray batch inside its per-ray
+    cylinders. Rays that miss get the mean over the batch's hits: a
+    reduction across the rays, so a rank that renders a block of a
+    batch takes it over the whole batch (render_rays' `near_far`)."""
+    return get_near_far_in_cylinder(ray_batch[:, 0:3], ray_batch[:, 3:6],
+                                    cyls, near=ray_batch[:, 6:7],
+                                    far=ray_batch[:, 7:8])
+
+
 def render_rays(params: Dict[str, Any], cfg: RenderConfig,
                 ray_batch: torch.Tensor, kp_batch: torch.Tensor,
                 skts: torch.Tensor, bones: Optional[torch.Tensor],
@@ -271,6 +282,8 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig,
                 alpha_sched=None,
                 eval_framecode_mean: bool = False,
                 packed: Optional[Dict[str, Any]] = None,
+                near_far: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                mesh=None,
                 ) -> Dict[str, torch.Tensor]:
     """Volumetric rendering of a packed ray batch (R, 8|11) =
     [o, d, near, far, (viewdirs)]. params: {'coarse', 'fine',
@@ -283,16 +296,19 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig,
     need the joints, bones (R, J, 3) by 'axisang'; alpha_sched is the
     frequency schedule's value (None at render time). With sr_grads on
     the plain branch, the coarse and the fine net's SR keys are drawn
-    from `generator` (none without it: the deterministic fast path)."""
+    from `generator` (none without it: the deterministic fast path).
+    near_far: the rays' (near, far), ray_near_far of the whole batch
+    these rays are a block of (data parallel); default, of these rays.
+    mesh: the data-parallel mesh of a train step's ranks, whose fused
+    branch averages K2's weight gradients over the ranks (fused_apply)."""
     if generator is None and (cfg.perturb > 0.0 or cfg.raw_noise_std > 0.0
                               or cfg.ray_noise_std > 0.0):
         raise ValueError('a stochastic RenderConfig needs a generator; '
                          'use cfg.test_mode() for deterministic renders')
 
     rays_o, rays_d = ray_batch[:, 0:3], ray_batch[:, 3:6]
-    near, far = get_near_far_in_cylinder(rays_o, rays_d, cyls,
-                                         near=ray_batch[:, 6:7],
-                                         far=ray_batch[:, 7:8])
+    near, far = (ray_near_far(ray_batch, cyls) if near_far is None
+                 else near_far)
     z_vals = sample_from_lineseg(near, far, cfg.n_samples, cfg.perturb,
                                  cfg.lindisp, generator=generator)
     pts = _sample_pts(rays_o, rays_d, z_vals, cfg.ray_noise_std, generator)
@@ -325,7 +341,7 @@ def render_rays(params: Dict[str, Any], cfg: RenderConfig,
                                             tau)
             return fused_apply(cfg.nerf, pts_in.shape[1], params[name],
                                cutoff_dist, *nf, pts_in, m_all, aux_in, tau,
-                               bwd_f32)
+                               bwd_f32, mesh)
         m_all, aux = pack_ray_data(rays_d[:, None, :], skts, framecodes)
         raw = net('coarse', pts, aux)
     else:

@@ -9,6 +9,13 @@ there and here (the near/far fill for rays that miss the cylinder is a
 per-bucket mean). The JAX package also pads the bucket COUNT to a power
 of two to bound recompiles; eager PyTorch has none, so the port renders
 ceil(n / chunk) buckets.
+
+Data parallel (`mesh=`, parallel/mesh.py): `chunk` is padded to a
+multiple of the mesh size, as in JAX; every rank builds each bucket's
+rays and their near/far (the fill for rays that miss the cylinder is a
+mean over the whole bucket, which JAX's partitioner also takes over the
+sharded bucket), renders its contiguous block of the bucket, and the
+blocks are gathered, so every rank ends with the whole image.
 """
 from __future__ import annotations
 
@@ -20,7 +27,9 @@ import torch
 
 from ..ops.cylinder import cylinder_to_box_2d, get_kp_bounding_cylinder
 from ..ops.rays import nerf_c2w_to_extrinsic
-from .raycaster import RenderConfig, pack_fused_params, render_rays
+from ..parallel.mesh import all_gather_rows, pad_to_multiple
+from .raycaster import (RenderConfig, pack_fused_params, ray_near_far,
+                        render_rays)
 
 OUT_KEYS = ('rgb_map', 'disp_map', 'acc_map')
 
@@ -33,11 +42,9 @@ def make_render_fn(cfg: RenderConfig, params: Dict[str, Any],
     scal is the 26-float vector of pack_pose_scalars; tables hold the
     stacked pose tables on the device. The kernel operands are packed
     once here, not per bucket, and the buckets render without autograd.
-    mesh (data parallel) is not ported yet.
+    With a data-parallel `mesh` (chunk a multiple of its size) each rank
+    renders its block of every bucket and every rank returns them all.
     """
-    if mesh is not None:
-        raise NotImplementedError('data-parallel rendering (mesh=) is not '
-                                  'ported yet')
     test_cfg = cfg.test_mode()
     with torch.no_grad():
         packed = (pack_fused_params(params, test_cfg) if cfg.use_fused
@@ -75,16 +82,29 @@ def make_render_fn(cfg: RenderConfig, params: Dict[str, Any],
         zeros = torch.zeros((R, 1), dtype=torch.float32, device=dev)
         rays = torch.cat([rays_o, rays_d, zeros, zeros + 1.0, viewdirs], -1)
 
+        blk = slice(None) if mesh is None else mesh.block(chunk)
+        blocked = lambda t: None if t is None else t[blk]
         outs = []
         for b in range(n_buckets):
+            rays_b = rays[b * chunk:(b + 1) * chunk]
+            near_far = None
+            if mesh is not None:
+                near_far = tuple(x[blk] for x in ray_near_far(rays_b, cyls))
             ret = render_rays(
-                params, test_cfg, rays[b * chunk:(b + 1) * chunk], kp3d,
-                skts, bones, cyls,
-                cam_idxs=cam_idxs if use_framecode_idx else None,
+                params, test_cfg, rays_b[blk], blocked(kp3d),
+                blocked(skts), blocked(bones), blocked(cyls),
+                cam_idxs=blocked(cam_idxs) if use_framecode_idx else None,
                 tau=tau, eval_framecode_mean=not use_framecode_idx,
-                packed=packed)
-            outs.append(ret)
-        return {k_: torch.cat([o[k_] for o in outs]) for k_ in OUT_KEYS}
+                packed=packed, near_far=near_far)
+            outs.append(torch.cat([ret['rgb_map'], ret['disp_map'][:, None],
+                                   ret['acc_map'][:, None]], -1))
+        out = torch.stack(outs)                       # (buckets, rays, 5)
+        if mesh is not None:
+            # rank r's rows are rays [r * m, (r + 1) * m) of every bucket
+            out = all_gather_rows(mesh, out.transpose(0, 1)).transpose(0, 1)
+        out = out.reshape(n_buckets * chunk, 5)
+        return {'rgb_map': out[:, :3], 'disp_map': out[:, 3],
+                'acc_map': out[:, 4]}
     return fn
 
 
@@ -138,11 +158,16 @@ def render_path(params, cfg: RenderConfig,
     that holds `params`.
 
     hwf: (H, W, focals) with H/W scalars or per-frame arrays.
+    mesh: a data-parallel DataMesh (every rank calls render_path with the
+    same arguments and gets the whole result; make_render_fn).
     Returns 'rgbs', 'disps', 'accs', 'bboxes' stacked (N, H, W, .).
     """
     H_all, W_all, focals = hwf
     n_poses = len(c2ws)
     dev = params['cutoff_dist'].device
+    if mesh is not None:
+        # each bucket's ray axis splits over the mesh
+        chunk = pad_to_multiple(chunk, mesh.size)
 
     if cyls is None:
         cyls = get_kp_bounding_cylinder(

@@ -10,9 +10,17 @@ scanned step (trainer.make_train_step_scan) as one dispatch; the print,
 checkpoint, pose-snapshot and validation intervals fire when a multiple
 of theirs lies inside the dispatch's steps.
 
-The JAX package's XLA compile cache and device mesh have no counterpart:
-the loop runs on one device ('cuda' unless the caller passes 'cpu');
-data parallelism is ROADMAP.md Queue 1 item 8.
+Data parallel (`mesh=`, a parallel/mesh.py DataMesh: one process per
+device, which run_nerf.py launches): rank 0 alone runs the loader, and
+each dispatch's packed super-batch reaches every rank in one broadcast;
+each step renders the rank's block of it and averages the gradients
+(train/trainer.py). Rank 0 alone prints and writes metrics.jsonl,
+args.txt, checkpoints, pose snapshots and validation images; every rank
+restores the same checkpoint and runs the validation render
+(render_path(mesh=)), so every rank reaches every collective in the
+same order. The JAX package's XLA compile cache has no counterpart;
+without a mesh the loop runs on one device ('cuda' unless the caller
+passes 'cpu').
 """
 from __future__ import annotations
 
@@ -27,6 +35,7 @@ import torch
 from .. import resolve_device
 from ..config import TrainConfig, save_args_txt
 from ..data.pipeline import BatchLoader
+from ..parallel.mesh import DataMesh, broadcast_batch
 from ..pose.pose_opt import (PoseOptConfig, init_pose_params,
                              pose_anchor_tree)
 from ..render.factory import build_render_config, init_render_params
@@ -68,19 +77,39 @@ def _host_buffer(nbytes: int, pin: bool) -> torch.Tensor:
 
 def pack_batch(batch: Dict[str, Optional[np.ndarray]], pin: bool):
     """The batch's leaves packed into one host byte buffer (pinned when
-    `pin`), each at an 8-byte aligned offset. Returns (buffer,
-    {key: (offset, leaf)}) for the non-None leaves."""
-    leaves = {k: np.ascontiguousarray(v) for k, v in batch.items()
-              if v is not None}
-    layout, total = {}, 0
+    `pin`), each at an 8-byte aligned offset. Returns (buffer, layout):
+    layout = (total bytes, ((key, offset, dtype, shape), ...)), offset
+    None for a None leaf, what batch_views reads back."""
+    leaves = {k: None if v is None else np.ascontiguousarray(v)
+              for k, v in batch.items()}
+    entries, total = [], 0
     for k, v in leaves.items():
-        layout[k] = (total, v)
+        if v is None:
+            entries.append((k, None, None, None))
+            continue
+        entries.append((k, total, v.dtype.str, v.shape))
         total += -(-v.nbytes // 8) * 8
     host = _host_buffer(total, pin)
     buf = host.numpy()
-    for off, v in layout.values():
-        buf[off:off + v.nbytes] = v.reshape(-1).view(np.uint8)
-    return host, layout
+    for k, off, _, _ in entries:
+        if off is not None:
+            v = leaves[k]
+            buf[off:off + v.nbytes] = v.reshape(-1).view(np.uint8)
+    return host, (total, tuple(entries))
+
+
+def batch_views(buf: torch.Tensor, layout
+                ) -> Dict[str, Optional[torch.Tensor]]:
+    """pack_batch's buffer (on any device) viewed back per leaf."""
+    out: Dict[str, Optional[torch.Tensor]] = {}
+    for k, off, dtype, shape in layout[1]:
+        if off is None:
+            out[k] = None
+            continue
+        dt = torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+        n = int(np.prod(shape)) * dt.itemsize
+        out[k] = buf[off:off + n].view(dt).view(shape)
+    return out
 
 
 def upload_batch(batch: Dict[str, Optional[np.ndarray]],
@@ -90,12 +119,7 @@ def upload_batch(batch: Dict[str, Optional[np.ndarray]],
     back per leaf on the device. None leaves stay None."""
     on_gpu = device.type == 'cuda'
     host, layout = pack_batch(batch, on_gpu)
-    dev = host.to(device, non_blocking=on_gpu)
-    out: Dict[str, Optional[torch.Tensor]] = {k: None for k in batch}
-    for k, (off, v) in layout.items():
-        dtype = torch.from_numpy(v[:0].reshape(-1)).dtype
-        out[k] = dev[off:off + v.nbytes].view(dtype).view(v.shape)
-    return out
+    return batch_views(host.to(device, non_blocking=on_gpu), layout)
 
 
 @dataclasses.dataclass
@@ -117,10 +141,24 @@ class TrainContext:
     step_kwargs: Dict[str, Any]
     # the (N, 2, 2) [tl, br] ray boxes of the last validation render
     val_bboxes: Optional[np.ndarray] = None
+    mesh: Optional[DataMesh] = None
+
+    @property
+    def is_main(self) -> bool:
+        """Rank 0 (or the one device): the rank that writes and prints."""
+        return self.mesh is None or self.mesh.rank == 0
 
 
-def setup(args: TrainConfig, dataset=None, device='cuda') -> TrainContext:
-    dev = resolve_device(device)
+def setup(args: TrainConfig, dataset=None, device='cuda',
+          mesh: Optional[DataMesh] = None) -> TrainContext:
+    """The run's context. With a data-parallel `mesh` it runs on every
+    rank, on the rank's device: N_rand must split over the ranks, and
+    only rank 0 writes args.txt and builds the loader."""
+    dev = resolve_device(device if mesh is None else mesh.device)
+    main = mesh is None or mesh.rank == 0
+    if mesh is not None and args.N_rand % mesh.size:
+        raise ValueError(f'N_rand {args.N_rand} does not split over a '
+                         f'mesh of {mesh.size}')
     exp_dir = os.path.join(args.basedir, args.expname)
     os.makedirs(exp_dir, exist_ok=True)
 
@@ -134,15 +172,19 @@ def setup(args: TrainConfig, dataset=None, device='cuda') -> TrainContext:
     if args.n_framecodes is None:
         args = dataclasses.replace(args,
                                    n_framecodes=int(data_attrs['n_views']))
-    save_args_txt(args, exp_dir)
+    if main:
+        save_args_txt(args, exp_dir)
     render_data = dataset.get_render_data()
     unroll_ = max(1, args.scan_unroll)
-    loader = BatchLoader(dataset, n_images=args.N_sample_images,
-                         prefetch=4,
-                         seed=args.seed,
-                         num_workers=min(max(args.num_workers, 1), 8),
-                         stack=unroll_,
-                         stack_fn=stack_batches if unroll_ > 1 else None)
+    loader = None
+    if main:
+        loader = BatchLoader(dataset, n_images=args.N_sample_images,
+                             prefetch=4,
+                             seed=args.seed,
+                             num_workers=min(max(args.num_workers, 1), 8),
+                             stack=unroll_,
+                             stack_fn=stack_batches if unroll_ > 1
+                             else None)
 
     cfg = build_render_config(args, data_attrs)
     params = init_render_params(args, cfg,
@@ -198,7 +240,8 @@ def setup(args: TrainConfig, dataset=None, device='cuda') -> TrainContext:
         if restored is not None:
             state = restored
             start_step = int(state.step)
-            print(f'resumed from step {start_step}')
+            if main:
+                print(f'resumed from step {start_step}')
             if args.finetune:
                 # weights only: reset step + optimizer states
                 # (reference raycasters.py:140-142)
@@ -223,7 +266,8 @@ def setup(args: TrainConfig, dataset=None, device='cuda') -> TrainContext:
         rest_pose_idxs=None if rp_idxs is None
         else torch.as_tensor(np.asarray(rp_idxs), device=dev),
         kp_map=None if kp_map is None
-        else torch.as_tensor(np.asarray(kp_map, np.int64), device=dev))
+        else torch.as_tensor(np.asarray(kp_map, np.int64), device=dev),
+        mesh=mesh)
     step_fn = _make_step(args, cfg, pose_cfg, rest_pose, optimizer,
                          pose_optimizer, pose_frozen, step_kwargs)
 
@@ -233,7 +277,7 @@ def setup(args: TrainConfig, dataset=None, device='cuda') -> TrainContext:
                         pose_optimizer=pose_optimizer, pose_cfg=pose_cfg,
                         rest_pose=rest_pose, exp_dir=exp_dir,
                         start_step=start_step, device=dev,
-                        step_kwargs=step_kwargs)
+                        step_kwargs=step_kwargs, mesh=mesh)
 
 
 def _make_step(args, cfg, pose_cfg, rest_pose, optimizer, pose_optimizer,
@@ -271,7 +315,7 @@ def run_validation(ctx: TrainContext, step: int,
         centers=None if rd.get('center') is None else rd['center'][:n],
         bgs=rd.get('bgs'), bg_idxs=rd.get('bg_idxs'),
         tau=float(tau), chunk=args.chunk, ext_scale=args.ext_scale,
-        use_framecode_idx=args.opt_framecode)
+        use_framecode_idx=args.opt_framecode, mesh=ctx.mesh)
     ctx.val_bboxes = out['bboxes']
 
     metrics = evaluate_metric_arrays(out['rgbs'], rd['imgs'][:n],
@@ -306,8 +350,11 @@ def run_validation(ctx: TrainContext, step: int,
 def train(args: TrainConfig, dataset=None,
           n_iters: Optional[int] = None,
           log_fn=None, device='cuda',
-          save_images: bool = True) -> TrainContext:
-    """Main training loop. Returns the final context.
+          save_images: bool = True,
+          mesh: Optional[DataMesh] = None) -> TrainContext:
+    """Main training loop. Returns the final context. With a data-parallel
+    `mesh` every rank runs it (module docstring); log_fn is called on
+    rank 0.
 
     Each print record (metrics.jsonl, log_fn) holds the losses and stats
     of the dispatch's last step, the rays/s since the start, and the
@@ -316,14 +363,19 @@ def train(args: TrainConfig, dataset=None,
     `dispatch_s` in all (the steps are the rest; the print reads the
     losses back, which waits for the device). save_images=False writes
     no validation pngs (they need imageio)."""
-    ctx = setup(args, dataset, device)
+    ctx = setup(args, dataset, device, mesh)
+    main = ctx.is_main
     n_iters = n_iters if n_iters is not None else args.n_iters
-    generator = torch.Generator(device=ctx.device).manual_seed(args.seed + 1)
+    # each rank draws its own noise for its block of rays
+    seed = args.seed + 1 + (0 if mesh is None else mesh.rank << 32)
+    generator = torch.Generator(device=ctx.device).manual_seed(seed)
 
     from ..utils.logging import MetricsLogger
-    logger = MetricsLogger(ctx.exp_dir)
+    logger = MetricsLogger(ctx.exp_dir) if main else None
 
-    ctx.loader.start()
+    if main:
+        ctx.loader.start()
+    layout = None
     state = ctx.state
     step_fn = ctx.step_fn
     pose_frozen_rebuilt = False
@@ -347,9 +399,15 @@ def train(args: TrainConfig, dataset=None,
             # the loader emits pre-stacked unroll-sized super-batches
             # (BatchLoader(stack=unroll)) assembled in its worker threads
             t0 = time.perf_counter()
-            batch = ctx.loader.next()
+            batch = ctx.loader.next() if main else None
             t1 = time.perf_counter()
-            batch = upload_batch(batch, ctx.device)
+            if mesh is None:
+                batch = upload_batch(batch, ctx.device)
+            else:
+                packed = (pack_batch(batch, ctx.device.type == 'cuda')
+                          if main else None)
+                buf, layout = broadcast_batch(mesh, packed, layout)
+                batch = batch_views(buf, layout)
             t2 = time.perf_counter()
             wait_s += t1 - t0
             upload_s += t2 - t1
@@ -364,7 +422,7 @@ def train(args: TrainConfig, dataset=None,
                 return done // interval > start_of_dispatch // interval
             i = done - 1  # report the last completed step below
 
-            if crossed(args.i_print):
+            if main and crossed(args.i_print):
                 stats = {k: float(v) for k, v in out['stats'].items()}
                 losses = {k: float(v) for k, v in out['losses'].items()}
                 now = time.perf_counter()
@@ -380,21 +438,25 @@ def train(args: TrainConfig, dataset=None,
                           f"psnr={stats.get('psnr', 0):.2f} "
                           f"rays/s={rec['rays_per_sec']:.0f}")
 
-            if crossed(args.i_weights):
+            if main and crossed(args.i_weights):
                 ctx.state = state
                 save_checkpoint(ctx.exp_dir, state, i + 1)
-            if args.opt_pose and crossed(args.i_pose_weights):
+            if main and args.opt_pose and crossed(args.i_pose_weights):
                 ctx.state = state
                 save_pose_checkpoint(ctx.exp_dir, state, i + 1)
             if crossed(args.i_testset):
+                # every rank renders (render_path's collectives)
                 ctx.state = state
-                val = run_validation(ctx, i + 1, save_images=save_images)
-                logger.log_scalars(i + 1, val, prefix='val/')
-                print(f'[val {i + 1}] ' + ' '.join(
-                    f'{k}={v:.3f}' for k, v in val.items()))
+                val = run_validation(ctx, i + 1,
+                                     save_images=save_images and main)
+                if main:
+                    logger.log_scalars(i + 1, val, prefix='val/')
+                    print(f'[val {i + 1}] ' + ' '.join(
+                        f'{k}={v:.3f}' for k, v in val.items()))
     finally:
-        ctx.loader.stop()
-        logger.close()
+        if main:
+            ctx.loader.stop()
+            logger.close()
 
     ctx.state = state
     return ctx

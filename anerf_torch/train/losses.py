@@ -46,13 +46,17 @@ def img2psnr(img, target):
     return mse2psnr(img2mse(img, target))
 
 
-def acc2bce(x, y, reduction='mean', eps=1e-8):
+def acc2bce(x, y, reduction='mean', eps=1e-8, n_off=None):
     """BCE between accumulated alpha and the fg mask; reduction 'off'
-    averages only over non-foreground pixels (trainer.py:44-54)."""
+    averages only over non-foreground pixels (trainer.py:44-54): over
+    `n_off` of them when given (a data-parallel rank's block divides by
+    the whole batch's count), else over this batch's."""
     bce = -(y * torch.log(x + eps) + (1.0 - y) * torch.log(1.0 - x + eps))
     if reduction == 'off':
         mask = (y < 1.0).to(bce.dtype)
-        return torch.sum(bce * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+        if n_off is None:
+            n_off = torch.sum(mask)
+        return torch.sum(bce * mask) / torch.clamp_min(n_off, 1.0)
     return _reduce(bce, reduction)
 
 

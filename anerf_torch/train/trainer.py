@@ -10,6 +10,16 @@ results are the same. With `RenderConfig.use_fused` the MLP runs through
 `fused_apply` (K1 forward, K2 backward). `make_train_step_scan` runs the
 step over a batch stacked (unroll, ...), the loop's one dispatch.
 
+Data parallel (`mesh=`, parallel/mesh.py): every rank gets the whole
+global batch, takes the near/far fill of rays that miss the cylinder and
+the BCE mask count from all of it (as JAX's partitioner does over the
+sharded batch), renders its contiguous block of rays, and averages the
+flat gradients and the logged values with the other ranks in one
+all-reduce; the optimizers then run on the same values on every rank.
+On the fused branch the networks' weights and biases are averaged
+inside fused_apply's backward instead, before it rounds K2's weight
+gradients to bf16, and the step's all-reduce leaves them out.
+
 Batch contract (R rays, NI images per batch), torch tensors on the device:
   rays        (R, 11)  packed [o, d, near, far, viewdirs]
   target_s    (R, 3)   ground-truth pixels
@@ -29,11 +39,13 @@ import numpy as np
 import torch
 
 from ..config import TrainConfig
+from ..kernels.fused_render import mesh_averaged_leaves
 from ..ops.embedder import alpha_schedule, tau_schedule
 from ..ops.rotations import rot_to_rot6d
+from ..parallel.mesh import DataMesh, all_reduce_mean, shard_ray_batch
 from ..pose.pose_opt import PoseOptConfig, fk_lookup
-from ..render.raycaster import RenderConfig, render_rays
-from .losses import get_loss_fn, get_reg_fn, img2psnr
+from ..render.raycaster import RenderConfig, ray_near_far, render_rays
+from .losses import acc2bce, get_loss_fn, get_reg_fn, img2mse, mse2psnr
 from .state import (FlatAdam, TrainState, flatten_tree, grad_norms,
                     unflatten_like)
 
@@ -69,8 +81,12 @@ def _gather_pose_for_rays(tables: Dict[str, Optional[torch.Tensor]],
 
 
 def compute_nerf_loss(args: TrainConfig, batch, rgb_pred, acc_pred,
-                      coarse: bool = False):
-    """RGB + optional occupancy regularization (trainer.py:353-380)."""
+                      coarse: bool = False, n_off=None, n_ranks: int = 1):
+    """RGB + optional occupancy regularization (trainer.py:353-380). The
+    stats hold the MSE ('mse' / 'mse0'), which the step logs as psnr once
+    the ranks' means are taken. A data-parallel rank passes `n_off`, the
+    whole batch's count of non-foreground pixels, and `n_ranks`, so that
+    the ranks' mean of the BCE 'off' term is the whole batch's."""
     loss_fn = get_loss_fn(args.loss_fn, args.loss_beta)
     reg_fn = get_reg_fn(args.reg_fn)
     bgs = batch.get('bgs')
@@ -79,13 +95,16 @@ def compute_nerf_loss(args: TrainConfig, batch, rgb_pred, acc_pred,
     rgb_loss = loss_fn(rgb_pred, batch['target_s'], reduction='mean')
     if coarse:
         rgb_loss = rgb_loss * args.coarse_weight
-    psnr = img2psnr(rgb_pred.detach(), batch['target_s'])
     suffix = '0' if coarse else ''
     losses = {f'rgb_loss{suffix}': rgb_loss}
-    stats = {f'psnr{suffix}': psnr}
+    stats = {f'mse{suffix}': img2mse(rgb_pred.detach(), batch['target_s'])}
     if reg_fn is not None:
-        losses[f'reg_loss{suffix}'] = reg_fn(
-            acc_pred, batch['fgs'][..., 0], reduction='off') * args.reg_coef
+        if n_off is not None and reg_fn is acc2bce:
+            reg = acc2bce(acc_pred, batch['fgs'][..., 0], reduction='off',
+                          n_off=n_off) * n_ranks
+        else:
+            reg = reg_fn(acc_pred, batch['fgs'][..., 0], reduction='off')
+        losses[f'reg_loss{suffix}'] = reg * args.reg_coef
     return losses, stats
 
 
@@ -137,15 +156,19 @@ def make_train_step(args: TrainConfig, cfg: RenderConfig,
                     tau_fixed: Optional[float] = None,
                     kp_map: Optional[torch.Tensor] = None,
                     rest_pose_idxs: Optional[torch.Tensor] = None,
+                    mesh: Optional[DataMesh] = None,
                     ) -> Callable[..., Tuple[TrainState, Dict[str, Any]]]:
     """The train step `step(state, batch, generator) -> (new_state,
     {'losses', 'stats'})`.
 
     pose_frozen: True after opt_pose_stop (the loop rebuilds the step
     then), detaching the pose params (reference popt_detach,
-    trainer.py:240).
+    trainer.py:240). mesh: data parallel; `batch` is the whole global
+    batch on every rank, and the returned losses and stats are the whole
+    batch's.
     """
     use_pose = pose_cfg is not None and not pose_frozen and args.opt_pose
+    cache = {}          # the data-parallel step's _unaveraged_index
 
     def loss_fn(params, pose_params, batch, generator, step):
         tau, alpha = derive_schedules(args, cfg, step, tau_fixed)
@@ -160,17 +183,33 @@ def make_train_step(args: TrainConfig, cfg: RenderConfig,
             tables = {k: batch[k] for k in ('kp3d', 'bones', 'skts', 'cyls')}
         per_ray = _gather_pose_for_rays(tables, batch['pose_idx'],
                                         batch['rays'].shape[0])
+        near_far = n_off = None
+        n_ranks = 1
+        if mesh is not None:
+            # the cross-ray values that do not depend on the params come
+            # from the whole batch; then this rank's block of rays
+            near_far = ray_near_far(batch['rays'], per_ray['cyls'])
+            n_off = torch.sum((batch['fgs'][..., 0] < 1.0).to(torch.float32))
+            blk = mesh.block(batch['rays'].shape[0])
+            near_far = tuple(x[blk] for x in near_far)
+            per_ray = {k: None if v is None else v[blk]
+                       for k, v in per_ray.items()}
+            batch = shard_ray_batch(mesh, batch)
+            n_ranks = mesh.size
         preds = render_rays(
             params, cfg, batch['rays'], per_ray['kp3d'], per_ray['skts'],
             per_ray['bones'], per_ray['cyls'],
             cam_idxs=batch.get('cam_idxs') if args.opt_framecode else None,
-            generator=generator, tau=tau, alpha_sched=alpha)
+            generator=generator, tau=tau, alpha_sched=alpha,
+            near_far=near_far, mesh=mesh)
 
         losses, stats = compute_nerf_loss(args, batch, preds['rgb_map'],
-                                          preds['acc_map'])
+                                          preds['acc_map'], n_off=n_off,
+                                          n_ranks=n_ranks)
         if 'rgb0' in preds:
             l0, s0 = compute_nerf_loss(args, batch, preds['rgb0'],
-                                       preds['acc0'], coarse=True)
+                                       preds['acc0'], coarse=True,
+                                       n_off=n_off, n_ranks=n_ranks)
             losses.update(l0)
             stats.update(s0)
         if use_pose:
@@ -218,6 +257,15 @@ def make_train_step(args: TrainConfig, cfg: RenderConfig,
         grads = torch.autograd.grad(total, wrt, allow_unused=True)
         grads = [torch.zeros_like(x) if gx is None else gx
                  for x, gx in zip(wrt, grads)]
+        losses = {k: v.detach() for k, v in losses.items()}
+        stats = {k: v.detach() for k, v in stats.items()}
+        if mesh is not None:
+            if 'todo' not in cache:
+                cache['todo'] = _unaveraged_index(cfg, state.params)
+            grads, losses, stats = _mean_over_ranks(
+                mesh, grads, losses, stats, cache['todo'])
+        for k in [k for k in stats if k.startswith('mse')]:
+            stats['psnr' + k[3:]] = mse2psnr(stats.pop(k))
 
         # cutoff_dist is never trained (reference cutoff_embedder.py:91-92)
         g_tree = unflatten_like(grads[0], state.params)
@@ -256,11 +304,45 @@ def make_train_step(args: TrainConfig, cfg: RenderConfig,
             pose_params=new_pose_params,
             pose_opt_state=new_pose_opt_state, pose_grad_acc=new_acc,
             anchors=state.anchors)
-        return new_state, {
-            'losses': {k: v.detach() for k, v in losses.items()},
-            'stats': {k: v.detach() for k, v in stats.items()}}
+        return new_state, {'losses': losses, 'stats': stats}
 
     return train_step
+
+
+def _unaveraged_index(cfg: RenderConfig, params) -> Optional[torch.Tensor]:
+    """The positions in the flat params whose gradients the ranks have
+    not averaged by the end of the backward: all but the leaves that
+    fused_apply's backward averages on the fused branch (None: all)."""
+    if not cfg.use_fused:
+        return None
+    marks = torch.zeros_like(flatten_tree(params))
+    for leaf in mesh_averaged_leaves(cfg.nerf, unflatten_like(marks,
+                                                              params)):
+        leaf.fill_(1.0)
+    return torch.nonzero(marks == 0.0).squeeze(1)
+
+
+def _mean_over_ranks(mesh: DataMesh, grads, losses, stats,
+                     todo: Optional[torch.Tensor] = None):
+    """The ranks' means of the flat gradients and of every logged value
+    (the MSEs, so that psnr is the whole batch's) in one all-reduce.
+    `todo`: the positions of the flat params' gradient still to average
+    (_unaveraged_index); None, all of it."""
+    own = grads
+    if todo is not None:
+        grads = [grads[0].index_select(0, todo)] + list(grads[1:])
+    logged = list(losses.items()) + list(stats.items())
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [v.reshape(-1).to(torch.float32) for _, v in logged])
+    flat = all_reduce_mean(mesh, flat)
+    parts = iter(flat.split([g.numel() for g in grads]
+                            + [v.numel() for _, v in logged]))
+    grads = [next(parts).view_as(g) for g in grads]
+    if todo is not None:
+        grads[0] = own[0].index_copy(0, todo, grads[0])
+    means = {k: next(parts).view_as(v).to(v.dtype) for k, v in logged}
+    return (grads, {k: means[k] for k in losses},
+            {k: means[k] for k in stats})
 
 
 def make_train_step_scan(*args_mk, unroll: int = 8, **kwargs_mk):

@@ -1,6 +1,8 @@
 """Smoke test of the PyTorch / CUDA port (anerf_torch) on one GPU.
 
     python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py --cards N    # phase 1 and phase 11 alone, over
+                                       # N cards (one rank a card, NCCL)
 
 Phases (any failure exits non-zero and prints no result):
   1. device: needs CUDA; prints the card and its power limit, turns TF32
@@ -114,6 +116,19 @@ Phases (any failure exits non-zero and prints no result):
      axisang, rayangle, world, freq_schedule, normalize, cut_to_cutoff,
      shift_inputs) N_ENCODER_STEPS steps each, unculled: finite, loss
      falling.
+ 11. data parallel (dp_phase): two ranks on the one card (gloo, spawned
+     by anerf_torch/parallel/mesh.py:run_ranks), each held against one
+     rank: (a) the train step and the culled fast-grads step (losses,
+     all-reduced gradients, each ray's raw and rgb bit-equal, the ranks'
+     states bit-equal, launches a rank, one all-reduce of the step's
+     own beside fused_apply's two, which no gradient crosses twice);
+     (c) a 512 x 512 render_path
+     (mesh=) request bit-equal; (b) run_nerf.main on the loop phase's
+     grid, 24 steps (the same super-batches, states bit-equal, the
+     checkpoint written once and restored by a one-rank setup, rays/s
+     reported); (d) two stdin requests through run_render.main --server
+     on 2 ranks (replies from rank 0 alone, equal to one device's). It
+     checks correctness only: the two ranks share one card.
 With --profile, one request and one train step run again under
 torch.profiler, and for each the device-busy share and the top kernels
 by device time are printed.
@@ -3202,6 +3217,586 @@ def datasets_phase(torch, np, data, cfg, params, src):
     return k1, k2, runs
 
 
+# phase 11, data parallel: two ranks on the one card (gloo: NCCL refuses
+# two ranks on one device), spawned by parallel/mesh.py:run_ranks with a
+# FileStore in a temporary directory. It checks that two ranks reproduce
+# one; two ranks share the card's SMs, so it says nothing of scaling.
+DP_RANKS = 2
+DP_TIMEOUT = 300.0              # each spawn, and each collective in it
+DP_DIR = 'logs/chip_dp'
+DP_UNROLL, DP_STEPS = 8, 24     # 3 dispatches; the checkpoint at 24
+# the two-rank step's all-reduced flat gradients against one rank's,
+# relative in the Frobenius norm: each rank sums its block's points and
+# the all-reduce sums the two blocks, where one device sums them all, so
+# the f32 sums differ in their order, and then K2's weight gradients are
+# rounded to bf16 (after the ranks' mean, as in JAX), where that order
+# flips an occasional rounding. Read on an H100: 1.17e-5 (the f32 step)
+# and 9.3e-7 (the culled fast-grads step); 1e-4 is 8.5x the larger.
+# Rounding each rank's before the mean read 1.5e-3.
+DP_GRAD_FRO = 1e-4
+DP_LOSS_RTOL = 1e-6
+DP_REQUESTS = ({'render_type': 'val', 'selected_idxs': [0, 8],
+                'eval': True, 'runname': 'dp_a'},
+               {'render_type': 'val', 'selected_idxs': [16], 'eval': True,
+                'runname': 'dp_b'})
+
+
+def _card_settings(torch):
+    """TF32 off and cuBLAS's bf16 sums in f32: main() and every rank."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def _digest(np, tensors):
+    import hashlib
+    h = hashlib.sha1()
+    for t in tensors:
+        h.update(np.ascontiguousarray(t.detach().cpu().numpy()).tobytes())
+    return h.hexdigest()
+
+
+def _dp_step(torch, np, mesh, **overrides):
+    """One test-mode step of the train slice's setup (`overrides` of its
+    config) on `mesh` (None: this process, one device), counts set to 0
+    just before and read just after: its losses and stats, the flat
+    gradients the two optimizers got, each fused_apply call's raw and
+    render_rays' rgb_map / rgb0, the K1 / K2 / K2-bf16 launches and a
+    digest of the new state."""
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.render import raycaster as rc
+    from anerf_torch.train import trainer as tr
+    from anerf_torch.train.checkpoint import state_tree
+    from anerf_torch.train.state import tree_leaves
+
+    from anerf_torch.parallel import mesh as pm
+    from anerf_torch.train.state import flatten_tree
+
+    args, cfg, pose_cfg, rest, state, opt, popt, batch = _flagship_train(
+        torch, np, **overrides)
+    seen, raws, rgbs, reduced = {}, [], {}, []
+
+    def spy(name, update):
+        def call(g, s):
+            seen[name] = g.detach().cpu().numpy()
+            return update(g, s)
+        return call
+
+    def spy_apply(*a):
+        raw = apply(*a)
+        raws.append(raw.detach())
+        return raw
+
+    def spy_render(*a, **kw):
+        out = render(*a, **kw)
+        rgbs.update(rgb=out['rgb_map'].detach(), rgb0=out['rgb0'].detach())
+        return out
+
+    def spy_mean(who, mean):
+        # the bytes each all-reduce carries: the step's own, and
+        # fused_apply's backward's (which imports it when it runs)
+        def call(m, flat):
+            reduced.append((who, flat.numel() * flat.element_size()))
+            return mean(m, flat)
+        return call
+
+    opt.update, popt.update = spy('nerf', opt.update), spy('pose',
+                                                           popt.update)
+    apply, render = rc.fused_apply, tr.render_rays
+    means = tr.all_reduce_mean, pm.all_reduce_mean
+    rc.fused_apply, tr.render_rays = spy_apply, spy_render
+    tr.all_reduce_mean = spy_mean('step', means[0])
+    pm.all_reduce_mean = spy_mean('fused', means[1])
+    try:
+        step = tr.make_train_step(args, cfg.test_mode(), pose_cfg, rest,
+                                  opt, popt, mesh=mesh)
+        torch.cuda.synchronize()
+        fr.LAUNCHES = fr.BWD_LAUNCHES = fr.BWD_BF16_LAUNCHES = 0
+        t0 = time.perf_counter()
+        new, out = step(state, batch, None)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = (fr.LAUNCHES, fr.BWD_LAUNCHES, fr.BWD_BF16_LAUNCHES)
+    finally:
+        rc.fused_apply, tr.render_rays = apply, render
+        tr.all_reduce_mean, pm.all_reduce_mean = means
+    # what the step's own all-reduce should carry: every flat gradient
+    # but the networks' leaves fused_apply's backward averaged, and the
+    # logged values (all but the two gradient norms)
+    n_net = sum(x.numel() for x in fr.mesh_averaged_leaves(cfg.nerf,
+                                                           state.params))
+    n_step = (flatten_tree(state.params).numel() - n_net
+              + flatten_tree(state.pose_params).numel()
+              + len(out['losses']) + len(out['stats']) - 2)
+    return {'out': {g: {k: float(v) for k, v in out[g].items()}
+                    for g in ('losses', 'stats')}, 'reduced': reduced,
+            'step_bytes_want': 4 * n_step,
+            'grads': seen, 'raw': [r.cpu().numpy() for r in raws],
+            'rgb': {k: v.cpu().numpy() for k, v in rgbs.items()},
+            'counts': counts, 'seconds': dt,
+            'digest': _digest(np, [x for x in tree_leaves(state_tree(new))
+                                   if isinstance(x, torch.Tensor)])}
+
+
+def _dp_render(torch, np, mesh):
+    """One 512 x 512 render_path request (pose 1 of the render slice's
+    model, chunk 4096) on `mesh` (None: one device): its images, boxes,
+    K1 launches and seconds."""
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.render import modes
+    from anerf_torch.render.render_path import render_path
+
+    args, cfg, params, src = _flagship_render(torch, np)
+    data = modes.load_selected(src, np.array([1]))
+    torch.cuda.synchronize()
+    fr.LAUNCHES = 0
+    t0 = time.perf_counter()
+    out = render_path(params, cfg, data['c2ws'], (H, W, data['focals']),
+                      data['kp3d'], data['skts'], data['bones'],
+                      cam_idxs=data['cam_idxs'], tau=2000.0,
+                      chunk=args.chunk, ext_scale=args.ext_scale,
+                      white_bkgd=True, use_framecode_idx=args.opt_framecode,
+                      mesh=mesh)
+    torch.cuda.synchronize()
+    return dict(out, launches=fr.LAUNCHES,
+                seconds=time.perf_counter() - t0, chunk=args.chunk)
+
+
+def _dp_rank_steps(mesh):
+    """A rank of dp_phase (a) and (c): the f32 step, the culled
+    fast-grads step and the render request."""
+    import numpy as np
+    import torch
+    _card_settings(torch)
+    return {'f32': _dp_step(torch, np, mesh),
+            'culled': _dp_step(torch, np, mesh, cull_ratio=0.125,
+                               fast_grads=True),
+            'render': _dp_render(torch, np, mesh)}
+
+
+def _dp_loop_argv(n_iters):
+    """The loop phase's argv in DP_DIR's experiment: dispatches of
+    DP_UNROLL steps, a checkpoint and a validation render at DP_STEPS."""
+    import os
+    argv = _loop_argv(n_iters)
+    argv[argv.index('--basedir') + 1] = os.path.abspath(DP_DIR)
+    argv[argv.index('--expname') + 1] = 'flagship_dp'
+    for flag, v in (('--i_weights', DP_STEPS), ('--i_pose_weights', DP_STEPS),
+                    ('--i_testset', DP_STEPS)):
+        argv[argv.index(flag) + 1] = str(v)
+    return argv
+
+
+def _dp_arrays(np, npy_dir):
+    """The loop phase's grid as H5Arrays, read back from the .npy files
+    dp_phase wrote (memory-mapped: every rank reads the same pages)."""
+    import os
+    from anerf_torch.data.schema import H5Arrays
+    return H5Arrays({f[:-4]: np.load(os.path.join(npy_dir, f),
+                                     mmap_mode='r')
+                     for f in sorted(os.listdir(npy_dir))})
+
+
+def _dp_dataset(np, args, source):
+    from anerf_torch.data.surreal import SurrealDataset
+    return SurrealDataset(source, N_samples=args.N_rand
+                          // args.N_sample_images, split='train')
+
+
+def _dp_rank_loop(mesh, argv, source):
+    """A rank of dp_phase (b): run_nerf.main as a rank of `mesh`, counts
+    set to 0 just before and read just after, with the digest of every
+    super-batch it stepped on; then a digest of its final params and
+    Adam states, all-gathered. Returns (super-batch digests, the ranks'
+    state digests, rank 0's print records, launches, validation
+    buckets, seconds)."""
+    import hashlib
+    import os
+
+    import numpy as np
+    import torch
+
+    from anerf_torch.config import load_config
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.parallel.mesh import all_gather_rows
+    from anerf_torch.run_nerf import main as run_nerf_main
+    from anerf_torch.train import loop as loop_mod
+    from anerf_torch.train.checkpoint import state_tree
+    from anerf_torch.train.state import tree_leaves
+
+    _card_settings(torch)
+    if isinstance(source, str) and os.path.isdir(source):
+        source = _dp_arrays(np, source)
+    ds = _dp_dataset(np, load_config(argv), source)
+    digests, recs = [], []
+    views = loop_mod.batch_views
+
+    def spy(buf, layout):
+        digests.append(hashlib.sha1(buf.cpu().numpy().tobytes()).hexdigest())
+        return views(buf, layout)
+
+    def log_fn(rec):
+        recs.append(dict(rec, t=time.perf_counter()))
+        print(f"dp loop step {rec['step']}: loss {rec['total_loss']:.5f} "
+              f"psnr {rec['psnr']:.3f} rays/s {rec['rays_per_sec']:.1f}; "
+              f"dispatch {rec['dispatch_s'] * 1e3:.1f} ms", flush=True)
+
+    loop_mod.batch_views = spy
+    try:
+        torch.cuda.synchronize()
+        fr.LAUNCHES = fr.BWD_LAUNCHES = fr.BWD_BF16_LAUNCHES = 0
+        t0 = time.perf_counter()
+        ctx = run_nerf_main(argv, mesh=mesh, dataset=ds, log_fn=log_fn,
+                            save_images=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = (fr.LAUNCHES, fr.BWD_LAUNCHES, fr.BWD_BF16_LAUNCHES)
+    finally:
+        loop_mod.batch_views = views
+    own = _digest(np, [x for x in tree_leaves(state_tree(ctx.state))
+                       if isinstance(x, torch.Tensor)])
+    got = all_gather_rows(mesh, torch.tensor(
+        [list(bytes.fromhex(own))], dtype=torch.float32,
+        device=mesh.device))
+    states = [bytes(int(v) for v in row).hex() for row in got.tolist()]
+    return (digests, states, recs, counts, _val_buckets(ctx), dt)
+
+
+def _capture_stdout(fn):
+    """fn()'s output on file descriptor 1, which spawned ranks share:
+    (fn's result, the text)."""
+    import os
+    import tempfile
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with tempfile.TemporaryFile('w+') as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            result = fn()
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        f.seek(0)
+        return result, f.read()
+
+
+def _dp_serve(torch, np, argv, skw, launch):
+    """DP_REQUESTS on stdin through run_render.main --server (`launch`:
+    the ranks' keywords, or none: one device); its reply lines."""
+    import io
+    from anerf_torch import run_render as rr
+    stdin = sys.stdin
+    sys.stdin = io.StringIO(''.join(json.dumps(r) + '\n'
+                                    for r in DP_REQUESTS))
+    try:
+        _, text = _capture_stdout(lambda: rr.main(argv, **skw, **launch))
+    finally:
+        sys.stdin = stdin
+    return [json.loads(ln) for ln in text.splitlines()
+            if ln.startswith('{"ok"')]
+
+
+def _check_dp_step(np, label, one, ranks):
+    """(a)'s gates for one step: returns the worst numbers."""
+    r0 = ranks[0]
+    if any(r['digest'] != r0['digest'] for r in ranks):
+        raise AssertionError(f'{label}: the ranks\' states differ after '
+                             f'the step')
+    worst = {'loss': 0.0, 'norm': 0.0}
+    for grp in ('losses', 'stats'):
+        for k, want in one['out'][grp].items():
+            got = r0['out'][grp][k]
+            if any(r['out'][grp][k] != got for r in ranks):
+                raise AssertionError(f'{label}: {k} differs between ranks')
+            floor = 1e-6 if k == 'MPJPC' else 1e-30
+            rel = abs(got - want) / max(abs(want), floor)
+            # the gradient norms move with the gradients
+            kind = 'norm' if k.endswith('_norm') else 'loss'
+            tol = DP_GRAD_FRO if kind == 'norm' else DP_LOSS_RTOL
+            worst[kind] = max(worst[kind], rel)
+            if rel > tol:
+                raise AssertionError(f'{label}: {k} {got} against one '
+                                     f'rank\'s {want} (rel {rel:.3e})')
+    fro = {}
+    if not np.abs(one['grads']['pose']).max() > 0:
+        raise AssertionError(f'{label}: no pose gradient')
+    for name in ('nerf', 'pose'):
+        if not all(np.array_equal(r0['grads'][name], r['grads'][name])
+                   for r in ranks):
+            raise AssertionError(f'{label}: the ranks\' {name} gradients '
+                                 f'differ')
+        a = r0['grads'][name].astype(np.float64)
+        b = one['grads'][name].astype(np.float64)
+        fro[name] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        if not fro[name] < DP_GRAD_FRO:
+            raise AssertionError(f'{label}: {name} gradients {fro[name]:.3e}'
+                                 f' from one rank\'s (tol {DP_GRAD_FRO})')
+    # each ray's raw and rgb on its rank against one rank's, bit for bit
+    if len(one['raw']) != len(r0['raw']):
+        raise AssertionError(f'{label}: fused_apply calls')
+    for i, raw in enumerate(one['raw']):
+        if not np.array_equal(np.concatenate([r['raw'][i] for r in ranks]),
+                              raw):
+            raise AssertionError(f'{label}: raw of fused_apply call {i} '
+                                 f'differs from one rank\'s')
+    for k in ('rgb', 'rgb0'):
+        if not np.array_equal(np.concatenate([r['rgb'][k] for r in ranks]),
+                              one['rgb'][k]):
+            raise AssertionError(f'{label}: {k} differs from one rank\'s')
+    for r in ranks:
+        if r['counts'] != one['counts']:
+            raise AssertionError(f'{label}: a rank launched (K1, K2, '
+                                 f'K2-bf16) {r["counts"]}, one rank '
+                                 f'{one["counts"]}')
+    # one all-reduce of the step's own, which no weight gradient that
+    # fused_apply averaged crosses again
+    own = [b for who, b in r0['reduced'] if who == 'step']
+    fused = [b for who, b in r0['reduced'] if who == 'fused']
+    if own != [r0['step_bytes_want']] or len(fused) != 2 or any(
+            r['reduced'] != r0['reduced'] for r in ranks):
+        raise AssertionError(f'{label}: all-reduces {r0["reduced"]}; want '
+                             f'the step\'s one of {r0["step_bytes_want"]} '
+                             f'bytes and two of fused_apply')
+    print(f'dp (a) {label} step: all-reduced bytes a rank, the step\'s '
+          f'{own[0]} and fused_apply\'s {fused} ({own[0] + sum(fused)} in '
+          f'all)', flush=True)
+    print(f'dp (a) {label} step, {len(ranks)} ranks x '
+          f'{len(r0["rgb"]["rgb"])} rays '
+          f'against one rank: losses and stats within {worst["loss"]:.3e} '
+          f'(tol {DP_LOSS_RTOL}), gradient norms {worst["norm"]:.3e}; flat '
+          f'gradients fro nerf '
+          f'{fro["nerf"]:.3e} pose {fro["pose"]:.3e} (tol {DP_GRAD_FRO}); '
+          f'raw ({len(one["raw"])} fused_apply calls), rgb_map, rgb0 bit-'
+          f'equal; the ranks\' states bit-equal; (K1, K2, K2-bf16) a rank '
+          f'{r0["counts"]} = one rank\'s -> ok', flush=True)
+    return {'loss_rel': worst['loss'], 'norm_rel': worst['norm'],
+            'grad_fro': fro['nerf'],
+            'pose_grad_fro': fro['pose'], 'counts': list(r0['counts']),
+            'allreduce_bytes': {'step': own[0], 'fused': fused}}
+
+
+def dp_phase(torch, np, data, loop, devices=None, backend='gloo'):
+    """Data parallel (phase 11): one rank a device of `devices` (default
+    DP_RANKS ranks on the one card, gloo: a correctness check; --cards
+    N: one rank a card, NCCL), spawned by run_ranks (FileStore in a
+    temporary directory). (a) the train slice's step in test mode
+    (N_rand 2048, split over the ranks) and the culled fast-grads step,
+    each against one rank
+    on the same batch: losses and stats within DP_LOSS_RTOL, the
+    all-reduced flat gradients within DP_GRAD_FRO (Frobenius), every
+    fused_apply call's raw and render_rays' rgb_map / rgb0 bit-equal,
+    the ranks' states bit-equal, each rank's K1 / K2 launches the one-rank
+    pattern. (c) one 512 x 512 render_path(mesh=) request at chunk 4096
+    bit-equal to one rank's, 2 K1 launches a rank a bucket. (b)
+    run_nerf.main on the loop phase's grid (`data`, its H5Arrays, or
+    None: the h5 file of LOOP_DIR), 3 dispatches of 8, the checkpoint
+    and a validation render at 24: every rank on the same super-batches,
+    their params and Adam states bit-equal (a digest all-gathered),
+    losses falling, the checkpoint written once and restored bit for bit
+    by a one-rank setup; the loop's rays/s beside one rank's on the same
+    argv in this process, and the loop phase's (`loop`, or None),
+    reported, not gated. (d) DP_REQUESTS through run_render.main
+    --server on the ranks (stdin relayed to rank 0) against one device:
+    one ready line and one
+    reply a request, from rank 0 alone, the --eval metrics equal (the
+    renders bit-equal). Returns (K1, K2, K2-bf16 launches of the ranks'
+    main-path runs, the phase's numbers)."""
+    import os
+    import shutil
+    import tempfile
+
+    from anerf_torch.config import load_config
+    from anerf_torch.parallel.mesh import run_ranks
+    from anerf_torch.render.render_path import n_buckets_for
+    from anerf_torch.run_nerf import main as run_nerf_main
+    from anerf_torch.train.checkpoint import state_tree
+    from anerf_torch.train.loop import setup
+    from anerf_torch.train.state import tree_leaves
+
+    t_phase = time.perf_counter()
+    devices = devices or ['cuda:0'] * DP_RANKS
+    n = len(devices)
+    numbers = {'ranks': n, 'devices': devices, 'backend': backend}
+    with tempfile.TemporaryDirectory() as store:
+        launch = dict(devices=devices, backend=backend, init=store)
+        # ---- (a) and (c): one spawn
+        one = {'f32': _dp_step(torch, np, None),
+               'culled': _dp_step(torch, np, None, cull_ratio=0.125,
+                                  fast_grads=True),
+               'render': _dp_render(torch, np, None)}
+        t0 = time.perf_counter()
+        two = run_ranks(_dp_rank_steps, n, timeout=DP_TIMEOUT,
+                        deadline=DP_TIMEOUT, **launch)
+        numbers['spawn_steps_s'] = time.perf_counter() - t0
+        numbers['f32'] = _check_dp_step(np, 'f32', one['f32'],
+                                        [r['f32'] for r in two])
+        numbers['culled'] = _check_dp_step(np, 'culled fast-grads',
+                                           one['culled'],
+                                           [r['culled'] for r in two])
+        want = one['render']
+        tl, br = want['bboxes'][0]
+        box = int((br[0] - tl[0]) * (br[1] - tl[1]))
+        buckets = n_buckets_for(box, want['chunk'])
+        for r in two:
+            got = r['render']
+            for k in ('rgbs', 'disps', 'accs', 'bboxes'):
+                if not np.array_equal(got[k], want[k]):
+                    raise AssertionError(f'dp (c): {k} differs from one '
+                                         f'rank\'s render')
+            if got['launches'] != 2 * buckets:
+                raise AssertionError(f'dp (c): a rank launched K1 '
+                                     f'{got["launches"]} times for '
+                                     f'{buckets} buckets')
+        if want['accs'].max() < 0.01:
+            raise AssertionError('dp (c): the body does not show')
+        numbers['render'] = {
+            'box_rays': box, 'buckets': buckets,
+            'one_rank_s': want['seconds'],
+            'ranks_s': max(r['render']['seconds'] for r in two)}
+        print(f'dp (c) render_path(mesh=) 512x512, {box} box rays, '
+              f'{buckets} buckets of 4096 ({buckets * 4096 // n} rays a '
+              f'rank): rgbs, disps, accs bit-equal to one rank\'s; K1 x'
+              f'{two[0]["render"]["launches"]} a rank; one rank '
+              f'{want["seconds"]:.3f} s, {n} ranks '
+              f'{numbers["render"]["ranks_s"]:.3f} s -> ok', flush=True)
+
+        # ---- (b) the training loop through run_nerf.main
+        root = os.path.abspath(DP_DIR)
+        shutil.rmtree(root, ignore_errors=True)
+        os.makedirs(root)
+        if data is not None:
+            source = os.path.join(root, 'grid')
+            os.makedirs(source)
+            for k, v in data.items():
+                np.save(os.path.join(source, f'{k}.npy'), dict.__getitem__(
+                    data, k))
+        else:
+            source = os.path.join(os.path.abspath(LOOP_DIR), 'data',
+                                  'surreal', 'surreal_train_h5py.h5')
+        argv = _dp_loop_argv(DP_STEPS)
+        t0 = time.perf_counter()
+        loop_out = run_ranks(_dp_rank_loop, n, timeout=DP_TIMEOUT,
+                             deadline=DP_TIMEOUT, args=(argv, source),
+                             **launch)
+        numbers['spawn_loop_s'] = time.perf_counter() - t0
+        d0, states, recs, c0, val_b, loop_s = loop_out[0]
+        if any(r[0] != d0 for r in loop_out) or \
+                len(d0) != DP_STEPS // DP_UNROLL or len(set(d0)) != len(d0):
+            raise AssertionError(f'dp (b): the ranks\' super-batches '
+                                 f'{[r[0] for r in loop_out]}')
+        if len(set(states)) != 1:
+            raise AssertionError(f'dp (b): the ranks\' states differ: '
+                                 f'{states}')
+        if [r['step'] for r in recs] != list(range(DP_UNROLL, DP_STEPS + 1,
+                                                   DP_UNROLL)):
+            raise AssertionError(f'dp (b): prints at '
+                                 f'{[r["step"] for r in recs]}')
+        if not recs[-1]['total_loss'] < recs[0]['total_loss']:
+            raise AssertionError(f'dp (b): the loss does not fall: '
+                                 f'{[r["total_loss"] for r in recs]}')
+        want_counts = (2 * DP_STEPS + 2 * val_b, 2 * DP_STEPS, 0)
+        for c in [r[3] for r in loop_out]:
+            if tuple(c) != want_counts:
+                raise AssertionError(f'dp (b): a rank launched (K1, K2, '
+                                     f'K2-bf16) {c}, want {want_counts}')
+        exp = os.path.join(root, 'flagship_dp')
+        ckpts = sorted(os.listdir(os.path.join(exp, 'checkpoints')))
+        if ckpts != [str(DP_STEPS)]:
+            raise AssertionError(f'dp (b): checkpoints {ckpts}')
+        args = load_config(argv)
+        src = _dp_arrays(np, source) if data is not None else source
+        ctx = setup(args, _dp_dataset(np, args, src), device='cuda')
+        restored = _digest(np, [x for x in tree_leaves(state_tree(
+            ctx.state)) if isinstance(x, torch.Tensor)])
+        if ctx.start_step != DP_STEPS or restored != states[0]:
+            raise AssertionError('dp (b): checkpoint 24 does not restore '
+                                 'the ranks\' state bit for bit into one '
+                                 'rank\'s setup')
+        rays = args.N_rand * DP_UNROLL
+        rate = rays * (len(recs) - 1) / (recs[-1]['t'] - recs[0]['t'])
+        # one rank on the same argv, in this process, for the rate
+        one_recs = []
+        one_argv = list(argv)
+        one_argv[one_argv.index('--expname') + 1] = 'flagship_one'
+        run_nerf_main(one_argv, devices=['cuda:0'],
+                      dataset=_dp_dataset(np, args, src),
+                      log_fn=lambda r: one_recs.append(
+                          dict(r, t=time.perf_counter())),
+                      save_images=False)
+        torch.cuda.synchronize()
+        one_rate = rays * (len(one_recs) - 1) / (one_recs[-1]['t']
+                                                 - one_recs[0]['t'])
+        numbers['loop'] = {
+            'rays_per_s': rate, 'one_rank_rays_per_s': one_rate,
+            'loop_phase_rays_per_s': None if loop is None
+            else loop['rays_per_s'],
+            'dispatch_ms': [r['dispatch_s'] * 1e3 for r in recs],
+            'one_rank_dispatch_ms': [r['dispatch_s'] * 1e3
+                                     for r in one_recs],
+            'loss': [r['total_loss'] for r in recs], 'seconds': loop_s,
+            'val_buckets': val_b}
+        print(f'dp (b) run_nerf.main, {n} ranks x {args.N_rand // n} '
+              f'rays, {DP_STEPS} steps in dispatches of {DP_UNROLL}: the '
+              f'same {len(d0)} super-batches on every rank; states '
+              f'bit-equal (all-gathered digest); loss '
+              f'{recs[0]["total_loss"]:.5f} -> {recs[-1]["total_loss"]:.5f};'
+              f' checkpoint {ckpts} written once, restored bit for bit by '
+              f'one rank\'s setup; (K1, K2) a rank {tuple(c0)}; loop '
+              f'{rate:.1f} rays/s (dispatches 2-3) against one rank\'s '
+              f'{one_rate:.1f} on the same argv (the loop phase: '
+              f'{numbers["loop"]["loop_phase_rays_per_s"]}); not gated '
+              f'-> ok', flush=True)
+
+        # ---- (d) the stdin server on 2 ranks
+        nerf = os.path.join(exp, 'args.txt')
+        # the checkpoint's density is near 0 where the requests look:
+        # lift both heads' bias by 2 (as the render entry phase does)
+        ckpt = os.path.join(exp, 'checkpoints', str(DP_STEPS), 'state.pt')
+        tree = torch.load(ckpt, weights_only=True)
+        for net in ('coarse', 'fine'):
+            tree['params'][net]['alpha_linear']['b'] += 2.0
+        torch.save(tree, ckpt)
+        sargv = ['--nerf_args', nerf, '--ckptpath',
+                 os.path.join(exp, 'checkpoints'), '--dataset', 'surreal',
+                 '--entry', 'female', '--outputdir',
+                 os.path.join(root, 'render_output'), '--no_save',
+                 '--server', '--runname', 'dp']
+        skw = {'dataset': _dp_dataset(np, args, src)}
+        if data is not None:
+            skw['h5'] = src
+        t0 = time.perf_counter()
+        single = _dp_serve(torch, np, sargv, skw, {'devices': ['cuda:0']})
+        numbers['serve_one_s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranked = _dp_serve(torch, np, sargv, skw, launch)
+        numbers['serve_ranks_s'] = time.perf_counter() - t0
+        if [r.get('ready', False) for r in ranked] != [True, False, False]:
+            raise AssertionError(f'dp (d): replies {ranked}')
+        for a, b in zip(single[1:], ranked[1:]):
+            if not (a['ok'] and b['ok'] and a['eval'] == b['eval']
+                    and a['n_frames'] == b['n_frames']):
+                raise AssertionError(f'dp (d): {b} against one device\'s '
+                                     f'{a}')
+        print(f'dp (d) run_render.main --server on {n} ranks: one ready '
+              f'line and {len(ranked) - 1} replies, from rank 0 alone, '
+              f'--eval metrics equal to one device\'s '
+              f'({ranked[1]["eval"]["psnr"]:.4f} dB); one device '
+              f'{numbers["serve_one_s"]:.1f} s, {n} ranks '
+              f'{numbers["serve_ranks_s"]:.1f} s with their start -> ok',
+              flush=True)
+    numbers['wall_s'] = time.perf_counter() - t_phase
+    print(f'phase 11 (data parallel, {n} ranks, {backend}) took '
+          f'{numbers["wall_s"]:.1f} s', flush=True)
+    k1 = sum(r[k]['counts'][0] for r in two for k in ('f32', 'culled')) \
+        + sum(r['render']['launches'] for r in two) \
+        + sum(r[3][0] for r in loop_out)
+    k2 = sum(r['f32']['counts'][1] for r in two) \
+        + sum(r[3][1] for r in loop_out)
+    k2b = sum(r['culled']['counts'][2] for r in two)
+    return k1, k2, k2b, numbers
+
+
 def _density_probe(torch, np, sess, res=32):
     """The least and the largest raw density of image 0's pose on a
     res^3 version of render_mesh_mode's grid (plain torch, no kernel)."""
@@ -3268,10 +3863,8 @@ def main(argv) -> int:
     from anerf_torch.kernels import fused_mlp as fm
     from anerf_torch.kernels import fused_render as fr
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     # the plain branch's bf16 products sum in f32, as XLA's do
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    _card_settings(torch)
     print(f'torch {torch.__version__} cuda {torch.version.cuda}; '
           f'tf32 matmul={torch.backends.cuda.matmul.allow_tf32} '
           f'cudnn={torch.backends.cudnn.allow_tf32}; bf16 reduced-precision '
@@ -3294,6 +3887,25 @@ def main(argv) -> int:
     from anerf_torch.kernels import roofline as rf
     if fr.cluster_size() != rf.K1_CLUSTER:
         raise AssertionError('roofline.K1_CLUSTER does not match the kernel')
+
+    if '--cards' in argv:
+        n = int(argv[argv.index('--cards') + 1])
+        if torch.cuda.device_count() < n:
+            raise AssertionError(f'--cards {n}: {torch.cuda.device_count()} '
+                                 f'cards visible')
+        from anerf_torch.data.fixtures import synthetic_data
+        from anerf_torch.data.schema import h5_arrays
+        data = h5_arrays(synthetic_data(n_kps=LOOP_KPS, n_cams=LOOP_CAMS,
+                                        H=H, W=W))
+        *_, dp = dp_phase(torch, np, data, None,
+                          devices=[f'cuda:{i}' for i in range(n)],
+                          backend='nccl')
+        print('data parallel: ' + json.dumps(dp))
+        print(card)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}))
+        return 0
 
     args, cfg, params, src = _flagship_render(torch, np)
     k1 = kernel_phase(torch, np, cfg, params, src)
@@ -3356,13 +3968,16 @@ def main(argv) -> int:
     entry_k1, entry = render_entry_phase(torch, np, loop_data)
     data_k1, data_k2, datasets = datasets_phase(torch, np, loop_data, cfg,
                                                 params, src)
-    del loop_data
     knobs = knobs_phase(torch, np, cull_step_s)
+    dp_k1, dp_k2, dp_k2b, dp = dp_phase(torch, np, loop_data, loop)
+    del loop_data
 
     k1['launches'] = (render_k1 + train_k1 + cull_k1 + cull_train_k1
-                      + loop_k1 + entry_k1 + data_k1)
-    k2['launches'] = train_k2 + loop_k2 + data_k2
-    k2['bf16']['launches'] = cull_train_k2
+                      + loop_k1 + entry_k1 + data_k1 + dp_k1)
+    k2['launches'] = train_k2 + loop_k2 + data_k2 + dp_k2
+    k2['bf16']['launches'] = cull_train_k2 + dp_k2b
+    k1['dp_launches'], k2['dp_launches'] = dp_k1, dp_k2
+    k2['bf16']['dp_launches'] = dp_k2b
     k1['v1']['launches'] = fr.V1_LAUNCHES
     k2['v1']['launches'] = fr.BWD_V1_LAUNCHES
     k1['loop_launches'], k2['loop_launches'] = loop_k1, loop_k2
@@ -3372,15 +3987,17 @@ def main(argv) -> int:
           f'{train_k1} (train steps) + {cull_k1} (culled request) + '
           f'{cull_train_k1} (culled train steps) + {loop_k1} (training '
           f'loop) + {entry_k1} (render entry point) + {data_k1} (dataset '
-          f'types), K2 {train_k2} (train steps) + {loop_k2} (training '
-          f'loop) + {data_k2} (dataset types), K2-bf16 {cull_train_k2} '
-          f'(culled train steps), K1-v1 '
+          f'types) + {dp_k1} (data parallel ranks), K2 {train_k2} (train '
+          f'steps) + {loop_k2} (training loop) + {data_k2} (dataset types) '
+          f'+ {dp_k2} (data parallel ranks), K2-bf16 {cull_train_k2} '
+          f'(culled train steps) + {dp_k2b} (data parallel ranks), K1-v1 '
           f'{fr.V1_LAUNCHES}, K2-v1 {fr.BWD_V1_LAUNCHES}, K3-v1 '
           f'{fr.RAW_V1_LAUNCHES}, K4-v1 {fm.V1_LAUNCHES}', flush=True)
     print('loop: ' + json.dumps(loop), flush=True)
     print('render entry: ' + json.dumps(entry), flush=True)
     print('datasets: ' + json.dumps(datasets), flush=True)
     print('knobs: ' + json.dumps(knobs), flush=True)
+    print('data parallel: ' + json.dumps(dp), flush=True)
     if fr.V1_LAUNCHES or fr.BWD_V1_LAUNCHES or fr.RAW_V1_LAUNCHES \
             or fm.V1_LAUNCHES:
         raise AssertionError('a first version ran on the main path')

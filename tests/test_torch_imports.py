@@ -61,9 +61,11 @@ def test_scan_finds_the_port():
                 'data/process_h36m.py', 'data/process_perfcap.py',
                 'data/process_mixamo.py', 'data/process_zju.py',
                 'data/process_3dhp.py', 'data/process_surreal.py',
-                'utils/eval_helpers.py'):
+                'utils/eval_helpers.py',
+                # data parallel
+                'parallel/__init__.py', 'parallel/mesh.py'):
         assert f'anerf_torch/{mod}' in FILES
-    assert len(FILES) >= 73
+    assert len(FILES) >= 75
     tree = ast.parse('import jax.numpy as jnp\nfrom anerf_tpu.ops import fk')
     assert [m for m in _imported_modules(tree)] == ['jax.numpy',
                                                     'anerf_tpu.ops']
