@@ -12,10 +12,15 @@ import torch
 def resolve_device(device='cuda') -> torch.device:
     """The device an entry point runs on. 'cuda' (the default everywhere)
     raises when no GPU is present: the port never falls back to the CPU
-    unless the caller asks for it."""
+    unless the caller asks for it. Every run on the card resolves its
+    device here, so this is where the card's numerics are set
+    (utils/device.py:card_settings)."""
     dev = torch.device(device)
-    if dev.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError(
-            "anerf_torch: device='cuda' requested but no CUDA device is "
-            "available; pass device='cpu' to run on the CPU")
+    if dev.type == 'cuda':
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "anerf_torch: device='cuda' requested but no CUDA device "
+                "is available; pass device='cpu' to run on the CPU")
+        from .utils.device import card_settings
+        card_settings()
     return dev

@@ -101,8 +101,6 @@ def run(other: str, n_rays: int = 2048, reps: int = 11,
     ofr = load_other(other)
     ctx = kb.setup(n_rays, device)
     dev = ctx['dev']
-    if dev.type == 'cuda':
-        torch.backends.cuda.matmul.allow_tf32 = False
     kw = {} if bwd_f32 else {'bwd_f32': False}
     this = lambda *a: fr.fused_bwd(*a, **kw)
     that = lambda *a: ofr.fused_bwd(*a, **kw)

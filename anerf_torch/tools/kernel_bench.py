@@ -251,8 +251,6 @@ def run(mode: str, n_rays: int = 2048, reps: int = 8,
     bwd_f32=False adds K2's bf16 flavour to 'bench' and runs
     'decompose_bwd' in it (--bwd_bf16)."""
     ctx = setup(n_rays, device)
-    if ctx['dev'].type == 'cuda':
-        torch.backends.cuda.matmul.allow_tf32 = False
     fn, metric = {'bench': (bench, 'kernel_bench'),
                   'decompose': (decompose, 'kernel_decompose'),
                   'decompose_bwd': (decompose_bwd,

@@ -3,6 +3,7 @@
     python3 chip_smoke.py [--profile]
     python3 chip_smoke.py --cards N    # phase 1 and phase 11 alone, over
                                        # N cards (one rank a card, NCCL)
+    python3 chip_smoke.py --quality    # phase 1 and phase 12 alone
 
 Phases (any failure exits non-zero and prints no result):
   1. device: needs CUDA; prints the card and its power limit, turns TF32
@@ -129,6 +130,19 @@ Phases (any failure exits non-zero and prints no result):
      reported); (d) two stdin requests through run_render.main --server
      on 2 ranks (replies from rank 0 alone, equal to one device's). It
      checks correctness only: the two ranks share one card.
+ 12. quality (quality_phase): anerf_torch/tools/quality_ab.py, the
+     quality A/B, on the blobs fixture at seed 0, N_QAB_STEPS steps a
+     cell at the flagship width: control, culled, refine and
+     refine_culled on the fused branch (K1 two launches a step and two
+     a validation bucket; K2 f32 two a step for control and refine, K2
+     bf16 two a step and no f32 for the culled fast-grads ones) and
+     control on the plain branch (no K1 / K2); every row finite and the
+     losses in each cell's metrics.jsonl falling; the refine cells'
+     init_mpjpe_mm equal to the host's and their poses moved; then
+     `python -m anerf_torch.tools.quality_ab` in a subprocess on the same
+     state trains nothing and prints the same verdict line. Prints the
+     card settings in force, each cell's seconds and rays/s, and the
+     fused - plain and culled - control deltas (not gated).
 With --profile, one request and one train step run again under
 torch.profiler, and for each the device-busy share and the top kernels
 by device time are printed.
@@ -3241,13 +3255,6 @@ DP_REQUESTS = ({'render_type': 'val', 'selected_idxs': [0, 8],
                 'runname': 'dp_b'})
 
 
-def _card_settings(torch):
-    """TF32 off and cuBLAS's bf16 sums in f32: main() and every rank."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-
-
 def _digest(np, tensors):
     import hashlib
     h = hashlib.sha1()
@@ -3367,7 +3374,7 @@ def _dp_rank_steps(mesh):
     fast-grads step and the render request."""
     import numpy as np
     import torch
-    _card_settings(torch)
+
     return {'f32': _dp_step(torch, np, mesh),
             'culled': _dp_step(torch, np, mesh, cull_ratio=0.125,
                                fast_grads=True),
@@ -3424,7 +3431,6 @@ def _dp_rank_loop(mesh, argv, source):
     from anerf_torch.train.checkpoint import state_tree
     from anerf_torch.train.state import tree_leaves
 
-    _card_settings(torch)
     if isinstance(source, str) and os.path.isdir(source):
         source = _dp_arrays(np, source)
     ds = _dp_dataset(np, load_config(argv), source)
@@ -3797,6 +3803,199 @@ def dp_phase(torch, np, data, loop, devices=None, backend='gloo'):
     return k1, k2, k2b, numbers
 
 
+QAB_DIR = 'logs/chip_quality'
+# each cell's steps: 20 dispatches of the protocol's scan_unroll 10, at
+# the protocol's N_rand 2048; enough for the loss to fall and the poses to
+# move (10 of the refine recipe's 20-step pose intervals), short enough
+# that the five cells stay near 120 s (the sweep's 4000 steps are the
+# CLI's own runs)
+N_QAB_STEPS = 200
+QAB_PRINT = 10                  # metrics.jsonl's losses every 10 steps
+QAB_FUSED = ('control', 'culled', 'refine', 'refine_culled')
+# the fused cells whose steps run K2's f32 flavour; the others set
+# fast_grads and run its bf16 flavour
+QAB_F32 = ('control', 'refine')
+# the loss gate: the mean of the last QAB_LOSS_TAIL logged total losses
+# below the first one logged (step 10), with the protocol's
+# raw_noise_std 1.0 making single records noisy
+QAB_LOSS_TAIL = 3
+# the poses moved: the refined MPJPE (unrounded) at least this far from
+# the perturbed start (mm); 10 Adam pose updates at lrate 5e-4 move it
+# by tenths of a mm, a frozen pose table by exactly 0
+QAB_POSE_MOVED_MM = 1e-3
+
+
+def _qab_host_init_mm(np):
+    """init_mpjpe_mm of the blobs fixture's perturbed copy at seed 0,
+    computed here on the host from the fixture's tables and the
+    reference's perturbation, apart from the tool's own route."""
+    from anerf_torch.data.fixtures import synthetic_data
+    from anerf_torch.pose.pose_opt import perturb_poses
+    from anerf_torch.utils.metrics import mpjpe
+    data = synthetic_data(n_kps=8, n_cams=3, H=64, W=64, style='blobs')
+    f32 = {k: np.asarray(data[k], np.float32)
+           for k in ('bones', 'kp3d', 'rest_pose', 'gt_kp3d')}
+    _, _, kp = perturb_poses(f32['bones'], f32['kp3d'], f32['rest_pose'],
+                             noise_degree=5.0, noise_pelvis_mm=20.0,
+                             ext_scale=1e-3,
+                             rng=np.random.default_rng(10_000))
+    return mpjpe(kp.astype(np.float32), f32['gt_kp3d']) / 1e-3, \
+        f32['gt_kp3d']
+
+
+def quality_phase(torch, np):
+    """Phase 12: anerf_torch/tools/quality_ab.py on the card, N_QAB_STEPS
+    steps a cell on the blobs fixture at seed 0: the fused cells of
+    QAB_FUSED and the plain control, one call each with the launch counts
+    set to 0 just before and read after its train() and after its
+    validation; then the CLI in a subprocess on the same state. Returns
+    (K1, K2 f32, K2 bf16 launches, the phase's numbers)."""
+    import os
+    import re
+    import shutil
+
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.tools import quality_ab as tq
+    from anerf_torch.train import loop as loop_mod
+    from anerf_torch.utils.device import settings_in_force
+
+    settings = settings_in_force()
+    print(f'quality: card settings {json.dumps(settings)}', flush=True)
+    if any(settings.values()):
+        raise AssertionError(f'quality: the card settings are not in '
+                             f'force: {settings}')
+    shutil.rmtree(QAB_DIR, ignore_errors=True)
+    os.makedirs(QAB_DIR)
+    work = os.path.abspath(QAB_DIR)
+    state = os.path.join(work, 'rows.jsonl')
+    kw = dict(steps=N_QAB_STEPS, styles=['blobs'], seeds=[0],
+              cull_ratio=0.125, state_path=state, device='cuda',
+              workdir=work, fixed={'i_print': QAB_PRINT})
+    host_init, gt_kp = _qab_host_init_mm(np)
+    train, seen = loop_mod.train, {}
+
+    def counted(*a, **k):
+        ctx = train(*a, **k)
+        torch.cuda.synchronize()
+        seen['counts'] = (fr.LAUNCHES, fr.BWD_LAUNCHES,
+                          fr.BWD_BF16_LAUNCHES)
+        seen['ctx'] = ctx
+        return ctx
+
+    cells, totals = {}, [0, 0, 0]
+    loop_mod.train = counted
+    try:
+        for fused, label in ([(True, v) for v in QAB_FUSED]
+                             + [(False, 'control')]):
+            torch.cuda.synchronize()
+            fr.LAUNCHES = fr.BWD_LAUNCHES = fr.BWD_BF16_LAUNCHES = 0
+            t0 = time.perf_counter()
+            v = tq.quality_ab(**kw, variants=(label,), fused_kernel=fused)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = (fr.LAUNCHES, fr.BWD_LAUNCHES, fr.BWD_BF16_LAUNCHES)
+            row, = v['rows']
+            ctx, steps = seen.pop('ctx'), seen.pop('counts')
+            name = row['config']
+            n = 2 * N_QAB_STEPS
+            if fused:
+                f32 = label in QAB_F32
+                want = (n, n if f32 else 0, 0 if f32 else n)
+                val = 2 * _val_buckets(ctx)
+            else:
+                want, val = (0, 0, 0), 0
+            if steps != want or after != (want[0] + val,) + want[1:]:
+                raise AssertionError(
+                    f'quality {name}: launches (K1, K2 f32, K2 bf16) '
+                    f'{steps} in the steps, {after} with the validation; '
+                    f'expected {want} and K1 +{val}')
+            for k in ('psnr', 'fg_psnr', 'fg_ssim', 'rays_per_s'):
+                if not math.isfinite(row[k]):
+                    raise AssertionError(f'quality {name}: {k} {row[k]}')
+            log = os.path.join(work, 'torch_qab_blobs_64', re.sub(
+                r'\W+', '_', f'torch_qab_blobs_0_{name}'), 'metrics.jsonl')
+            with open(log) as f:
+                loss = [json.loads(line)['total_loss'] for line in f]
+            tail = sum(loss[-QAB_LOSS_TAIL:]) / QAB_LOSS_TAIL
+            if len(loss) != N_QAB_STEPS // QAB_PRINT or not all(
+                    map(math.isfinite, loss)) or not tail < loss[0]:
+                raise AssertionError(f'quality {name}: logged losses '
+                                     f'{loss} do not fall')
+            cell = dict(psnr=row['psnr'], fg_psnr=row['fg_psnr'],
+                        fg_ssim=row['fg_ssim'], rays_per_s=row['rays_per_s'],
+                        cell_s=dt, loss_first=loss[0], loss_tail=tail,
+                        launches=list(after))
+            if label in tq.AB_PERTURBED:
+                moved = tq._refined_pose_metrics(ctx, gt_kp, digits=None)
+                if row['init_mpjpe_mm'] != round(host_init, 1):
+                    raise AssertionError(
+                        f'quality {name}: init_mpjpe_mm '
+                        f'{row["init_mpjpe_mm"]} against the host\'s '
+                        f'{host_init:.4f}')
+                if not abs(moved['mpjpe_mm'] - host_init) \
+                        >= QAB_POSE_MOVED_MM:
+                    raise AssertionError(
+                        f'quality {name}: the poses did not move (MPJPE '
+                        f'{moved["mpjpe_mm"]:.4f} mm from {host_init:.4f})')
+                cell.update(init_mpjpe_mm=host_init,
+                            mpjpe_mm=moved['mpjpe_mm'],
+                            pa_mpjpe_mm=moved['pa_mpjpe_mm'])
+            del ctx
+            cells[name] = cell
+            totals = [a + b for a, b in zip(totals, after)]
+            print(f'quality {name}: {dt:.1f} s a cell of {N_QAB_STEPS} '
+                  f'steps, {row["rays_per_s"]:.1f} rays/s, psnr '
+                  f'{row["psnr"]:.2f} fg_psnr {row["fg_psnr"]:.2f} fg_ssim '
+                  f'{row["fg_ssim"]:.3f}, loss {loss[0]:.4f} -> {tail:.4f}; '
+                  f'launches {list(after)}'
+                  + (f'; MPJPE {host_init:.2f} -> '
+                     f'{cell["mpjpe_mm"]:.2f} mm' if 'mpjpe_mm' in cell
+                     else ''), flush=True)
+
+        # every cell is in the state now: the verdict in this process,
+        # then the CLI on the same state trains nothing and prints it
+        torch.cuda.synchronize()
+        fr.LAUNCHES = fr.BWD_LAUNCHES = fr.BWD_BF16_LAUNCHES = 0
+        with open(state) as f:
+            n_rows = len(f.readlines())
+        verdict = tq.quality_ab(**kw, variants=QAB_FUSED, fused_kernel=True)
+        if seen or fr.LAUNCHES or fr.BWD_LAUNCHES or fr.BWD_BF16_LAUNCHES:
+            raise AssertionError('quality: the resumed call trained a cell')
+    finally:
+        loop_mod.train = train
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, '-m', 'anerf_torch.tools.quality_ab',
+         '--fused_kernel', '--ab_steps', str(N_QAB_STEPS), '--ab_styles',
+         'blobs', '--ab_seeds', '0', '--ab_cull', '0.125', '--ab_variants',
+         *QAB_FUSED, '--ab_state', state, '--ab_dir', work],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    cli_s = time.perf_counter() - t0
+    out = cli.stdout.strip().splitlines()
+    with open(state) as f:
+        rows_after = len(f.readlines())
+    if cli.returncode != 0 or not out or out[-1] != json.dumps(verdict):
+        raise AssertionError(f'quality: the CLI exited {cli.returncode} or '
+                             f'printed another verdict:\n{cli.stdout[-2000:]}'
+                             f'\n{cli.stderr[-2000:]}')
+    if rows_after != n_rows or any(line.startswith('cell ') for line in out):
+        raise AssertionError('quality: the CLI trained a cell on a state '
+                             'that holds every one')
+    fused_minus_plain = cells['control+fused']['psnr'] \
+        - cells['control']['psnr']
+    print(f'quality: the CLI resumed {len(QAB_FUSED)} cells in {cli_s:.1f} '
+          f's and printed the same verdict; fused - plain control '
+          f'{fused_minus_plain:+.2f} dB, culled+fused - control+fused '
+          f'{verdict["deltas"]["culled+fused"]["median"]:+.2f} dB, '
+          f'refine_culled+fused - refine+fused '
+          f'{verdict["deltas"]["refine_culled+fused"]["median"]:+.2f} dB '
+          f'(printed, not gated)', flush=True)
+    return (*totals, dict(cells=cells, cli_s=cli_s,
+                          fused_minus_plain_db=fused_minus_plain,
+                          deltas=verdict['deltas'], settings=settings))
+
+
 def _density_probe(torch, np, sess, res=32):
     """The least and the largest raw density of image 0's pose on a
     res^3 version of render_mesh_mode's grid (plain torch, no kernel)."""
@@ -3863,8 +4062,10 @@ def main(argv) -> int:
     from anerf_torch.kernels import fused_mlp as fm
     from anerf_torch.kernels import fused_render as fr
 
-    # the plain branch's bf16 products sum in f32, as XLA's do
-    _card_settings(torch)
+    # TF32 off, the plain branch's bf16 products summed in f32, as XLA's
+    # are: resolving the card applies the settings every run on it has
+    from anerf_torch import resolve_device
+    resolve_device('cuda')
     print(f'torch {torch.__version__} cuda {torch.version.cuda}; '
           f'tf32 matmul={torch.backends.cuda.matmul.allow_tf32} '
           f'cudnn={torch.backends.cudnn.allow_tf32}; bf16 reduced-precision '
@@ -3901,6 +4102,14 @@ def main(argv) -> int:
                           devices=[f'cuda:{i}' for i in range(n)],
                           backend='nccl')
         print('data parallel: ' + json.dumps(dp))
+        print(card)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}))
+        return 0
+    if '--quality' in argv:
+        *_, quality = quality_phase(torch, np)
+        print('quality: ' + json.dumps(quality))
         print(card)
         print(json.dumps({'ok': True, 'device': {
             'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
@@ -3971,13 +4180,16 @@ def main(argv) -> int:
     knobs = knobs_phase(torch, np, cull_step_s)
     dp_k1, dp_k2, dp_k2b, dp = dp_phase(torch, np, loop_data, loop)
     del loop_data
+    q_k1, q_k2, q_k2b, quality = quality_phase(torch, np)
 
     k1['launches'] = (render_k1 + train_k1 + cull_k1 + cull_train_k1
-                      + loop_k1 + entry_k1 + data_k1 + dp_k1)
-    k2['launches'] = train_k2 + loop_k2 + data_k2 + dp_k2
-    k2['bf16']['launches'] = cull_train_k2 + dp_k2b
+                      + loop_k1 + entry_k1 + data_k1 + dp_k1 + q_k1)
+    k2['launches'] = train_k2 + loop_k2 + data_k2 + dp_k2 + q_k2
+    k2['bf16']['launches'] = cull_train_k2 + dp_k2b + q_k2b
     k1['dp_launches'], k2['dp_launches'] = dp_k1, dp_k2
     k2['bf16']['dp_launches'] = dp_k2b
+    k1['quality_launches'], k2['quality_launches'] = q_k1, q_k2
+    k2['bf16']['quality_launches'] = q_k2b
     k1['v1']['launches'] = fr.V1_LAUNCHES
     k2['v1']['launches'] = fr.BWD_V1_LAUNCHES
     k1['loop_launches'], k2['loop_launches'] = loop_k1, loop_k2
@@ -3987,10 +4199,11 @@ def main(argv) -> int:
           f'{train_k1} (train steps) + {cull_k1} (culled request) + '
           f'{cull_train_k1} (culled train steps) + {loop_k1} (training '
           f'loop) + {entry_k1} (render entry point) + {data_k1} (dataset '
-          f'types) + {dp_k1} (data parallel ranks), K2 {train_k2} (train '
-          f'steps) + {loop_k2} (training loop) + {data_k2} (dataset types) '
-          f'+ {dp_k2} (data parallel ranks), K2-bf16 {cull_train_k2} '
-          f'(culled train steps) + {dp_k2b} (data parallel ranks), K1-v1 '
+          f'types) + {dp_k1} (data parallel ranks) + {q_k1} (quality), K2 '
+          f'{train_k2} (train steps) + {loop_k2} (training loop) + '
+          f'{data_k2} (dataset types) + {dp_k2} (data parallel ranks) + '
+          f'{q_k2} (quality), K2-bf16 {cull_train_k2} (culled train steps) '
+          f'+ {dp_k2b} (data parallel ranks) + {q_k2b} (quality), K1-v1 '
           f'{fr.V1_LAUNCHES}, K2-v1 {fr.BWD_V1_LAUNCHES}, K3-v1 '
           f'{fr.RAW_V1_LAUNCHES}, K4-v1 {fm.V1_LAUNCHES}', flush=True)
     print('loop: ' + json.dumps(loop), flush=True)
@@ -3998,6 +4211,7 @@ def main(argv) -> int:
     print('datasets: ' + json.dumps(datasets), flush=True)
     print('knobs: ' + json.dumps(knobs), flush=True)
     print('data parallel: ' + json.dumps(dp), flush=True)
+    print('quality: ' + json.dumps(quality), flush=True)
     if fr.V1_LAUNCHES or fr.BWD_V1_LAUNCHES or fr.RAW_V1_LAUNCHES \
             or fm.V1_LAUNCHES:
         raise AssertionError('a first version ran on the main path')

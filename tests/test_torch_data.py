@@ -325,6 +325,35 @@ def test_catalog_builds_h5_and_surreal(h5_path, tmp_path, monkeypatch):
     assert type(ds) is tsur.SurrealDataset and ds.get_meta()['n_views'] == 2
 
 
+@pytest.mark.parametrize('n_cams', [None, 2])
+def test_surreal_rand_kps_matches_jax(tmp_path, monkeypatch, n_cams):
+    """SurrealDataset's N_rand_kps path: the pose table it reads from
+    data/surreal/surreal_rand_230.npy (a small one here, repeats
+    included), the camera subset [0, 3, 6][:N_cams] of a 7-camera grid;
+    meta and items equal to JAX's."""
+    h5 = tmp_path / 'syn_train_h5py.h5'
+    tfix.make_synthetic_h5(str(h5), n_kps=5, n_cams=7, H=8, W=8)
+    (tmp_path / 'data' / 'surreal').mkdir(parents=True)
+    np.save(tmp_path / 'data' / 'surreal' / 'surreal_rand_230.npy',
+            np.array([3, 0, 4, 3]))
+    monkeypatch.chdir(tmp_path)
+    kw = dict(N_samples=N_PER, split='train', seed=5, N_rand_kps='230',
+              N_cams=n_cams)
+    t, j = tsur.SurrealDataset(str(h5), **kw), jsur.SurrealDataset(str(h5),
+                                                                   **kw)
+    want_cams = [0, 3, 6][:n_cams or 7]
+    np.testing.assert_array_equal(
+        t._idx_map, np.concatenate([np.array([0, 3, 4]) + 5 * c
+                                    for c in want_cams]))
+    assert len(t) == len(j) == 3 * len(want_cams)
+    _equal_dicts(t.get_meta(), j.get_meta())
+    for q in range(len(j)):
+        got, want = t.get_item(q), j.get_item(q)
+        assert set(got) == set(want)
+        for k in want:
+            _equal(got[k], want[k], f'{k}[{q}]')
+
+
 # ------------------------------------------------------- utils of the loop
 
 def test_metrics_match_jax():

@@ -1,6 +1,7 @@
 """The port stands alone: no module of anerf_torch/, and not chip_smoke.py,
 imports JAX or anything of the JAX package (anerf_tpu), not even the
-JAX-free modules there (the port keeps its own copies)."""
+JAX-free modules there (the port keeps its own copies), nor the JAX
+system's root scripts (bench.py, __graft_entry__.py, tools/)."""
 import ast
 from pathlib import Path
 
@@ -10,7 +11,8 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted(p.relative_to(ROOT).as_posix()
                for p in (ROOT / 'anerf_torch').rglob('*.py')) + \
     ['chip_smoke.py']
-FORBIDDEN = ('jax', 'jaxlib', 'anerf_tpu', 'flax', 'optax', 'orbax')
+FORBIDDEN = ('jax', 'jaxlib', 'anerf_tpu', 'flax', 'optax', 'orbax',
+             'bench', 'tools', '__graft_entry__')
 
 
 def _imported_modules(tree):
@@ -63,9 +65,15 @@ def test_scan_finds_the_port():
                 'data/process_3dhp.py', 'data/process_surreal.py',
                 'utils/eval_helpers.py',
                 # data parallel
-                'parallel/__init__.py', 'parallel/mesh.py'):
+                'parallel/__init__.py', 'parallel/mesh.py',
+                # the quality A/B and the card settings
+                'tools/quality_ab.py', 'tools/qab_table.py',
+                'utils/device.py'):
         assert f'anerf_torch/{mod}' in FILES
     assert len(FILES) >= 75
     tree = ast.parse('import jax.numpy as jnp\nfrom anerf_tpu.ops import fk')
     assert [m for m in _imported_modules(tree)] == ['jax.numpy',
                                                     'anerf_tpu.ops']
+    tree = ast.parse('import bench\nfrom tools import qab_table\n'
+                     'from .tools import flagship')
+    assert [m for m in _imported_modules(tree)] == ['bench', 'tools']
