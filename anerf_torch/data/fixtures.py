@@ -6,9 +6,12 @@ Generates a SURREAL-like dataset: random SMPL poses on a camera ring,
 images rendered by splatting Gaussian blobs at projected joints. Gives tests
 and the chip smoke test a learnable end-to-end signal without any external
 data. `synthetic_data` returns the arrays; `make_synthetic_h5` also writes
-them (h5py).
+them (h5py); `fixture_source` gives a tool's fixture as that file where
+h5py is installed, as the arrays where it is not.
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -164,6 +167,33 @@ def make_synthetic_h5(path: str, n_kps: int = 8, n_cams: int = 3,
                           ext_scale=ext_scale, style=style)
     write_h5(path, data)
     return data
+
+
+def have_h5py() -> bool:
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def fixture_source(d: str, n_kps: int = 8, n_cams: int = 3, H: int = 64,
+                   style: str = 'blobs'):
+    """The square synthetic fixture of directory `d`, made there if
+    needed: the path of its h5 file (written once), or where h5py is
+    absent its arrays in memory (an H5Arrays naming the path its file
+    would have)."""
+    from .schema import h5_arrays
+
+    h5 = os.path.join(d, 'syn_train_h5py.h5')
+    os.makedirs(d, exist_ok=True)
+    if not have_h5py():
+        return h5_arrays(synthetic_data(n_kps=n_kps, n_cams=n_cams, H=H,
+                                        W=H, style=style), path=h5)
+    if not os.path.exists(h5):
+        make_synthetic_h5(h5, n_kps=n_kps, n_cams=n_cams, H=H, W=H,
+                          style=style)
+    return h5
 
 
 def synthetic_data(n_kps: int = 8, n_cams: int = 3, H: int = 64,

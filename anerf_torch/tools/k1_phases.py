@@ -262,10 +262,8 @@ def main(argv=None) -> int:
                     choices=['pts', 'raw', 'embedded'],
                     help='input modes: K1 (pts), K3 (raw), K4 (embedded)')
     a = ap.parse_args(argv)
-    card = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                           '--format=csv,noheader'], capture_output=True,
-                          text=True).stdout.strip()
-    print(f'card: {card}', flush=True)
+    from ..utils.device import card_line
+    print(f'card: {card_line()}', flush=True)
     run(a.variants, a.rays, a.S, sources=a.source, modes=a.modes)
     return 0
 

@@ -61,7 +61,6 @@ from __future__ import annotations
 import argparse
 import json
 import statistics
-import subprocess
 import sys
 import time
 from typing import Any, Callable, Dict, List, Sequence
@@ -92,12 +91,9 @@ def card(device: torch.device) -> Dict[str, Any]:
     nvidia-smi reports it), or the CPU."""
     if device.type != 'cuda':
         return {'device': 'cpu', 'power_limit': None}
-    line = subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    from ..utils.device import card_line
     return {'device': torch.cuda.get_device_name(device),
-            'power_limit': line.split(',')[-1].strip()}
+            'power_limit': card_line().split(',')[-1].strip()}
 
 
 def setup(n_rays: int, device) -> Dict[str, Any]:

@@ -125,14 +125,6 @@ def _overrides(label: str, cull_ratio: float, fused_kernel: bool) -> dict:
     return dict(over, fused_kernel=True) if fused_kernel else over
 
 
-def _have_h5py() -> bool:
-    try:
-        import h5py  # noqa: F401
-    except ImportError:
-        return False
-    return True
-
-
 def _style_h5(style: str, workdir: Optional[str] = None):
     """Resolve a style to (directory, source): synthetic fixture families
     by name ('limbs', 'clutter@96'), or a real dataset h5 by 'h5:<path>'
@@ -141,15 +133,14 @@ def _style_h5(style: str, workdir: Optional[str] = None):
     naming the path its file would have)."""
     import tempfile
 
-    from ..data.fixtures import make_synthetic_h5, synthetic_data
-    from ..data.schema import h5_arrays
+    from ..data.fixtures import fixture_source, have_h5py
 
     root = workdir if workdir is not None else tempfile.gettempdir()
     if style.startswith('h5:'):
         h5 = style[3:]
         if not os.path.exists(h5):
             raise FileNotFoundError(f'quality_ab style {style!r}: {h5}')
-        if not _have_h5py():
+        if not have_h5py():
             raise ImportError(f'quality_ab style {style!r} reads an h5 '
                               f'file, which needs h5py')
         tag = re.sub(r'\W+', '_', os.path.abspath(h5)).strip('_')[-80:]
@@ -158,14 +149,7 @@ def _style_h5(style: str, workdir: Optional[str] = None):
         return d, h5
     name, H = _parse_style(style)
     d = os.path.join(root, f'torch_qab_{name}_{H}')
-    h5 = os.path.join(d, 'syn_train_h5py.h5')
-    os.makedirs(d, exist_ok=True)
-    if not _have_h5py():
-        return d, h5_arrays(synthetic_data(n_kps=8, n_cams=3, H=H, W=H,
-                                           style=name), path=h5)
-    if not os.path.exists(h5):
-        make_synthetic_h5(h5, n_kps=8, n_cams=3, H=H, W=H, style=name)
-    return d, h5
+    return d, fixture_source(d, H=H, style=name)
 
 
 def _perturbed(bones, kp3d, rest, seed: int, ext_scale: float) -> dict:
@@ -398,15 +382,6 @@ def quality_ab(steps: int, styles: Sequence[str], seeds: Sequence[int],
     return verdict
 
 
-def _card_line() -> str:
-    """nvidia-smi's name and power limit of the first card."""
-    import subprocess
-    return subprocess.run(
-        ['nvidia-smi', '--query-gpu=name,power.limit',
-         '--format=csv,noheader'], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-
-
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     p.add_argument('--ab_steps', type=int, default=4000)
@@ -437,12 +412,12 @@ def main(argv=None) -> dict:
     a = p.parse_args(argv)
 
     from .. import resolve_device
-    from ..utils.device import settings_in_force
+    from ..utils.device import card_line, settings_in_force
 
     if resolve_device(a.device).type == 'cuda':
         print(f'card settings: {json.dumps(settings_in_force())}',
               flush=True)
-        print(f'card: {_card_line()}', flush=True)
+        print(f'card: {card_line()}', flush=True)
     return quality_ab(a.ab_steps, a.ab_styles, a.ab_seeds, a.ab_cull,
                       state_path=a.ab_state, variants=a.ab_variants,
                       fused_kernel=a.fused_kernel, device=a.device,

@@ -4,6 +4,7 @@
     python3 chip_smoke.py --cards N    # phase 1 and phase 11 alone, over
                                        # N cards (one rank a card, NCCL)
     python3 chip_smoke.py --quality    # phase 1 and phase 12 alone
+    python3 chip_smoke.py --bench      # phase 1 and phase 13 alone
 
 Phases (any failure exits non-zero and prints no result):
   1. device: needs CUDA; prints the card and its power limit, turns TF32
@@ -143,6 +144,14 @@ Phases (any failure exits non-zero and prints no result):
      state trains nothing and prints the same verdict line. Prints the
      card settings in force, each cell's seconds and rays/s, and the
      fused - plain and culled - control deltas (not gated).
+ 13. throughput bench (bench_phase): anerf_torch/tools/bench.py's
+     throughput line in process at small counts (BENCH_UNROLL steps a
+     dispatch, BENCH_MEASURE dispatches) for its four builds (plain and
+     fused protocol default, plain and fused headline), measure_render
+     (BENCH_RENDER), measure_e2e (BENCH_E2E) and scaling_table(1) on the
+     card: every rate finite and > 0, no *_error field, the fused builds
+     two K1 and two K2 f32 launches a step and no K2 bf16, the plain
+     builds none, and every key of bench.py's line (BENCH_KEYS).
 With --profile, one request and one train step run again under
 torch.profiler, and for each the device-busy share and the top kernels
 by device time are printed.
@@ -1587,33 +1596,15 @@ def _flagship_train(torch, np, **overrides):
     gray target. Returns (args, cfg, pose config, rest pose, state,
     optimizers, batch)."""
     from anerf_torch.ops.cylinder import get_kp_bounding_cylinder
-    from anerf_torch.pose.pose_opt import (PoseOptConfig, init_pose_params,
-                                           pose_anchor_tree)
+    from anerf_torch.tools.bench import _train_state
     from anerf_torch.tools.flagship import flagship
-    from anerf_torch.train.state import (TrainState, init_opt_state,
-                                         init_pose_opt_state,
-                                         make_nerf_optimizer,
-                                         make_pose_optimizer)
 
     n_frames, n_rays = 128, 2048
     args, cfg, params, rest, bones, kp3d, _ = flagship(
         n_frames, N_rand=n_rays, N_sample_images=n_frames, **overrides)
     cyls = get_kp_bounding_cylinder(kp3d, ext_scale=0.001, head='y')
-    pose_cfg = PoseOptConfig(use_rot6d=args.opt_rot6d)
-    opt = make_nerf_optimizer(args.lrate, args.lrate_decay,
-                              args.lrate_decay_rate, args.decay_unit)
-    popt = make_pose_optimizer(args.opt_pose_lrate,
-                               args.opt_pose_lrate_decay,
-                               args.opt_pose_decay_rate,
-                               args.opt_pose_decay_unit)
-    pose_params = init_pose_params(kp3d, bones, pose_cfg, device='cuda')
-    pose_opt_state, pose_acc = init_pose_opt_state(popt, pose_params)
-    state = TrainState(step=0, params=params,
-                       opt_state=init_opt_state(opt, params),
-                       pose_params=pose_params,
-                       pose_opt_state=pose_opt_state,
-                       pose_grad_acc=pose_acc,
-                       anchors=pose_anchor_tree(kp3d, bones, 'cuda'))
+    state, pose_cfg, opt, popt = _train_state(
+        args, params, {'kp3d': kp3d, 'bones': bones}, torch.device('cuda'))
 
     brng = np.random.default_rng(1)
     kp_idxs = brng.permutation(n_frames).astype(np.int64)
@@ -1833,17 +1824,10 @@ def profile_phase(torch, label, fn):
 def _profile_report(torch, prof, label, dt):
     """The device-busy share of a profiled window of dt seconds, and the
     kernels that take the device time, printed; returns the idle share."""
-    from torch.autograd import DeviceType
+    from anerf_torch.tools.step_trace import kernel_rows
 
-    rows = []
-    for e in prof.key_averages():
-        # device-side entries only: an aten op's device time is its
-        # kernels', which appear as entries of their own
-        dev_us = getattr(e, 'self_device_time_total',
-                         getattr(e, 'self_cuda_time_total', 0))
-        if e.device_type == DeviceType.CUDA and dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
-    rows.sort(reverse=True)
+    # device kernels by name (the step_trace tool's parser)
+    rows = kernel_rows(prof, split=None)
     busy_ms = sum(r[0] for r in rows) / 1e3
     print(f'profile {label} (under the profiler): '
           f'wall {dt * 1e3:.1f} ms, device busy {busy_ms:.1f} ms, '
@@ -3996,6 +3980,85 @@ def quality_phase(torch, np):
                           deltas=verdict['deltas'], settings=settings))
 
 
+# phase 13, the throughput bench (anerf_torch/tools/bench.py) at small
+# counts. BENCH_KEYS: every key of bench.py's throughput line
+# (bench.py:815-933), which the port's line must hold under the same names
+BENCH_KEYS = (
+    'metric', 'value', 'unit', 'vs_baseline',
+    'protocol_default_xla', 'protocol_default_xla_spread',
+    'protocol_default_fused', 'protocol_default_fused_spread',
+    'protocol_default', 'headline_xla', 'headline_xla_spread',
+    'headline_config', 'best', 'headline_fused', 'headline_fused_spread',
+    'render_box_rays_per_sec', 'render_box_rays_spread',
+    'e2e_inloop_rays_per_sec', 'e2e_inloop_window_steps',
+    'e2e_inloop_per_1k_rates', 'scaling', 'baseline_rays_per_sec',
+    'baseline_band_rays_per_sec', 'vs_baseline_low', 'vs_baseline_high',
+    'vs_baseline_headline', 'vs_baseline_headline_low',
+    'vs_baseline_headline_high')
+BENCH_UNROLL = 4
+BENCH_MEASURE = dict(n_warmup=1, n_repeats=2, n_dispatch=2)
+BENCH_RENDER = dict(n_views=2, res=256, n_repeats=1)
+BENCH_E2E = dict(steps=600, warm_steps=200)
+
+
+def bench_phase(torch, np):
+    """The bench's throughput line in this process (tools/bench.py:
+    throughput) at BENCH_UNROLL steps a dispatch and BENCH_MEASURE's
+    dispatches, for all four of its builds; then measure_render at
+    BENCH_RENDER, measure_e2e at BENCH_E2E and scaling_table(1) on the
+    card. The counts are set to 0 just before each build and read just
+    after its measure (bench.py's `launches`). Gates: every rate finite
+    and > 0, no *_error field; the fused builds launch K1 and K2 f32 two
+    times a step and no K2 bf16, the plain builds none; the line holds
+    every key of BENCH_KEYS and only the port's own beside them; the
+    scaling table is the card's with one row. Returns (K1 launches, K2
+    launches, the line)."""
+    from anerf_torch.tools import bench as tb
+
+    t0 = time.perf_counter()
+    line = tb.throughput(device='cuda', unroll=BENCH_UNROLL,
+                         measure_kw=BENCH_MEASURE, render_kw=BENCH_RENDER,
+                         e2e_kw=BENCH_E2E,
+                         scaling=lambda: tb.scaling_table(1))
+    dt = time.perf_counter() - t0
+    print(f'bench: {dt:.1f} s; line: {json.dumps(line)}', flush=True)
+    if tb.errors(line):
+        raise AssertionError(f'bench: {tb.errors(line)}: '
+                             f'{[line[k] for k in tb.errors(line)]}')
+    bad = tb.bad_rates(line)
+    if bad:
+        raise AssertionError(f'bench: rates not finite and > 0: {bad}')
+    missing = set(BENCH_KEYS) - set(line)
+    extra = set(line) - set(BENCH_KEYS) - tb.PORT_KEYS
+    if missing or extra:
+        raise AssertionError(f'bench: keys missing {sorted(missing)}, '
+                             f'unknown {sorted(extra)}')
+    steps = (BENCH_MEASURE['n_warmup'] + BENCH_MEASURE['n_repeats']
+             * BENCH_MEASURE['n_dispatch']) * BENCH_UNROLL
+    k1 = k2 = 0
+    for build, n in line['launches'].items():
+        fused = build.endswith('_fused')
+        want = ({'K1': 2 * steps, 'K2_f32': 2 * steps, 'K2_bf16': 0}
+                if fused else {'K1': 0, 'K2_f32': 0, 'K2_bf16': 0})
+        if n != want:
+            raise AssertionError(f'bench: {build} launched {n}, want '
+                                 f'{want}')
+        k1, k2 = k1 + n['K1'], k2 + n['K2_f32']
+    if len(line['launches']) != 4:
+        raise AssertionError(f'bench: builds {sorted(line["launches"])}')
+    table = line['scaling']
+    if table['platform'] != 'gpu' or table['sizes'] != [1]:
+        raise AssertionError(f'bench: scaling table {table}')
+    print(f'bench: fused builds K1 x{k1}, K2 f32 x{k2} over {steps} steps '
+          f'each; protocol plain {line["protocol_default_xla"]} / fused '
+          f'{line["protocol_default_fused"]}, headline plain '
+          f'{line["headline_xla"]} / fused {line["headline_fused"]}, '
+          f'render {line["render_box_rays_per_sec"]}, in-loop '
+          f'{line["e2e_inloop_rays_per_sec"]} rays/s (small counts, not '
+          f'the protocol)', flush=True)
+    return k1, k2, dict(line, phase_s=dt)
+
+
 def _density_probe(torch, np, sess, res=32):
     """The least and the largest raw density of image 0's pose on a
     res^3 version of render_mesh_mode's grid (plain torch, no kernel)."""
@@ -4115,6 +4178,14 @@ def main(argv) -> int:
             'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
             'count': torch.cuda.device_count()}}))
         return 0
+    if '--bench' in argv:
+        *_, bench = bench_phase(torch, np)
+        print('bench: ' + json.dumps(bench))
+        print(card)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}))
+        return 0
 
     args, cfg, params, src = _flagship_render(torch, np)
     k1 = kernel_phase(torch, np, cfg, params, src)
@@ -4181,10 +4252,12 @@ def main(argv) -> int:
     dp_k1, dp_k2, dp_k2b, dp = dp_phase(torch, np, loop_data, loop)
     del loop_data
     q_k1, q_k2, q_k2b, quality = quality_phase(torch, np)
+    b_k1, b_k2, bench = bench_phase(torch, np)
 
     k1['launches'] = (render_k1 + train_k1 + cull_k1 + cull_train_k1
-                      + loop_k1 + entry_k1 + data_k1 + dp_k1 + q_k1)
-    k2['launches'] = train_k2 + loop_k2 + data_k2 + dp_k2 + q_k2
+                      + loop_k1 + entry_k1 + data_k1 + dp_k1 + q_k1 + b_k1)
+    k2['launches'] = train_k2 + loop_k2 + data_k2 + dp_k2 + q_k2 + b_k2
+    k1['bench_launches'], k2['bench_launches'] = b_k1, b_k2
     k2['bf16']['launches'] = cull_train_k2 + dp_k2b + q_k2b
     k1['dp_launches'], k2['dp_launches'] = dp_k1, dp_k2
     k2['bf16']['dp_launches'] = dp_k2b
@@ -4199,10 +4272,12 @@ def main(argv) -> int:
           f'{train_k1} (train steps) + {cull_k1} (culled request) + '
           f'{cull_train_k1} (culled train steps) + {loop_k1} (training '
           f'loop) + {entry_k1} (render entry point) + {data_k1} (dataset '
-          f'types) + {dp_k1} (data parallel ranks) + {q_k1} (quality), K2 '
+          f'types) + {dp_k1} (data parallel ranks) + {q_k1} (quality) + '
+          f'{b_k1} (bench), K2 '
           f'{train_k2} (train steps) + {loop_k2} (training loop) + '
           f'{data_k2} (dataset types) + {dp_k2} (data parallel ranks) + '
-          f'{q_k2} (quality), K2-bf16 {cull_train_k2} (culled train steps) '
+          f'{q_k2} (quality) + {b_k2} (bench), K2-bf16 {cull_train_k2} '
+          f'(culled train steps) '
           f'+ {dp_k2b} (data parallel ranks) + {q_k2b} (quality), K1-v1 '
           f'{fr.V1_LAUNCHES}, K2-v1 {fr.BWD_V1_LAUNCHES}, K3-v1 '
           f'{fr.RAW_V1_LAUNCHES}, K4-v1 {fm.V1_LAUNCHES}', flush=True)
@@ -4212,6 +4287,7 @@ def main(argv) -> int:
     print('knobs: ' + json.dumps(knobs), flush=True)
     print('data parallel: ' + json.dumps(dp), flush=True)
     print('quality: ' + json.dumps(quality), flush=True)
+    print('bench: ' + json.dumps(bench), flush=True)
     if fr.V1_LAUNCHES or fr.BWD_V1_LAUNCHES or fr.RAW_V1_LAUNCHES \
             or fm.V1_LAUNCHES:
         raise AssertionError('a first version ran on the main path')

@@ -68,9 +68,12 @@ def test_scan_finds_the_port():
                 'parallel/__init__.py', 'parallel/mesh.py',
                 # the quality A/B and the card settings
                 'tools/quality_ab.py', 'tools/qab_table.py',
-                'utils/device.py'):
+                'utils/device.py',
+                # the throughput bench and its companion tools
+                'tools/bench.py', 'tools/e2e_rate.py', 'tools/sr_measure.py',
+                'tools/step_trace.py', 'tools/serve_bench.py'):
         assert f'anerf_torch/{mod}' in FILES
-    assert len(FILES) >= 75
+    assert len(FILES) >= 80
     tree = ast.parse('import jax.numpy as jnp\nfrom anerf_tpu.ops import fk')
     assert [m for m in _imported_modules(tree)] == ['jax.numpy',
                                                     'anerf_tpu.ops']

@@ -335,6 +335,8 @@ def test_no_h5py_route_gives_the_files_arrays(tmp_path, monkeypatch):
     """Where h5py is absent the fixture and its perturbed copy are
     H5Arrays, equal to the files the h5 route writes, with the same
     init_mpjpe_mm."""
+    from anerf_torch.data.fixtures import have_h5py
+
     d, h5 = tq._style_h5('blobs@16', str(tmp_path / 'files'))
     gt, init = tq._ensure_perturbed_h5(h5, os.path.join(d, 'p.h5'), 2)
     with h5py.File(h5) as f:
@@ -343,7 +345,7 @@ def test_no_h5py_route_gives_the_files_arrays(tmp_path, monkeypatch):
         perturbed = {k: f[k][()] for k in f}
 
     monkeypatch.setitem(sys.modules, 'h5py', None)
-    assert not tq._have_h5py()
+    assert not have_h5py()
     d2, arrays = tq._style_h5('blobs@16', str(tmp_path / 'arrays'))
     assert isinstance(arrays, dict) and arrays.path.endswith(
         'syn_train_h5py.h5')
