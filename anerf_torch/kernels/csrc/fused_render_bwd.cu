@@ -291,7 +291,7 @@ int run_bwd(const float* pts, const float* m_all,
   if (e != cudaSuccess) return (int)e;
   pe_kernel<<<R, NTHREADS, smem_pe, stream>>>(
       pts, m_all, aux, cut, dx0, d.k0p, dview + W, (int)ldv, S, nfk, nfv,
-      tau, dpts, dm, daux);
+      tau, dpts, dm, daux, FC);
   return (int)cudaGetLastError();
 }
 

@@ -23,10 +23,12 @@ __global__ void reduce_chunks_kernel(const float* __restrict__ partial,
 // from the cotangents of the MLP inputs dx0 (P x k0p, row stride ldx0)
 // and dxv (P x kvp, row stride ldxv). Shared memory: dpts_t and dd of
 // every sample (2 x S x 72 f32) and the ray's view-band sin / cos
-// (2 x nfv x 72 f32). PE_ONLY (K2-d's pe stage) stops before the
-// transform backward and writes dpts[p] = (sum_j dv_j, sum_c dd_c,
-// sum_c dr_c): dv is the distances' cotangent with the window derivative,
-// dd the view directions', dr the unit bone directions' (read from dx0).
+// (2 x nfv x 72 f32). aux rows and daux rows are 2 x 72 + fc floats (fc
+// framecode columns, FC at the flagship). PE_ONLY (K2-d's pe stage) stops
+// before the transform backward and writes dpts[p] = (sum_j dv_j,
+// sum_c dd_c, sum_c dr_c): dv is the distances' cotangent with the window
+// derivative, dd the view directions', dr the unit bone directions' (read
+// from dx0).
 template <bool PE_ONLY>
 __global__ void __launch_bounds__(NTHREADS)
 pe_transform_bwd_kernel(const float* __restrict__ pts,
@@ -37,7 +39,8 @@ pe_transform_bwd_kernel(const float* __restrict__ pts,
                         const float* __restrict__ dxv, int ldxv,
                         int S, int nfk, int nfv, float tau,
                         float* __restrict__ dpts, float* __restrict__ dm,
-                        float* __restrict__ daux) {
+                        float* __restrict__ daux, int fc) {
+  const int auxw = 2 * C72 + fc;
   extern __shared__ __align__(16) float sm[];
   float* dpt = sm;                 // S x 72: d pts_t
   float* ddd = dpt + S * C72;      // S x 72: d view dirs
@@ -45,7 +48,7 @@ pe_transform_bwd_kernel(const float* __restrict__ pts,
   float* cdt = sdt + nfv * C72;    // nfv x 72: cos(2^k d)
   const int ray = blockIdx.x, tid = threadIdx.x;
   const float* m = m_all + (size_t)ray * 3 * C72;
-  const float* ax = aux + (size_t)ray * AUXW;
+  const float* ax = aux + (size_t)ray * auxw;
 
   for (int it = tid; it < nfv * C72; it += NTHREADS) {
     const int k = it / C72, c = it - k * C72;
@@ -162,7 +165,7 @@ pe_transform_bwd_kernel(const float* __restrict__ pts,
   }
   // daux = [sum_s dpts_t | sum_s dd | sum_s dfc]
   const int fc0 = C72 * (1 + 2 * nfv);
-  for (int c = tid; c < AUXW; c += NTHREADS) {
+  for (int c = tid; c < auxw; c += NTHREADS) {
     float acc = 0.f;
     if (c < C72) {
       for (int s = 0; s < S; ++s) acc += dpt[s * C72 + c];
@@ -172,7 +175,7 @@ pe_transform_bwd_kernel(const float* __restrict__ pts,
       for (int s = 0; s < S; ++s)
         acc += dxv[((size_t)ray * S + s) * ldxv + fc0 + c - 2 * C72];
     }
-    daux[(size_t)ray * AUXW + c] = acc;
+    daux[(size_t)ray * auxw + c] = acc;
   }
 }
 

@@ -88,6 +88,8 @@
 #include "sm90_common.cuh"
 #include "fused_render_bwd_common.cuh"
 
+#include <vector>
+
 namespace {
 
 // Stages of the sequence (K2-d; the recompute stage, 1, is K1's library).
@@ -100,7 +102,6 @@ constexpr int A_ELEMS = 3 * CHUNK;       // three 64 x 64 bf16 planes
 constexpr int DX = 0, DWT = 1;
 constexpr int MAXPROD = 4;
 constexpr int DX_ITEMS = 8;              // 64-point tiles of a DX CTA
-static_assert(W / KC <= BSTAGES, "DX keeps all of B's k-slices resident");
 
 // One product of a layer launch (see the design note).
 struct Prod {
@@ -255,8 +256,10 @@ bwd_layer_kernel(const __grid_constant__ LayerArgs L) {
   const int tid = threadIdx.x;
 
   // this CTA's product and tiles: a DX CTA takes DX_ITEMS consecutive
-  // 64-point tiles of one column tile, with B resident; a DWT CTA one
-  // (chunk, 64-output tile, column tile) through the ring
+  // 64-point tiles of one column tile, with B resident where its k-slices
+  // fit in the stages (outputs <= 256) and through the ring, again for
+  // each tile, where they do not; a DWT CTA one (chunk, 64-output tile,
+  // column tile) through the ring
   int b = blockIdx.x, j = 0;
   while (j < L.n_prod - 1 && b >= L.p[j].n_ctas) b -= L.p[j++].n_ctas;
   const Prod& pr = L.p[j];
@@ -274,6 +277,7 @@ bwd_layer_kernel(const __grid_constant__ LayerArgs L) {
     ks = min(pr.k_slices, L.pt_tiles - kbase);
   }
   const bool masked = dx && pr.mask_row >= 0;
+  const bool ring = !dx || ks > BSTAGES;   // else B stays resident
 
   if (tid == 0) {
     for (int s = 0; s < BSTAGES; ++s) {
@@ -286,13 +290,15 @@ bwd_layer_kernel(const __grid_constant__ LayerArgs L) {
   __syncthreads();
 
   if (tid >= NCONS) {
-    // ---- producer warpgroup: B's k-slices (DX: all of them, once) ----
+    // ---- producer warpgroup: B's k-slices (resident: all of them,
+    // once; else every item's, in the consumers' order) ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (tid == NCONS) {
       const bf16* src = pr.b + (size_t)nt * NB * KC;
-      for (int s = 0; s < ks; ++s) {
-        const int st = s % BSTAGES;
-        if (!dx) mbar_wait(empty + 8 * st, ((s / BSTAGES) & 1) ^ 1);
+      const int n_copies = ring ? items * ks : ks;
+      for (int g = 0; g < n_copies; ++g) {
+        const int st = g % BSTAGES, s = g % ks;
+        if (ring) mbar_wait(empty + 8 * st, ((g / BSTAGES) & 1) ^ 1);
         mbar_expect_tx(full + 8 * st, B_BYTES);
         bulk_copy(smem_u32(stage0) + st * B_BYTES,
                   src + (size_t)(kbase + s) * pr.b_slice, B_BYTES,
@@ -362,8 +368,8 @@ bwd_layer_kernel(const __grid_constant__ LayerArgs L) {
     const int mr = row0(item);
 #pragma unroll 1
     for (int s = 0; s < ks; ++s, ++g) {
-      const int st = s % BSTAGES;
-      mbar_wait(full + 8 * st, dx ? 0 : (s / BSTAGES) & 1);
+      const int st = (ring ? g : s) % BSTAGES;
+      mbar_wait(full + 8 * st, ring ? (g / BSTAGES) & 1 : 0);
       const uint32_t a = a_base + (g % ABUF) * A_ELEMS * 2;
       const uint32_t bb = smem_u32(stage0) + st * B_BYTES + wg * 128 * 128;
       wgmma_fence();
@@ -392,7 +398,7 @@ bwd_layer_kernel(const __grid_constant__ LayerArgs L) {
       fence_acc(d);
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = s ? acc[i] + d[i] : d[i];
-      if (!dx && (tid & 31) == 0) mbar_arrive(empty + 8 * st);
+      if (ring && (tid & 31) == 0) mbar_arrive(empty + 8 * st);
       consumers_sync();
     }
 
@@ -461,19 +467,23 @@ bwd_layer_kernel(const __grid_constant__ LayerArgs L) {
   }
 }
 
-// The heads (N = 3 and 1) on the CUDA cores, 256 threads a block.
-// Blocks [0, n_chunk * HEAD_BLOCKS): block (chunk, rb) takes the 32 rows
-// 32 rb .. of the chunk's rgb block (rows 0 .. WV, the last the bias) and
-// alpha block (rows WV + 1 .., the last the bias), four rows a warp; lane
-// l sums the chunk's points l, l + 32, .. in order (coalesced reads of a
-// feature row of act), then the lanes' sums are added by a fixed butterfly.
-// The other blocks: dhv = (g_rgb w_rgb) masked by hv > 0 for 64 points
-// each, staged through shared memory so that both the act reads and the
-// dhv writes are coalesced. With ROUND_G (the bf16 flavour) g enters every
-// product rounded to bf16; the bias rows sum it unrounded. Without it the
-// kernel is the f32 flavour's, unchanged.
-constexpr int HEAD_ROWS = WV + 1 + W + 1;
-constexpr int HEAD_BLOCKS = (HEAD_ROWS + 31) / 32;
+// The heads (N = 3 and 1) of a trunk of width w on the CUDA cores, 256
+// threads a block. Blocks [0, n_chunk * head_blocks(w)): block (chunk, rb)
+// takes the 32 rows 32 rb .. of the chunk's rgb block (rows 0 .. w / 2,
+// the last the bias) and alpha block (rows w / 2 + 1 .., the last the
+// bias), four rows a warp; lane l sums the chunk's points l, l + 32, .. in
+// order (coalesced reads of a feature row of act), then the lanes' sums
+// are added by a fixed butterfly. The other blocks: dhv = (g_rgb w_rgb)
+// masked by hv > 0 for 64 points each, 128 hv columns at a time, staged
+// through shared memory so that both the act reads and the dhv writes are
+// coalesced. With ROUND_G (the bf16 flavour) g enters every product
+// rounded to bf16; the bias rows sum it unrounded. Without it the kernel
+// is the f32 flavour's, unchanged.
+constexpr int DHV_COLS = 128;
+__host__ __device__ inline int head_rows(int w) { return w / 2 + 1 + w + 1; }
+__host__ __device__ inline int head_blocks(int w) {
+  return (head_rows(w) + 31) / 32;
+}
 
 // x, or x rounded to bf16 (RNE) when `round`: a cotangent entering a
 // product in the bf16 flavour
@@ -494,43 +504,48 @@ heads_bwd_kernel(const bf16* __restrict__ act, int F, int row_hv,
                  const float* __restrict__ w_rgb, float* __restrict__ dhv,
                  float* __restrict__ partial, long long total,
                  long long g_rgb, long long g_alpha, int P, int chunk,
-                 int n_chunk) {
-  __shared__ float sm[TM * (WV + 1)];
+                 int n_chunk, int w) {
+  __shared__ float sm[TM * (DHV_COLS + 1)];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if ((int)blockIdx.x >= n_chunk * HEAD_BLOCKS) {
-    const int p0 = (blockIdx.x - n_chunk * HEAD_BLOCKS) * TM;
-    for (int idx = tid; idx < TM * WV; idx += 256) {
-      const int u = idx / TM, r = idx % TM, p = p0 + r;
-      float v = 0.f;
-      if (p < P) {
-        v = cot_operand(g[4 * (size_t)p], ROUND_G) * w_rgb[u];
-        v = fmaf(cot_operand(g[4 * (size_t)p + 1], ROUND_G), w_rgb[WV + u],
-                 v);
-        v = fmaf(cot_operand(g[4 * (size_t)p + 2], ROUND_G),
-                 w_rgb[2 * WV + u], v);
-        if (!(__bfloat162float(act[act_at(p, row_hv + u, F)]) > 0.f))
-          v = 0.f;
+  const int wv = w / 2, hb = head_blocks(w);
+  if ((int)blockIdx.x >= n_chunk * hb) {
+    const int p0 = (blockIdx.x - n_chunk * hb) * TM;
+    for (int u0 = 0; u0 < wv; u0 += DHV_COLS) {
+      if (u0 > 0) __syncthreads();   // the last columns' stores read sm
+      for (int idx = tid; idx < TM * DHV_COLS; idx += 256) {
+        const int u = u0 + idx / TM, r = idx % TM, p = p0 + r;
+        float v = 0.f;
+        if (p < P) {
+          v = cot_operand(g[4 * (size_t)p], ROUND_G) * w_rgb[u];
+          v = fmaf(cot_operand(g[4 * (size_t)p + 1], ROUND_G),
+                   w_rgb[wv + u], v);
+          v = fmaf(cot_operand(g[4 * (size_t)p + 2], ROUND_G),
+                   w_rgb[2 * wv + u], v);
+          if (!(__bfloat162float(act[act_at(p, row_hv + u, F)]) > 0.f))
+            v = 0.f;
+        }
+        sm[r * (DHV_COLS + 1) + u - u0] = v;
       }
-      sm[r * (WV + 1) + u] = v;
-    }
-    __syncthreads();
-    for (int idx = tid; idx < TM * WV; idx += 256) {
-      const int r = idx / WV, u = idx % WV;
-      if (p0 + r < P) dhv[(size_t)(p0 + r) * WV + u] = sm[r * (WV + 1) + u];
+      __syncthreads();
+      for (int idx = tid; idx < TM * DHV_COLS; idx += 256) {
+        const int r = idx / DHV_COLS, u = idx % DHV_COLS;
+        if (p0 + r < P)
+          dhv[(size_t)(p0 + r) * wv + u0 + u] = sm[r * (DHV_COLS + 1) + u];
+      }
     }
     return;
   }
-  const int c = blockIdx.x / HEAD_BLOCKS;
+  const int c = blockIdx.x / hb;
   const int p0 = c * chunk, p1 = min(P, p0 + chunk);
   float* part = partial + (size_t)c * total;
   for (int k = 0; k < 4; ++k) {
-    const int row = (blockIdx.x % HEAD_BLOCKS) * 32 + warp * 4 + k;
-    if (row >= HEAD_ROWS) return;
+    const int row = (blockIdx.x % hb) * 32 + warp * 4 + k;
+    if (row >= head_rows(w)) return;
     float s0 = 0.f, s1 = 0.f, s2 = 0.f;
-    if (row <= WV) {
-      const bool rd = ROUND_G && row < WV;   // the bias row: unrounded g
+    if (row <= wv) {
+      const bool rd = ROUND_G && row < wv;   // the bias row: unrounded g
       for (int p = p0 + lane; p < p1; p += 32) {
-        const float x = row < WV
+        const float x = row < wv
             ? __bfloat162float(act[act_at(p, row_hv + row, F)]) : 1.f;
         s0 = fmaf(x, cot_operand(g[4 * (size_t)p], rd), s0);
         s1 = fmaf(x, cot_operand(g[4 * (size_t)p + 1], rd), s1);
@@ -545,10 +560,10 @@ heads_bwd_kernel(const bf16* __restrict__ act, int F, int row_hv,
         part[g_rgb + row * 3 + 2] = s2;
       }
     } else {
-      const int r = row - WV - 1;
-      const bool rd = ROUND_G && r < W;
+      const int r = row - wv - 1;
+      const bool rd = ROUND_G && r < w;
       for (int p = p0 + lane; p < p1; p += 32) {
-        const float x = r < W
+        const float x = r < w
             ? __bfloat162float(act[act_at(p, row_h + r, F)]) : 1.f;
         s0 = fmaf(x, cot_operand(g[4 * (size_t)p + 3], rd), s0);
       }
@@ -615,42 +630,47 @@ inline int tiles256(int n) { return (n + NB - 1) / NB; }
 
 // The sequence after the recompute, up to `stage` (BWD_*), in the flavour
 // bwd_f32 (1: f32-accurate products on three planes of the cotangents;
-// 0: bf16 cotangent operands, the hi plane alone).
+// 0: bf16 cotangent operands, the hi plane alone), for a trunk of width w
+// (a multiple of 256) and depth `depth`, skip[depth] the per-layer skip
+// flags (host memory), fc framecode columns.
 int run_bwd(int stage, int bwd_f32, const float* pts, const float* m_all,
             const float* aux, const float* cut, const bf16* img_t,
             const bf16* act, const float* g, const float* w_rgb,
             const float* w_alpha, float* dhv, float* dview, float* dh_a,
             float* dh_b, float* dx0, float* partial, float* dW, float* dpts,
-            float* dm, float* daux, int P, int S, int depth, int skip_mask,
-            int nfk, int nfv, int chunk, float tau, void* stream_v) {
+            float* dm, float* daux, int P, int S, int w, int depth,
+            const int* skip, int nfk, int nfv, int fc, int chunk, float tau,
+            void* stream_v) {
   if ((stage != BWD_FULL && stage != BWD_MLP && stage != BWD_PE)
       || (bwd_f32 != 0 && bwd_f32 != 1))
     return (int)cudaErrorInvalidValue;
-  if (chunk % TM != 0 || depth < 1 || depth > 31)
+  if (chunk % TM != 0 || depth < 1 || w % NB != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = set_smem();
   if (e != cudaSuccess) return (int)e;
   cudaStream_t stream = (cudaStream_t)stream_v;
-  const Dims d = make_dims(nfk, nfv);
-  const ActRows ar = make_act_rows(d, depth);
+  const Dims d = make_dims(nfk, nfv, fc);
+  const ActRows ar = make_act_rows(d, depth, w);
+  const int W = w, WV = w / 2;   // this call's widths
   const int k0t = tiles256(d.k0p) * NB, kvt = tiles256(d.kvp) * NB;
 
   // offsets of the dW blocks (rows K + 1, cols N) and of the W^T image's
   // input segments (rows padded to 256, N columns) of every MMA layer:
   // layer 0 [x0], a skip layer [x0 | h], the others [h], view [feat | xv]
-  long long goff[33], toff[33][2];
+  std::vector<long long> goff(depth + 2), toff0(depth + 2),
+      toff1(depth + 2);
   long long go = 0, to = 0;
   for (int i = 0; i < depth + 2; ++i) {
-    const bool skip = i > 0 && i < depth && ((skip_mask >> (i - 1)) & 1);
+    const bool sk = i > 0 && i < depth && skip[i];
     const int N = i == depth + 1 ? WV : W;
     int K = W, rows0 = W, rows1 = 0;
     if (i == 0) { K = d.k0p; rows0 = k0t; }
-    else if (skip) { K = d.k0p + W; rows0 = k0t; rows1 = W; }
+    else if (sk) { K = d.k0p + W; rows0 = k0t; rows1 = W; }
     else if (i == depth + 1) { K = W + d.kvp; rows1 = kvt; }
     goff[i] = go;
     go += (long long)(K + 1) * N;
-    toff[i][0] = to;
-    toff[i][1] = to + (long long)rows0 * N;
+    toff0[i] = to;
+    toff1[i] = to + (long long)rows0 * N;
     to += (long long)(rows0 + rows1) * N;
   }
   const long long g_rgb = go, g_alpha = go + (WV + 1) * 3;
@@ -661,7 +681,9 @@ int run_bwd(int stage, int bwd_f32, const float* pts, const float* m_all,
   const int iF = depth, iV = depth + 1, ldv = W + d.kvp;
   const int h_last = ar.h + (depth - 1) * W;
   auto arow = [&](int row) { return act + (size_t)row * KC; };
-  auto tseg = [&](int i, int s) { return img_t + toff[i][s]; };
+  auto tseg = [&](int i, int s) {
+    return img_t + (s ? toff1[i] : toff0[i]);
+  };
 
   Seq q{stream, bwd_f32 ? 3 : 1};
   q.L.n_prod = 0;
@@ -673,15 +695,15 @@ int run_bwd(int stage, int bwd_f32, const float* pts, const float* m_all,
 
   // 2. the heads and dhv
   auto heads = bwd_f32 ? heads_bwd_kernel<false> : heads_bwd_kernel<true>;
-  heads<<<n_chunk * HEAD_BLOCKS + q.L.pt_tiles, 256, 0, stream>>>(
+  heads<<<n_chunk * head_blocks(W) + q.L.pt_tiles, 256, 0, stream>>>(
       act, ar.F, ar.hv, h_last, g, w_rgb, dhv, partial, total, g_rgb,
-      g_alpha, P, chunk, n_chunk);
+      g_alpha, P, chunk, n_chunk, W);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   // 3. the view layer: dW of [feat | xv], d[feat | xv] = dview
   {
-    Prod& a = q.add(DWT, dhv, WV, arow(ar.feat), aslice, cs, WV / TM, 1, W,
-                    n_chunk);
+    Prod& a = q.add(DWT, dhv, WV, arow(ar.feat), aslice, cs, WV / TM,
+                    tiles256(W), W, n_chunk);
     a.part = partial + goff[iV];
     a.n_out = WV;
     Prod& b = q.add(DWT, dhv, WV, arow(ar.xv), aslice, cs, WV / TM,
@@ -690,7 +712,7 @@ int run_bwd(int stage, int bwd_f32, const float* pts, const float* m_all,
     b.n_out = WV;
     b.bias_row = d.kvp;
     Prod& c = q.add(DX, dhv, WV, tseg(iV, 0), (long long)W * KC, WV / KC, 1,
-                    1, W, n_chunk);
+                    tiles256(W), W, n_chunk);
     c.c = dview;
     c.ldc = ldv;
     Prod& x = q.add(DX, dhv, WV, tseg(iV, 1), (long long)kvt * KC, WV / KC,
@@ -701,13 +723,13 @@ int run_bwd(int stage, int bwd_f32, const float* pts, const float* m_all,
   }
   // 4. the feature layer (no activation) and the alpha head's cotangent
   {
-    Prod& a = q.add(DWT, dview, ldv, arow(h_last), aslice, cs, W / TM, 1, W,
-                    n_chunk);
+    Prod& a = q.add(DWT, dview, ldv, arow(h_last), aslice, cs, W / TM,
+                    tiles256(W), W, n_chunk);
     a.part = partial + goff[iF];
     a.n_out = W;
     a.bias_row = W;
     Prod& c = q.add(DX, dview, ldv, tseg(iF, 0), (long long)W * KC, W / KC,
-                    1, 1, W, n_chunk);
+                    1, tiles256(W), W, n_chunk);
     c.c = dh_a;
     c.ldc = W;
     c.mask_row = h_last;
@@ -720,8 +742,8 @@ int run_bwd(int stage, int bwd_f32, const float* pts, const float* m_all,
   float* nxt = dh_b;
   int dx0_set = 0;
   for (int i = depth - 1; i >= 0; --i) {
-    const bool skip = i > 0 && ((skip_mask >> (i - 1)) & 1);
-    const long long x0_rows = i == 0 || skip ? (long long)d.k0p * W : 0;
+    const bool sk = i > 0 && skip[i];
+    const long long x0_rows = i == 0 || sk ? (long long)d.k0p * W : 0;
     if (x0_rows) {
       Prod& a = q.add(DWT, cur, W, arow(ar.x0), aslice, cs, W / TM,
                       tiles256(d.k0p), d.k0p, n_chunk);
@@ -731,7 +753,7 @@ int run_bwd(int stage, int bwd_f32, const float* pts, const float* m_all,
     }
     if (i > 0) {
       Prod& a = q.add(DWT, cur, W, arow(ar.h + (i - 1) * W), aslice, cs,
-                      W / TM, 1, W, n_chunk);
+                      W / TM, tiles256(W), W, n_chunk);
       a.part = partial + goff[i] + x0_rows;
       a.n_out = W;
       a.bias_row = W;
@@ -745,8 +767,8 @@ int run_bwd(int stage, int bwd_f32, const float* pts, const float* m_all,
       dx0_set = 1;
     }
     if (i > 0) {
-      Prod& c = q.add(DX, cur, W, tseg(i, skip ? 1 : 0), (long long)W * KC,
-                      W / KC, 1, 1, W, n_chunk);
+      Prod& c = q.add(DX, cur, W, tseg(i, sk ? 1 : 0), (long long)W * KC,
+                      W / KC, 1, tiles256(W), W, n_chunk);
       c.c = nxt;
       c.ldc = W;
       c.mask_row = ar.h + (i - 1) * W;
@@ -773,7 +795,7 @@ int run_bwd(int stage, int bwd_f32, const float* pts, const float* m_all,
   if (e != cudaSuccess) return (int)e;
   pe_kernel<<<R, NTHREADS, smem_pe, stream>>>(
       pts, m_all, aux, cut, dx0, d.k0p, dview + W, ldv, S, nfk, nfv, tau,
-      dpts, dm, daux);
+      dpts, dm, daux, fc);
   return (int)cudaGetLastError();
 }
 
@@ -785,7 +807,11 @@ extern "C" {
 // act) on `stream`, up to `stage` (0 full: dW flat in the Python
 // grad_blocks order, dpts, dm_all, daux; 2 mlp: dW, dx0 and dview; 3 pe:
 // dW and the PE digest in dpts), with bwd_f32 1 (f32-accurate cotangent
-// products) or 0 (bf16 cotangent operands). img_t is the W^T image
+// products) or 0 (bf16 cotangent operands), for a trunk of width w and
+// depth `depth` with the host array skip[depth] of per-layer skip flags
+// and fc framecode columns (aux rows of 2 * 72 + fc floats). The
+// recompute may also be the layered route's (anerf_layered_forward of
+// fused_render_layered_sm90.cu with act). img_t is the W^T image
 // (packed 'img_t'); the f32 scratch buffers come from the caller. Returns
 // a cudaError_t code (0 on success).
 int anerf_fused_bwd_sm90(int stage, int bwd_f32, const float* pts,
@@ -795,14 +821,14 @@ int anerf_fused_bwd_sm90(int stage, int bwd_f32, const float* pts,
                          const float* w_rgb, const float* w_alpha,
                          float* dhv, float* dview, float* dh_a, float* dh_b,
                          float* dx0, float* partial, float* dW, float* dpts,
-                         float* dm, float* daux, int P, int S, int depth,
-                         int skip_mask, int nfk, int nfv, int chunk,
-                         float tau, void* stream) {
+                         float* dm, float* daux, int P, int S, int w,
+                         int depth, const int* skip, int nfk, int nfv,
+                         int fc, int chunk, float tau, void* stream) {
   return run_bwd(stage, bwd_f32, pts, m_all, aux, cut,
                  reinterpret_cast<const bf16*>(img_t),
                  reinterpret_cast<const bf16*>(act), g, w_rgb, w_alpha, dhv,
                  dview, dh_a, dh_b, dx0, partial, dW, dpts, dm, daux, P, S,
-                 depth, skip_mask, nfk, nfv, chunk, tau, stream);
+                 w, depth, skip, nfk, nfv, fc, chunk, tau, stream);
 }
 
 // One split product alone (a layer launch of one role), for the tests:
@@ -816,8 +842,7 @@ int anerf_split_gemm_probe(int kind, const float* dy, int ldy, const void* b,
                            long long b_slice, int k_slices, int m_tiles,
                            int n_tiles, int n_valid, float* out, int ld_out,
                            int P, int chunk, long long total, void* stream) {
-  if ((kind != DX && kind != DWT) || chunk % TM != 0
-      || (kind == DX && k_slices > BSTAGES))
+  if ((kind != DX && kind != DWT) || chunk % TM != 0)
     return (int)cudaErrorInvalidValue;
   cudaError_t e = set_smem();
   if (e != cudaSuccess) return (int)e;

@@ -62,21 +62,29 @@ __host__ __device__ inline int row_stride(int kp) {
   return ((kp / 8) % 2 == 0) ? kp + 8 : kp;
 }
 
+// fc, auxw and raww are the framecode columns of a config (FC, AUXW and
+// RAWW at the flagship; the sm90 kernels take them from here, the first
+// versions only ever see the flagship's). K3's rows are padded to a
+// multiple of 4 floats, so that each starts 16 bytes aligned.
 struct Dims {
   int k0, k0p;   // kp PE + bone dirs, and padded to 16
   int kv, kvp;   // view PE + framecode, and padded to 16
   int s0, sv, sh;
+  int fc, auxw, raww;   // framecode columns, aux row, K3's input row
 };
 
-__host__ __device__ inline Dims make_dims(int nfk, int nfv) {
+__host__ __device__ inline Dims make_dims(int nfk, int nfv, int fc = FC) {
   Dims d;
   d.k0 = J * (1 + 2 * nfk) + C72;
   d.k0p = rup16(d.k0);
-  d.kv = C72 * (1 + 2 * nfv) + FC;
+  d.kv = C72 * (1 + 2 * nfv) + fc;
   d.kvp = rup16(d.kv);
   d.s0 = row_stride(d.k0p);
   d.sv = row_stride(d.kvp);
   d.sh = row_stride(W);
+  d.fc = fc;
+  d.auxw = 2 * C72 + fc;
+  d.raww = (J + 2 * C72 + fc + 3) / 4 * 4;
   return d;
 }
 
@@ -90,13 +98,15 @@ __host__ __device__ inline Dims make_dims_k(int k0, int kv) {
   d.s0 = row_stride(d.k0p);
   d.sv = row_stride(d.kvp);
   d.sh = row_stride(W);
+  d.fc = 0;
+  d.auxw = d.raww = 0;
   return d;
 }
 
 template <int MODE>
-__host__ __device__ inline Dims body_dims(int nfk, int nfv) {
+__host__ __device__ inline Dims body_dims(int nfk, int nfv, int fc = FC) {
   if constexpr (MODE == IN_EMBEDDED) return make_dims_k(nfk, nfv);
-  else return make_dims(nfk, nfv);
+  else return make_dims(nfk, nfv, fc);
 }
 
 // The PE's sin / cos pair for STAGE: accurate sincosf everywhere but in

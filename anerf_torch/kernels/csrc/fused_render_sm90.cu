@@ -55,6 +55,11 @@
 //    built late, after the feature layer, into X0 and the spent activation
 //    buffer (adjacent by the choice of ping-pong parity), so that the tile,
 //    two activation buffers and three 32 KB weight stages fit in 227 KB.
+//  * The trunk is 256 wide (W); the depth, the per-layer skip flags, the
+//    framecode width and the ring's depth (NSTG: three stages, or two for
+//    MLP inputs wider than three leave room for) are the config's. Wider
+//    trunks and inputs that not even two stages fit beside take the
+//    layered route (fused_render_layered_sm90.cu).
 //  * K3 (IN_RAW) stages the tile's v | r (24 KB) by cp.async in HB, free
 //    until the first layer's epilogue, for phase A1. Its view dirs and
 //    framecodes come late, for XV, from the rows in global memory (whole
@@ -78,7 +83,7 @@
 namespace {
 
 constexpr int CL = 2;                    // CTAs per cluster
-constexpr int STAGES = 3;
+constexpr int STAGES = 3;                // weight stages where they fit
 constexpr int STAGE_BYTES = W * KC * 2;  // one k-slice of a 256-wide layer
 
 __host__ __device__ inline int chunks(int k) { return (k + KC - 1) / KC; }
@@ -97,11 +102,13 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
   return l;
 }
 
-inline size_t smem_bytes_sm90(const Layout& l) {
+// With nstg weight stages (STAGES, or 2 where three do not fit beside
+// wider MLP inputs: anerf_torch/kernels/fused_render.py:route_plan).
+inline size_t smem_bytes_sm90(const Layout& l, int nstg = STAGES) {
   return (size_t)(l.xr + 2 * (W / KC)) * CHUNK * 2   // X0 region, HA, HB
          + (size_t)TM * J * 4                        // windows
          + (size_t)2 * TM * 4 * 4                    // head partials
-         + (size_t)STAGES * STAGE_BYTES + 2 * STAGES * 8
+         + (size_t)nstg * STAGE_BYTES + 2 * nstg * 8
          + 1024;                                     // alignment slack
 }
 
@@ -156,7 +163,7 @@ struct Ring {
 // at a1), B = this warpgroup's NACC * 2 rows of each staged slice. Each
 // slice is released (on every CTA of the cluster) once the wgmma group
 // after it has been issued and its own group has completed.
-template <int NACC>
+template <int NACC, int NSTG>
 __device__ __forceinline__ void mma_layer(float (&d)[NACC], Ring& ring,
                                           uint32_t a0, int n0, uint32_t a1,
                                           int n1, int wg) {
@@ -167,8 +174,8 @@ __device__ __forceinline__ void mma_layer(float (&d)[NACC], Ring& ring,
   int prev = -1;
 #pragma unroll 1
   for (int c = 0; c < n0 + n1; ++c, ++ring.it) {
-    const int s = ring.it % STAGES;
-    mbar_wait(ring.full + 8 * s, (ring.it / STAGES) & 1);
+    const int s = ring.it % NSTG;
+    mbar_wait(ring.full + 8 * s, (ring.it / NSTG) & 1);
     const uint32_t a = c < n0 ? a0 + c * CHUNK * 2 : a1 + (c - n0) * CHUNK * 2;
     const uint32_t b = ring.stages + s * STAGE_BYTES + wg * NACC * 2 * 128;
 #pragma unroll
@@ -273,12 +280,13 @@ static_assert(TM * C72 % NCONS == 0 && RAW_IT % RAW_G == 0,
 
 __device__ __forceinline__ void load_dirs(float (&dv)[RAW_G],
                                           const float* __restrict__ raw,
-                                          int row0, int P, int tid, int i0) {
+                                          int raww, int row0, int P, int tid,
+                                          int i0) {
 #pragma unroll
   for (int i = 0; i < RAW_G; ++i) {
     const int it = tid + (i0 + i) * NCONS;
     const int r = it / C72, c = it - (it / C72) * C72;
-    dv[i] = __ldg(raw + (size_t)last_row(row0 + r, P) * RAWW + J + C72 + c);
+    dv[i] = __ldg(raw + (size_t)last_row(row0 + r, P) * raww + J + C72 + c);
   }
 }
 
@@ -309,7 +317,7 @@ __device__ __forceinline__ void build_xv(bf16* XV, const Dims& d,
       const int hi = ray == ray_tail ? rb * 8 + 8
                                      : min(rb * 8 + 8, (ray + 1) * S - row0);
       if (lo >= hi) continue;
-      const float dv = aux[ray * AUXW + C72 + c];
+      const float dv = aux[ray * d.auxw + C72 + c];
       for (int r = lo; r < hi; ++r)
         XV[swz(r, c)] = __float2bfloat16_rn(dv * W24[r * J + c / 3]);
       float f = 1.f;
@@ -330,10 +338,11 @@ __device__ __forceinline__ void build_xv(bf16* XV, const Dims& d,
     // loaded while the group before computes its bands: one load latency
     // a group instead of one an item
     float cur[RAW_G], nxt[RAW_G] = {};
-    load_dirs(cur, raw, row0, P, tid, 0);
+    load_dirs(cur, raw, d.raww, row0, P, tid, 0);
 #pragma unroll 1
     for (int i0 = 0; i0 < RAW_IT; i0 += RAW_G) {
-      if (i0 + RAW_G < RAW_IT) load_dirs(nxt, raw, row0, P, tid, i0 + RAW_G);
+      if (i0 + RAW_G < RAW_IT)
+        load_dirs(nxt, raw, d.raww, row0, P, tid, i0 + RAW_G);
 #pragma unroll
       for (int i = 0; i < RAW_G; ++i) {
         const int it = tid + (i0 + i) * NCONS;
@@ -354,22 +363,24 @@ __device__ __forceinline__ void build_xv(bf16* XV, const Dims& d,
       for (int i = 0; i < RAW_G; ++i) cur[i] = nxt[i];
     }
   }
-  // framecode and zero padding, 8 columns (16 bytes) a step: the bands
-  // end at 72 (1 + 2 nfv), a multiple of 8
-  const int c0 = d.kv - FC, n8 = (l.kvc * KC - c0) / 8;
+  // framecode (d.fc columns) and zero padding, 8 columns (16 bytes) a
+  // step: the bands end at 72 (1 + 2 nfv), a multiple of 8
+  const int c0 = d.kv - d.fc, n8 = (l.kvc * KC - c0) / 8;
   for (int it = tid; it < TM * n8; it += NCONS) {
     const int r = it / n8, g = it - (it / n8) * n8;
     uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (g < FC / 8) {
+    if (8 * g < d.fc) {
       const int p = last_row(row0 + r, P);
-      const float4* fc = reinterpret_cast<const float4*>(
-          (MODE == IN_PTS ? aux + (p / S) * AUXW
-                          : raw + (size_t)p * RAWW + J) + 2 * C72 + 8 * g);
-      const float4 lo = fc[0], hi = fc[1];
-      const __nv_bfloat162 q0 = __floats2bfloat162_rn(lo.x, lo.y);
-      const __nv_bfloat162 q1 = __floats2bfloat162_rn(lo.z, lo.w);
-      const __nv_bfloat162 q2 = __floats2bfloat162_rn(hi.x, hi.y);
-      const __nv_bfloat162 q3 = __floats2bfloat162_rn(hi.z, hi.w);
+      const float* fc = (MODE == IN_PTS ? aux + (size_t)(p / S) * d.auxw
+                                        : raw + (size_t)p * d.raww + J)
+                        + 2 * C72 + 8 * g;
+      float x[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[e] = 8 * g + e < d.fc ? fc[e] : 0.f;
+      const __nv_bfloat162 q0 = __floats2bfloat162_rn(x[0], x[1]);
+      const __nv_bfloat162 q1 = __floats2bfloat162_rn(x[2], x[3]);
+      const __nv_bfloat162 q2 = __floats2bfloat162_rn(x[4], x[5]);
+      const __nv_bfloat162 q3 = __floats2bfloat162_rn(x[6], x[7]);
       v = make_uint4(*reinterpret_cast<const uint32_t*>(&q0),
                      *reinterpret_cast<const uint32_t*>(&q1),
                      *reinterpret_cast<const uint32_t*>(&q2),
@@ -429,18 +440,21 @@ __device__ __forceinline__ void save_cols(const bf16* src, int ncols,
 }
 
 // The producer: every k-slice of the image in the consumers' order, 1/CL
-// of each by this CTA, multicast to the cluster.
+// of each by this CTA, multicast to the cluster. skip[i] is 1 where trunk
+// layer i takes [x0 | h] (a skip after layer i - 1).
+template <int NSTG>
 __device__ __forceinline__ void produce(const unsigned char* img,
                                         const Layout& l, int depth,
-                                        int skip_mask, uint32_t stages,
-                                        uint32_t full, uint32_t empty) {
+                                        const int* __restrict__ skip,
+                                        uint32_t stages, uint32_t full,
+                                        uint32_t empty) {
   const uint32_t rank = cluster_rank();
   size_t off = 0;
   int it = 0;
   for (int layer = 0; layer < depth + 2; ++layer) {
     int nch = W / KC, bytes = STAGE_BYTES;
     if (layer == 0) nch = l.k0c;
-    else if (layer < depth && ((skip_mask >> (layer - 1)) & 1))
+    else if (layer < depth && skip[layer])
       nch = l.k0c + W / KC;
     else if (layer == depth + 1) {
       nch = W / KC + l.kvc;
@@ -448,8 +462,8 @@ __device__ __forceinline__ void produce(const unsigned char* img,
     }
     const int piece = bytes / CL;
     for (int c = 0; c < nch; ++c, ++it, off += bytes) {
-      const int s = it % STAGES;
-      mbar_wait(empty + 8 * s, ((it / STAGES) & 1) ^ 1);
+      const int s = it % NSTG;
+      mbar_wait(empty + 8 * s, ((it / NSTG) & 1) ^ 1);
       mbar_expect_tx(full + 8 * s, bytes);
       bulk_multicast(stages + s * STAGE_BYTES + rank * piece,
                      img + off + rank * piece, piece, full + 8 * s);
@@ -462,10 +476,16 @@ __device__ __forceinline__ void produce(const unsigned char* img,
 // SAVE = false instantiation, in which every SAVE branch is compiled out.
 // MODE (fused_render_common.cuh) picks the inputs: IN_PTS (K1) world
 // points with the per-ray m_all and aux; IN_RAW (K3) per-point rows of
-// RAWW floats [v | r | d | fc] in `pts`; IN_EMBEDDED (K4) bf16 rows of k0
-// columns in `pts` and of kv columns in `aux`, nfk and nfv carrying k0 and
-// kv. Stages and SAVE are K1's; every branch on MODE is `if constexpr`.
-template <int STAGE, bool SAVE = false, int MODE = IN_PTS>
+// d.raww floats [v | r | d | fc | pad] in `pts`; IN_EMBEDDED (K4) bf16
+// rows of k0 columns in `pts` and of kv columns in `aux`, nfk and nfv
+// carrying k0 and kv. Stages and SAVE are K1's; every branch on MODE is
+// `if constexpr`.
+// NSTG is the weight ring's depth (STAGES; 2 for inputs too wide beside
+// three: at multires 10 / 4 on an H100 the two-stage kernel takes 2.55
+// ms for K1 where the layered route takes 4.54, chip_smoke.py phase 14),
+// skip the per-layer skip flags (produce), fc the framecode columns
+// (Dims).
+template <int STAGE, bool SAVE = false, int MODE = IN_PTS, int NSTG = STAGES>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT, 1)
 k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
                const float* __restrict__ aux,
@@ -475,15 +495,15 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
                const float* __restrict__ w_alpha,
                const float* __restrict__ b_out, const float* __restrict__ cut,
                float* __restrict__ out, int P, int S, int depth,
-               int skip_mask, int nfk, int nfv, float tau,
-               bf16* __restrict__ act) {
+               const int* __restrict__ skip, int nfk, int nfv, int fc,
+               float tau, bf16* __restrict__ act) {
   static_assert(!SAVE || STAGE == ST_FULL, "K2 saves K1's activations");
   static_assert(MODE == IN_PTS || (STAGE == ST_FULL && !SAVE),
                 "stages and saves are K1's");
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  const Dims d = body_dims<MODE>(nfk, nfv);
+  const Dims d = body_dims<MODE>(nfk, nfv, fc);
   const Layout l = make_layout(d);
   bf16* X0 = reinterpret_cast<bf16*>(base);   // kp bands | bone dirs; XV
   bf16* HA = X0 + l.xr * CHUNK;               // activations (XV's tail)
@@ -491,12 +511,12 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
   float* W24 = reinterpret_cast<float*>(HB + (W / KC) * CHUNK);
   float* HD = W24 + TM * J;                   // head partials per warpgroup
   unsigned char* stage0 = reinterpret_cast<unsigned char*>(HD + 2 * TM * 4);
-  const uint32_t full = smem_u32(stage0 + STAGES * STAGE_BYTES);
-  const uint32_t empty = full + 8 * STAGES;
+  const uint32_t full = smem_u32(stage0 + NSTG * STAGE_BYTES);
+  const uint32_t empty = full + 8 * NSTG;
   const int tid = threadIdx.x;
 
   if (tid == 0) {
-    for (int s = 0; s < STAGES; ++s) {
+    for (int s = 0; s < NSTG; ++s) {
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, 8 * CL);   // every consumer warp of the cluster
     }
@@ -509,7 +529,7 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if constexpr (STAGE == ST_FULL) {
       if (tid == NCONS)
-        produce(img, l, depth, skip_mask, smem_u32(stage0), full, empty);
+        produce<NSTG>(img, l, depth, skip, smem_u32(stage0), full, empty);
     }
     cluster_sync();
     return;
@@ -531,7 +551,7 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
       for (int it = tid; it < TM * G16; it += NCONS) {
         const int r = it / G16, g = it - (it / G16) * G16;
         cp_async16(HB + r * (J + C72) * 2 + 8 * g,
-                   pts + (size_t)last_row(row0 + r, P) * RAWW + 4 * g, 16);
+                   pts + (size_t)last_row(row0 + r, P) * d.raww + 4 * g, 16);
       }
       cp_async_wait_all();
       consumers_sync();
@@ -547,7 +567,7 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
         const int ray = p / S;
         const float x = pts[p * 3], y = pts[p * 3 + 1], z = pts[p * 3 + 2];
         const float* m = m_all + ray * 3 * C72;
-        const float* tr = aux + ray * AUXW;
+        const float* tr = aux + ray * d.auxw;
         float ss = 0.f;
 #pragma unroll
         for (int a = 0; a < 3; ++a) {
@@ -635,11 +655,11 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
     bf16* hout = ((depth - 1 - i) & 1) ? HB : HA;
     float acc[64];
     if (i == 0)
-      mma_layer<64>(acc, ring, x0a, l.k0c, 0, 0, wg);
-    else if ((skip_mask >> (i - 1)) & 1)
-      mma_layer<64>(acc, ring, x0a, l.k0c, hin, W / KC, wg);
+      mma_layer<64, NSTG>(acc, ring, x0a, l.k0c, 0, 0, wg);
+    else if (skip[i])
+      mma_layer<64, NSTG>(acc, ring, x0a, l.k0c, hin, W / KC, wg);
     else
-      mma_layer<64>(acc, ring, hin, W / KC, 0, 0, wg);
+      mma_layer<64, NSTG>(acc, ring, hin, W / KC, 0, 0, wg);
     if (i < depth - 1) {
       store_acc<64>(acc, bias + i * W, true, hout, wg * 128);
     } else {
@@ -658,7 +678,7 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
   // feature layer (no activation): HA -> HB
   {
     float acc[64];
-    mma_layer<64>(acc, ring, hin, W / KC, 0, 0, wg);
+    mma_layer<64, NSTG>(acc, ring, hin, W / KC, 0, 0, wg);
     store_acc<64>(acc, bias + depth * W, false, HB, wg * 128);
     consumers_sync();   // HA is spent by both warpgroups
   }
@@ -678,7 +698,7 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
   // into the rgb head
   {
     float acc[32];
-    mma_layer<32>(acc, ring, smem_u32(HB), W / KC, x0a, l.kvc, wg);
+    mma_layer<32, NSTG>(acc, ring, smem_u32(HB), W / KC, x0a, l.kvc, wg);
     float hd[2][3] = {{0.f, 0.f, 0.f}, {0.f, 0.f, 0.f}};
     store_acc<32, 3>(acc, bias + (depth + 1) * W, true, nullptr, wg * 64,
                      w_rgb, WV, hd);
@@ -698,48 +718,72 @@ k1_sm90_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
   cluster_sync();
 }
 
-// A layout whose tile, buffers and stages do not fit in a block's shared
-// memory (X0 or XV wider than the flagship's 448 / 704 columns) returns
-// cudaErrorInvalidValue, which the Python wrappers raise.
-template <int STAGE, bool SAVE = false, int MODE = IN_PTS>
+// A layout whose tile, buffers and NSTG stages do not fit in a block's
+// shared memory returns cudaErrorInvalidValue, which the Python wrappers
+// raise; their route plan (fused_render.py:route_plan) sends such a layout
+// to the layered route (fused_render_layered_sm90.cu) instead.
+template <int STAGE, bool SAVE = false, int MODE = IN_PTS, int NSTG = STAGES>
 int launch(const float* pts, const float* m_all, const float* aux,
            const void* img, const float* bias, const float* w_rgb,
            const float* w_alpha, const float* b_out, const float* cut,
-           float* out, int P, int S, int depth, int skip_mask, int nfk,
-           int nfv, float tau, void* stream, bf16* act = nullptr) {
-  const Layout l = make_layout(body_dims<MODE>(nfk, nfv));
-  const size_t smem = smem_bytes_sm90(l);
+           float* out, int P, int S, int depth, const int* skip, int nfk,
+           int nfv, int fc, float tau, void* stream, bf16* act = nullptr) {
+  const Layout l = make_layout(body_dims<MODE>(nfk, nfv, fc));
+  const size_t smem = smem_bytes_sm90(l, NSTG);
   if (smem > MAX_SMEM || depth < 1) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      k1_sm90_kernel<STAGE, SAVE, MODE>,
+      k1_sm90_kernel<STAGE, SAVE, MODE, NSTG>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int tiles = (P + TM - 1) / TM;
   const int grid = (tiles + CL - 1) / CL * CL;   // whole clusters
-  k1_sm90_kernel<STAGE, SAVE, MODE><<<grid, NT, smem, (cudaStream_t)stream>>>(
-      pts, m_all, aux, reinterpret_cast<const unsigned char*>(img), bias,
-      w_rgb, w_alpha, b_out, cut, out, P, S, depth, skip_mask, nfk, nfv,
-      tau, act);
+  k1_sm90_kernel<STAGE, SAVE, MODE, NSTG>
+      <<<grid, NT, smem, (cudaStream_t)stream>>>(
+          pts, m_all, aux, reinterpret_cast<const unsigned char*>(img), bias,
+          w_rgb, w_alpha, b_out, cut, out, P, S, depth, skip, nfk, nfv, fc,
+          tau, act);
   return (int)cudaGetLastError();
+}
+
+// launch<ST_FULL, SAVE, MODE> with the ring depth `stages` (3 or 2).
+template <bool SAVE, int MODE>
+int launch_full(int stages, const float* pts, const float* m_all,
+                const float* aux, const void* img, const float* bias,
+                const float* w_rgb, const float* w_alpha, const float* b_out,
+                const float* cut, float* out, int P, int S, int depth,
+                const int* skip, int nfk, int nfv, int fc, float tau,
+                void* stream, bf16* act = nullptr) {
+  if (stages == STAGES)
+    return launch<ST_FULL, SAVE, MODE>(pts, m_all, aux, img, bias, w_rgb,
+                                       w_alpha, b_out, cut, out, P, S, depth,
+                                       skip, nfk, nfv, fc, tau, stream, act);
+  if (stages == 2)
+    return launch<ST_FULL, SAVE, MODE, 2>(pts, m_all, aux, img, bias, w_rgb,
+                                          w_alpha, b_out, cut, out, P, S,
+                                          depth, skip, nfk, nfv, fc, tau,
+                                          stream, act);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// K1 on `stream`: world points (P = R * S, 3), the per-ray m_all and aux,
-// the weight image -> raw (P, 4). Returns a cudaError_t code (0 on
-// success).
-int anerf_fused_encode_mlp_pts_sm90(const float* pts, const float* m_all,
-                                    const float* aux, const void* img,
-                                    const float* bias, const float* w_rgb,
-                                    const float* w_alpha, const float* b_out,
-                                    const float* cut, float* out, int P,
-                                    int S, int depth, int skip_mask, int nfk,
-                                    int nfv, float tau, void* stream) {
-  return launch<ST_FULL>(pts, m_all, aux, img, bias, w_rgb, w_alpha, b_out,
-                         cut, out, P, S, depth, skip_mask, nfk, nfv, tau,
-                         stream);
+// K1 on `stream`: world points (P = R * S, 3), the per-ray m_all and aux
+// (2 * 72 + fc floats a ray), the weight image -> raw (P, 4), with a ring
+// of `stages` weight stages (3, or 2) and the device array skip[depth] of
+// per-layer skip flags. Returns a cudaError_t code (0 on success).
+int anerf_fused_encode_mlp_pts_sm90(int stages, const float* pts,
+                                    const float* m_all, const float* aux,
+                                    const void* img, const float* bias,
+                                    const float* w_rgb, const float* w_alpha,
+                                    const float* b_out, const float* cut,
+                                    float* out, int P, int S, int depth,
+                                    const int* skip, int nfk, int nfv,
+                                    int fc, float tau, void* stream) {
+  return launch_full<false, IN_PTS>(stages, pts, m_all, aux, img, bias,
+                                    w_rgb, w_alpha, b_out, cut, out, P, S,
+                                    depth, skip, nfk, nfv, fc, tau, stream);
 }
 
 // K1-d on `stream`: K1's operands and `stage` (ST_*) -> out (P, 4), the
@@ -749,11 +793,11 @@ int anerf_fused_stage_sm90(int stage, const float* pts, const float* m_all,
                            const float* bias, const float* w_rgb,
                            const float* w_alpha, const float* b_out,
                            const float* cut, float* out, int P, int S,
-                           int depth, int skip_mask, int nfk, int nfv,
-                           float tau, void* stream) {
+                           int depth, const int* skip, int nfk, int nfv,
+                           int fc, float tau, void* stream) {
 #define ANERF_STAGE(ST)                                                     \
   launch<ST>(pts, m_all, aux, img, bias, w_rgb, w_alpha, b_out, cut, out,   \
-             P, S, depth, skip_mask, nfk, nfv, tau, stream)
+             P, S, depth, skip, nfk, nfv, fc, tau, stream)
   switch (stage) {
     case ST_FULL: return ANERF_STAGE(ST_FULL);
     case ST_TRANSFORM: return ANERF_STAGE(ST_TRANSFORM);
@@ -769,45 +813,46 @@ int anerf_fused_stage_sm90(int stage, const float* pts, const float* m_all,
 // also written to act (make_act_rows: F feature rows of 64 points per tile
 // of 64 points, for ceil(P / 64) tiles) -> raw (P, 4), the same bits as
 // K1.
-int anerf_k2_recompute_sm90(const float* pts, const float* m_all,
-                            const float* aux, const void* img,
-                            const float* bias, const float* w_rgb,
-                            const float* w_alpha, const float* b_out,
-                            const float* cut, float* out, int P, int S,
-                            int depth, int skip_mask, int nfk, int nfv,
-                            float tau, void* act, void* stream) {
-  return launch<ST_FULL, true>(pts, m_all, aux, img, bias, w_rgb, w_alpha,
-                               b_out, cut, out, P, S, depth, skip_mask, nfk,
-                               nfv, tau, stream,
-                               reinterpret_cast<bf16*>(act));
+int anerf_k2_recompute_sm90(int stages, const float* pts,
+                            const float* m_all, const float* aux,
+                            const void* img, const float* bias,
+                            const float* w_rgb, const float* w_alpha,
+                            const float* b_out, const float* cut, float* out,
+                            int P, int S, int depth, const int* skip, int nfk,
+                            int nfv, int fc, float tau, void* act,
+                            void* stream) {
+  return launch_full<true, IN_PTS>(stages, pts, m_all, aux, img, bias, w_rgb,
+                                   w_alpha, b_out, cut, out, P, S, depth,
+                                   skip, nfk, nfv, fc, tau, stream,
+                                   reinterpret_cast<bf16*>(act));
 }
 
-// K3 on `stream`: x (P, 184) f32 rows [v | r | d | fc] (16-byte aligned),
-// K1's weight image and heads -> out (P, 4).
-int anerf_fused_encode_mlp_raw_sm90(const float* x, const void* img,
-                                    const float* bias, const float* w_rgb,
-                                    const float* w_alpha,
+// K3 on `stream`: x (P, raww) f32 rows [v | r | d | fc | pad] (raww = 2 *
+// 72 + 24 + fc rounded up to a multiple of 4; 16-byte aligned), K1's
+// weight image and heads -> out (P, 4).
+int anerf_fused_encode_mlp_raw_sm90(int stages, const float* x,
+                                    const void* img, const float* bias,
+                                    const float* w_rgb, const float* w_alpha,
                                     const float* b_out, const float* cut,
                                     float* out, int P, int depth,
-                                    int skip_mask, int nfk, int nfv,
-                                    float tau, void* stream) {
-  return launch<ST_FULL, false, IN_RAW>(x, nullptr, nullptr, img, bias,
-                                        w_rgb, w_alpha, b_out, cut, out, P,
-                                        1, depth, skip_mask, nfk, nfv, tau,
-                                        stream);
+                                    const int* skip, int nfk, int nfv,
+                                    int fc, float tau, void* stream) {
+  return launch_full<false, IN_RAW>(stages, x, nullptr, nullptr, img, bias,
+                                    w_rgb, w_alpha, b_out, cut, out, P, 1,
+                                    depth, skip, nfk, nfv, fc, tau, stream);
 }
 
 // K4 on `stream`: x0 (P, k0) and xv (P, kv) bf16 rows (k0, kv multiples
 // of 8, 16-byte aligned), the weight image of those widths -> out (P, 4).
-int anerf_fused_mlp_sm90(const void* x0, const void* xv, const void* img,
-                         const float* bias, const float* w_rgb,
-                         const float* w_alpha, const float* b_out,
-                         float* out, int P, int depth, int skip_mask,
-                         int k0, int kv, void* stream) {
-  return launch<ST_FULL, false, IN_EMBEDDED>(
-      reinterpret_cast<const float*>(x0), nullptr,
+int anerf_fused_mlp_sm90(int stages, const void* x0, const void* xv,
+                         const void* img, const float* bias,
+                         const float* w_rgb, const float* w_alpha,
+                         const float* b_out, float* out, int P, int depth,
+                         const int* skip, int k0, int kv, void* stream) {
+  return launch_full<false, IN_EMBEDDED>(
+      stages, reinterpret_cast<const float*>(x0), nullptr,
       reinterpret_cast<const float*>(xv), img, bias, w_rgb, w_alpha, b_out,
-      nullptr, out, P, 1, depth, skip_mask, k0, kv, 0.f, stream);
+      nullptr, out, P, 1, depth, skip, k0, kv, 0, 0.f, stream);
 }
 
 // CTAs per cluster of the kernel above.

@@ -83,19 +83,21 @@ __device__ __forceinline__ void fence_async_smem() {
 // TM = 64 points, F feature rows of 64 points (128 bytes), the 16-byte
 // group h of feature row f holding points 8 (h ^ (f % 8)) .. + 7: the
 // K-major 128-byte swizzle with the points as k. Feature rows: x0
-// (padded to 64) | xv (padded to 64) | h_0 .. h_{depth-1} | feat | hv.
+// (padded to 64) | xv (padded to 64) | h_0 .. h_{depth-1} | feat | hv, for
+// a trunk of width w (W at the flagship).
 struct ActRows {
   int x0, xv, h, feat, hv, F;
 };
 
-__host__ __device__ inline ActRows make_act_rows(const Dims& d, int depth) {
+__host__ __device__ inline ActRows make_act_rows(const Dims& d, int depth,
+                                                 int w = W) {
   ActRows a;
   a.x0 = 0;
   a.xv = (d.k0 + KC - 1) / KC * KC;
   a.h = a.xv + (d.kv + KC - 1) / KC * KC;
-  a.feat = a.h + depth * W;
-  a.hv = a.feat + W;
-  a.F = a.hv + WV;
+  a.feat = a.h + depth * w;
+  a.hv = a.feat + w;
+  a.F = a.hv + w / 2;
   return a;
 }
 

@@ -1,18 +1,22 @@
 """K4: the NeRF MLP alone, fused into one kernel, on inputs that are
 already embedded (port of anerf_tpu/kernels/fused_mlp.py).
 
-`fused_mlp_apply` launches K4 (csrc/fused_render_sm90.cu, K1's wgmma
-kernel in its IN_EMBEDDED mode: phase A copies bf16 input rows, the
-weights come from the weight image 'img' by cluster-multicast bulk
-copies) on CUDA tensors and runs its plain PyTorch version,
-`fused_mlp_apply_ref`, on CPU tensors; it never falls back from one to
-the other. `fused_mlp_apply_v1` launches K4-v1, its first kernel
+`fused_mlp_apply` launches K4 on CUDA tensors, on the route
+`fused_render.route_plan` picks for its input widths: K1's single wgmma
+kernel in its IN_EMBEDDED mode (csrc/fused_render_sm90.cu: phase A
+copies bf16 input rows, the weights come from the weight image 'img' by
+cluster-multicast bulk copies), or the layered route
+(csrc/fused_render_layered_sm90.cu: one launch a layer on the same
+weight image, reading the input rows in place) for a trunk wider than
+256 or inputs wider than the single kernel's shared memory holds. It
+runs its plain PyTorch version, `fused_mlp_apply_ref`, on CPU tensors;
+it never falls back from one to the other. `fused_mlp_apply_v1` launches K4-v1, its first kernel
 (csrc/fused_render_modes.cu, K1-v1's mma.sync body on the fragment-order
 'w'), kept as the comparison; no path of the port runs it. The operands
 are K1's, packed by `pack_params` for input widths k0 = dnet_input and
-kv = input_ch_views (+ framecode_ch), so that any depth and skips,
-input_ch_bones = 0 and no framecode work, up to the widths K1's kernel
-has shared memory for (`supports_config`).
+kv = input_ch_views (+ framecode_ch), so that every config JAX's gate
+admits works (`supports_config`): any depth, width and skips,
+input_ch_bones = 0, any input widths.
 
 Numerics, as the TPU kernel's `_mlp_chain`: bf16 operands, each product
 kept in f32 before the bias add, activations rounded to bf16 between
@@ -48,12 +52,13 @@ def kernel_widths(cfg: NeRFConfig) -> Tuple[int, int]:
 
 
 def supports_config(cfg: NeRFConfig) -> bool:
-    """The JAX gate (a view head, depth 2 or more, widths multiples of the
-    TPU's 128 lanes) plus the kernel's fixed trunk width of 256 and input
-    widths its shared memory holds (`fused_render.sm90_smem_bytes`)."""
-    return (cfg.use_viewdirs and cfg.depth >= 2
-            and cfg.width == fr.KERNEL_WIDTH
-            and fr.sm90_smem_bytes(*kernel_widths(cfg)) <= fr.SM90_MAX_SMEM)
+    """The JAX gate, condition for condition: a view head, depth 2 or
+    more, the width and half of it multiples of the TPU's 128 lanes. The
+    kernels' own limits pick a route (`fused_render.route_plan`)."""
+    return (cfg.use_viewdirs
+            and cfg.width % fr.LANE == 0
+            and (cfg.width // 2) % fr.LANE == 0
+            and cfg.depth >= 2)
 
 
 def pack_params(params: Dict[str, Any], cfg: NeRFConfig) -> Dict[str, Any]:
@@ -86,13 +91,12 @@ def _launch(fn: str, cfg: NeRFConfig, packed: Dict[str, Any],
             x_pts: torch.Tensor, x_view: torch.Tensor, v1: bool
             ) -> torch.Tensor:
     """Launch K4 (K1's kernel in its IN_EMBEDDED mode, on the weight
-    image) or K4-v1 (K1-v1's body, on 'w') on x_pts and x_view of any
-    device but the CPU. Raises if the kernel cannot launch."""
+    image, on its route) or K4-v1 (K1-v1's body, on 'w') on x_pts and
+    x_view of any device but the CPU. Raises if the kernel cannot
+    launch."""
     P = x_pts.shape[0]
     bf = torch.bfloat16
     k0, kv = kernel_widths(cfg)
-    if not v1:
-        fr.check_sm90_layout(fn, k0, kv)
 
     # the kernels copy 16-byte chunks: rows of a multiple of 8 columns
     # (zero columns added here where a width is not), 16-byte aligned
@@ -108,20 +112,33 @@ def _launch(fn: str, cfg: NeRFConfig, packed: Dict[str, Any],
         fn, cfg, packed, x_pts.device, P, x_pts=(x0, (P, k0), bf),
         x_view=(xv, (P, kv), bf),
         **({} if v1 else {'img': fr.image_operand(cfg, packed)}))
+    if v1:
+        fr._check_v1(fn, cfg, fr.FC_CH)
     if not v1 and packed['img'].data_ptr() % 16:
         raise ValueError(f'{fn}: the weight image must be 16-byte aligned')
     out = torch.empty((P, 4), dtype=torch.float32, device=x_pts.device)
     if P == 0:
         return out
+    route = fr.route_plan(cfg, k0, kv)
+    if not v1 and route.kind == 'layered':
+        return fr.launch_layered(fn, 'k4', 2, cfg, packed, out, P, 1, 0.0,
+                                 x0, None, xv, widths=(k0, kv))
     lib = fr._library('fused_render_modes' if v1 else 'fused_render_sm90')
-    entry = lib.anerf_fused_mlp if v1 else lib.anerf_fused_mlp_sm90
     with torch.cuda.device(x_pts.device):
-        err = entry(
-            x0.data_ptr(), xv.data_ptr(),
-            packed['w' if v1 else 'img'].data_ptr(), packed['b'].data_ptr(),
-            packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
-            packed['b_out'].data_ptr(), out.data_ptr(), P, cfg.depth,
-            fr.skip_mask(cfg), k0, kv, fr._stream(x_pts.device))
+        if v1:
+            err = lib.anerf_fused_mlp(
+                x0.data_ptr(), xv.data_ptr(), packed['w'].data_ptr(),
+                packed['b'].data_ptr(), packed['w_rgb'].data_ptr(),
+                packed['w_alpha'].data_ptr(), packed['b_out'].data_ptr(),
+                out.data_ptr(), P, cfg.depth, fr.skip_mask(cfg), k0, kv,
+                fr._stream(x_pts.device))
+        else:
+            err = lib.anerf_fused_mlp_sm90(
+                route.stages, x0.data_ptr(), xv.data_ptr(),
+                packed['img'].data_ptr(), packed['b'].data_ptr(),
+                packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
+                packed['b_out'].data_ptr(), out.data_ptr(), P, cfg.depth,
+                packed['skip'].data_ptr(), k0, kv, fr._stream(x_pts.device))
     fr._raise_on(lib, err, fn)
     return out
 
@@ -132,8 +149,8 @@ def fused_mlp_apply(cfg: NeRFConfig, packed: Dict[str, Any],
     """K4: embedded inputs x_pts (P, dnet_input) and x_view (P, view_in),
     cast to bf16, -> raw (P, 4) f32 = [rgb logits, sigma].
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (and raise if it cannot launch)."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    its route (and raise if it cannot launch)."""
     global LAUNCHES
     if x_pts.device.type == 'cpu':
         return fused_mlp_apply_ref(cfg, packed, x_pts, x_view)

@@ -30,17 +30,34 @@ body) is its first version, kept as the comparison; no path of the port
 runs it. The plain versions of K1, K3 and K4 (kernels/fused_mlp.py)
 share one MLP (`mlp_trace`).
 
+Routes (`route_plan`): the gate (`fused_render_supported`) is JAX's, so
+the kernels take any trunk width that is a multiple of 256, any depth,
+skip placement and framecode width. K1, K3, K4 and K2's recompute run K1's
+single kernel with three weight stages where its tile, activation
+buffers and stages fit in a block's shared memory (the flagship), with
+two where only two do (e.g. multires 10 with multires_views 4), and
+otherwise the layered route (csrc/fused_render_layered_sm90.cu: phase A,
+one wgmma launch per MMA layer through HBM, the heads): a trunk wider
+than 256, or MLP inputs wider than two stages leave room for. K2's
+layer launches take any width: a DX CTA keeps W^T resident where its
+k-slices fit in the stages and walks them through the ring otherwise.
+The first versions (K1-v1 .. K4-v1) stay comparisons at the flagship's
+family only (`_check_v1`).
+
 Each source is built with nvcc for sm_90a on first use into
 anerf_torch/_build/ and loaded with ctypes. A wrapper launches its kernel
 for CUDA tensors and runs the plain PyTorch version (`*_ref`) for CPU
 tensors; it never falls back from one to the other.
 
-Layouts (no TPU lane padding):
+Layouts (no TPU lane padding; fc is the framecode columns, `fc_width`:
+the config's framecode width, or 16 zero columns without framecodes):
   pts    (R, S, 3) f32 world points;
   m_all  (R*3, 72) f32 rotation columns, m_all[3r+b, 3j+a] = skts[r,j,a,b];
-  aux    (R, 160) f32 per-ray [trans (72) | unit view dirs (72) | fc (16)];
-  x_raw  (..., 184) f32 per-point [v (24) | r (72) | d (72) | fc (16)]
-         (K3's input; the TPU kernel's is 512 lanes, four 128-lane
+  aux    (R, 144 + fc) f32 per-ray [trans (72) | unit view dirs (72) | fc]
+         (160 at the flagship);
+  x_raw  (..., raw_width(fc)) f32 per-point [v (24) | r (72) | d (72) |
+         fc | zero pad to a multiple of 4] (K3's input, 184 at the
+         flagship; the TPU kernel's is 512 lanes, four 128-lane
          segments);
   out    (R, S, 4) f32 raw = [rgb logits (3), sigma].
 Packed weights are bf16 blocks of (out, in) = (N, K), each K padded to a
@@ -63,6 +80,7 @@ library functions (the JAX kernel uses a short polynomial, 3e-6 abs).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -78,10 +96,17 @@ from ..ops.encoding import (_expand3, _group3_sumsq, rot_cols, rotate_flat,
 
 N_JOINTS = 24
 C72 = 3 * N_JOINTS
-FC_CH = 16                    # framecode columns the view block reserves
-AUX_W = 2 * C72 + FC_CH
-RAW_W = N_JOINTS + 2 * C72 + FC_CH   # K3's input row: v | r | d | fc
-KERNEL_WIDTH = 256            # trunk width the CUDA kernel is built for
+#: framecode columns of the view block of a net without framecodes (zeros,
+#: as JAX's pack_ray_data fills them) and of the flagship's; a net with
+#: framecodes takes its own width (`fc_width`)
+FC_CH = 16
+AUX_W = 2 * C72 + FC_CH       # the flagship's aux row (`aux_width`)
+RAW_W = N_JOINTS + 2 * C72 + FC_CH   # the flagship's K3 row (`raw_width`)
+#: trunk width of K1's single kernel (csrc/fused_render_common.cuh: W);
+#: other widths take the layered route (`route_plan`)
+KERNEL_WIDTH = 256
+#: the TPU's lane width, in which JAX's gate states its widths
+LANE = 128
 
 #: K1 launches since the last reset; the wrapper adds one per launch.
 LAUNCHES = 0
@@ -103,6 +128,11 @@ RAW_LAUNCHES = 0
 #: K3-v1 launches since the last reset; `fused_encode_mlp_v1` adds one per
 #: launch.
 RAW_V1_LAUNCHES = 0
+#: calls that took the layered route (csrc/fused_render_layered_sm90.cu)
+#: since the last reset, by kernel: K1 ('k1'), K3 ('k3'), K4 ('k4') and
+#: K2's recompute ('k2'). Each call also counts in its kernel's counter
+#: above (fused_mlp.LAUNCHES for K4), whatever its route.
+LAYERED_LAUNCHES = {'k1': 0, 'k3': 0, 'k4': 0, 'k2': 0}
 #: Points per partial sum of K2's weight gradients (one CTA row of the
 #: dW products per chunk, reduced afterwards in chunk order).
 BWD_CHUNK = 2048
@@ -110,6 +140,9 @@ BWD_CHUNK = 2048
 _CSRC = Path(__file__).resolve().parent / 'csrc'
 _SOURCES = {'fused_render_sm90': ('fused_render_sm90.cu', 'sm90_common.cuh',
                                   'fused_render_common.cuh'),
+            'fused_render_layered_sm90': ('fused_render_layered_sm90.cu',
+                                          'sm90_common.cuh',
+                                          'fused_render_common.cuh'),
             'fused_render': ('fused_render.cu', 'fused_render_common.cuh'),
             'fused_render_bwd_sm90': ('fused_render_bwd_sm90.cu',
                                       'sm90_common.cuh',
@@ -137,10 +170,28 @@ def _rup64(n: int) -> int:
     return -(-n // SLICE_K) * SLICE_K
 
 
+def fc_width(ncfg: NeRFConfig) -> int:
+    """Framecode columns of the kernels' view block: the config's
+    framecode width, or FC_CH zero columns for a net without one."""
+    return ncfg.framecode_ch if ncfg.use_framecode else FC_CH
+
+
+def aux_width(fc: int) -> int:
+    """Floats of a ray's aux row: trans (72) | unit view dirs (72) | fc."""
+    return 2 * C72 + fc
+
+
+def raw_width(fc: int) -> int:
+    """Floats of a K3 input row, v (24) | r (72) | d (72) | fc | zero pad
+    to a multiple of 4, so that every row starts 16 bytes aligned."""
+    return -(-(N_JOINTS + 2 * C72 + fc) // 4) * 4
+
+
 def fused_render_supported(rcfg) -> bool:
-    """Static check that the RenderConfig matches the kernel family (the
-    JAX gate, plus the kernel's fixed width 256, a framecode width of 16
-    and skips that feed a trunk layer)."""
+    """Static check that the RenderConfig matches the kernel family: the
+    JAX gate, condition for condition (any trunk width that is a multiple
+    of 256, any depth, skip placement and framecode width; the kernels'
+    own limits pick a route, `route_plan`, and never refuse)."""
     ek, ev, eb = rcfg.embed_kp, rcfg.embed_view, rcfg.embed_bone
     ncfg = rcfg.nerf
     return (
@@ -159,17 +210,16 @@ def fused_render_supported(rcfg) -> bool:
         and ncfg.input_ch == N_JOINTS * (1 + 2 * ek.num_freqs)
         and ncfg.input_ch_bones == C72
         and ncfg.input_ch_views == C72 * (1 + 2 * ev.num_freqs)
-        and ncfg.width == KERNEL_WIDTH
-        and all(s < ncfg.depth - 1 for s in ncfg.skips)
-        and (not ncfg.use_framecode or ncfg.framecode_ch == FC_CH)
+        and ncfg.width % LANE == 0 and (ncfg.width // 2) % LANE == 0
     )
 
 
-def input_widths(nfk: int, nfv: int) -> Tuple[int, int, int, int]:
+def input_widths(nfk: int, nfv: int, fc: int = FC_CH
+                 ) -> Tuple[int, int, int, int]:
     """(k0, k0p, kv, kvp): kp+bone input width and the view-block width
-    (view PE + framecode), each with its 16-padded size."""
+    (view PE + fc framecode columns), each with its 16-padded size."""
     k0 = N_JOINTS * (1 + 2 * nfk) + C72
-    kv = C72 * (1 + 2 * nfv) + FC_CH
+    kv = C72 * (1 + 2 * nfv) + fc
     return k0, _rup16(k0), kv, _rup16(kv)
 
 
@@ -177,8 +227,15 @@ def layer_shapes(ncfg: NeRFConfig, nfk: int, nfv: int
                  ) -> List[Tuple[int, int]]:
     """(N, K) of each packed weight block, in the order the kernel walks
     the flat buffer: trunk layers, feature layer, view layer."""
-    _, k0p, _, kvp = input_widths(nfk, nfv)
+    _, k0p, _, kvp = input_widths(nfk, nfv, fc_width(ncfg))
     return mlp_shapes(ncfg, k0p, kvp)
+
+
+def skip_flags(ncfg: NeRFConfig) -> List[int]:
+    """The kernels' per-layer skip flags: 1 where trunk layer i takes
+    [x0 | h] (a skip after layer i - 1), for every layer (no depth
+    limit; a skip after the last layer feeds none)."""
+    return [int(i > 0 and (i - 1) in ncfg.skips) for i in range(ncfg.depth)]
 
 
 def mlp_shapes(ncfg: NeRFConfig, k0p: int, kvp: int
@@ -348,7 +405,7 @@ def t_image_segments(ncfg: NeRFConfig, nfk: int, nfv: int
     at its input segments (layer 0 [x0], a skip layer [x0 | h], the other
     trunk layers and the feature layer [h], the view layer [feat | xv]),
     each segment's rows padded to a multiple of 256."""
-    _, k0p, _, kvp = input_widths(nfk, nfv)
+    _, k0p, _, kvp = input_widths(nfk, nfv, fc_width(ncfg))
     W = ncfg.width
     out = []
     for i, (n, _) in enumerate(mlp_shapes(ncfg, k0p, kvp)):
@@ -376,9 +433,11 @@ def t_image_index(ncfg: NeRFConfig, nfk: int, nfv: int, device
     of its padded rows and N columns: 64-deep k-slices over the layer's
     outputs in the K-major 128-byte swizzle, so that a 256-row tile of a
     k-slice is one contiguous 32 KB run."""
-    key = (ncfg.width, ncfg.depth, tuple(ncfg.skips), nfk, nfv, str(device))
+    fc = fc_width(ncfg)
+    key = (ncfg.width, ncfg.depth, tuple(ncfg.skips), nfk, nfv, fc,
+           str(device))
     if key not in _T_IMAGE_INDEX:
-        _, k0p, _, kvp = input_widths(nfk, nfv)
+        _, k0p, _, kvp = input_widths(nfk, nfv, fc)
         shapes = mlp_shapes(ncfg, k0p, kvp)
         offs = [0]
         for n, k in shapes:
@@ -413,7 +472,7 @@ def act_rows(ncfg: NeRFConfig, nfk: int, nfv: int) -> Dict[str, int]:
     """The feature rows of K2's saved activations (csrc/sm90_common.cuh:
     make_act_rows): x0 and xv each padded to 64 rows, then h_0 ..
     h_{depth-1}, feat and hv; 'F' is the rows of one tile of 64 points."""
-    k0, _, kv, _ = input_widths(nfk, nfv)
+    k0, _, kv, _ = input_widths(nfk, nfv, fc_width(ncfg))
     W = ncfg.width
     xv = _rup64(k0)
     h = xv + _rup64(kv)
@@ -474,9 +533,11 @@ def pack_render_params(params: Dict[str, Any], ncfg: NeRFConfig,
     image of them (`t_image_segments`, gathered by `t_image_index`); 'b'
     the matching f32 biases. The 3-wide rgb and 1-wide alpha heads run on
     the CUDA cores in f32 on bf16-rounded weights ('w_rgb' (3, W/2),
-    'w_alpha' (W,), 'b_out' (4,)).
+    'w_alpha' (W,), 'b_out' (4,)). 'fc' is the framecode columns of the
+    view block (`fc_width`), 'skip' the per-layer skip flags.
     """
-    k0, _, kv, _ = input_widths(n_freq_kp, n_freq_view)
+    fc = fc_width(ncfg)
+    k0, _, kv, _ = input_widths(n_freq_kp, n_freq_view, fc)
     mlp = pack_mlp_params(params, ncfg, k0, kv)
     w0 = torch.cat([mlp['w'], mlp['w'].new_zeros(1)])
     return {**mlp,
@@ -484,7 +545,20 @@ def pack_render_params(params: Dict[str, Any], ncfg: NeRFConfig,
                                       w0.device)],
             'cut': cutoff_dist.reshape(-1)[:N_JOINTS].float()
             .to(cutoff_dist.device).contiguous(),
-            'nfk': int(n_freq_kp), 'nfv': int(n_freq_view)}
+            'nfk': int(n_freq_kp), 'nfv': int(n_freq_view), 'fc': fc}
+
+
+_SKIP_FLAGS: Dict[Any, torch.Tensor] = {}
+
+
+def skip_operand(ncfg: NeRFConfig, device) -> torch.Tensor:
+    """`skip_flags` as the int32 tensor K1's single kernel reads on the
+    device (cached per config and device: no copy per call)."""
+    key = (ncfg.depth, tuple(ncfg.skips), str(device))
+    if key not in _SKIP_FLAGS:
+        _SKIP_FLAGS[key] = torch.tensor(skip_flags(ncfg), dtype=torch.int32,
+                                        device=device)
+    return _SKIP_FLAGS[key]
 
 
 def pack_mlp_params(params: Dict[str, Any], ncfg: NeRFConfig, k0: int,
@@ -493,8 +567,9 @@ def pack_mlp_params(params: Dict[str, Any], ncfg: NeRFConfig, k0: int,
     density input: dnet_input columns, and padding) and kv (the view
     input and framecode, and padding) columns: 'w' with blocks padded to
     k0p / kvp (multiples of 16), 'img' the weight image of K1's kernel
-    for widths k0 and kv (`image_index`), the biases and the heads. It
-    records the four widths."""
+    for widths k0 and kv (`image_index`), the biases, the heads and the
+    per-layer skip flags 'skip' (`skip_operand`). It records the four
+    widths."""
     W = ncfg.width
     k0p, kvp = _rup16(k0), _rup16(kv)
     dnet = ncfg.dnet_input
@@ -534,6 +609,7 @@ def pack_mlp_params(params: Dict[str, Any], ncfg: NeRFConfig, k0: int,
                             params['alpha_linear']['b']]).float()
         .contiguous(),
         'k0': k0, 'kv': kv, 'k0p': k0p, 'kvp': kvp,
+        'skip': skip_operand(ncfg, w.device),
     }
 
 
@@ -541,7 +617,8 @@ def pack_ray_data(rays_d: torch.Tensor, skts: torch.Tensor,
                   framecodes: torch.Tensor | None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-ray kernel operands: rays_d (R, 1, 3), skts (R, J, 4, 4),
-    framecodes (R, 16) or None -> m_all (R*3, 72), aux (R, 160)."""
+    framecodes (R, fc) or None (FC_CH zero columns) -> m_all (R*3, 72),
+    aux (R, 144 + fc)."""
     R, J = skts.shape[0], skts.shape[1]
     cols = rot_cols(skts)                                  # (R, 3, 72)
     trans = skts[..., :3, 3].reshape(R, J * 3)
@@ -550,8 +627,6 @@ def pack_ray_data(rays_d: torch.Tensor, skts: torch.Tensor,
     d = rays_flat * _expand3(torch.rsqrt(torch.clamp_min(dss, 1e-24)), J)
     if framecodes is None:
         framecodes = rays_flat.new_zeros((R, FC_CH))
-    if framecodes.shape[-1] != FC_CH:
-        raise ValueError(f'framecodes must be (R, {FC_CH})')
     aux = torch.cat([trans, d, framecodes.to(d.dtype)], -1)
     return (cols.reshape(R * 3, J * 3).float().contiguous(),
             aux.float().contiguous())
@@ -579,11 +654,11 @@ def embed(packed: Dict[str, Any], v: torch.Tensor, r: torch.Tensor,
           sincos=accurate_sincos) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernels' cutoff PE in plain torch: distances v (..., 24), unit
     bone directions r (..., 72), view directions d (..., 72) and
-    framecodes fc (..., 16) (d and fc may broadcast over the sample axis)
-    -> the bf16-rounded MLP inputs x0 (..., k0p) and xv (..., kvp), as f32
-    values."""
-    nfk, nfv = packed['nfk'], packed['nfv']
-    k0, k0p, kv, kvp = input_widths(nfk, nfv)
+    framecodes fc (..., packed['fc']) (d and fc may broadcast over the
+    sample axis) -> the bf16-rounded MLP inputs x0 (..., k0p) and
+    xv (..., kvp), as f32 values."""
+    nfk, nfv, nfc = packed['nfk'], packed['nfv'], packed['fc']
+    k0, k0p, kv, kvp = input_widths(nfk, nfv, nfc)
     lead, J = v.shape[:-1], N_JOINTS
     w24 = torch.sigmoid(-tau * (v - packed['cut']))        # 1 - sigmoid
 
@@ -597,8 +672,8 @@ def embed(packed: Dict[str, Any], v: torch.Tensor, r: torch.Tensor,
     kp = (bands(v, nfk) * w24[..., None, :]).reshape(*lead, k0 - C72)
     x0 = torch.cat([kp, r, v.new_zeros((*lead, k0p - k0))], -1)
     vb = bands(d, nfv) * _expand3(w24, J)[..., None, :]    # (..., K, 72)
-    xv = torch.cat([vb.reshape(*lead, kv - FC_CH),
-                    fc.expand(*lead, FC_CH),
+    xv = torch.cat([vb.reshape(*lead, kv - nfc),
+                    fc.expand(*lead, nfc),
                     v.new_zeros((*lead, kvp - kv))], -1)
     bf = torch.bfloat16
     return x0.to(bf).float(), xv.to(bf).float()
@@ -680,10 +755,11 @@ def build_raw_inputs(pts: torch.Tensor, rays_d: torch.Tensor,
                      skts: torch.Tensor, framecodes: torch.Tensor | None
                      ) -> torch.Tensor:
     """K3's input from world points: pts (R, S, 3), rays_d (R, 1, 3),
-    skts (R, J, 4, 4), framecodes (R, 16) or None -> (R, S, 184) f32
-    [v (24) | r (72) | d (72) | fc (16)], the per-joint distances, unit
-    bone directions and unit view directions of every point, as JAX's
-    build_raw_inputs computes them (without its 128-lane segments)."""
+    skts (R, J, 4, 4), framecodes (R, fc) or None (FC_CH zero columns)
+    -> (R, S, raw_width(fc)) f32 [v (24) | r (72) | d (72) | fc | zero
+    pad], the per-joint distances, unit bone directions and unit view
+    directions of every point, as JAX's build_raw_inputs computes them
+    (without its 128-lane segments)."""
     R, S = pts.shape[:2]
     J = N_JOINTS
     pts_t = transform_batch_pts_flat(pts, skts)             # (R, S, 72)
@@ -694,21 +770,21 @@ def build_raw_inputs(pts: torch.Tensor, rays_d: torch.Tensor,
     d = rays_flat * _expand3(torch.rsqrt(torch.clamp_min(dss, 1e-24)), J)
     if framecodes is None:
         framecodes = pts.new_zeros((R, FC_CH))
-    if framecodes.shape[-1] != FC_CH:
-        raise ValueError(f'framecodes must be (R, {FC_CH})')
+    fc = framecodes.shape[-1]
+    pad = raw_width(fc) - (J + 2 * C72 + fc)
     return torch.cat([v, r, d.expand(R, S, C72),
-                      framecodes[:, None].to(v.dtype).expand(R, S, FC_CH)],
-                     -1).float().contiguous()
+                      framecodes[:, None].to(v.dtype).expand(R, S, fc),
+                      v.new_zeros((R, S, pad))], -1).float().contiguous()
 
 
 def fused_encode_mlp_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
                          x_raw: torch.Tensor, tau) -> torch.Tensor:
-    """The plain PyTorch version of K3: raw inputs (..., 184) -> raw
-    (..., 4), the cutoff PE and MLP of K1's plain version."""
-    J = N_JOINTS
+    """The plain PyTorch version of K3: raw inputs (..., raw_width(fc))
+    -> raw (..., 4), the cutoff PE and MLP of K1's plain version."""
+    J, fc = N_JOINTS, packed['fc']
     x0, xv = embed(packed, x_raw[..., :J], x_raw[..., J:J + C72],
                    x_raw[..., J + C72:J + 2 * C72],
-                   x_raw[..., J + 2 * C72:], tau)
+                   x_raw[..., J + 2 * C72:J + 2 * C72 + fc], tau)
     return mlp_trace(ncfg, packed, x0, xv)['out']
 
 
@@ -743,7 +819,7 @@ def pe_transform_bwd_ref(packed, pts, m_all, aux, S, tau, dx0, dxv,
     """Backward of the cutoff PE and the world->local transform in exact
     fp32 (the pose-refinement path): cotangents of the MLP inputs dx0
     (R, S, k0p) and dxv (R, S, kvp) -> dpts (R, S, 3), dm_all (R*3, 72),
-    daux (R, 160). Mirrors K2's last kernel term by term. With `pe_only`
+    daux (R, 144 + fc). Mirrors K2's last kernel term by term. With `pe_only`
     (K2-d's pe stage) it stops before the transform backward and returns
     the stage's digest (R, S, 3): per point the sums of the distances'
     cotangents dv (window derivative included), of the view directions'
@@ -792,7 +868,7 @@ def pe_transform_bwd_ref(packed, pts, m_all, aux, S, tau, dx0, dxv,
     dm = (pts[..., :, None] * dpts_t[..., None, :]).sum(1)  # (R, 3, 72)
     fc0 = C72 * (1 + 2 * nfv)
     daux = torch.cat([dpts_t.sum(1), dd.sum(1),
-                      dxv[..., fc0:fc0 + FC_CH].sum(1)], -1)
+                      dxv[..., fc0:fc0 + packed['fc']].sum(1)], -1)
     return dpts, dm.reshape(R * 3, C72), daux
 
 
@@ -810,7 +886,8 @@ def trace_from_act(ncfg: NeRFConfig, packed: Dict[str, Any],
     the kernel's own activations, so that a comparison sees the
     backward's arithmetic and not the two recomputes' roundings."""
     rows = act_rows(ncfg, packed['nfk'], packed['nfv'])
-    _, k0p, _, kvp = input_widths(packed['nfk'], packed['nfv'])
+    _, k0p, _, kvp = input_widths(packed['nfk'], packed['nfv'],
+                                  packed['fc'])
     a = from_act_image(act, P, rows['F']).float()
     W = ncfg.width
     return {'x0': a[:, :k0p], 'xv': a[:, rows['xv']:rows['xv'] + kvp],
@@ -890,7 +967,7 @@ def fused_bwd_ref(ncfg: NeRFConfig, packed: Dict[str, Any],
     of K1's output. ReLU masks come from the bf16-rounded activations;
     the PE and transform backward is f32 in both flavours. Returns (dW
     flat in `grad_blocks` layout, dpts (R, S, 3), dm_all (R*3, 72),
-    daux (R, 160))."""
+    daux (R, 144 + fc))."""
     dW, dx0, dxv = mlp_bwd_ref(ncfg, packed, pts, m_all, aux, S, tau, g,
                                bwd_f32)
     return (dW,) + pe_transform_bwd_ref(packed, pts, m_all, aux, S, tau,
@@ -940,29 +1017,36 @@ def _library(name: str):
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         if name == 'fused_render_sm90':
-            lib.anerf_fused_encode_mlp_pts_sm90.argtypes = \
-                [p] * 10 + [i] * 6 + [f, p]
+            # (stages or stage, operands, P, S, depth, skip, nfk, nfv, fc,
+            # tau, [act,] stream)
+            k1 = [i] + [p] * 10 + [i] * 3 + [p] + [i] * 3 + [f]
+            lib.anerf_fused_encode_mlp_pts_sm90.argtypes = k1 + [p]
             lib.anerf_fused_encode_mlp_pts_sm90.restype = i
-            lib.anerf_fused_stage_sm90.argtypes = [i] + [p] * 10 + [i] * 6 \
-                + [f, p]
+            lib.anerf_fused_stage_sm90.argtypes = k1 + [p]
             lib.anerf_fused_stage_sm90.restype = i
             lib.anerf_sm90_cluster_size.argtypes = []
             lib.anerf_sm90_cluster_size.restype = i
-            lib.anerf_k2_recompute_sm90.argtypes = \
-                [p] * 10 + [i] * 6 + [f, p, p]
+            lib.anerf_k2_recompute_sm90.argtypes = k1 + [p, p]
             lib.anerf_k2_recompute_sm90.restype = i
             lib.anerf_fused_encode_mlp_raw_sm90.argtypes = \
-                [p] * 8 + [i] * 5 + [f, p]
+                [i] + [p] * 8 + [i] * 2 + [p] + [i] * 3 + [f, p]
             lib.anerf_fused_encode_mlp_raw_sm90.restype = i
-            lib.anerf_fused_mlp_sm90.argtypes = [p] * 8 + [i] * 5 + [p]
+            lib.anerf_fused_mlp_sm90.argtypes = \
+                [i] + [p] * 8 + [i] * 2 + [p] + [i] * 2 + [p]
             lib.anerf_fused_mlp_sm90.restype = i
+        elif name == 'fused_render_layered_sm90':
+            lib.anerf_layered_forward.argtypes = \
+                [i] + [p] * 10 + [i] * 4 + [p] + [i] * 3 + [f, p, i, p, p]
+            lib.anerf_layered_forward.restype = i
+            lib.anerf_layered_columns.argtypes = [i] * 7
+            lib.anerf_layered_columns.restype = i
         elif name == 'fused_render':
             lib.anerf_fused_encode_mlp_pts_v1.argtypes = \
                 [p] * 10 + [i] * 6 + [f, p]
             lib.anerf_fused_encode_mlp_pts_v1.restype = i
         elif name == 'fused_render_bwd_sm90':
             lib.anerf_fused_bwd_sm90.argtypes = \
-                [i, i] + [p] * 19 + [i] * 7 + [f, p]
+                [i, i] + [p] * 19 + [i] * 4 + [p] + [i] * 4 + [f, p]
             lib.anerf_fused_bwd_sm90.restype = i
             lib.anerf_split_gemm_probe.argtypes = \
                 [i, p, i, p, ctypes.c_longlong, i, i, i, i, p, i, i, i,
@@ -990,26 +1074,21 @@ def check_kernel_operands(fn: str, ncfg: NeRFConfig,
                           packed: Dict[str, Any], device: torch.device,
                           n_points: int, **tensors) -> None:
     """Raise unless the config and every operand are what the kernels
-    take: width 256, at most 31 trunk layers, point indices within 32
-    bits, packed weights of the config's shapes, and each tensor
-    (name=(tensor, shape or None, dtype)) contiguous, of its type and
-    shape, on `device`, a CUDA device."""
+    take: point indices within 32 bits, packed weights of the config's
+    shapes, and each tensor (name=(tensor, shape or None, dtype))
+    contiguous, of its type and shape, on `device`, a CUDA device."""
     if device.type != 'cuda':
         raise ValueError(f'{fn}: no kernel for {device}')
-    if ncfg.width != KERNEL_WIDTH:
-        raise ValueError(f'the kernels are built for width {KERNEL_WIDTH}')
-    if ncfg.depth > 31:
-        raise ValueError('the kernels take at most 31 trunk layers')
     if 4 * n_points >= 2 ** 31:
         raise ValueError('the kernels index points with 32-bit ints: '
                          f'{n_points} points are too many; split them')
+    W = ncfg.width
     tensors = {'w': (packed['w'], None, torch.bfloat16),
                'b': (packed['b'], None, torch.float32),
-               'w_rgb': (packed['w_rgb'], (3, KERNEL_WIDTH // 2),
-                         torch.float32),
-               'w_alpha': (packed['w_alpha'], (KERNEL_WIDTH,),
-                           torch.float32),
+               'w_rgb': (packed['w_rgb'], (3, W // 2), torch.float32),
+               'w_alpha': (packed['w_alpha'], (W,), torch.float32),
                'b_out': (packed['b_out'], (4,), torch.float32),
+               'skip': (packed['skip'], (ncfg.depth,), torch.int32),
                **tensors}
     for name, (t, shape, dtype) in tensors.items():
         if t.device != device or t.dtype != dtype \
@@ -1027,52 +1106,105 @@ def check_kernel_operands(fn: str, ncfg: NeRFConfig,
 def _check_operands(fn: str, ncfg: NeRFConfig, packed: Dict[str, Any],
                     pts: torch.Tensor, m_all: torch.Tensor,
                     aux: torch.Tensor, S: int, **extra) -> None:
-    """`check_kernel_operands` for K1-v1's operands (and K2's `extra`)."""
+    """`check_kernel_operands` for K1's operands (and K2's `extra`)."""
     R = pts.shape[0]
     check_kernel_operands(
         fn, ncfg, packed, pts.device, R * S,
         pts=(pts, (R, S, 3), torch.float32),
         m_all=(m_all, (R * 3, C72), torch.float32),
-        aux=(aux, (R, AUX_W), torch.float32),
+        aux=(aux, (R, aux_width(packed['fc'])), torch.float32),
         cut=(packed['cut'], (N_JOINTS,), torch.float32), **extra)
+
+
+def _check_v1(fn: str, ncfg: NeRFConfig, fc: int) -> None:
+    """The first versions (K1-v1 .. K4-v1) stay comparisons at the
+    flagship's family: trunk width 256, at most 31 trunk layers (a 32-bit
+    skip mask) and 16 framecode columns."""
+    if ncfg.width != KERNEL_WIDTH or ncfg.depth > 31 or fc != FC_CH:
+        raise ValueError(f'{fn}: the first versions take width '
+                         f'{KERNEL_WIDTH}, at most 31 trunk layers and '
+                         f'{FC_CH} framecode columns only')
 
 
 #: an H100 block's opt-in shared-memory maximum (csrc/sm90_common.cuh:
 #: MAX_SMEM)
 SM90_MAX_SMEM = 232448
-#: weight stages of K1's ring (csrc/fused_render_sm90.cu: STAGES)
+#: weight stages of K1's ring where they fit (csrc/fused_render_sm90.cu:
+#: STAGES); 2 where only two do
 SM90_STAGES = 3
 
 
-def sm90_smem_bytes(k0: int, kv: int) -> int:
-    """Shared memory of K1's kernel (and K3's, K4's) for MLP inputs of k0
-    and kv columns, as csrc/fused_render_sm90.cu plans it (make_layout,
-    smem_bytes_sm90): the X0 region (X0's 64-column chunks, or XV's less
-    the activation buffer it spills into), two activation buffers, the
-    windows, the head partials, the weight stages and their barriers, and
-    the alignment slack."""
+def sm90_smem_bytes(k0: int, kv: int, stages: int = SM90_STAGES) -> int:
+    """Shared memory of K1's single kernel (and K3's, K4's) for MLP inputs
+    of k0 and kv columns and `stages` weight stages, as
+    csrc/fused_render_sm90.cu plans it (make_layout, smem_bytes_sm90):
+    the X0 region (X0's 64-column chunks, or XV's less the activation
+    buffer it spills into), two activation buffers, the windows, the head
+    partials, the weight stages and their barriers, and the alignment
+    slack."""
     W, TM = KERNEL_WIDTH, 64
     chunk = TM * SLICE_K * 2                  # bytes of a 64 x 64 bf16 chunk
     xr = max(_rup64(k0), _rup64(kv) - W) // SLICE_K
     return ((xr + 2 * W // SLICE_K) * chunk + TM * N_JOINTS * 4
-            + 2 * TM * 4 * 4 + SM90_STAGES * W * SLICE_K * 2
-            + 2 * SM90_STAGES * 8 + 1024)
+            + 2 * TM * 4 * 4 + stages * W * SLICE_K * 2
+            + 2 * stages * 8 + 1024)
 
 
-def check_sm90_layout(fn: str, k0: int, kv: int) -> None:
-    """Raise unless K1's kernel has room in shared memory for MLP inputs
-    of k0 and kv columns (`sm90_smem_bytes`): X0 up to 448 columns and XV
-    up to 704, the flagship's padded widths."""
-    need = sm90_smem_bytes(k0, kv)
-    if need > SM90_MAX_SMEM:
-        raise ValueError(f'{fn}: MLP inputs of {k0} and {kv} columns need '
-                         f'{need} bytes of shared memory, more than the '
-                         f'{SM90_MAX_SMEM} of a block')
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """How K1, K3, K4 and K2's recompute run a config: 'single' (K1's one
+    kernel, csrc/fused_render_sm90.cu, with `stages` weight stages and
+    `smem` bytes of shared memory) or 'layered'
+    (csrc/fused_render_layered_sm90.cu: phase A, one launch a layer, the
+    heads), and why."""
+    kind: str
+    stages: int
+    smem: int
+    why: str
+
+
+def route_plan(ncfg: NeRFConfig, k0: int, kv: int) -> Route:
+    """The route of a config whose MLP inputs are k0 and kv columns wide
+    (K1, K3: `input_widths`; K4: `fused_mlp.kernel_widths`): the single
+    kernel with three weight stages where they fit beside the tile (the
+    flagship: today's kernel, bit for bit), with two where only two do,
+    else the layered route. It never refuses a config the gate admits."""
+    W = ncfg.width
+    if W != KERNEL_WIDTH:
+        return Route('layered', 0, 0,
+                     f'trunk width {W}: the single kernel holds 64-point '
+                     f'tiles of {KERNEL_WIDTH}-wide activations')
+    for stages in (SM90_STAGES, 2):
+        need = sm90_smem_bytes(k0, kv, stages)
+        if need <= SM90_MAX_SMEM:
+            return Route('single', stages, need,
+                         f'{need} bytes of shared memory at {stages} '
+                         f'weight stages')
+    return Route('layered', 0, 0,
+                 f'MLP inputs of {k0} and {kv} columns need '
+                 f'{sm90_smem_bytes(k0, kv, 2)} bytes of shared memory at '
+                 f'2 weight stages, more than the {SM90_MAX_SMEM} of a '
+                 'block')
+
+
+def layered_columns(ncfg: NeRFConfig, k0: int, kv: int, save: bool,
+                    embedded: bool) -> int:
+    """bf16 columns a point of the layered route's activation buffer X
+    (csrc/fused_render_layered_sm90.cu: x_cols): with `save` (K2's
+    recompute) x0 | xv | h_0 .. h_{depth-1} | feat | hv, `act_rows`' F;
+    else x0 | xv (not for K4's `embedded` inputs, read in place) and two
+    activation buffers and hv."""
+    W = ncfg.width
+    h = _rup64(k0) + _rup64(kv)
+    if save:
+        return h + ncfg.depth * W + W + W // 2
+    return (0 if embedded else h) + 2 * W + W // 2
 
 
 def skip_mask(ncfg: NeRFConfig) -> int:
-    """The kernels' skip bits: bit s set for every skip after layer s."""
-    return sum(1 << s for s in ncfg.skips)
+    """The first versions' skip bits: bit s set for every skip after layer
+    s (`_check_v1` keeps them to 31 trunk layers)."""
+    return sum(1 << s for s in ncfg.skips if s < ncfg.depth - 1)
 
 
 def _stream(device: torch.device) -> int:
@@ -1085,13 +1217,54 @@ def _raise_on(lib, err: int, fn: str) -> None:
                            + lib.anerf_cuda_error_string(err).decode())
 
 
+def launch_layered(fn: str, kernel: str, mode: int, ncfg: NeRFConfig,
+                   packed: Dict[str, Any], out: torch.Tensor, P: int, S: int,
+                   tau, x: torch.Tensor, m_all: torch.Tensor | None,
+                   aux: torch.Tensor | None, act: torch.Tensor | None = None,
+                   widths: Tuple[int, int] | None = None) -> torch.Tensor:
+    """K1 (mode 0: x the points, m_all and aux), K3 (1: x the raw rows) or
+    K4 (2: x and aux the bf16 x0 and xv rows, of `widths` columns) on the
+    layered route into `out` (P, 4), with `act` (K2's recompute, mode 0)
+    also K2's saved activations. Allocates the activation buffer; counts
+    the call in LAYERED_LAUNCHES[kernel]. Raises if a kernel cannot
+    launch."""
+    embedded = mode == 2
+    if embedded:
+        k0, kv = widths
+        nfk, nfv, fc = k0, kv, 0
+    else:
+        k0, kv, nfk, nfv, fc = packed['k0'], packed['kv'], packed['nfk'], \
+            packed['nfv'], packed['fc']
+    ldx = layered_columns(ncfg, k0, kv, act is not None, embedded)
+    X = torch.empty((P, ldx), dtype=torch.bfloat16, device=out.device)
+    skip = (ctypes.c_int * ncfg.depth)(*skip_flags(ncfg))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = _library('fused_render_layered_sm90')
+    with torch.cuda.device(out.device):
+        err = lib.anerf_layered_forward(
+            mode, x.data_ptr(), ptr(m_all), ptr(aux), packed['img'].data_ptr(),
+            packed['b'].data_ptr(), packed['w_rgb'].data_ptr(),
+            packed['w_alpha'].data_ptr(), packed['b_out'].data_ptr(),
+            ptr(packed.get('cut')), out.data_ptr(), P, S, ncfg.width,
+            ncfg.depth, ctypes.cast(skip, ctypes.c_void_p), nfk, nfv, fc,
+            float(tau), X.data_ptr(), ldx, ptr(act), _stream(out.device))
+    _raise_on(lib, err, f'{fn} (layered)')
+    LAYERED_LAUNCHES[kernel] += 1
+    return out
+
+
 def launch_k1(fn: str, stage: int | None, ncfg: NeRFConfig,
               packed: Dict[str, Any], pts: torch.Tensor, m_all: torch.Tensor,
               aux: torch.Tensor, S: int, tau) -> torch.Tensor:
-    """Launch K1 (`stage` None) or K1-d stopped after `stage` (ST_* of
-    csrc/fused_render_common.cuh) on CUDA tensors; returns raw or the
-    stage's digest (R, S, 4). Raises if the kernel cannot launch."""
-    check_sm90_layout(fn, packed['k0'], packed['kv'])
+    """Launch K1 (`stage` None) on its route (`route_plan`) or K1-d
+    stopped after `stage` (ST_* of csrc/fused_render_common.cuh; the
+    single kernel at three stages only) on CUDA tensors; returns raw or
+    the stage's digest (R, S, 4). Raises if the kernel cannot launch."""
+    route = route_plan(ncfg, packed['k0'], packed['kv'])
+    if stage is not None and (route.kind, route.stages) != ('single',
+                                                             SM90_STAGES):
+        raise ValueError(f'{fn}: the staged K1 runs the single kernel at '
+                         f'{SM90_STAGES} stages only ({route.why})')
     _check_operands(fn, ncfg, packed, pts, m_all, aux, S,
                     img=image_operand(ncfg, packed))
     if aux.data_ptr() % 16 or packed['img'].data_ptr() % 16:
@@ -1101,17 +1274,21 @@ def launch_k1(fn: str, stage: int | None, ncfg: NeRFConfig,
     out = torch.empty((R, S, 4), dtype=torch.float32, device=pts.device)
     if R * S == 0:
         return out
+    if route.kind == 'layered':
+        return launch_layered(fn, 'k1', 0, ncfg, packed, out, R * S, S, tau,
+                              pts, m_all, aux)
     lib = _library('fused_render_sm90')
-    entry, head = ((lib.anerf_fused_encode_mlp_pts_sm90, ()) if stage is None
-                   else (lib.anerf_fused_stage_sm90, (stage,)))
+    entry, head = ((lib.anerf_fused_encode_mlp_pts_sm90, route.stages)
+                   if stage is None else (lib.anerf_fused_stage_sm90, stage))
     with torch.cuda.device(pts.device):
         err = entry(
-            *head, pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
+            head, pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
             packed['img'].data_ptr(), packed['b'].data_ptr(),
             packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
             packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
-            out.data_ptr(), R * S, S, ncfg.depth, skip_mask(ncfg),
-            packed['nfk'], packed['nfv'], float(tau), _stream(pts.device))
+            out.data_ptr(), R * S, S, ncfg.depth, packed['skip'].data_ptr(),
+            packed['nfk'], packed['nfv'], packed['fc'], float(tau),
+            _stream(pts.device))
     _raise_on(lib, err, fn)
     return out
 
@@ -1134,8 +1311,8 @@ def fused_encode_mlp_pts(ncfg: NeRFConfig, packed: Dict[str, Any],
                          aux: torch.Tensor, S: int, tau) -> torch.Tensor:
     """K1: world points -> raw (R, S, 4): transform + cutoff PE + MLP.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (and raise if it cannot launch)."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    its route (`route_plan`; it raises if a kernel cannot launch)."""
     global LAUNCHES
     if pts.device.type == 'cpu':
         return fused_encode_mlp_pts_ref(ncfg, packed, pts, m_all, aux, S,
@@ -1151,8 +1328,8 @@ def fused_encode_mlp_pts_v1(ncfg: NeRFConfig, packed: Dict[str, Any],
                             pts: torch.Tensor, m_all: torch.Tensor,
                             aux: torch.Tensor, S: int, tau) -> torch.Tensor:
     """K1-v1, K1's first (mma.sync) kernel, on the same operands: the
-    comparison chip_smoke.py measures K1 against. No path of the port
-    calls it.
+    comparison chip_smoke.py measures K1 against at the flagship's family
+    (`_check_v1`). No path of the port calls it.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (and raise if it cannot launch)."""
@@ -1162,6 +1339,7 @@ def fused_encode_mlp_pts_v1(ncfg: NeRFConfig, packed: Dict[str, Any],
                                         tau)
     _check_operands('fused_encode_mlp_pts_v1', ncfg, packed, pts, m_all,
                     aux, S)
+    _check_v1('fused_encode_mlp_pts_v1', ncfg, packed['fc'])
     R = pts.shape[0]
     out = torch.empty((R, S, 4), dtype=torch.float32, device=pts.device)
     if R * S == 0:
@@ -1182,46 +1360,61 @@ def fused_encode_mlp_pts_v1(ncfg: NeRFConfig, packed: Dict[str, Any],
 
 def _launch_k3(fn: str, ncfg: NeRFConfig, packed: Dict[str, Any],
                x_raw: torch.Tensor, tau, v1: bool) -> torch.Tensor:
-    """Launch K3 (K1's kernel in its IN_RAW mode, on the weight image) or
-    K3-v1 (K1-v1's body, on 'w') on CUDA tensors. Raises if the kernel
-    cannot launch."""
+    """Launch K3 (K1's kernel in its IN_RAW mode, on the weight image, on
+    its route) or K3-v1 (K1-v1's body, on 'w') on CUDA tensors. Raises if
+    the kernel cannot launch."""
     lead = x_raw.shape[:-1]
     P = x_raw[..., 0].numel()
-    if not v1:
-        check_sm90_layout(fn, packed['k0'], packed['kv'])
     check_kernel_operands(
         fn, ncfg, packed, x_raw.device, P,
-        x_raw=(x_raw, (*lead, RAW_W), torch.float32),
+        x_raw=(x_raw, (*lead, raw_width(packed['fc'])), torch.float32),
         cut=(packed['cut'], (N_JOINTS,), torch.float32),
         **({} if v1 else {'img': image_operand(ncfg, packed)}))
+    if v1:
+        _check_v1(fn, ncfg, packed['fc'])
     if not v1 and (x_raw.data_ptr() % 16 or packed['img'].data_ptr() % 16):
         raise ValueError(f'{fn}: x_raw and the weight image must be 16-byte '
                          'aligned (the kernel reads them 16 bytes at a time)')
     out = torch.empty((*lead, 4), dtype=torch.float32, device=x_raw.device)
     if P == 0:
         return out
-    lib = _library('fused_render_modes' if v1 else 'fused_render_sm90')
-    entry = (lib.anerf_fused_encode_mlp_raw if v1
-             else lib.anerf_fused_encode_mlp_raw_sm90)
+    if v1:
+        lib = _library('fused_render_modes')
+        with torch.cuda.device(x_raw.device):
+            err = lib.anerf_fused_encode_mlp_raw(
+                x_raw.data_ptr(), packed['w'].data_ptr(),
+                packed['b'].data_ptr(), packed['w_rgb'].data_ptr(),
+                packed['w_alpha'].data_ptr(), packed['b_out'].data_ptr(),
+                packed['cut'].data_ptr(), out.data_ptr(), P, ncfg.depth,
+                skip_mask(ncfg), packed['nfk'], packed['nfv'], float(tau),
+                _stream(x_raw.device))
+        _raise_on(lib, err, fn)
+        return out
+    route = route_plan(ncfg, packed['k0'], packed['kv'])
+    if route.kind == 'layered':
+        return launch_layered(fn, 'k3', 1, ncfg, packed, out, P, 1, tau,
+                              x_raw, None, None)
+    lib = _library('fused_render_sm90')
     with torch.cuda.device(x_raw.device):
-        err = entry(
-            x_raw.data_ptr(), packed['w' if v1 else 'img'].data_ptr(),
+        err = lib.anerf_fused_encode_mlp_raw_sm90(
+            route.stages, x_raw.data_ptr(), packed['img'].data_ptr(),
             packed['b'].data_ptr(), packed['w_rgb'].data_ptr(),
             packed['w_alpha'].data_ptr(), packed['b_out'].data_ptr(),
             packed['cut'].data_ptr(), out.data_ptr(), P, ncfg.depth,
-            skip_mask(ncfg), packed['nfk'], packed['nfv'], float(tau),
-            _stream(x_raw.device))
+            packed['skip'].data_ptr(), packed['nfk'], packed['nfv'],
+            packed['fc'], float(tau), _stream(x_raw.device))
     _raise_on(lib, err, fn)
     return out
 
 
 def fused_encode_mlp(ncfg: NeRFConfig, packed: Dict[str, Any],
                      x_raw: torch.Tensor, tau) -> torch.Tensor:
-    """K3: raw inputs (..., 184) from `build_raw_inputs` -> raw (..., 4):
-    cutoff PE + MLP, with K1's operands from `pack_render_params`.
+    """K3: raw inputs (..., raw_width(fc)) from `build_raw_inputs` -> raw
+    (..., 4): cutoff PE + MLP, with K1's operands from
+    `pack_render_params`.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (and raise if it cannot launch)."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel on
+    its route (and raise if it cannot launch)."""
     global RAW_LAUNCHES
     if x_raw.device.type == 'cpu':
         return fused_encode_mlp_ref(ncfg, packed, x_raw, tau)
@@ -1234,8 +1427,8 @@ def fused_encode_mlp(ncfg: NeRFConfig, packed: Dict[str, Any],
 def fused_encode_mlp_v1(ncfg: NeRFConfig, packed: Dict[str, Any],
                         x_raw: torch.Tensor, tau) -> torch.Tensor:
     """K3-v1, K3's first (mma.sync) kernel, on the same operands: the
-    comparison chip_smoke.py measures K3 against. No path of the port
-    calls it.
+    comparison chip_smoke.py measures K3 against at the flagship's family.
+    No path of the port calls it.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (and raise if it cannot launch)."""
@@ -1251,7 +1444,8 @@ def fused_encode_mlp_v1(ncfg: NeRFConfig, packed: Dict[str, Any],
 def _bwd_scratch(ncfg: NeRFConfig, packed: Dict[str, Any], P: int,
                  dev) -> Dict[str, torch.Tensor]:
     """K2's and K2-v1's f32 cotangent buffers and per-chunk dW partials."""
-    _, k0p, _, kvp = input_widths(packed['nfk'], packed['nfv'])
+    _, k0p, _, kvp = input_widths(packed['nfk'], packed['nfv'],
+                                  packed['fc'])
     W, WV = ncfg.width, ncfg.width // 2
     n_grad = sum(r * c for _, r, c in grad_blocks(ncfg, packed['nfk'],
                                                   packed['nfv']))
@@ -1272,7 +1466,7 @@ def _bwd_outputs(ncfg: NeRFConfig, packed: Dict[str, Any], R: int, S: int,
     return {'dW': torch.zeros((n_grad,), **f32),
             'dpts': torch.zeros((R, S, 3), **f32),
             'dm': torch.zeros((R * 3, C72), **f32),
-            'daux': torch.zeros((R, AUX_W), **f32)}
+            'daux': torch.zeros((R, aux_width(packed['fc'])), **f32)}
 
 
 def launch_bwd(stage: int, ncfg: NeRFConfig, packed: Dict[str, Any],
@@ -1281,8 +1475,10 @@ def launch_bwd(stage: int, ncfg: NeRFConfig, packed: Dict[str, Any],
                ) -> Dict[str, torch.Tensor]:
     """Launch K2's sequence on CUDA tensors, stopped after `stage` (K2-d's
     codes, kernels/stages.py: 0 full, 1 recompute, 2 mlp, 3 pe): K1's
-    kernel with SAVE (csrc/fused_render_sm90.cu), then the layer launches
-    of csrc/fused_render_bwd_sm90.cu, whose cotangent products are
+    forward with SAVE on its route (`route_plan`: the single kernel of
+    csrc/fused_render_sm90.cu, or the layered route of
+    csrc/fused_render_layered_sm90.cu), then the layer launches of
+    csrc/fused_render_bwd_sm90.cu, whose cotangent products are
     f32-accurate (bwd_f32: three bf16 planes of each f32 cotangent) or
     take the cotangent rounded to bf16 (not bwd_f32: its hi plane alone,
     the JAX `bwd_f32=False` flavour). Allocates the
@@ -1295,7 +1491,7 @@ def launch_bwd(stage: int, ncfg: NeRFConfig, packed: Dict[str, Any],
     nfk, nfv = packed['nfk'], packed['nfv']
     n_img_t = sum(rpad * n for *_, rpad, n in t_image_segments(ncfg, nfk,
                                                                nfv))
-    check_sm90_layout('fused_bwd', packed['k0'], packed['kv'])
+    route = route_plan(ncfg, packed['k0'], packed['kv'])
     _check_operands('fused_bwd', ncfg, packed, pts, m_all, aux, S,
                     g=(g, (R, S, 4), torch.float32),
                     img=image_operand(ncfg, packed),
@@ -1313,20 +1509,26 @@ def launch_bwd(stage: int, ncfg: NeRFConfig, packed: Dict[str, Any],
                            dtype=torch.bfloat16, device=dev)
     t['raw'] = torch.empty((P, 4), dtype=torch.float32, device=dev)
     stream = _stream(dev)
-    lib = _library('fused_render_sm90')
-    with torch.cuda.device(dev):
-        err = lib.anerf_k2_recompute_sm90(
-            pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
-            packed['img'].data_ptr(), packed['b'].data_ptr(),
-            packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
-            packed['b_out'].data_ptr(), packed['cut'].data_ptr(),
-            t['raw'].data_ptr(), P, S, ncfg.depth, skip_mask(ncfg), nfk,
-            nfv, float(tau), t['act'].data_ptr(), stream)
-    _raise_on(lib, err, 'fused_bwd (recompute)')
+    if route.kind == 'layered':
+        launch_layered('fused_bwd (recompute)', 'k2', 0, ncfg, packed,
+                       t['raw'], P, S, tau, pts, m_all, aux, act=t['act'])
+    else:
+        lib = _library('fused_render_sm90')
+        with torch.cuda.device(dev):
+            err = lib.anerf_k2_recompute_sm90(
+                route.stages, pts.data_ptr(), m_all.data_ptr(),
+                aux.data_ptr(), packed['img'].data_ptr(),
+                packed['b'].data_ptr(), packed['w_rgb'].data_ptr(),
+                packed['w_alpha'].data_ptr(), packed['b_out'].data_ptr(),
+                packed['cut'].data_ptr(), t['raw'].data_ptr(), P, S,
+                ncfg.depth, packed['skip'].data_ptr(), nfk, nfv,
+                packed['fc'], float(tau), t['act'].data_ptr(), stream)
+        _raise_on(lib, err, 'fused_bwd (recompute)')
     if stage == 1:
         return t
     scratch = _bwd_scratch(ncfg, packed, P, dev)
     t.update(scratch)
+    skip = (ctypes.c_int * ncfg.depth)(*skip_flags(ncfg))
     lib = _library('fused_render_bwd_sm90')
     with torch.cuda.device(dev):
         err = lib.anerf_fused_bwd_sm90(
@@ -1338,8 +1540,9 @@ def launch_bwd(stage: int, ncfg: NeRFConfig, packed: Dict[str, Any],
             packed['w_alpha'].data_ptr(),
             *(x.data_ptr() for x in scratch.values()),
             t['dW'].data_ptr(), t['dpts'].data_ptr(), t['dm'].data_ptr(),
-            t['daux'].data_ptr(), P, S, ncfg.depth, skip_mask(ncfg), nfk,
-            nfv, BWD_CHUNK, float(tau), stream)
+            t['daux'].data_ptr(), P, S, ncfg.width, ncfg.depth,
+            ctypes.cast(skip, ctypes.c_void_p), nfk, nfv, packed['fc'],
+            BWD_CHUNK, float(tau), stream)
     _raise_on(lib, err, 'fused_bwd')
     return t
 
@@ -1353,7 +1556,7 @@ def fused_bwd(ncfg: NeRFConfig, packed: Dict[str, Any], pts: torch.Tensor,
     with f32 cotangent products (bwd_f32) or bf16 cotangent operands (not
     bwd_f32, the --fast_grads numerics). Returns (dW flat in
     `grad_blocks` layout, dpts (R, S, 3), dm_all (R*3, 72),
-    daux (R, 160)), all f32.
+    daux (R, 144 + fc)), all f32.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     sequence (`launch_bwd`; it raises if a kernel cannot launch)."""
@@ -1378,7 +1581,7 @@ def fused_bwd_v1(ncfg: NeRFConfig, packed: Dict[str, Any],
     """K2-v1, K2's first kernel sequence (K1-v1's body saving activations,
     f32 FMA GEMMs, csrc/fused_render_bwd.cu), on the same operands and
     with the same outputs: the comparison chip_smoke.py measures K2
-    against. No path of the port calls it.
+    against at the flagship's family. No path of the port calls it.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     sequence (and raise if it cannot launch)."""
@@ -1388,6 +1591,7 @@ def fused_bwd_v1(ncfg: NeRFConfig, packed: Dict[str, Any],
     R = pts.shape[0]
     _check_operands('fused_bwd_v1', ncfg, packed, pts, m_all, aux, S,
                     g=(g, (R, S, 4), torch.float32))
+    _check_v1('fused_bwd_v1', ncfg, packed['fc'])
     _, k0p, _, kvp = input_widths(packed['nfk'], packed['nfv'])
     W, P, dev = ncfg.width, R * S, pts.device
     t = _bwd_outputs(ncfg, packed, R, S, dev)
@@ -1540,7 +1744,7 @@ def _leaf_grads(ncfg: NeRFConfig, nfk: int, nfv: int, dW: torch.Tensor
     (dnet + W, W) leaf. Weight gradients are rounded to bf16, as the JAX
     VJP casts them to the packed weights' dtype; biases stay f32."""
     blocks = split_grads(ncfg, nfk, nfv, dW)
-    k0, k0p, _, _ = input_widths(nfk, nfv)
+    k0, k0p, _, _ = input_widths(nfk, nfv, fc_width(ncfg))
     W, bf = ncfg.width, torch.bfloat16
     n_view = ncfg.input_ch_views + (ncfg.framecode_ch
                                     if ncfg.use_framecode else 0)

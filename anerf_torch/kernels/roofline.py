@@ -6,6 +6,8 @@ operation and byte counts.
 prints the bound of every kernel in PERF.md's table at the flagship
 shapes (8 x 256 MLP, multires 7 / 4, framecodes; S = 64 coarse + S = 80
 fine; K1 and both flavours of K2 also at the culled shapes, S = 8 + 24),
+then K1, K3, K4 and K2 at the other shapes the fused kernels take
+(`config_bounds`: any width, depth, skips, input and framecode width),
 and of every stage of K1-d and K2-d at the kernel_bench tool's 2048
 rays; then, beside K1's operations bound, the bytes of weights K1-v1
 and K1 read from L2 per launch (not part of any bound: L2 traffic is
@@ -51,8 +53,12 @@ WINDOW_FLOP = 40
 #: sqrtf(v^2) and 1 / v of the geometry, the same way
 SQRT_DIV_FLOP = 40
 N_JOINTS, C72, FC = 24, 72, 16
-#: bytes of one ray's K1 operands: m_all (3 x 72) and aux (160) f32
-RAY_BYTES = 4 * (3 * C72 + 2 * C72 + FC)
+
+
+def ray_bytes(fc: int = FC) -> int:
+    """Bytes of one ray's K1 operands: m_all (3 x 72) and aux (144 + fc)
+    f32."""
+    return 4 * (3 * C72 + 2 * C72 + fc)
 #: points per CTA of K1-v1 and K1, and CTAs per cluster of K1 (its
 #: weight copies are multicast to the cluster): csrc/fused_render_common.cuh
 #: TM, csrc/fused_render_sm90.cu CL
@@ -181,7 +187,7 @@ def k1d_stage_seconds(stage: str, ncfg: NeRFConfig, nfk: int, nfv: int,
         trig = {'pe_notrig': STANDIN_SINCOS_FLOP,
                 'pe_fasttrig': FAST_SINCOSF_FLOP}.get(stage, SINCOSF_FLOP)
         fp32 += pe_flop_per_point(nfk, nfv, trig)
-    n_bytes = (12 + 16) * n_points + RAY_BYTES * n_rays
+    n_bytes = (12 + 16) * n_points + ray_bytes() * n_rays
     out = {'fp32': fp32 * n_points / PEAK_FP32_FLOPS}
     if stage == 'full':
         n_bytes += w_bytes
@@ -194,7 +200,7 @@ def k1d_stage_seconds(stage: str, ncfg: NeRFConfig, nfk: int, nfv: int,
 def k2d_stage_seconds(stage: str, ncfg: NeRFConfig, nfk: int, nfv: int,
                       k0p: int, kvp: int, n_points: int, n_rays: int,
                       w_bytes: int, dw_bytes: int,
-                      passes: int = SPLIT_PASSES) -> dict:
+                      passes: int = SPLIT_PASSES, fc: int = FC) -> dict:
     """{kind: seconds at its peak} of K2's sequence stopped after `stage`
     on n_points points of n_rays rays. It reads the points, the per-ray
     operands, the weights and (after the recompute) the cotangent; it
@@ -203,15 +209,15 @@ def k2d_stage_seconds(stage: str, ncfg: NeRFConfig, nfk: int, nfv: int,
     3-float digest a point (pe); dW, dpts and the per-ray dm_all and
     daux (full). The cotangent products count as `passes` bf16 products
     each (SPLIT_PASSES for the f32 flavour, 1 for the bf16 flavour);
-    'full' is K2's bound."""
+    'full' is K2's bound. fc: framecode columns of an aux row."""
     P = n_points
     fp32 = (transform_flop_per_point() + pe_flop_per_point(nfk, nfv)) * P
     n_in = (12 + (16 if stage != 'recompute' else 0)) * P \
-        + RAY_BYTES * n_rays + w_bytes
+        + ray_bytes(fc) * n_rays + w_bytes
     n_out = {'recompute': (16 + act_bytes_per_point(ncfg, k0p, kvp)) * P,
              'mlp': dw_bytes + 4 * (k0p + kvp) * P,
              'pe': dw_bytes + 12 * P,
-             'full': dw_bytes + 12 * P + RAY_BYTES * n_rays}[stage]
+             'full': dw_bytes + 12 * P + ray_bytes(fc) * n_rays}[stage]
     bf16 = 2.0 * mlp_macs_per_point(ncfg) * P
     if stage != 'recompute':
         bf16 += passes * 2.0 * bwd_f32_macs_per_point(ncfg) * P
@@ -233,7 +239,8 @@ def k2_fp32_ms(ncfg: NeRFConfig, n_points: int) -> float:
 
 
 def k2_design_bytes(ncfg: NeRFConfig, nfk: int, nfv: int, n_points: int,
-                    chunk: int = 2048, cot_bytes: int = 4) -> int:
+                    chunk: int = 2048, cot_bytes: int = 4,
+                    fc: int = FC) -> int:
     """HBM bytes K2's layer-by-layer sequence moves on n_points points of
     one net, with every tensor read from HBM as often as the design reads
     it (none from L2): the recompute writes the saved activations (2 F a
@@ -246,10 +253,11 @@ def k2_design_bytes(ncfg: NeRFConfig, nfk: int, nfv: int, n_points: int,
     cot_bytes is the size of a stored cotangent entry: 4, the design of
     both flavours (f32 cotangents through HBM); 2 is what the bf16
     flavour would move with its MMA layers' cotangents held as bf16 (dx0
-    and dxv, which the f32 PE backward reads, stay f32)."""
+    and dxv, which the f32 PE backward reads, stay f32). fc: framecode
+    columns."""
     W, WV = ncfg.width, ncfg.width // 2
     k0 = N_JOINTS * (1 + 2 * nfk) + C72
-    kv = C72 * (1 + 2 * nfv) + FC
+    kv = C72 * (1 + 2 * nfv) + fc
     up = lambda n, m: -(-n // m) * m
     k0p, kvp = up(k0, 16), up(kv, 16)
     F = up(k0, 64) + up(kv, 64) + (ncfg.depth + 1) * W + WV
@@ -276,27 +284,100 @@ def k2_design_bytes(ncfg: NeRFConfig, nfk: int, nfv: int, n_points: int,
 
 def k2_seconds(ncfg: NeRFConfig, nfk: int, nfv: int, n_points_by_net,
                n_rays: int, w_bytes: int, dw_bytes: int,
-               bwd_f32: bool = True) -> dict:
+               bwd_f32: bool = True, fc: int = FC) -> dict:
     """{kind: seconds at its peak} of K2 in the flavour `bwd_f32` on one
     train step: one launch per net on that net's points
     (n_points_by_net), n_rays rays, w_bytes of both nets' packed
     operands, dw_bytes of one net's dW. The sum of
     `k2d_stage_seconds('full', ...)` over the nets."""
-    k0p, kvp = input_pads(nfk, nfv)
+    k0p, kvp = input_pads(nfk, nfv, fc)
     passes = SPLIT_PASSES if bwd_f32 else 1
     out: dict = {}
     for P in n_points_by_net:
         for kind, t in k2d_stage_seconds('full', ncfg, nfk, nfv, k0p, kvp, P,
                                          n_rays, w_bytes // 2, dw_bytes,
-                                         passes).items():
+                                         passes, fc).items():
             out[kind] = out.get(kind, 0.0) + t
     return out
 
 
-def input_pads(nfk: int, nfv: int) -> tuple:
+def input_pads(nfk: int, nfv: int, fc: int = FC) -> tuple:
     """(k0p, kvp): the MLP inputs' widths padded to 16."""
     up = lambda n: -(-n // 16) * 16
-    return (up(N_JOINTS * (1 + 2 * nfk) + C72), up(C72 * (1 + 2 * nfv) + FC))
+    return (up(N_JOINTS * (1 + 2 * nfk) + C72), up(C72 * (1 + 2 * nfv) + fc))
+
+
+def net_bytes(ncfg: NeRFConfig) -> int:
+    """Bytes of one network's packed operands as a bound counts them: the
+    MMA weights in bf16, unpadded, and the f32 biases, heads and cutoff
+    distances."""
+    W = ncfg.width
+    n_f32 = (W * (ncfg.depth + 1) + W // 2                  # biases
+             + 3 * (W // 2) + W + 4 + 24)                   # heads, cut
+    return 2 * sum(k * n for k, n in _mma_layers(ncfg)) + 4 * n_f32
+
+
+def config_bounds(ncfg: NeRFConfig, nfk: int, nfv: int, n_rays_fwd: int,
+                  S_fwd, n_rays_bwd: int, S_bwd) -> dict:
+    """{kernel id: (bound ms, bound_by, what it covers)} of K1, K3, K4 on
+    one render bucket of n_rays_fwd rays (both nets, the sample counts
+    S_fwd) and of K2 in both flavours on one train step of n_rays_bwd
+    rays (S_bwd), at any config the fused kernels take: any width, depth
+    and skips, nfk / nfv bands and framecode width (the config's, or FC
+    zero columns without framecodes)."""
+    fc = ncfg.framecode_ch if ncfg.use_framecode else FC
+    w_net = net_bytes(ncfg)
+    w_bytes = 2 * w_net                                     # both nets
+    P = n_rays_fwd * sum(S_fwd)
+    fwd_ops = {'bf16': 2.0 * mlp_macs_per_point(ncfg) * P / PEAK_BF16_FLOPS,
+               'fp32': (transform_flop_per_point()
+                        + pe_flop_per_point(nfk, nfv)) * P / PEAK_FP32_FLOPS}
+    raw_row = -(-(N_JOINTS + 2 * C72 + fc) // 4) * 4        # K3's row
+    per_point = {
+        'K1': 12 + 16,                                  # pts in, raw out
+        'K3': 4 * raw_row + 16,                         # f32 rows in
+        'K4': 2 * (ncfg.vnet_input - ncfg.width + ncfg.dnet_input) + 16,
+    }
+    what = f'{n_rays_fwd}-ray bucket, S = ' + ' + '.join(map(str, S_fwd))
+    out = {}
+    for kid, b in per_point.items():
+        n_bytes = P * b + w_bytes + (2 * n_rays_fwd * ray_bytes(fc)
+                                     if kid == 'K1' else 0)
+        times = dict(fwd_ops, bytes=n_bytes / PEAK_HBM_BYTES)
+        if kid == 'K4':
+            del times['fp32']                           # no PE
+        out[kid] = bound_ms(times) + (what,)
+    n_grad = 4 * sum((k + 1) * n for k, n in _mma_layers(ncfg))
+    what = f'{n_rays_bwd}-ray train step, S = ' + ' + '.join(map(str, S_bwd))
+    for kid, f32 in (('K2', True), ('K2 bf16', False)):
+        out[kid] = bound_ms(k2_seconds(
+            ncfg, nfk, nfv, tuple(n_rays_bwd * S for S in S_bwd),
+            n_rays_bwd, w_bytes, n_grad, f32, fc)) + (what,)
+    return out
+
+
+#: the shapes beyond the flagship's that the fused kernels take, as
+#: chip_smoke.py's shapes phase runs them (the surreal config's settings
+#: with these overrides): {name: (NeRFConfig overrides, nfk, nfv)}
+SHAPES = {
+    'wide-net': (dict(width=512), 7, 4),
+    'wide-input': (dict(input_ch=24 * 21, input_ch_views=72 * 13,
+                        framecode_ch=32), 10, 6),
+    'two-stage': (dict(input_ch=24 * 21), 10, 4),
+    'plain-trunk-5': (dict(depth=5), 7, 4),
+    'plain-trunk-40': (dict(depth=40), 7, 4),
+}
+
+
+def shape_config(name: str) -> tuple:
+    """(NeRFConfig, nfk, nfv) of a SHAPES entry: the flagship's network
+    (8 x 256, skip 4, multires 7 / 4, 16-wide framecodes) with the entry's
+    overrides."""
+    kw, nfk, nfv = SHAPES[name]
+    base = dict(input_ch=24 * (1 + 2 * 7), input_ch_bones=72,
+                input_ch_views=72 * (1 + 2 * 4), use_framecode=True,
+                framecode_ch=16, n_framecodes=4)
+    return NeRFConfig(**{**base, **kw}), nfk, nfv
 
 
 def flagship_bounds(n_rays_fwd: int = 4096, n_rays_bwd: int = 2048,
@@ -304,59 +385,26 @@ def flagship_bounds(n_rays_fwd: int = 4096, n_rays_bwd: int = 2048,
     """{kernel id: (bound ms, bound_by, what it covers)} at the flagship
     shapes: K1, K3 and K4 on one render bucket of `n_rays_fwd` rays, K2
     (both flavours) on one train step of `n_rays_bwd` rays; both nets,
-    S = 64 + 80, and K1 and K2 again at the culled shapes S = 8 + 24
-    (cull_ratio 0.125); each K1-d and K2-d stage on `n_rays_stages`
-    rays, S = 64 + 80 (the coarse net's weights)."""
+    S = 64 + 80 (`config_bounds`), and K1 and K2 again at the culled
+    shapes S = 8 + 24 (cull_ratio 0.125); each K1-d and K2-d stage on
+    `n_rays_stages` rays, S = 64 + 80 (the coarse net's weights)."""
     ncfg = NeRFConfig(use_framecode=True, framecode_ch=16)
-    W = ncfg.width
     nfk, nfv = 7, 4
-    k0p, kvp = 432, 672
-    n_w = sum(k * n for k, n in _mma_layers(ncfg))          # per net
-    n_f32 = (W * (ncfg.depth + 1) + W // 2                  # biases
-             + 3 * (W // 2) + W + 4 + 24)                   # heads, cut
-    w_net = 2 * n_w + 4 * n_f32
-    w_bytes = 2 * w_net                                     # both nets
-    view_in = ncfg.vnet_input - W
-    P = n_rays_fwd * (64 + 80)
-    fwd_ops = {'bf16': 2.0 * mlp_macs_per_point(ncfg) * P / PEAK_BF16_FLOPS,
-               'fp32': (transform_flop_per_point()
-                        + pe_flop_per_point(nfk, nfv)) * P / PEAK_FP32_FLOPS}
-    per_point = {
-        'K1': 12 + 16,                                  # pts in, raw out
-        'K3': 4 * (N_JOINTS + 2 * C72 + FC) + 16,       # 184 f32 in
-        'K4': 2 * (ncfg.dnet_input + view_in) + 16,     # embedded bf16 in
-    }
-    out = {}
-    for kid, b in per_point.items():
-        n_bytes = P * b + w_bytes + (2 * n_rays_fwd * RAY_BYTES
-                                     if kid == 'K1' else 0)
-        times = dict(fwd_ops, bytes=n_bytes / PEAK_HBM_BYTES)
-        if kid == 'K4':
-            del times['fp32']                           # no PE
-        out[kid] = bound_ms(times) + (f'{n_rays_fwd}-ray bucket',)
-    Pc = n_rays_fwd * (8 + 24)
-    out['K1 culled'] = bound_ms({
-        'bf16': 2.0 * mlp_macs_per_point(ncfg) * Pc / PEAK_BF16_FLOPS,
-        'fp32': (transform_flop_per_point() + pe_flop_per_point(nfk, nfv))
-        * Pc / PEAK_FP32_FLOPS,
-        'bytes': (Pc * per_point['K1'] + w_bytes
-                  + 2 * n_rays_fwd * RAY_BYTES) / PEAK_HBM_BYTES}) + (
-        f'{n_rays_fwd}-ray bucket, S = 8 + 24',)
-    n_grad = 2 * 4 * sum((k + 1) * n for k, n in _mma_layers(ncfg))
-    for kid, f32 in (('K2', True), ('K2 bf16', False)):
-        for shapes, tag in (((64, 80), ''), ((8, 24), ', S = 8 + 24')):
-            name = kid + (' culled' if tag else '')
-            out[name] = bound_ms(k2_seconds(
-                ncfg, nfk, nfv, tuple(n_rays_bwd * S for S in shapes),
-                n_rays_bwd, w_bytes, n_grad // 2, f32)) + (
-                f'{n_rays_bwd}-ray train step{tag}',)
+    k0p, kvp = input_pads(nfk, nfv)
+    w_net = net_bytes(ncfg)
+    out = config_bounds(ncfg, nfk, nfv, n_rays_fwd, (64, 80), n_rays_bwd,
+                        (64, 80))
+    culled = config_bounds(ncfg, nfk, nfv, n_rays_fwd, (8, 24), n_rays_bwd,
+                           (8, 24))
+    for kid in ('K1', 'K2', 'K2 bf16'):
+        out[f'{kid} culled'] = culled[kid]
+    dw_bytes = 4 * sum((k + 1) * n for k, n in _mma_layers(ncfg))
     R = n_rays_stages
     what = f'{R} rays, S = 64 + 80'
     for stage in ('transform', 'pe', 'pe_notrig', 'pe_fasttrig', 'full'):
         ms = [bound_ms(k1d_stage_seconds(stage, ncfg, nfk, nfv, R * S, R,
                                          w_net)) for S in (64, 80)]
         out[f'K1-d {stage}'] = (ms[0][0] + ms[1][0], ms[0][1], what)
-    dw_bytes = n_grad // 2
     for stage in ('recompute', 'mlp', 'pe', 'full'):
         ms = [bound_ms(k2d_stage_seconds(stage, ncfg, nfk, nfv, k0p, kvp,
                                          R * S, R, w_net, dw_bytes))
@@ -409,6 +457,11 @@ def main() -> None:
         print(f'{kid}: bound {ms:.4f} ms per {what} ({by})')
     for line in l2_weight_lines() + k2_lines():
         print(line)
+    for name in SHAPES:
+        ncfg, nfk, nfv = shape_config(name)
+        for kid, (ms, by, what) in config_bounds(
+                ncfg, nfk, nfv, 4096, (64, 80), 2048, (64, 80)).items():
+            print(f'{name} {kid}: bound {ms:.4f} ms per {what} ({by})')
 
 
 if __name__ == '__main__':

@@ -100,9 +100,8 @@ def build_render_config(args: TrainConfig, data_attrs: Dict[str, Any]
         if not fused_render_supported(cfg):
             raise NotImplementedError(
                 '--fused_kernel requires the standard encoder family '
-                '(reldist/reldir/relray, cutoff_inputs, no freq_schedule) '
-                'at width 256; see kernels/fused_render.py:'
-                'fused_render_supported')
+                '(reldist/reldir/relray, cutoff_inputs, no freq_schedule; '
+                'see kernels/fused_render.py:fused_render_supported)')
         if cfg.dtype is None:
             raise NotImplementedError(
                 '--fused_kernel requires --compute_dtype bfloat16')

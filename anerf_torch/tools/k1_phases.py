@@ -68,8 +68,8 @@ ANCHORS = [
 ]
 _MMA = ('      wgmma<NACC>(d, gmma_desc(a + kk * 32), '
         'gmma_desc(b + kk * 32));\n')
-_WAIT = '    mbar_wait(ring.full + 8 * s, (ring.it / STAGES) & 1);\n'
-_PRODUCE = [('        produce(img, l, depth, skip_mask, smem_u32(stage0), '
+_WAIT = '    mbar_wait(ring.full + 8 * s, (ring.it / NSTG) & 1);\n'
+_PRODUCE = [('        produce<NSTG>(img, l, depth, skip, smem_u32(stage0), '
              'full, empty);\n', '        ;\n')]
 VARIANTS: Dict[str, List[Tuple[str, str]]] = {
     'base': [],
@@ -162,27 +162,29 @@ def _operands(dev, R, S, seed=1):
     return pts, m_all, aux, fr.build_raw_inputs(pts, rays_d, skts, fc)
 
 
-def _launchers(mode, ncfg, packed, pts, m_all, aux, x_raw, S, out):
+def _launchers(mode, ncfg, packed, pts, m_all, aux, x_raw, S, out,
+               stages=fr.SM90_STAGES):
     """(entry point name, its arguments, the first version's output, the
     tensors the arguments point into) of K1 (pts), K3 (raw) or K4
-    (embedded) on the same points."""
+    (embedded) on the same points, with `stages` weight stages."""
     from ..kernels import fused_mlp as fm
     tau, stream = 2000.0, torch.cuda.current_stream().cuda_stream
     heads = (packed['b'].data_ptr(), packed['w_rgb'].data_ptr(),
              packed['w_alpha'].data_ptr(), packed['b_out'].data_ptr())
-    P, sm = pts.shape[0] * S, fr.skip_mask(ncfg)
+    P, sk = pts.shape[0] * S, packed['skip'].data_ptr()
     if mode == 'pts':
         return ('anerf_fused_encode_mlp_pts_sm90', (
-            pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
+            stages, pts.data_ptr(), m_all.data_ptr(), aux.data_ptr(),
             packed['img'].data_ptr(), *heads, packed['cut'].data_ptr(),
-            out.data_ptr(), P, S, ncfg.depth, sm, 7, 4, tau, stream),
+            out.data_ptr(), P, S, ncfg.depth, sk, 7, 4, packed['fc'], tau,
+            stream),
             fr.fused_encode_mlp_pts_v1(ncfg, packed, pts, m_all, aux, S,
                                        tau), ())
     if mode == 'raw':
         return ('anerf_fused_encode_mlp_raw_sm90', (
-            x_raw.data_ptr(), packed['img'].data_ptr(), *heads,
-            packed['cut'].data_ptr(), out.data_ptr(), P, ncfg.depth, sm, 7,
-            4, tau, stream),
+            stages, x_raw.data_ptr(), packed['img'].data_ptr(), *heads,
+            packed['cut'].data_ptr(), out.data_ptr(), P, ncfg.depth, sk, 7,
+            4, packed['fc'], tau, stream),
             fr.fused_encode_mlp_v1(ncfg, packed, x_raw, tau), ())
     k0, kv = fm.kernel_widths(ncfg)
     x0, xv = fr._encode(packed, pts, m_all, aux, S, tau)
@@ -190,8 +192,8 @@ def _launchers(mode, ncfg, packed, pts, m_all, aux, x_raw, S, out):
     x0 = x0[..., :k0].reshape(P, k0).to(bf).contiguous()
     xv = xv[..., :kv].reshape(P, kv).to(bf).contiguous()
     return ('anerf_fused_mlp_sm90', (
-        x0.data_ptr(), xv.data_ptr(), packed['img'].data_ptr(), *heads,
-        out.data_ptr(), P, ncfg.depth, sm, k0, kv, stream),
+        stages, x0.data_ptr(), xv.data_ptr(), packed['img'].data_ptr(),
+        *heads, out.data_ptr(), P, ncfg.depth, sk, k0, kv, stream),
         fm.fused_mlp_apply_v1(ncfg, packed, x0, xv).reshape(out.shape),
         (x0, xv))
 
@@ -218,8 +220,9 @@ def run(variants, n_rays: int = 4096, S: int = 64, reps: int = 9,
     rows = []
     for (name, lib), mode in [(nl, m) for m in modes for nl in libs.items()]:
         # `inputs` holds the tensors `args` points into while they launch
-        entry, args, v1, inputs = _launchers(mode, ncfg, packed, pts, m_all,
-                                             aux, x_raw, S, out)
+        entry, args, v1, inputs = _launchers(
+            mode, ncfg, packed, pts, m_all, aux, x_raw, S, out,
+            2 if name == 'st2' else fr.SM90_STAGES)
         if not hasattr(lib, entry):
             continue
         if mode != 'pts':

@@ -5,6 +5,7 @@
                                        # N cards (one rank a card, NCCL)
     python3 chip_smoke.py --quality    # phase 1 and phase 12 alone
     python3 chip_smoke.py --bench      # phase 1 and phase 13 alone
+    python3 chip_smoke.py --shapes     # phase 1 and phase 14 alone
 
 Phases (any failure exits non-zero and prints no result):
   1. device: needs CUDA; prints the card and its power limit, turns TF32
@@ -152,6 +153,32 @@ Phases (any failure exits non-zero and prints no result):
      card: every rate finite and > 0, no *_error field, the fused builds
      two K1 and two K2 f32 launches a step and no K2 bf16, the plain
      builds none, and every key of bench.py's line (BENCH_KEYS).
+ 14. kernel shapes (shapes_phase): the fused kernels at the shapes of
+     anerf_torch/kernels/roofline.py:SHAPES beyond the flagship's, each
+     on the route fused_render.route_plan picks (the layered route at
+     8 x 512 and at multires 10 / 6 with 32 framecode columns, the single
+     kernel at two weight stages at multires 10 / 4, at three at depths
+     5 and 40): K1, K3, K4 against their plain versions (K1_ATOL); K2's
+     saved activations (its recompute) layer by layer against f64 on
+     their own inputs (ACT_LOCAL_FRO) and against the plain forward
+     (ACT_FRO, ACT_FLIP); K2 in both flavours against the plain backward
+     on those activations (K2_FRO, K2_BLOCK_RTOL) and, up to
+     K2_OWN_DEPTH layers, against the plain version with its own
+     recompute (K2_FRO); the bf16 flavour's MLP backward within
+     K2_BF16_FRO scaled by depth / 8 (the f32 flavour above it), also
+     at BF16_PROBE_DEPTHS; second launches bit-equal, times beside their
+     bounds (roofline.config_bounds) and their plain versions, K4 beside
+     its bf16 matmul chain, and the multires 10 / 4 shape again forced
+     onto the layered route, its times beside the two-stage kernel's;
+     then one step's gradients against the plain branch at wide-net and
+     wide-input (K2-bf16 against its plain version at wide-net culled)
+     and N_SHAPE_STEPS train steps at wide-net,
+     wide-input and wide-net culled with fast_grads (two K1 and two K2
+     a step, through the layered route), one 512 x 512 request at
+     wide-net and run_nerf.main SHAPE_LOOP_STEPS steps at wide-net on
+     the loop phase's grid; prints the phase's seconds
+     (SHAPES_BUDGET_S). The kernels line gets a sub-row per kernel and
+     shape.
 With --profile, one request and one train step run again under
 torch.profiler, and for each the device-busy share and the top kernels
 by device time are printed.
@@ -215,6 +242,30 @@ K2_V1_FRO = 5e-6
 # 1.4e-2, the flipped masks' share, so that comparison cannot tell the
 # flavours apart.)
 K2_BF16_FRO = 1.5e-3
+# Phase 14's K2 against the plain version with its own recompute, gated at
+# K2_FRO up to this many trunk layers (read 5.9e-3 to 1.86e-2 on an H100
+# at depth 5 and 8). Deeper, the two recomputes' small differences
+# (ACT_*) grow through the backward of the trunk: at 40 layers both
+# flavours read 2.79e-2 / 4.05e-2, and the plain backward run on K2's
+# saved activations reads the same distance from its own recompute to
+# three digits, so the gap is the recomputes', not K2's backward's.
+K2_OWN_DEPTH = 8
+# K2's saved activations (its recompute: the single kernel's SAVE or the
+# layered route's copy into the act layout) at phase 14's shapes, block
+# by block. ACT_LOCAL_FRO: each MMA layer's saved output against that
+# layer run in f64 on the kernel's own saved input (relative Frobenius):
+# f32 summation order alone moves an occasional bf16 rounding, and no
+# error carries over from the layers before; read 4.1e-5 to 8.2e-5 on an
+# H100. ACT_FRO / ACT_FLIP: each block (x0, xv, every h, feat, hv)
+# against the plain forward's trace, relative Frobenius, and the share
+# of a layer's ReLU masks that differ; here the roundings compound from
+# layer to layer: read 2.5e-4 to 6.0e-4, and at most 2.3e-5 of a layer's
+# masks up to depth 8, 1.3e-4 at 40. Each limit is 5x to 8x the
+# readings; a column, tile or transpose out of place is an error of
+# order 1 in the Frobenius distances and flips a large share of masks.
+ACT_LOCAL_FRO = 5e-4
+ACT_FRO = 3e-3
+ACT_FLIP = 1e-3
 # one train step's gradients, fused branch vs plain branch: the bound of
 # the JAX package's fused-vs-XLA gradient test
 # (tests/test_fused_render.py:217-261)
@@ -1690,7 +1741,7 @@ def _compare_step_grads(torch, setup, got, want, label, fro_tol=None):
     return worst, worst_fro, rel
 
 
-def train_reference_check(torch, np, setup):
+def train_reference_check(torch, np, setup, label=''):
     """One step's gradients on 256 rays in test mode: every param leaf
     and the per-ray skts through the fused branch (K1 + K2) against the
     plain-torch branch; cutoff_dist gets no gradient on the fused
@@ -1701,14 +1752,14 @@ def train_reference_check(torch, np, setup):
     got, want = (_step_grads(torch, setup, dataclasses.replace(
         cfg.test_mode(), use_fused=fused)) for fused in (True, False))
     worst, _, rel = _compare_step_grads(torch, setup, got, want,
-                                        'fused vs plain branch')
-    print(f'train step gradients, fused (K1 + K2) vs plain branch (256 '
-          f'rays, {len(got)} leaves + skts): worst max_rel '
+                                        f'fused vs plain branch{label}')
+    print(f'train step gradients{label}, fused (K1 + K2) vs plain '
+          f'branch (256 rays, {len(got)} leaves + skts): worst max_rel '
           f'{worst:.3e} (tol {STEP_GRAD_RTOL}), skts '
           f'{rel:.3e}; cutoff_dist gets no gradient -> ok', flush=True)
 
 
-def culled_k2_check(torch, np, setup):
+def culled_k2_check(torch, np, setup, label=''):
     """The culled fast-grads step's gradients on 256 rays in test mode
     with K2 (its bf16 flavour, on the card) against the same step with
     K2's plain bf16 version (fused_bwd_ref(..., bwd_f32=False)) on the
@@ -1731,8 +1782,9 @@ def culled_k2_check(torch, np, setup):
         raise AssertionError(f'culled fast-grads step: K2 launches (f32, '
                              f'bf16) {counted}')
     worst, fro, rel = _compare_step_grads(
-        torch, setup, got, want, 'K2-bf16 vs its plain version', K2_FRO)
-    print(f'culled fast-grads step gradients, K2-bf16 vs its plain '
+        torch, setup, got, want, f'K2-bf16 vs its plain version{label}',
+        K2_FRO)
+    print(f'culled fast-grads step gradients{label}, K2-bf16 vs its plain '
           f'version in its place (256 rays, S = 8 + 24, {len(got)} leaves '
           f'+ skts): worst max_rel {worst:.3e} (tol {STEP_GRAD_RTOL}), '
           f'worst fro {fro:.3e} (tol {K2_FRO}), skts {rel:.3e}; K2 '
@@ -4084,6 +4136,528 @@ def _request_ns(base_args, req):
     return argparse.Namespace(**{**vars(base_args), **req})
 
 
+# ---- phase 14: the fused kernels at the shapes beyond the flagship's ----
+# rays of the shapes phase's kernel buckets (S = 64 coarse, 80 fine) and
+# of its K2 batches: the flagship train step's N_rand
+SHAPE_RAYS = 2048
+#: the slice's end-to-end configs: configs/surreal/surreal.txt with these
+#: overrides (the flagship's fused kernel, pose refinement, framecodes)
+SHAPE_CONFIGS = {
+    'wide-net': dict(netwidth=512, netwidth_fine=512),
+    'wide-input': dict(multires=10, multires_views=6, framecode_size=32),
+}
+N_SHAPE_STEPS = 20
+SHAPE_LOOP_STEPS = 16
+SHAPES_BUDGET_S = 120
+SHAPE_DIR = 'logs/chip_shapes'
+
+
+def _shape_operands(torch, np, name, flag, seed, depth=None):
+    """A roofline.SHAPES network (with `depth` trunk layers in place of its
+    own, where given) with random weights (seeded), its K1 / K3 and K4
+    operands, and one bucket of SHAPE_RAYS rays of the flagship render
+    setup `flag` (_bucket_inputs: S = 64, 16 and 80) with random
+    framecodes of the network's width. Returns (ncfg, packed, packed4,
+    route, route4, bucket)."""
+    import dataclasses
+
+    from anerf_torch.kernels import fused_mlp as fm
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.kernels import roofline as rf
+    from anerf_torch.models.nerf import init_nerf_params
+
+    _, cfg, params, src = flag
+    ncfg, nfk, nfv = rf.shape_config(name)
+    if depth is not None:
+        ncfg = dataclasses.replace(ncfg, depth=depth)
+    net = init_nerf_params(ncfg, torch.Generator().manual_seed(seed), 'cuda')
+    net['alpha_linear']['b'] += 2.0
+    packed = fr.pack_render_params(net, ncfg, nfk, nfv,
+                                   params['cutoff_dist'])
+    packed4 = fm.pack_params(net, ncfg)
+    v = _bucket_inputs(torch, np, cfg, params, src, seed, R=SHAPE_RAYS,
+                       culled=False)
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    fc = torch.randn((SHAPE_RAYS, fr.fc_width(ncfg)), device='cuda',
+                     generator=g) * v[3]['fc'].std()
+    m_all, aux = fr.pack_ray_data(v[3]['rays_d'], v[3]['skts'], fc)
+    bucket = (v[0], m_all, aux, dict(v[3], fc=fc))
+    return (ncfg, packed, packed4,
+            fr.route_plan(ncfg, packed['k0'], packed['kv']),
+            fr.route_plan(ncfg, *fm.kernel_widths(ncfg)), bucket)
+
+
+def _bf16_mlp_tol(ncfg):
+    """K2_BF16_FRO for a trunk of ncfg.depth layers. The constant was set
+    from readings at the flagship's 8 layers; each trunk layer rounds one
+    more cotangent to bf16, and a rounding that the two summation orders
+    put on either side of a bf16 step moves every layer below it, so the
+    distance grows with the depth (read 2.4e-4 at depth 5, 4.6e-4 to
+    8.3e-4 at 8, 3.3e-3 at 40 on an H100). The law was set after the
+    reading at 40; the depths in between (BF16_PROBE_DEPTHS) test it:
+    9.7e-4 at 16 and 1.8e-3 at 24, 0.32 and 0.41 of the limit (0.44 at
+    40). The f32 flavour, the control, must still land above it (6.6e-3
+    at 16, 8.7e-3 at 24, 1.7e-2 at 40)."""
+    return K2_BF16_FRO * max(1.0, ncfg.depth / 8)
+
+
+#: trunk depths between the flagship's and plain-trunk-40's at which
+#: _bf16_depth_probe reads K2's mlp stage in both flavours
+BF16_PROBE_DEPTHS = (16, 24)
+
+
+def _bf16_depth_probe(torch, np, flag):
+    """K2's mlp stage in both flavours (_mlp_stage_fro, S = 64) on the
+    plain-trunk network at BF16_PROBE_DEPTHS: the bf16 flavour within
+    _bf16_mlp_tol, the f32 flavour (the control) above it. Returns
+    {depth: (bf16 fro, f32 fro, tol)}."""
+    out = {}
+    for i, depth in enumerate(BF16_PROBE_DEPTHS):
+        ncfg, packed, _, _, _, (pts, m_all, aux, _) = _shape_operands(
+            torch, np, 'plain-trunk-40', flag, 200 + i, depth=depth)
+        g = torch.randn((SHAPE_RAYS, 64, 4), device='cuda',
+                        generator=torch.Generator(device='cuda')
+                        .manual_seed(300 + i))
+        fro16, fro32 = _mlp_stage_fro(
+            torch, ncfg, packed, (ncfg, packed, pts[64], m_all, aux, 64,
+                                  2000.0, g))
+        tol = _bf16_mlp_tol(ncfg)
+        print(f'shapes K2 mlp stage at depth {depth} (plain trunk, width '
+              f'256): bf16 flavour fro {fro16:.3e} (tol {tol:.3e}), f32 '
+              f'flavour (control) {fro32:.3e}', flush=True)
+        if not fro16 < tol < fro32:
+            raise AssertionError(f'shapes depth {depth}: K2-bf16 mlp stage '
+                                 f'{fro16:.3e}, control {fro32:.3e}')
+        out[depth] = (fro16, fro32, tol)
+        del packed, pts, m_all, aux, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def _act_errors(torch, ncfg, packed, act, want, P):
+    """K2's saved activations (`act`, its recompute) of P points, block by
+    block. Returns (the worst relative Frobenius distance of any MMA
+    layer's saved output from that layer run in f64 on the kernel's own
+    saved input, ReLU and bf16 rounding as the kernel does them; the
+    worst relative Frobenius distance of any block (x0, xv, every h,
+    feat, hv) from the plain forward's trace `want`; the share of ReLU
+    masks of each trunk layer and of hv that differ from `want`'s)."""
+    from anerf_torch.kernels import fused_render as fr
+    got = fr.trace_from_act(ncfg, packed, act, P)
+    W, d = ncfg.width, ncfg.depth
+    bs = list(packed['b'][:W * (d + 1)].split(W)) + \
+        [packed['b'][W * (d + 1):]]
+    hs = got['hs']
+    ins = [got['x0']] + [
+        torch.cat([got['x0'], hs[i - 1]], -1) if (i - 1) in ncfg.skips
+        else hs[i - 1] for i in range(1, d)] + [
+        hs[-1], torch.cat([got['feat'], got['xv']], -1)]
+    outs = hs + [got['feat'], got['hv']]
+    rel = lambda a, b: ((a - b).norm() / b.norm().clamp_min(1e-7)).item()
+    local = 0.0
+    for i, (x, y) in enumerate(zip(ins, outs)):
+        z = x.double() @ got['ws'][i].double().t() + bs[i].double()
+        z = (z if i == d else torch.relu(z)).float()
+        local = max(local, rel(y, z.to(torch.bfloat16).float()))
+        del z
+    flat = lambda x: x.reshape(P, x.shape[-1])
+    pairs = [(got[k], flat(want[k])) for k in ('x0', 'xv', 'feat', 'hv')]
+    pairs += [(a, flat(b)) for a, b in zip(hs, want['hs'])]
+    glob = max(rel(a, b) for a, b in pairs)
+    flips = [((a > 0) != (flat(b) > 0)).float().mean().item()
+             for a, b in zip(hs + [got['hv']], want['hs'] + [want['hv']])]
+    return local, glob, flips
+
+
+def _same_bits(torch, a, b):
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _shape_kernels(torch, np, name, flag, seed):
+    """K1, K3, K4 and K2 in both flavours at one roofline.SHAPES network
+    on its route: each against its plain version (K1_ATOL; K2's saved
+    activations within ACT_LOCAL_FRO / ACT_FRO / ACT_FLIP, its outputs
+    on them within K2_FRO / K2_BLOCK_RTOL and, up to K2_OWN_DEPTH, with
+    the plain version's own recompute within K2_FRO, and its bf16
+    flavour's MLP backward on its own saved activations within
+    _bf16_mlp_tol, which the f32 flavour must exceed), a second launch
+    bit-equal, times (medians of
+    CUDA events, S = 64 + 80) beside the bound (roofline.config_bounds on
+    this run's rays) and the plain version's, K4 also beside its
+    function as bf16 torch.matmul calls. Returns {kernel id: record}."""
+    from anerf_torch.kernels import fused_mlp as fm
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.kernels import roofline as rf
+
+    ncfg, packed, packed4, route, route4, (pts, m_all, aux, ray) = \
+        _shape_operands(torch, np, name, flag, seed)
+    R, tau, bf = SHAPE_RAYS, 2000.0, torch.bfloat16
+    k0, kv = ncfg.dnet_input, fm.view_in(ncfg)
+
+    def k4_args(S):
+        x0, xv = fr._encode(packed, pts[S], m_all, aux, S, tau)
+        return (ncfg, packed4, x0[..., :k0].reshape(-1, k0).to(bf),
+                xv[..., :kv].reshape(-1, kv).to(bf))
+
+    raw = {S: fr.build_raw_inputs(pts[S], ray['rays_d'], ray['skts'],
+                                  ray['fc']) for S in (64, 80)}
+    fwd = {'K1': (fr.fused_encode_mlp_pts, fr.fused_encode_mlp_pts_ref,
+                  lambda S: (ncfg, packed, pts[S], m_all, aux, S, tau)),
+           'K3': (fr.fused_encode_mlp, fr.fused_encode_mlp_ref,
+                  lambda S: (ncfg, packed, raw[S], tau)),
+           'K4': (fm.fused_mlp_apply, fm.fused_mlp_apply_ref, k4_args)}
+    bounds = rf.config_bounds(ncfg, packed['nfk'], packed['nfv'], R,
+                              (64, 80), R, (64, 80))
+    recs = {}
+    for kid, (kernel, plain, make) in fwd.items():
+        err, ms, plain_ms = 0.0, 0.0, 0.0
+        layered0 = dict(fr.LAYERED_LAUNCHES)
+        for S in (64, 80):
+            args = make(S)
+            got = kernel(*args)
+            again = kernel(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            e = (got - want).abs().max().item()
+            ok = (torch.allclose(got, want, atol=K1_ATOL, rtol=K1_RTOL)
+                  and torch.equal(got, again)
+                  and bool(torch.isfinite(got).all()))
+            print(f'shapes {name} {kid} S={S}: max_abs={e:.3e} vs plain '
+                  f'(tol atol=rtol={K1_ATOL}), relaunch bit-equal '
+                  f'{torch.equal(got, again)} -> {"ok" if ok else "FAIL"}',
+                  flush=True)
+            if not ok:
+                raise AssertionError(f'shapes {name}: {kid} disagrees at '
+                                     f'S={S}')
+            err = max(err, e)
+            ms += _median_ms(kernel, [args], 5)
+            plain_ms += _median_ms(plain, [args], 3)
+            del got, again, want
+        rt = route4 if kid == 'K4' else route
+        n_layered = sum(fr.LAYERED_LAUNCHES.values()) - sum(
+            layered0.values())
+        if (n_layered > 0) != (rt.kind == 'layered'):
+            raise AssertionError(f'shapes {name}: {kid} took the wrong route '
+                                 f'({n_layered} layered calls, plan '
+                                 f'{rt.kind})')
+        b_ms, b_by, _ = bounds[kid]
+        recs[kid] = {'shape': name, 'route': rt.kind, 'stages': rt.stages,
+                     'route_why': rt.why, 'max_abs_err': err, 'ms': ms,
+                     'plain_ms': plain_ms, 'bound_ms': b_ms,
+                     'bound_by': b_by, 'library_ms': None}
+        if kid == 'K4':
+            chain = _mlp_chain(torch, ncfg, packed4)
+            recs[kid]['library_ms'] = sum(
+                _median_ms(chain, [k4_args(S)[2:]], 5) for S in (64, 80))
+            del chain
+    # K2 in both flavours on a batch of R rays at S = 64 and 80: its saved
+    # activations (the recompute) block by block (_act_errors), its
+    # outputs against the plain backward on those activations
+    # (trace_from_act: the backward's arithmetic alone, K2_FRO) and, up
+    # to K2_OWN_DEPTH layers, against the plain version with its own
+    # recompute (K2_FRO). Deeper, flipped ReLU masks compound through the
+    # trunk; the run prints the plain backward's own distance between
+    # the two recomputes beside K2's (the witness that the gap is the
+    # recompute's roundings, not K2's)
+    gen = torch.Generator(device='cuda').manual_seed(seed + 1)
+    for kid, f32 in (('K2', True), ('K2 bf16', False)):
+        ms, plain_ms, worst, own, mabs = 0.0, 0.0, 0.0, 0.0, 0.0
+        plain_gap, local, glob, flip = 0.0, 0.0, 0.0, 0.0
+        for S in (64, 80):
+            g = torch.randn((R, S, 4), device='cuda', generator=gen)
+            args = (ncfg, packed, pts[S], m_all, aux, S, tau, g, f32)
+            t = fr.launch_bwd(0, *args[:-1], bwd_f32=f32)
+            got = (t['dW'], t['dpts'], t['dm'], t['daux'])
+            again = fr.fused_bwd(*args)
+            torch.cuda.synchronize()
+            if not _same_bits(torch, got, again):
+                raise AssertionError(f'shapes {name}: {kid} relaunch differs')
+            e_loc, e_glob, flips = _act_errors(
+                torch, ncfg, packed, t['act'], fr._forward_trace(
+                    ncfg, packed, pts[S], m_all, aux, S, tau), R * S)
+            print(f'shapes {name} {kid} S={S}: saved activations, each '
+                  f'layer vs f64 on its own saved input fro {e_loc:.3e} '
+                  f'(tol {ACT_LOCAL_FRO}); vs the plain forward worst '
+                  f'block fro {e_glob:.3e} (tol {ACT_FRO}), ReLU masks '
+                  f'flipped by layer (h_0 .. h_{ncfg.depth - 1}, hv) '
+                  + ' '.join(f'{f:.1e}' for f in flips)
+                  + f' (tol {ACT_FLIP})', flush=True)
+            if not (e_loc < ACT_LOCAL_FRO and e_glob < ACT_FRO
+                    and max(flips) < ACT_FLIP):
+                raise AssertionError(f'shapes {name}: {kid} saved '
+                                     f'activations disagree at S={S}')
+            local, glob = max(local, e_loc), max(glob, e_glob)
+            flip = max(flip, max(flips))
+            dW, dx0, dxv = fr.mlp_bwd_ref(
+                *args[:-1], bwd_f32=f32,
+                trace=fr.trace_from_act(ncfg, packed, t['act'], R * S))
+            want = (dW,) + fr.pe_transform_bwd_ref(packed, pts[S], m_all,
+                                                   aux, S, tau, dx0, dxv)
+            e, _, _, fro = _k2_errors(torch, ncfg, packed, got, want,
+                                      f'shapes {name} {kid} S={S}', R)
+            worst, mabs = max(worst, fro), max(mabs, e)
+            del t, dW, dx0, dxv
+            ref = fr.fused_bwd_ref(*args)
+            e_own = _worst_fro(ncfg, packed, got, ref)
+            e_gap = _worst_fro(ncfg, packed, want, ref)
+            own, plain_gap = max(own, e_own), max(plain_gap, e_gap)
+            if ncfg.depth <= K2_OWN_DEPTH and not e_own < K2_FRO:
+                raise AssertionError(f'shapes {name}: {kid} vs the plain '
+                                     f'version at S={S}: fro {e_own:.3e}')
+            ms += _median_ms(fr.fused_bwd, [args], 3)
+            plain_ms += _median_ms(fr.fused_bwd_ref, [args], 1)
+            del got, again, want, ref
+        gated = ncfg.depth <= K2_OWN_DEPTH
+        print(f'shapes {name} {kid}: worst fro {worst:.3e} against the plain '
+              f'backward on its own activations (gated, {K2_FRO}); '
+              f'{own:.3e} against the plain version with its own '
+              f'recompute ({f"gated, {K2_FRO}" if gated else "not gated"}'
+              f'), where the plain backward on K2\'s activations reads '
+              f'{plain_gap:.3e}', flush=True)
+        b_ms, b_by, _ = bounds[kid]
+        recs[kid] = {'shape': name, 'route': route.kind,
+                     'stages': route.stages, 'route_why': route.why,
+                     'max_abs_err': mabs, 'max_fro_err': worst,
+                     'fro_vs_plain_recompute': own,
+                     'plain_recompute_gap': plain_gap,
+                     'act_local_fro': local, 'act_fro': glob,
+                     'act_flip': flip,
+                     'ms': ms, 'plain_ms': plain_ms, 'bound_ms': b_ms,
+                     'bound_by': b_by, 'library_ms': None}
+    args = (ncfg, packed, pts[64], m_all, aux, 64, tau,
+            torch.randn((R, 64, 4), device='cuda', generator=gen))
+    fro16, fro32 = _mlp_stage_fro(torch, ncfg, packed, args)
+    tol = _bf16_mlp_tol(ncfg)
+    print(f'shapes {name} K2 mlp stage vs the plain bf16 backward on its '
+          f'own activations: bf16 flavour fro {fro16:.3e} (tol {tol:.3e}), '
+          f'f32 flavour (control) {fro32:.3e}', flush=True)
+    if not fro16 < tol < fro32:
+        raise AssertionError(f'shapes {name}: K2-bf16 mlp stage {fro16:.3e}'
+                             f', control {fro32:.3e}')
+    recs['K2 bf16']['mlp_stage_fro'] = fro16
+    for kid, rec in recs.items():
+        print(f'shapes {name} {kid}: route {rec["route"]} '
+              f'({rec["route_why"]}); {rec["ms"]:.4f} ms at S = 64 + 80, '
+              f'{R} rays; bound {rec["bound_ms"]:.4f} ({rec["bound_by"]}); '
+              f'plain {rec["plain_ms"]:.4f}'
+              + (f'; bf16 matmul chain {rec["library_ms"]:.4f}'
+                 if rec['library_ms'] is not None else ''), flush=True)
+    return recs
+
+
+def _shape_train(torch, np, name, overrides, n_steps=N_SHAPE_STEPS):
+    """One step's gradients held to a reference first (fast_grads:
+    culled_k2_check, K2-bf16 against its plain version in its place;
+    else train_reference_check, the fused branch against the plain
+    branch), then N_SHAPE_STEPS flagship-style train steps (N_rand 2048,
+    pose refinement) of a SHAPE_CONFIGS config through train_phase's
+    gates: finite, loss falling, two K1 and two K2 launches a step.
+    Returns (K1 launches, K2 launches, median step seconds, the steps'
+    layered calls by kernel)."""
+    from anerf_torch.kernels import fused_render as fr
+
+    setup = _flagship_train(torch, np, **overrides)
+    check = culled_k2_check if overrides.get('fast_grads') \
+        else train_reference_check
+    check(torch, np, setup, label=f' (shapes {name})')
+    layered0 = dict(fr.LAYERED_LAUNCHES)
+    k1, k2, step_s, _ = train_phase(torch, np, setup, n_steps=n_steps,
+                                    label=f'shapes {name} train')
+    return k1, k2, step_s, {k: n - layered0[k]
+                            for k, n in fr.LAYERED_LAUNCHES.items()}
+
+
+def _shape_loop(torch, np, data):
+    """run_nerf.main at wide-net on the loop phase's grid: SHAPE_LOOP_STEPS
+    steps in dispatches of LOOP_UNROLL, counts set to 0 just before and
+    read just after: finite losses, two K1 and two K2 (f32) launches a
+    step. Returns (K1, K2, rays/s of the last dispatch)."""
+    import contextlib
+    import os
+    import shutil
+
+    from anerf_torch.config import load_config
+    from anerf_torch.data.surreal import SurrealDataset
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.run_nerf import main as run_nerf_main
+
+    argv = _loop_argv(SHAPE_LOOP_STEPS)
+    argv[argv.index('--expname') + 1] = 'wide_net'
+    for flag, v in (('--i_weights', 10 ** 6), ('--i_pose_weights', 10 ** 6),
+                    ('--i_testset', 10 ** 6)):
+        argv[argv.index(flag) + 1] = str(v)
+    argv += ['--netwidth', '512', '--netwidth_fine', '512']
+    args = load_config(argv)
+    ds = SurrealDataset(data, N_samples=args.N_rand // args.N_sample_images,
+                        split='train')
+    root = os.path.abspath(SHAPE_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    recs = []
+    cwd = os.getcwd()
+    os.chdir(root)
+    fr.LAUNCHES = fr.BWD_LAUNCHES = fr.BWD_BF16_LAUNCHES = 0
+    try:
+        with contextlib.redirect_stdout(_Tee(sys.stdout)):
+            run_nerf_main(argv, dataset=ds, log_fn=recs.append,
+                          save_images=False)
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+    counts = (fr.LAUNCHES, fr.BWD_LAUNCHES, fr.BWD_BF16_LAUNCHES)
+    for r in recs:
+        print(f"shapes wide-net loop step {r['step']}: loss "
+              f"{r['total_loss']:.5f} psnr {r['psnr']:.3f} rays/s "
+              f"{r['rays_per_sec']:.1f}", flush=True)
+        if not all(np.isfinite(v) for v in r.values()):
+            raise AssertionError(f'wide-net loop step {r["step"]}: {r}')
+    if [r['step'] for r in recs] != list(range(
+            LOOP_UNROLL, SHAPE_LOOP_STEPS + 1, LOOP_UNROLL)):
+        raise AssertionError(f'wide-net loop prints {recs}')
+    if counts != (2 * SHAPE_LOOP_STEPS, 2 * SHAPE_LOOP_STEPS, 0):
+        raise AssertionError(f'wide-net loop: K1, K2, K2-bf16 {counts}')
+    return counts[0], counts[1], recs[-1]['rays_per_sec']
+
+
+def shapes_phase(torch, np, data=None):
+    """Phase 14: the fused kernels at every shape the JAX gate admits
+    beyond the flagship's. (a) K1, K3, K4 and K2 in both flavours on
+    each roofline.SHAPES network, on the route `route_plan` picks (the
+    layered route at wide-net and wide-input, the single kernel at two
+    stages at multires 10, at three at depth 5 and 40), held to their
+    plain versions with relaunches bit-equal and timed beside their
+    bounds (_shape_kernels), multires 10 again on the layered route,
+    and K2's mlp stage at BF16_PROBE_DEPTHS (_bf16_depth_probe); (b) at
+    wide-net, wide-input and wide-net with cull_ratio 0.125 and
+    fast_grads (K2's bf16 flavour), one step's gradients against a
+    reference and N_SHAPE_STEPS train steps (_shape_train); (c) one 512 x 512 render_path request at wide-net;
+    (d) run_nerf.main SHAPE_LOOP_STEPS steps at wide-net on the loop
+    phase's grid (`data`: its H5Arrays, made here when None). The counts
+    are set to 0 just before each main path and read just after. Returns
+    ({kernel id: [records by shape]}, launches by kernel, summary)."""
+    from anerf_torch.data.fixtures import synthetic_data
+    from anerf_torch.data.schema import h5_arrays
+    from anerf_torch.kernels import fused_mlp as fm
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.kernels import roofline as rf
+
+    t0 = time.perf_counter()
+    flag = _flagship_render(torch, np)
+    recs = {}
+    for i, name in enumerate(rf.SHAPES):
+        for kid, rec in _shape_kernels(torch, np, name, flag,
+                                       100 + i).items():
+            recs.setdefault(kid, []).append(rec)
+        torch.cuda.empty_cache()
+        if name == 'two-stage':
+            # the same shape forced onto the layered route, checked the
+            # same way, its times beside the two-stage single kernel's
+            plan = fr.route_plan
+            fr.route_plan = lambda *a: fr.Route(
+                'layered', 0, 0, 'forced onto the layered route')
+            try:
+                forced = _shape_kernels(torch, np, name, flag, 100 + i)
+            finally:
+                fr.route_plan = plan
+            for kid, rec in forced.items():
+                recs[kid][-1]['layered_ms'] = rec['ms']
+                print(f'shapes two-stage {kid}: single kernel at 2 stages '
+                      f'{recs[kid][-1]["ms"]:.4f} ms, layered route '
+                      f'{rec["ms"]:.4f} ms', flush=True)
+            del forced
+            torch.cuda.empty_cache()
+    probe = _bf16_depth_probe(torch, np, flag)
+    t_kernels = time.perf_counter() - t0
+
+    # the main paths, counts from here on
+    for k in fr.LAYERED_LAUNCHES:
+        fr.LAYERED_LAUNCHES[k] = 0
+    launches = {n: {'K1': 0, 'K2': 0, 'K2 bf16': 0} for n in SHAPE_CONFIGS}
+    summary = {'bf16_depth_probe': probe}
+    layered_train = dict.fromkeys(fr.LAYERED_LAUNCHES, 0)
+    for name, overrides in list(SHAPE_CONFIGS.items()) + [
+            ('wide-net culled fast-grads',
+             dict(SHAPE_CONFIGS['wide-net'], cull_ratio=0.125,
+                  fast_grads=True))]:
+        k1, k2, step_s, layered = _shape_train(torch, np, name, overrides)
+        n = launches[name.split()[0]]
+        n['K1'] += k1
+        n['K2 bf16' if 'fast_grads' in overrides else 'K2'] += k2
+        summary[f'{name} step_ms'] = step_s * 1e3
+        for k, c in layered.items():
+            layered_train[k] += c
+        torch.cuda.empty_cache()
+    n_k1 = sum(n['K1'] for n in launches.values())
+    n_k2 = sum(n['K2'] + n['K2 bf16'] for n in launches.values())
+    if (layered_train['k1'], layered_train['k2']) != (n_k1, n_k2):
+        raise AssertionError(f'shapes train: layered calls {layered_train}'
+                             f' for K1 {n_k1}, K2 {n_k2}: the wide configs '
+                             'must take the layered route')
+    args, cfg, params, src = _flagship_render(
+        torch, np, **SHAPE_CONFIGS['wide-net'])
+    k1_ms = recs['K1'][0]['ms'] * 4096 / SHAPE_RAYS
+    k1, rates = slice_phase(torch, np, args, cfg, params, src, k1_ms,
+                            requests=(0,), label=' (wide-net)')
+    launches['wide-net']['K1'] += k1
+    summary['wide-net box_rays_per_s'] = rates[0]
+    del args, cfg, params, src
+    if data is None:
+        data = h5_arrays(synthetic_data(n_kps=LOOP_KPS, n_cams=LOOP_CAMS,
+                                        H=H, W=W))
+    k1, k2, rate = _shape_loop(torch, np, data)
+    launches['wide-net']['K1'] += k1
+    launches['wide-net']['K2'] += k2
+    summary['wide-net loop rays_per_s'] = rate
+    for name, n in launches.items():
+        missing = [k for k, c in n.items() if c == 0
+                   and not (k == 'K2 bf16' and name != 'wide-net')]
+        if missing:
+            raise AssertionError(f'shapes {name}: {missing} never launched '
+                                 'on the main paths')
+    summary['layered_calls'] = dict(fr.LAYERED_LAUNCHES)
+    if fr.V1_LAUNCHES or fr.BWD_V1_LAUNCHES or fr.RAW_V1_LAUNCHES \
+            or fm.V1_LAUNCHES:
+        raise AssertionError('a first version ran at the new shapes')
+    dt = time.perf_counter() - t0
+    summary['seconds'] = dt
+    summary['kernel_seconds'] = t_kernels
+    print(f'shapes phase: {dt:.1f} s ({t_kernels:.1f} s of kernel checks); '
+          f'launches on its main paths {launches}; layered calls '
+          f'{summary["layered_calls"]}', flush=True)
+    if dt > SHAPES_BUDGET_S:
+        print(f'shapes phase: WARNING over its {SHAPES_BUDGET_S} s budget',
+              flush=True)
+    return recs, launches, summary
+
+
+def _shape_rows(recs, launches):
+    """The kernels line's sub-rows of phase 14: one per kernel and shape,
+    with the kernel line's keys; `launches` ({config: {kernel id: n}})
+    counts the phase's main paths, which run K1 and K2 at the wide
+    configs; K3 and K4, and the kernel-level shapes, have none (0)."""
+    ids = {'K1': ('fused_encode_mlp_pts', 'fused_render.py:677'),
+           'K3': ('fused_encode_mlp', 'fused_render.py:555'),
+           'K4': ('fused_mlp_apply', 'fused_mlp.py:146'),
+           'K2': ('fused_bwd', 'fused_render.py:962'),
+           'K2 bf16': ('fused_bwd_bf16', 'fused_render.py:962')}
+    rows = []
+    for kid, per in recs.items():
+        name, at = ids[kid]
+        for rec in per:
+            layered = rec['route'] == 'layered'
+            src = ('fused_render_layered_sm90.cu' if layered
+                   else 'fused_render_sm90.cu')
+            if kid.startswith('K2'):
+                src = ('fused_render_bwd_sm90.cu (recompute: ' + src + ')')
+            rows.append(dict(
+                rec, name=f'{name}@{rec["shape"]}', route='cuda',
+                kernel_route=rec['route'],
+                source=f'anerf_torch/kernels/csrc/{src}',
+                replaces=f'anerf_tpu/kernels/{at}',
+                launches=launches.get(rec['shape'], {}).get(kid, 0)))
+    return rows
+
+
 def _ptxas_lines(log):
     """One line per kernel of nvcc's `-Xptxas -v` report: the kernel's
     name (demangled by the toolkit's cu++filt where it is found, without
@@ -4186,6 +4760,15 @@ def main(argv) -> int:
             'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
             'count': torch.cuda.device_count()}}))
         return 0
+    if '--shapes' in argv:
+        recs, launches, shapes = shapes_phase(torch, np)
+        print('shapes: ' + json.dumps(shapes))
+        print(json.dumps({'kernels': _shape_rows(recs, launches)}))
+        print(card)
+        print(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}))
+        return 0
 
     args, cfg, params, src = _flagship_render(torch, np)
     k1 = kernel_phase(torch, np, cfg, params, src)
@@ -4250,9 +4833,10 @@ def main(argv) -> int:
                                                 params, src)
     knobs = knobs_phase(torch, np, cull_step_s)
     dp_k1, dp_k2, dp_k2b, dp = dp_phase(torch, np, loop_data, loop)
-    del loop_data
     q_k1, q_k2, q_k2b, quality = quality_phase(torch, np)
     b_k1, b_k2, bench = bench_phase(torch, np)
+    shape_recs, shape_launches, shapes = shapes_phase(torch, np, loop_data)
+    del loop_data
 
     k1['launches'] = (render_k1 + train_k1 + cull_k1 + cull_train_k1
                       + loop_k1 + entry_k1 + data_k1 + dp_k1 + q_k1 + b_k1)
@@ -4288,6 +4872,7 @@ def main(argv) -> int:
     print('data parallel: ' + json.dumps(dp), flush=True)
     print('quality: ' + json.dumps(quality), flush=True)
     print('bench: ' + json.dumps(bench), flush=True)
+    print('shapes: ' + json.dumps(shapes), flush=True)
     if fr.V1_LAUNCHES or fr.BWD_V1_LAUNCHES or fr.RAW_V1_LAUNCHES \
             or fm.V1_LAUNCHES:
         raise AssertionError('a first version ran on the main path')
@@ -4295,7 +4880,8 @@ def main(argv) -> int:
     k2['bf16']['step_ms'] = cull_step_s * 1e3
     k1['culled']['box_rays_per_s'] = cull_rates
 
-    print(json.dumps({'kernels': [k1, k2, k3, k4, k1d, k2d]}))
+    print(json.dumps({'kernels': [k1, k2, k3, k4, k1d, k2d]
+                      + _shape_rows(shape_recs, shape_launches)}))
     print(card)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -10,8 +10,8 @@ inverse and the kernel's read order (`image_slices`, `weights_from_image`)
 to the fragment-order weights and to the JAX package's parameters, bit for
 bit: no tolerance, since both sides hold the same bf16 values. They also
 hold the Python mirror of the kernel's shared-memory plan
-(`sm90_smem_bytes`) to the kernel source, and the wrappers' refusal of a
-layout that does not fit.
+(`sm90_smem_bytes`) to the kernel source, and the route a layout that
+does not fit takes.
 """
 import re
 import dataclasses
@@ -265,33 +265,42 @@ def test_smem_mirror_follows_the_kernel_source():
 
 
 def test_layout_over_the_limit_raises_from_the_wrappers():
-    """A network whose inputs do not fit K1's kernel: K4's gate says no,
-    and on a device other than the CPU (here the meta device, which no
-    kernel takes) the K1, K3 and K4 wrappers raise before anything
-    launches; on the CPU they run the plain version."""
+    """A network whose inputs do not fit K1's single kernel at three or two
+    weight stages: K4's gate (JAX's) takes it and the route plan sends it
+    to the layered route, saying why; on a device other than the CPU
+    (here the meta device, which no kernel takes) the K1, K3 and K4
+    wrappers raise before anything launches; on the CPU they run the
+    plain version."""
     kw = dict(K4_CONFIGS['small'], input_ch=480)    # x0 480 columns
     ncfg = NeRFConfig(**kw)
-    assert not tfm.supports_config(ncfg)
+    assert tfm.supports_config(ncfg)
     assert tfm.supports_config(NeRFConfig(**K4_CONFIGS['small']))
+    assert tfr.route_plan(ncfg, 480, 72).kind == 'single'
     params = init_nerf_params(ncfg, torch.Generator().manual_seed(0), 'cpu')
     packed = tfm.pack_params(params, ncfg)
     x0, xv = torch.zeros((5, 480)), torch.zeros((5, 72))
     assert tfm.fused_mlp_apply(ncfg, packed, x0, xv).shape == (5, 4)
     for fn in (tfm.fused_mlp_apply, tfm.fused_mlp_apply_v1):
-        with pytest.raises(ValueError, match='shared memory' if
-                           fn is tfm.fused_mlp_apply else 'no kernel'):
+        with pytest.raises(ValueError, match='no kernel'):
             fn(ncfg, packed, x0.to('meta'), xv.to('meta'))
-    rcfg = NeRFConfig(depth=8, width=256, input_ch=24 * 17,
-                      input_ch_bones=72, input_ch_views=648,
-                      use_framecode=True, framecode_ch=16, n_framecodes=4)
+    rcfg = NeRFConfig(depth=8, width=256, input_ch=24 * 21,
+                      input_ch_bones=72, input_ch_views=936,
+                      use_framecode=True, framecode_ch=32, n_framecodes=4)
+    route = tfr.route_plan(rcfg, *tfr.input_widths(10, 6, 32)[0::2])
+    assert route.kind == 'layered' and 'shared memory' in route.why
+    assert tfr.sm90_smem_bytes(*tfr.input_widths(10, 6, 32)[0::2], 2) \
+        == 238624 > tfr.SM90_MAX_SMEM
     rparams = init_nerf_params(rcfg, torch.Generator().manual_seed(0), 'cpu')
-    rpacked = tfr.pack_render_params(rparams, rcfg, 8, 4,
+    rpacked = tfr.pack_render_params(rparams, rcfg, 10, 6,
                                      torch.full((24,), 0.5))
-    x_raw = torch.zeros((2, 3, tfr.RAW_W), device='meta')
-    with pytest.raises(ValueError, match='shared memory'):
+    x_raw = torch.zeros((2, 3, tfr.raw_width(32)), device='meta')
+    with pytest.raises(ValueError, match='no kernel'):
         tfr.fused_encode_mlp(rcfg, rpacked, x_raw, 35.0)
     pts = torch.zeros((2, 3, 3), device='meta')
     m_all = torch.zeros((6, 72), device='meta')
-    aux = torch.zeros((2, tfr.AUX_W), device='meta')
-    with pytest.raises(ValueError, match='shared memory'):
+    aux = torch.zeros((2, tfr.aux_width(32)), device='meta')
+    with pytest.raises(ValueError, match='no kernel'):
         tfr.fused_encode_mlp_pts(rcfg, rpacked, pts, m_all, aux, 3, 35.0)
+    assert tfr.fused_encode_mlp_pts(
+        rcfg, rpacked, torch.zeros((2, 3, 3)), torch.zeros((6, 72)),
+        torch.zeros((2, tfr.aux_width(32))), 3, 35.0).shape == (2, 3, 4)

@@ -4,7 +4,7 @@ and K2 also at the culled shapes S = 8 and 24; K1, K2 in both flavours, K3
 and K4 also at the surreal_single network, multires_views 0, S = 96, 144
 and 48), K2's split products alone against an f64 matmul, the kernel_bench
 tool's bf16-flavour rows, and K1's kernel refusing a layout that does not
-fit its shared memory.
+fit its shared memory at three stages, which the route plan runs at two.
 
 Needs a CUDA device and nvcc; skips elsewhere. This file imports neither
 JAX nor the JAX package, so it also runs on a machine without them:
@@ -361,28 +361,38 @@ def test_k4_v1_kernel_matches_plain(cuda, config):
 
 @pytest.mark.gpu
 def test_layout_over_the_limit_raises_on_the_card(cuda):
-    """K4 of x0 480 columns wide: the wrapper raises before launching,
-    and the launcher itself refuses the layout (cudaErrorInvalidValue)."""
+    """K4 of x0 480 columns wide: the wrapper takes the single kernel at
+    two weight stages (`route_plan`) and agrees with the plain version,
+    and the launcher itself refuses the layout at three stages
+    (cudaErrorInvalidValue), launching nothing."""
     import ctypes
     from anerf_torch.kernels import fused_mlp as fm
     ncfg = NeRFConfig(depth=4, width=256, input_ch=480, input_ch_bones=0,
                       input_ch_views=72, skips=(2,), use_viewdirs=True)
     params = init_nerf_params(ncfg, torch.Generator().manual_seed(2), cuda)
     packed = fm.pack_params(params, ncfg)
-    x0 = torch.zeros((100, 480), device=cuda, dtype=torch.bfloat16)
-    xv = torch.zeros((100, 72), device=cuda, dtype=torch.bfloat16)
+    route = fr.route_plan(ncfg, 480, 72)
+    assert (route.kind, route.stages) == ('single', 2)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x0 = torch.randn((100, 480), device=cuda, generator=g)
+    xv = torch.randn((100, 72), device=cuda, generator=g)
     before = fm.LAUNCHES
-    with pytest.raises(ValueError, match='shared memory'):
-        fm.fused_mlp_apply(ncfg, packed, x0, xv)
+    got = fm.fused_mlp_apply(ncfg, packed, x0, xv)
+    torch.cuda.synchronize()
+    want = fm.fused_mlp_apply_ref(ncfg, packed, x0, xv)
+    torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
+    assert fm.LAUNCHES == before + 1
+    x0, xv = x0.to(torch.bfloat16), xv.to(torch.bfloat16)
     out = torch.empty((100, 4), device=cuda)
     lib = fr._library('fused_render_sm90')
     err = lib.anerf_fused_mlp_sm90(
-        x0.data_ptr(), xv.data_ptr(), packed['img'].data_ptr(),
-        packed['b'].data_ptr(), packed['w_rgb'].data_ptr(),
-        packed['w_alpha'].data_ptr(), packed['b_out'].data_ptr(),
-        out.data_ptr(), 100, ncfg.depth, fr.skip_mask(ncfg), 480, 72,
+        fr.SM90_STAGES, x0.data_ptr(), xv.data_ptr(),
+        packed['img'].data_ptr(), packed['b'].data_ptr(),
+        packed['w_rgb'].data_ptr(), packed['w_alpha'].data_ptr(),
+        packed['b_out'].data_ptr(), out.data_ptr(), 100, ncfg.depth,
+        packed['skip'].data_ptr(), 480, 72,
         torch.cuda.current_stream().cuda_stream)
-    assert err != 0 and fm.LAUNCHES == before
+    assert err != 0
     assert b'invalid' in lib.anerf_cuda_error_string(err)
     assert isinstance(lib, ctypes.CDLL)
 
