@@ -112,45 +112,6 @@ inline size_t smem_bytes_sm90(const Layout& l, int nstg = STAGES) {
          + 1024;                                     // alignment slack
 }
 
-// A warp's arrive on the barrier at the same offset in every CTA of the
-// cluster: lane c arrives on CTA c's, so the CL remote arrives go out
-// together (the default .release.cta semantics: a .cluster-scope release
-// is a fence of about 1,500 cycles, paid once per warp and k-slice).
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
-  const uint32_t lane = threadIdx.x & 31;
-  if (lane < CL) {
-    uint32_t remote;
-    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-                 : "=r"(remote)
-                 : "r"(bar), "r"(lane));
-    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
-                 : "memory");
-  }
-}
-
-// `bytes` from global `src` to shared `dst` of every CTA of the cluster
-// (the same offset in each), completing on each CTA's barrier `bar`.
-__device__ __forceinline__ void bulk_multicast(uint32_t dst, const void* src,
-                                               int bytes, uint32_t bar) {
-  const uint16_t mask = (1 << CL) - 1;
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
-      : "memory");
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
 // The ring as the consumers see it: shared addresses of the stages and of
 // the full / empty barriers, and the index of the next k-slice.
 struct Ring {
@@ -184,13 +145,13 @@ __device__ __forceinline__ void mma_layer(float (&d)[NACC], Ring& ring,
     wgmma_commit();
     if (prev >= 0) {
       wgmma_wait<1>();
-      mbar_arrive_cluster(ring.empty + 8 * prev);
+      mbar_arrive_cluster<CL>(ring.empty + 8 * prev);
     }
     prev = s;
   }
   wgmma_wait<0>();
   fence_acc(d);
-  mbar_arrive_cluster(ring.empty + 8 * prev);
+  mbar_arrive_cluster<CL>(ring.empty + 8 * prev);
 }
 
 // O[row, col] = bf16(act(d + bias)) for this thread's accumulators: in
@@ -465,7 +426,7 @@ __device__ __forceinline__ void produce(const unsigned char* img,
       const int s = it % NSTG;
       mbar_wait(empty + 8 * s, ((it / NSTG) & 1) ^ 1);
       mbar_expect_tx(full + 8 * s, bytes);
-      bulk_multicast(stages + s * STAGE_BYTES + rank * piece,
+      bulk_multicast<CL>(stages + s * STAGE_BYTES + rank * piece,
                      img + off + rank * piece, piece, full + 8 * s);
     }
   }

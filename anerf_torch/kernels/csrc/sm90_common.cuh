@@ -1,8 +1,10 @@
-// Hopper (sm_90a) building blocks shared by K1 (fused_render_sm90.cu) and
-// K2 (fused_render_bwd_sm90.cu): the 128-byte-swizzled tile layout that
-// wgmma reads, its shared-memory descriptor, mbarrier waits and the
-// wgmma.m64n128k16 / m64n64k16 instructions with bf16 operands from shared
-// memory and f32 accumulators in registers.
+// Hopper (sm_90a) building blocks shared by K1 (fused_render_sm90.cu), K2
+// (fused_render_bwd_sm90.cu) and the layered route
+// (fused_render_layered_sm90.cu): the 128-byte-swizzled tile layout that
+// wgmma reads, its shared-memory descriptor, mbarrier waits, the cluster's
+// remote arrives, multicast bulk copies and barrier, and the
+// wgmma.m64n256k16 / m64n128k16 / m64n64k16 instructions with bf16
+// operands from shared memory and f32 accumulators in registers.
 #pragma once
 
 #include "fused_render_common.cuh"
@@ -68,6 +70,48 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
       : "memory");
 }
 
+// A warp's arrive on the barrier at the same offset in every CTA of a
+// cluster of NCTA: lane c arrives on CTA c's, so the NCTA remote arrives go
+// out together (the default .release.cta semantics: a .cluster-scope
+// release is a fence of about 1,500 cycles, paid once per warp and
+// k-slice).
+template <int NCTA>
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  const uint32_t lane = threadIdx.x & 31;
+  if (lane < NCTA) {
+    uint32_t remote;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+                 : "=r"(remote)
+                 : "r"(bar), "r"(lane));
+    asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote)
+                 : "memory");
+  }
+}
+
+// `bytes` from global `src` to shared `dst` of every CTA of a cluster of
+// NCTA (the same offset in each), completing on each CTA's barrier `bar`.
+template <int NCTA>
+__device__ __forceinline__ void bulk_multicast(uint32_t dst, const void* src,
+                                               int bytes, uint32_t bar) {
+  const uint16_t mask = (1 << NCTA) - 1;
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
 // The 256 consumer threads only (named barrier 1).
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NCONS) : "memory");
@@ -122,6 +166,31 @@ __device__ __forceinline__ void fence_acc(float (&d)[NACC]) {
 template <int NACC>
 __device__ __forceinline__ void wgmma(float (&d)[NACC], uint64_t a,
                                       uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float (&d)[128], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}, "
+      "%128, %129, p, 1, 1, 0, 0;\n}\n"
+      : ANERF_F8(0), ANERF_F8(8), ANERF_F8(16), ANERF_F8(24), ANERF_F8(32),
+        ANERF_F8(40), ANERF_F8(48), ANERF_F8(56), ANERF_F8(64),
+        ANERF_F8(72), ANERF_F8(80), ANERF_F8(88), ANERF_F8(96),
+        ANERF_F8(104), ANERF_F8(112), ANERF_F8(120)
+      : "l"(a), "l"(b), "r"(1));
+}
 
 template <>
 __device__ __forceinline__ void wgmma<64>(float (&d)[64], uint64_t a,

@@ -8,7 +8,8 @@ copies bf16 input rows, the weights come from the weight image 'img' by
 cluster-multicast bulk copies), or the layered route
 (csrc/fused_render_layered_sm90.cu: one launch a layer on the same
 weight image, reading the input rows in place) for a trunk wider than
-256 or inputs wider than the single kernel's shared memory holds. It
+256 or inputs wider than three weight stages leave room for beside the
+single kernel's tile (at two stages the layered route is the faster). It
 runs its plain PyTorch version, `fused_mlp_apply_ref`, on CPU tensors;
 it never falls back from one to the other. `fused_mlp_apply_v1` launches K4-v1, its first kernel
 (csrc/fused_render_modes.cu, K1-v1's mma.sync body on the fragment-order
@@ -119,7 +120,7 @@ def _launch(fn: str, cfg: NeRFConfig, packed: Dict[str, Any],
     out = torch.empty((P, 4), dtype=torch.float32, device=x_pts.device)
     if P == 0:
         return out
-    route = fr.route_plan(cfg, k0, kv)
+    route = fr.route_plan(cfg, k0, kv, embedded=True)
     if not v1 and route.kind == 'layered':
         return fr.launch_layered(fn, 'k4', 2, cfg, packed, out, P, 1, 0.0,
                                  x0, None, xv, widths=(k0, kv))

@@ -35,10 +35,12 @@ the kernels take any trunk width that is a multiple of 256, any depth,
 skip placement and framecode width. K1, K3, K4 and K2's recompute run K1's
 single kernel with three weight stages where its tile, activation
 buffers and stages fit in a block's shared memory (the flagship), with
-two where only two do (e.g. multires 10 with multires_views 4), and
-otherwise the layered route (csrc/fused_render_layered_sm90.cu: phase A,
-one wgmma launch per MMA layer through HBM, the heads): a trunk wider
-than 256, or MLP inputs wider than two stages leave room for. K2's
+two where only two do (e.g. multires 10 with multires_views 4; there K4
+takes the layered route, the faster for it), and otherwise the layered route
+(csrc/fused_render_layered_sm90.cu: phase A, one persistent, TMA-fed
+wgmma GEMM launch per MMA layer through HBM, the heads;
+`layered_plan`): a trunk wider than 256, or MLP inputs wider than two
+stages leave room for. K2's
 layer launches take any width: a DX CTA keeps W^T resident where its
 k-slices fit in the stages and walks them through the ring otherwise.
 The first versions (K1-v1 .. K4-v1) stay comparisons at the flagship's
@@ -1163,12 +1165,15 @@ class Route:
     why: str
 
 
-def route_plan(ncfg: NeRFConfig, k0: int, kv: int) -> Route:
+def route_plan(ncfg: NeRFConfig, k0: int, kv: int,
+               embedded: bool = False) -> Route:
     """The route of a config whose MLP inputs are k0 and kv columns wide
-    (K1, K3: `input_widths`; K4: `fused_mlp.kernel_widths`): the single
-    kernel with three weight stages where they fit beside the tile (the
-    flagship: today's kernel, bit for bit), with two where only two do,
-    else the layered route. It never refuses a config the gate admits."""
+    (K1, K3: `input_widths`; K4, `embedded`: `fused_mlp.kernel_widths`):
+    the single kernel with three weight stages where they fit beside the
+    tile (the flagship: today's kernel, bit for bit), with two where only
+    two do (but K4: the layered route is the faster there, chip_smoke.py
+    phase 14 at multires 10 / 4), else the layered route. It never
+    refuses a config the gate admits."""
     W = ncfg.width
     if W != KERNEL_WIDTH:
         return Route('layered', 0, 0,
@@ -1176,6 +1181,11 @@ def route_plan(ncfg: NeRFConfig, k0: int, kv: int) -> Route:
                      f'tiles of {KERNEL_WIDTH}-wide activations')
     for stages in (SM90_STAGES, 2):
         need = sm90_smem_bytes(k0, kv, stages)
+        if need <= SM90_MAX_SMEM and embedded and stages == 2:
+            return Route('layered', 0, 0,
+                         'K4 at 2 weight stages: the layered route is '
+                         'the faster (chip_smoke.py phase 14, the forced '
+                         'comparison at multires 10 / 4; PERF.md)')
         if need <= SM90_MAX_SMEM:
             return Route('single', stages, need,
                          f'{need} bytes of shared memory at {stages} '
@@ -1187,6 +1197,23 @@ def route_plan(ncfg: NeRFConfig, k0: int, kv: int) -> Route:
                  'block')
 
 
+def _layered_x_cols(ncfg: NeRFConfig, k0: int, kv: int, save: bool,
+                    embedded: bool) -> Dict[str, Any]:
+    """X's columns of a layered call (csrc/fused_render_layered_sm90.cu:
+    x_cols): x0, xv, each trunk layer's output 'h' (a list), feat, hv."""
+    W, d = ncfg.width, ncfg.depth
+    xv = _rup64(k0)
+    h0 = xv + _rup64(kv)
+    if save:
+        h = [h0 + i * W for i in range(d)]
+        feat = h0 + d * W
+        return {'x0': 0, 'xv': xv, 'h': h, 'feat': feat, 'hv': feat + W}
+    base = 0 if embedded else h0
+    h = [base + (i & 1) * W for i in range(d)]
+    return {'x0': 0, 'xv': xv, 'h': h, 'feat': base + (d & 1) * W,
+            'hv': base + 2 * W}
+
+
 def layered_columns(ncfg: NeRFConfig, k0: int, kv: int, save: bool,
                     embedded: bool) -> int:
     """bf16 columns a point of the layered route's activation buffer X
@@ -1194,11 +1221,83 @@ def layered_columns(ncfg: NeRFConfig, k0: int, kv: int, save: bool,
     recompute) x0 | xv | h_0 .. h_{depth-1} | feat | hv, `act_rows`' F;
     else x0 | xv (not for K4's `embedded` inputs, read in place) and two
     activation buffers and hv."""
-    W = ncfg.width
-    h = _rup64(k0) + _rup64(kv)
-    if save:
-        return h + ncfg.depth * W + W + W // 2
-    return (0 if embedded else h) + 2 * W + W // 2
+    return _layered_x_cols(ncfg, k0, kv, save, embedded)['hv'] \
+        + ncfg.width // 2
+
+
+#: the layered route's GEMM plan (csrc/fused_render_layered_sm90.cu: GM,
+#: GCL, MAX_STAGES, STG_COLS): points a tile, CTAs a cluster along the
+#: points, the ring's deepest, the output columns the epilogue stages at a
+#: time
+LAYERED_GM = 128
+LAYERED_CLUSTER = 2
+LAYERED_MAX_STAGES = 4
+LAYERED_STG_COLS = 128
+
+
+def layered_gemm_smem(block: int) -> Tuple[int, int]:
+    """(stages, shared-memory bytes) of the layered route's layer GEMM with
+    output blocks of `block` columns (csrc/fused_render_layered_sm90.cu:
+    gemm_stages, gemm_smem): a stage is a k-slice of A (LAYERED_GM x 64
+    bf16) and of B (block x 64); the ring takes the most stages, up to
+    LAYERED_MAX_STAGES, that fit in a block's SM90_MAX_SMEM beside the two
+    consumer warpgroups' staged output rows (64 x LAYERED_STG_COLS bf16
+    each), 1,024 bytes of alignment slack and a full and an empty barrier
+    a stage."""
+    stage = (LAYERED_GM + block) * SLICE_K * 2
+    staging = 2 * 64 * LAYERED_STG_COLS * 2
+    stages = min(LAYERED_MAX_STAGES, (SM90_MAX_SMEM - 1024 - staging
+                                      - 16 * LAYERED_MAX_STAGES) // stage)
+    return stages, 1024 + stages * stage + staging + 16 * stages
+
+
+def layered_plan(ncfg: NeRFConfig, k0: int, kv: int, save: bool,
+                 embedded: bool, n_points: int | None = None
+                 ) -> List[Dict[str, Any]]:
+    """The layered route's plan of each MMA layer (trunk, feature, view),
+    as the host code of csrc/fused_render_layered_sm90.cu makes it
+    (gemm_layer, anerf_layered_forward): its name, N outputs, A's two
+    segments (source 'X' at a column of the activation buffer, or K4's
+    'x0' / 'xv' input rows read in place with `embedded`; k-slices of 64
+    columns), the output column in X, LAYERED_GM rows a tile, the output
+    block (256 where N is a multiple of 256, else 128) and the number of
+    blocks, the ring's stages and the shared-memory bytes
+    (`layered_gemm_smem`), and the cluster: LAYERED_CLUSTER CTAs along the
+    points where n_points make at least that many tiles (None: a call of
+    many tiles), else 1. k0 and kv are the MLP inputs' widths; `save` is
+    K2's recompute (X holds every activation)."""
+    W, d = ncfg.width, ncfg.depth
+    cols = _layered_x_cols(ncfg, k0, kv, save, embedded)
+    x0 = ('x0', 0) if embedded else ('X', cols['x0'])
+    xv = ('xv', 0) if embedded else ('X', cols['xv'])
+    nx0, nxv, nh = _rup64(k0) // SLICE_K, _rup64(kv) // SLICE_K, W // SLICE_K
+    tiles = None if n_points is None else -(-n_points // LAYERED_GM)
+    cluster = LAYERED_CLUSTER if tiles is None or tiles >= LAYERED_CLUSTER \
+        else 1
+    skips = skip_flags(ncfg)
+    layers = []
+    for i in range(d):
+        if i == 0:
+            segs = [x0 + (nx0,)]
+        elif skips[i]:
+            segs = [x0 + (nx0,), ('X', cols['h'][i - 1], nh)]
+        else:
+            segs = [('X', cols['h'][i - 1], nh)]
+        layers.append((f'layer {i}', W, segs, cols['h'][i]))
+    layers.append(('feature', W, [('X', cols['h'][d - 1], nh)],
+                   cols['feat']))
+    layers.append(('view', W // 2, [('X', cols['feat'], nh), xv + (nxv,)],
+                   cols['hv']))
+    plan = []
+    for name, N, segs, out in layers:
+        block = 256 if N % 256 == 0 else 128
+        stages, smem = layered_gemm_smem(block)
+        plan.append({'layer': name, 'N': N, 'segments': segs,
+                     'k_slices': sum(n for *_, n in segs), 'out_col': out,
+                     'rows': LAYERED_GM, 'block': block,
+                     'blocks': -(-N // block), 'stages': stages,
+                     'cluster': cluster, 'smem': smem})
+    return plan
 
 
 def skip_mask(ncfg: NeRFConfig) -> int:

@@ -282,6 +282,37 @@ def k2_design_bytes(ncfg: NeRFConfig, nfk: int, nfv: int, n_points: int,
     return per * n_points + 2 * 4 * n_grad * -(-n_points // chunk)
 
 
+def layered_design_bytes(ncfg: NeRFConfig, k0: int, kv: int,
+                         n_points: int, save: bool = False,
+                         embedded: bool = False) -> int:
+    """HBM bytes of one call of the layered route
+    (csrc/fused_render_layered_sm90.cu) on n_points points of one net,
+    every tensor read from HBM once for each time the design reads it
+    (a layer's second output block finds its A rows in L2): K1's points
+    (12 B; K4's inputs, with `embedded`, are read by the layers that take
+    them, k0 and kv bf16 columns); phase A's bf16 x0 | xv rows, each
+    padded to 64 columns (not K4's); each MMA layer's bf16 input segments
+    and output rows; the heads' reads of hv and of the last trunk layer's
+    rows and the raw output (16 B); with `save` (K2's recompute) the copy
+    of X's F columns into K2's act layout, read and written once; and
+    one read of the net's operands (`net_bytes`). k0, kv: the MLP inputs'
+    widths."""
+    W, d = ncfg.width, ncfg.depth
+    up = lambda n: -(-n // SLICE_K) * SLICE_K
+    x0, xv = up(k0), up(kv)
+    a0, av = (k0, kv) if embedded else (x0, xv)   # what the layers read
+    per = 0 if embedded else 12 + 2 * (x0 + xv)
+    for i in range(d):
+        k = a0 if i == 0 else (a0 + W) if (i - 1) in ncfg.skips else W
+        per += 2 * (k + W)
+    per += 2 * (W + W)                                 # feature
+    per += 2 * (W + av + W // 2)                       # view
+    per += 2 * (W // 2 + W) + 16                       # heads
+    if save:
+        per += 2 * 2 * (x0 + xv + (d + 1) * W + W // 2)
+    return per * n_points + net_bytes(ncfg)
+
+
 def k2_seconds(ncfg: NeRFConfig, nfk: int, nfv: int, n_points_by_net,
                n_rays: int, w_bytes: int, dw_bytes: int,
                bwd_f32: bool = True, fc: int = FC) -> dict:

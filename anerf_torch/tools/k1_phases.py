@@ -91,7 +91,14 @@ def instrumented_source(variant: str, path=None, stamps: bool = True
     variant's edits and a stamp after each of ANCHORS (and one at the
     kernel's start; with `stamps` False the stamps stay at 0). Raises if
     an edit or an anchor no longer matches the source exactly once."""
-    src = Path(path or fr._CSRC / 'fused_render_sm90.cu').read_text()
+    cu = Path(path or fr._CSRC / 'fused_render_sm90.cu')
+    src = cu.read_text()
+    # the shared helpers beside the source (the cluster's arrives among
+    # them) inline, so that a variant can edit them for K1 alone
+    common = '#include "sm90_common.cuh"\n'
+    if src.count(common) == 1 and (cu.parent / 'sm90_common.cuh').exists():
+        src = src.replace(common, (cu.parent / 'sm90_common.cuh').read_text()
+                          .replace('#pragma once\n', ''))
     for old, new in VARIANTS[variant]:
         if src.count(old) != 1:
             raise ValueError(f'{variant}: {old!r} is not in the kernel once')
@@ -130,16 +137,22 @@ def build(job: Tuple[str, str, str | None]) -> ctypes.CDLL:
                         'bin', 'nvcc')
     proc = subprocess.run(
         [nvcc, '-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-         '-O3', '-shared', '-Xcompiler', '-fPIC', f'-I{fr._CSRC}', '-o',
-         str(lib), str(cu)], capture_output=True, text=True)
+         '-O3', '-shared', '-Xcompiler', '-fPIC',
+         *([f'-I{Path(path).resolve().parent}'] if path else []),
+         f'-I{fr._CSRC}', '-o', str(lib), str(cu)],
+        capture_output=True, text=True)
     if proc.returncode:
         raise RuntimeError(f'nvcc failed for {variant}:\n{proc.stderr}')
     so = ctypes.CDLL(str(lib))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    so.anerf_fused_encode_mlp_pts_sm90.argtypes = [p] * 10 + [i] * 6 + [f, p]
+    # (stages, operands, P, [S,] depth, skip, widths, [fc, tau,] stream),
+    # as fused_render._library declares them
+    so.anerf_fused_encode_mlp_pts_sm90.argtypes = \
+        [i] + [p] * 10 + [i] * 3 + [p] + [i] * 3 + [f, p]
     for entry, types in (('anerf_fused_encode_mlp_raw_sm90',
-                          [p] * 8 + [i] * 5 + [f, p]),
-                         ('anerf_fused_mlp_sm90', [p] * 8 + [i] * 5 + [p])):
+                          [i] + [p] * 8 + [i] * 2 + [p] + [i] * 3 + [f, p]),
+                         ('anerf_fused_mlp_sm90',
+                          [i] + [p] * 8 + [i] * 2 + [p] + [i] * 2 + [p])):
         if hasattr(so, entry):      # a --source may predate K3's and K4's
             getattr(so, entry).argtypes = types
     so.anerf_read_stamps.argtypes = [p, ctypes.c_size_t]

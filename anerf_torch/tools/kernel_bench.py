@@ -3,8 +3,8 @@ K1's and K2's in-kernel cost by staged early exits (the port of
 tools/kernel_bench.py).
 
     python -m anerf_torch.tools.kernel_bench [--rays 2048] [--reps 8]
-        [--shapes 64 80 8 24] [--decompose | --decompose_bwd]
-        [--bwd_bf16] [--device cuda]
+        [--shapes 64 80 8 24] [--decompose | --decompose_bwd |
+        --layered SHAPE] [--bwd_bf16] [--device cuda]
 
 Each mode prints one row per S as it goes and ends with one JSON line
 {"metric": ..., "device": ..., "power_limit": ..., "rows": [...]}:
@@ -24,13 +24,34 @@ Each mode prints one row per S as it goes and ends with one JSON line
                    mlp_ms, pe_ms, full_ms and mlp_bwd_ms = mlp -
                    recompute, pe_bwd_ms = pe - mlp, transform_bwd_ms =
                    full - pe, and bwd_f32: True, or with --bwd_bf16
-                   False and the bf16 flavour's times.
+                   False and the bf16 flavour's times;
+  --layered SHAPE  metric kernel_layered: the layered route
+                   (csrc/fused_render_layered_sm90.cu) split by launch
+                   at a roofline.SHAPES network (wide-net, wide-input;
+                   two-stage and the plain trunks forced onto it), for
+                   K1, K4 and K2's recompute (launch_bwd stopped after
+                   it): per S, rows {kernel, S, launch, kind, ms} with
+                   launch 'phase A', 'layer 0' .. 'layer d-1',
+                   'feature', 'view', 'heads', 'to_act' (the recompute's
+                   copy into K2's act layout) and 'call' (a whole call
+                   on CUDA events, launch gaps included), each launch's
+                   device time from torch.profiler (grouped by kernel
+                   name as tools/step_trace.py groups them, then by
+                   place in the call), the median over the whole calls of
+                   `reps` (a call that lost a kernel to the profiler is
+                   left out; where LAYERED_WINDOWS windows hold no whole
+                   call, the launches' ms are null, and the windows
+                   missed stand in 'profiler_misses'); then
+                   a table summed over the S given, with each launch's
+                   share of its kernel's launches. Card only.
 
 The setup is the TPU tool's: the flagship SURREAL model at full width
 with random weights from a seed (anerf_torch/tools/flagship.py) and its
 coarse net; per-ray skeletons drawn from 8 of 32 synthetic frames, random
 ray directions, framecode 0; per S, points from N(0, 0.3^2) and a
-cotangent from N(0, 1); all drawn from numpy's default_rng(0).
+cotangent from N(0, 1); all drawn from numpy's default_rng(0). --layered
+swaps in the SHAPE's network with random weights from seed 0 and
+framecodes of its width from N(0, 1).
 Timing: after two warm-up launches, the median of `reps` launches timed
 one by one with CUDA events, each on the next of four input sets (the
 points and the cotangent move by 0.01 from one set to the next).
@@ -63,7 +84,7 @@ import json
 import statistics
 import sys
 import time
-from typing import Any, Callable, Dict, List, Sequence
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -71,6 +92,7 @@ import torch
 from .. import resolve_device
 from ..kernels import fused_mlp as fm
 from ..kernels import fused_render as fr
+from ..kernels import roofline as rf
 from ..kernels import stages
 from ..models.nerf import lookup_framecodes
 from .flagship import flagship
@@ -116,7 +138,8 @@ def setup(n_rays: int, device) -> Dict[str, Any]:
     return {'ncfg': ncfg, 'packed': packed,
             'packed_mlp': fm.pack_params(params['coarse'], ncfg),
             'm_all': m_all, 'aux': aux, 'rays_d': rays_d, 'skts': skts,
-            'fc': fc, 'rng': rng, 'dev': dev, 'R': n_rays, 'tau': 2000.0}
+            'fc': fc, 'rng': rng, 'dev': dev, 'R': n_rays, 'tau': 2000.0,
+            'cutoff_dist': params['cutoff_dist']}
 
 
 def input_sets(ctx: Dict[str, Any], S: int) -> List[Dict[str, Any]]:
@@ -239,13 +262,220 @@ def decompose_bwd(ctx: Dict[str, Any], shapes: Sequence[int], reps: int,
     return rows
 
 
+#: --layered's kernels, in the order of its rows
+LAYERED_KERNELS = ('K1', 'K4', 'K2 recompute')
+#: a layered launch's kind by a fragment of its kernel's name, first match
+LAYERED_KINDS = (('phase_a', 'phase A'), ('heads', 'heads'),
+                 ('to_act', 'to_act'), ('layer', 'layer'))
+
+
+def layered_labels(ncfg, kernel: str) -> List[str]:
+    """The launches of one call of `kernel` (LAYERED_KERNELS) on the
+    layered route, in order: phase A (not K4: its inputs come embedded),
+    one per MMA layer (the trunk's 'layer i', 'feature', 'view'), the
+    heads, and for K2's recompute the copy into its act layout."""
+    labels = [] if kernel == 'K4' else ['phase A']
+    labels += [f'layer {i}' for i in range(ncfg.depth)]
+    labels += ['feature', 'view', 'heads']
+    return labels + (['to_act'] if kernel == 'K2 recompute' else [])
+
+
+def launch_kind(name: str):
+    """The kind of a device kernel named `name` ('phase A', 'layer',
+    'heads', 'to_act'), or None for a kernel of another module."""
+    return next((kind for frag, kind in LAYERED_KINDS if frag in name),
+                None)
+
+
+def kind_of(label: str) -> str:
+    return 'layer' if label.startswith('layer') or label in (
+        'feature', 'view') else label
+
+
+def split_calls(events, labels: Sequence[str]) -> Dict[str, float]:
+    """{label: median ms} over the whole calls among device kernels
+    `events` [(start, name, microseconds)]: the layered route's launches
+    (launch_kind) in start order, cut after each launch of the kind that
+    ends a call (the last label's), each launch of a cut whose kinds are
+    `labels`' named by its place. torch.profiler can drop a kernel from a
+    window; the cut that lost it, or the two it merged, is left out.
+    Raises if no whole call remains."""
+    last = kind_of(labels[-1])
+    calls, cut = [], []
+    for _, name, us in sorted(events):
+        kind = launch_kind(name)
+        if kind is None:
+            continue
+        cut.append((kind, us))
+        if kind == last:
+            calls.append(cut)
+            cut = []
+    whole = [c for c in calls
+             if [k for k, _ in c] == [kind_of(lab) for lab in labels]]
+    if not whole:
+        raise RuntimeError(f'no whole call of {len(labels)} layered '
+                           f'launches among {sum(map(len, calls))}')
+    return {lab: statistics.median(c[i][1] / 1e3 for c in whole)
+            for i, lab in enumerate(labels)}
+
+
+#: profiler windows `layered` opens for a call before it gives up on
+#: its split (its launches then 'not measured', None)
+LAYERED_WINDOWS = 3
+
+
+def _total(v):
+    return None if None in v else sum(v)
+
+
+def layered_table(rows: Sequence[Dict[str, Any]]) -> List[str]:
+    """The --layered rows as a table: per kernel, each launch's ms at
+    every S, their sum and its share of the kernel's launches, then the
+    kernel's launches together and its whole calls; 'n/m' where the
+    profiler gave no whole call (ms None)."""
+    Ss = sorted({r['S'] for r in rows})
+    cell = lambda x, n: f'{"n/m":>{n}}' if x is None else f'{x:>{n}.4f}'
+    out = [f'{"kernel":<13}{"launch":<10}'
+           + ''.join(f'{f"S={S}":>10}' for S in Ss)
+           + f'{"sum":>10}{"share":>8}']
+    for kernel in dict.fromkeys(r['kernel'] for r in rows):
+        mine = [r for r in rows if r['kernel'] == kernel]
+        ms = {(r['launch'], r['S']): r['ms'] for r in mine}
+        launches = [lab for lab in dict.fromkeys(r['launch'] for r in mine)
+                    if lab != 'call']
+        total = _total([ms[lab, S] for lab in launches for S in Ss])
+        line = lambda lab, v, share: (
+            f'{kernel:<13}{lab:<10}' + ''.join(cell(x, 10) for x in v)
+            + cell(_total(v), 10) + (f'{share:>8.1%}' if share is not None
+                                     else ''))
+        for lab in launches:
+            v = [ms[lab, S] for S in Ss]
+            out.append(line(lab, v, _total(v) / total if total else None))
+        out.append(line('launches', [_total([ms[lab, S] for lab in launches])
+                                     for S in Ss],
+                        1.0 if total is not None else None))
+        out.append(line('call', [ms['call', S] for S in Ss], None))
+    return out
+
+
+def shape_setup(shape: str, n_rays: int, device) -> Dict[str, Any]:
+    """`setup`'s context at a roofline.SHAPES network: its random
+    weights from seed 0 packed for K1 / K2 and for K4, the flagship's
+    skeletons and random ray directions, framecodes of its width."""
+    from ..models.nerf import init_nerf_params
+    ctx = setup(n_rays, device)
+    ncfg, nfk, nfv = rf.shape_config(shape)
+    dev = ctx['dev']
+    net = init_nerf_params(ncfg, torch.Generator().manual_seed(0), dev)
+    fc = torch.as_tensor(ctx['rng'].normal(size=(
+        n_rays, fr.fc_width(ncfg))).astype(np.float32), device=dev)
+    m_all, aux = fr.pack_ray_data(ctx['rays_d'], ctx['skts'], fc)
+    packed = fr.pack_render_params(net, ncfg, nfk, nfv, ctx['cutoff_dist'])
+    return dict(ctx, ncfg=ncfg, packed=packed, m_all=m_all, aux=aux, fc=fc,
+                packed_mlp=fm.pack_params(net, ncfg), shape=shape)
+
+
+def _profiled(fn, arg_sets, reps):
+    """[(start, name, microseconds)] of the device kernels of `reps`
+    calls fn(*args) under torch.profiler, after N_WARMUP calls. (The
+    first window of a process can miss many of its launches: `layered`
+    opens one and drops it.)"""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for i in range(N_WARMUP):
+        fn(*arg_sets[i % len(arg_sets)])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(*arg_sets[i % len(arg_sets)])
+        torch.cuda.synchronize()
+    out = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = (e.self_device_time_total if hasattr(e, 'self_device_time_total')
+              else e.self_cuda_time_total)
+        out.append((e.time_range.start, e.name, us))
+    return out
+
+
+def layered(ctx: Dict[str, Any], shapes: Sequence[int], reps: int
+            ) -> Tuple[List[Dict[str, Any]], Dict[str, int]]:
+    """--layered: K1, K4 and K2's recompute on the layered route at the
+    context's shape (forced there where route_plan picks the single
+    kernel), split by launch, per S; prints the table and the profiler's
+    misses. Returns (rows, {'kernel S=n': profiler windows without a
+    whole call}); a kernel's launches at an S whose LAYERED_WINDOWS
+    windows all missed are None, its whole call is still timed."""
+    ncfg, packed, dev = ctx['ncfg'], ctx['packed'], ctx['dev']
+    k0, kv = ncfg.dnet_input, fm.view_in(ncfg)
+    bf = torch.bfloat16
+    plan = fr.route_plan
+    fr.route_plan = lambda *a, **k: fr.Route('layered', 0, 0,
+                                             'kernel_bench')
+    rows, misses = [], {}
+    try:
+        sets = input_sets(ctx, shapes[0])
+        _profiled(fr.fused_encode_mlp_pts, _k1_args(ctx, sets, shapes[0]), 1)
+        for S in shapes:
+            sets = input_sets(ctx, S)
+            k1 = _k1_args(ctx, sets, S)
+            emb = []
+            for a in k1:
+                x0, xv = fr._encode(packed, *a[2:])
+                emb.append((ncfg, ctx['packed_mlp'],
+                            x0[..., :k0].reshape(-1, k0).to(bf),
+                            xv[..., :kv].reshape(-1, kv).to(bf)))
+            calls = {'K1': (fr.fused_encode_mlp_pts, k1),
+                     'K4': (fm.fused_mlp_apply, emb),
+                     'K2 recompute': (
+                         lambda *a: fr.launch_bwd(1, *a),
+                         [a + (s['g'],) for a, s in zip(k1, sets)])}
+            for kernel in LAYERED_KERNELS:
+                fn, arg_sets = calls[kernel]
+                labels = layered_labels(ncfg, kernel)
+                per = dict.fromkeys(labels)
+                for window in range(LAYERED_WINDOWS):
+                    try:
+                        per = split_calls(_profiled(fn, arg_sets, reps),
+                                          labels)
+                        break
+                    except RuntimeError:
+                        misses[f'{kernel} S={S}'] = window + 1
+                per['call'] = time_ms(fn, arg_sets, reps, dev)
+                for lab, ms in per.items():
+                    rows.append({'kernel': kernel, 'S': S, 'launch': lab,
+                                 'kind': kind_of(lab), 'ms': ms})
+    finally:
+        fr.route_plan = plan
+    for line in layered_table(rows):
+        print(line, flush=True)
+    print(f'profiler windows without a whole call (of {LAYERED_WINDOWS} '
+          f'at most a kernel and S): '
+          + (', '.join(f'{k} {n}' for k, n in misses.items()) or 'none'),
+          flush=True)
+    return rows, misses
+
+
 def run(mode: str, n_rays: int = 2048, reps: int = 8,
         shapes: Sequence[int] = (64, 80, 8, 24), device='cuda',
-        bwd_f32: bool = True) -> Dict[str, Any]:
-    """One mode ('bench', 'decompose' or 'decompose_bwd') end to end;
-    prints its rows and its JSON line, and returns the JSON object.
-    bwd_f32=False adds K2's bf16 flavour to 'bench' and runs
-    'decompose_bwd' in it (--bwd_bf16)."""
+        bwd_f32: bool = True, shape: str | None = None) -> Dict[str, Any]:
+    """One mode ('bench', 'decompose', 'decompose_bwd' or 'layered' at
+    `shape`) end to end; prints its rows and its JSON line, and returns
+    the JSON object. bwd_f32=False adds K2's bf16 flavour to 'bench' and
+    runs 'decompose_bwd' in it (--bwd_bf16)."""
+    if mode == 'layered':
+        ctx = shape_setup(shape, n_rays, device)
+        if ctx['dev'].type != 'cuda':
+            raise RuntimeError('--layered: the layered route runs on the '
+                               'card only')
+        rows, misses = layered(ctx, shapes, reps)
+        rec = {'metric': 'kernel_layered', 'shape': shape,
+               **card(ctx['dev']), 'rows': rows, 'profiler_misses': misses}
+        print(json.dumps(rec), flush=True)
+        return rec
     ctx = setup(n_rays, device)
     fn, metric = {'bench': (bench, 'kernel_bench'),
                   'decompose': (decompose, 'kernel_decompose'),
@@ -262,22 +492,36 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     p.add_argument('--rays', type=int, default=2048)
     p.add_argument('--reps', type=int, default=8)
-    p.add_argument('--shapes', nargs='+', type=int, default=[64, 80, 8, 24])
+    p.add_argument('--shapes', nargs='+', type=int, default=None,
+                   help='sample counts S (default 64 80 8 24; --layered '
+                        '64 80)')
     p.add_argument('--decompose', action='store_true',
                    help='attribute in-kernel forward cost: transform / '
                         'cutoff-PE / trig / MLP stage timings per shape')
     p.add_argument('--decompose_bwd', action='store_true',
                    help='attribute in-kernel backward cost: forward '
                         'recompute / MLP bwd / PE bwd / transform bwd')
+    p.add_argument('--layered', choices=list(rf.SHAPES), default=None,
+                   metavar='SHAPE',
+                   help='split the layered route by launch at a '
+                        'roofline.SHAPES network: ' + ', '.join(rf.SHAPES))
     p.add_argument('--bwd_bf16', action='store_true',
                    help="K2's bf16-cotangent flavour: 'bwd_bf16' rows in "
                         'the default mode, the flavour of --decompose_bwd')
     p.add_argument('--device', default='cuda',
                    help="'cpu' runs the plain versions (for the tests)")
     a = p.parse_args(argv)
+    if sum((a.decompose, a.decompose_bwd, a.layered is not None)) > 1:
+        p.error('--decompose, --decompose_bwd and --layered are modes: '
+                'give one')
+    if a.layered is not None and not a.device.startswith('cuda'):
+        p.error('--layered: the layered route runs on the card only')
     mode = ('decompose' if a.decompose else
-            'decompose_bwd' if a.decompose_bwd else 'bench')
-    run(mode, a.rays, a.reps, a.shapes, a.device, bwd_f32=not a.bwd_bf16)
+            'decompose_bwd' if a.decompose_bwd else
+            'layered' if a.layered is not None else 'bench')
+    shapes = a.shapes or ([64, 80] if mode == 'layered' else [64, 80, 8, 24])
+    run(mode, a.rays, a.reps, shapes, a.device, bwd_f32=not a.bwd_bf16,
+        shape=a.layered)
     return 0
 
 

@@ -167,9 +167,15 @@ Phases (any failure exits non-zero and prints no result):
      recompute (K2_FRO); the bf16 flavour's MLP backward within
      K2_BF16_FRO scaled by depth / 8 (the f32 flavour above it), also
      at BF16_PROBE_DEPTHS; second launches bit-equal, times beside their
-     bounds (roofline.config_bounds) and their plain versions, K4 beside
-     its bf16 matmul chain, and the multires 10 / 4 shape again forced
-     onto the layered route, its times beside the two-stage kernel's;
+     bounds (roofline.config_bounds), the layered route's design floor
+     (roofline.layered_design_bytes) and their plain versions, K4 timed
+     in turns with its bf16 matmul chain and, on the layered route, no
+     slower than it; the layered GEMM's cluster tails (an odd count of
+     128-point tiles, the last one partial: K1, K4, K2's saved
+     activations); the multires 10 / 4 shape again forced onto the
+     layered route, its times beside the two-stage kernel's; the layered
+     route split by launch at wide-net and wide-input (kernel_bench
+     --layered; a split the profiler missed is printed n/m);
      then one step's gradients against the plain branch at wide-net and
      wide-input (K2-bf16 against its plain version at wide-net culled)
      and N_SHAPE_STEPS train steps at wide-net,
@@ -4184,7 +4190,8 @@ def _shape_operands(torch, np, name, flag, seed, depth=None):
     bucket = (v[0], m_all, aux, dict(v[3], fc=fc))
     return (ncfg, packed, packed4,
             fr.route_plan(ncfg, packed['k0'], packed['kv']),
-            fr.route_plan(ncfg, *fm.kernel_widths(ncfg)), bucket)
+            fr.route_plan(ncfg, *fm.kernel_widths(ncfg), embedded=True),
+            bucket)
 
 
 def _bf16_mlp_tol(ncfg):
@@ -4273,18 +4280,130 @@ def _same_bits(torch, a, b):
     return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-def _shape_kernels(torch, np, name, flag, seed):
+def _design_floor_ms(kid, ncfg, packed, k4_widths, R, Ss):
+    """The layered route's own HBM floor (roofline.layered_design_bytes
+    at 3.35 TB/s) of a kernel of _shape_kernels on R rays at each S of
+    Ss: K1 its points; K3 its f32 rows in place of the points; K4 its
+    embedded rows read in place; K2 (both flavours, f32 cotangents
+    through HBM) the recompute with its act copy, then the backward
+    sequence's bytes (roofline.k2_design_bytes less its single-kernel
+    recompute)."""
+    from anerf_torch.kernels import fused_render as fr
+    from anerf_torch.kernels import roofline as rf
+    k0, kv, fc = packed['k0'], packed['kv'], packed['fc']
+    total = 0
+    for S in Ss:
+        P = R * S
+        if kid == 'K4':
+            total += rf.layered_design_bytes(ncfg, *k4_widths, P,
+                                             embedded=True)
+            continue
+        total += rf.layered_design_bytes(ncfg, k0, kv, P,
+                                         save=kid.startswith('K2'))
+        if kid == 'K3':
+            total += (4 * fr.raw_width(fc) - 12) * P
+        elif kid.startswith('K2'):
+            F = fr.act_rows(ncfg, packed['nfk'], packed['nfv'])['F']
+            total += rf.k2_design_bytes(ncfg, packed['nfk'], packed['nfv'],
+                                        P, fc=fc) - (12 + 2 * F + 16) * P
+    return total / rf.PEAK_HBM_BYTES * 1e3
+
+
+#: the layered GEMM's tails (clusters of LAYERED_CLUSTER 128-point
+#: tiles), which phase 14's batches (an even count of whole tiles) miss:
+#: K1 and K2's recompute on TAIL_RAYS rays at S = 80 (163,440 points,
+#: 1,277 tiles, the last of 112 rows), K4 on TAIL_ROWS input rows (1,025
+#: tiles, the last of 77 rows); both leave the last cluster's second
+#: tile wholly past the points
+TAIL_RAYS = 2043
+TAIL_ROWS = 2048 * 64 + 77
+
+
+def _shape_tails(torch, name, ncfg, packed, packed4, k4_in, bucket,
+                 layered, layered4, tau):
+    """The layered GEMM's tails at one shape: where `layered`, K1 on the
+    first TAIL_RAYS rays of `bucket` at S = 80 against its plain version
+    (K1_ATOL) and K2's saved activations (its recompute) on them within
+    ACT_LOCAL_FRO / ACT_FRO / ACT_FLIP; where `layered4`, K4 on the
+    first TAIL_ROWS of its inputs `k4_in` ((x0, xv), S = 80) within
+    K1_ATOL; each launched twice, bit-equal."""
+    from anerf_torch.kernels import fused_mlp as fm
+    from anerf_torch.kernels import fused_render as fr
+
+    pts, m_all, aux = bucket
+    Rt, S = TAIL_RAYS, 80
+    cases = []
+    if layered:
+        args = (ncfg, packed, pts[S][:Rt].contiguous(), m_all[:Rt * 3],
+                aux[:Rt], S, tau)
+        cases.append(('K1', fr.fused_encode_mlp_pts,
+                      fr.fused_encode_mlp_pts_ref, args, Rt * S))
+    if layered4:
+        args = (ncfg, packed4) + tuple(x[:TAIL_ROWS] for x in k4_in)
+        cases.append(('K4', fm.fused_mlp_apply, fm.fused_mlp_apply_ref,
+                      args, TAIL_ROWS))
+    for kid, kernel, plain, args, P in cases:
+        tiles = -(-P // fr.LAYERED_GM)
+        got, again = kernel(*args), kernel(*args)
+        want = plain(*args)
+        e = (got - want).abs().max().item()
+        ok = (torch.allclose(got, want, atol=K1_ATOL, rtol=K1_RTOL)
+              and torch.equal(got, again)
+              and bool(torch.isfinite(got).all()))
+        print(f'shapes {name} {kid} tail: {P} points, {tiles} tiles of '
+              f'{fr.LAYERED_GM} (the last of {P - (tiles - 1) * fr.LAYERED_GM}'
+              f' rows): max_abs={e:.3e} vs plain (tol atol=rtol={K1_ATOL}), '
+              f'relaunch bit-equal {torch.equal(got, again)} -> '
+              f'{"ok" if ok else "FAIL"}', flush=True)
+        if not ok:
+            raise AssertionError(f'shapes {name}: {kid} disagrees on {P} '
+                                 'points')
+        del got, again, want
+    if not layered:
+        return
+    args = cases[0][3]
+    dev = pts[S].device
+    g = torch.randn((Rt, S, 4), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(7))
+    t = fr.launch_bwd(0, *args, g)
+    t2 = fr.launch_bwd(0, *args, g)
+    P = Rt * S
+    saved = lambda tr: [tr['x0'], tr['xv'], *tr['hs'], tr['feat'],
+                        tr['hv']]
+    keys = ('dW', 'dpts', 'dm', 'daux')
+    same = (_same_bits(torch, [t[k] for k in keys], [t2[k] for k in keys])
+            and _same_bits(torch, *(saved(fr.trace_from_act(
+                ncfg, packed, x['act'], P)) for x in (t, t2))))
+    e_loc, e_glob, flips = _act_errors(
+        torch, ncfg, packed, t['act'], fr._forward_trace(*args), P)
+    ok = (same and e_loc < ACT_LOCAL_FRO and e_glob < ACT_FRO
+          and max(flips) < ACT_FLIP)
+    print(f'shapes {name} K2 tail: {P} points, saved activations vs f64 on '
+          f'their own input fro {e_loc:.3e} (tol {ACT_LOCAL_FRO}), vs the '
+          f'plain forward {e_glob:.3e} (tol {ACT_FRO}), masks flipped at '
+          f'most {max(flips):.1e} (tol {ACT_FLIP}), relaunch bit-equal '
+          f'{same} -> {"ok" if ok else "FAIL"}', flush=True)
+    if not ok:
+        raise AssertionError(f'shapes {name}: K2 saved activations disagree'
+                             f' on {P} points')
+
+
+def _shape_kernels(torch, np, name, flag, seed, forced=False):
     """K1, K3, K4 and K2 in both flavours at one roofline.SHAPES network
-    on its route: each against its plain version (K1_ATOL; K2's saved
-    activations within ACT_LOCAL_FRO / ACT_FRO / ACT_FLIP, its outputs
-    on them within K2_FRO / K2_BLOCK_RTOL and, up to K2_OWN_DEPTH, with
-    the plain version's own recompute within K2_FRO, and its bf16
-    flavour's MLP backward on its own saved activations within
-    _bf16_mlp_tol, which the f32 flavour must exceed), a second launch
-    bit-equal, times (medians of
-    CUDA events, S = 64 + 80) beside the bound (roofline.config_bounds on
-    this run's rays) and the plain version's, K4 also beside its
-    function as bf16 torch.matmul calls. Returns {kernel id: record}."""
+    on its route (`forced`: the layered route forced by the caller): each
+    against its plain version (K1_ATOL; K2's saved activations within
+    ACT_LOCAL_FRO / ACT_FRO / ACT_FLIP, its outputs on them within
+    K2_FRO / K2_BLOCK_RTOL and, up to K2_OWN_DEPTH, with the plain
+    version's own recompute within K2_FRO, and its bf16 flavour's MLP
+    backward on its own saved activations within _bf16_mlp_tol, which the
+    f32 flavour must exceed), a second launch bit-equal, times (medians
+    of CUDA events, S = 64 + 80) beside the bound (roofline.config_bounds
+    on this run's rays), the layered route's design floor
+    (_design_floor_ms) and the plain version's; K4 timed in turns with
+    its function as bf16 torch.matmul calls (chain, K4, K4, chain), and
+    on the layered route, unforced, no slower than them; unforced, the
+    layered GEMM's cluster tails (_shape_tails). Returns ({kernel id:
+    record}, {kernel id: design floor ms, on the layered route})."""
     from anerf_torch.kernels import fused_mlp as fm
     from anerf_torch.kernels import fused_render as fr
     from anerf_torch.kernels import roofline as rf
@@ -4308,9 +4427,9 @@ def _shape_kernels(torch, np, name, flag, seed):
            'K4': (fm.fused_mlp_apply, fm.fused_mlp_apply_ref, k4_args)}
     bounds = rf.config_bounds(ncfg, packed['nfk'], packed['nfv'], R,
                               (64, 80), R, (64, 80))
-    recs = {}
+    recs, floors = {}, {}
     for kid, (kernel, plain, make) in fwd.items():
-        err, ms, plain_ms = 0.0, 0.0, 0.0
+        err, ms, plain_ms, library_ms = 0.0, 0.0, 0.0, 0.0
         layered0 = dict(fr.LAYERED_LAUNCHES)
         for S in (64, 80):
             args = make(S)
@@ -4330,7 +4449,17 @@ def _shape_kernels(torch, np, name, flag, seed):
                 raise AssertionError(f'shapes {name}: {kid} disagrees at '
                                      f'S={S}')
             err = max(err, e)
-            ms += _median_ms(kernel, [args], 5)
+            if kid == 'K4':
+                # in turns on the same inputs: chain, K4, K4, chain
+                chain = _mlp_chain(torch, ncfg, packed4)
+                turns = [_median_ms(fn, [a], 5) for fn, a in (
+                    (chain, args[2:]), (kernel, args), (kernel, args),
+                    (chain, args[2:]))]
+                ms += (turns[1] + turns[2]) / 2
+                library_ms += (turns[0] + turns[3]) / 2
+                del chain
+            else:
+                ms += _median_ms(kernel, [args], 5)
             plain_ms += _median_ms(plain, [args], 3)
             del got, again, want
         rt = route4 if kid == 'K4' else route
@@ -4344,12 +4473,26 @@ def _shape_kernels(torch, np, name, flag, seed):
         recs[kid] = {'shape': name, 'route': rt.kind, 'stages': rt.stages,
                      'route_why': rt.why, 'max_abs_err': err, 'ms': ms,
                      'plain_ms': plain_ms, 'bound_ms': b_ms,
-                     'bound_by': b_by, 'library_ms': None}
-        if kid == 'K4':
-            chain = _mlp_chain(torch, ncfg, packed4)
-            recs[kid]['library_ms'] = sum(
-                _median_ms(chain, [k4_args(S)[2:]], 5) for S in (64, 80))
-            del chain
+                     'bound_by': b_by,
+                     'library_ms': library_ms if kid == 'K4' else None}
+        if rt.kind == 'layered':
+            floors[kid] = _design_floor_ms(
+                kid, ncfg, packed, fm.kernel_widths(ncfg), R, (64, 80))
+        if kid == 'K4' and rt.kind == 'layered' and not forced:
+            ok = ms <= library_ms
+            print(f'shapes {name} K4 on the layered route {ms:.4f} ms, the '
+                  f'bf16 matmul chain {library_ms:.4f} (medians of the same '
+                  f'turns, S = 64 + 80): '
+                  f'{"no slower" if ok else "SLOWER"} -> '
+                  f'{"ok" if ok else "FAIL"}', flush=True)
+            if not ok:
+                raise AssertionError(f'shapes {name}: K4 on the layered route '
+                                     f'{ms:.4f} ms, slower than the chain '
+                                     f'{library_ms:.4f}')
+    if not forced:
+        _shape_tails(torch, name, ncfg, packed, packed4, k4_args(80)[2:],
+                     (pts, m_all, aux), route.kind == 'layered',
+                     route4.kind == 'layered', tau)
     # K2 in both flavours on a batch of R rays at S = 64 and 80: its saved
     # activations (the recompute) block by block (_act_errors), its
     # outputs against the plain backward on those activations
@@ -4415,6 +4558,9 @@ def _shape_kernels(torch, np, name, flag, seed):
               f'), where the plain backward on K2\'s activations reads '
               f'{plain_gap:.3e}', flush=True)
         b_ms, b_by, _ = bounds[kid]
+        if route.kind == 'layered':
+            floors[kid] = _design_floor_ms(kid, ncfg, packed, None, R,
+                                           (64, 80))
         recs[kid] = {'shape': name, 'route': route.kind,
                      'stages': route.stages, 'route_why': route.why,
                      'max_abs_err': mabs, 'max_fro_err': worst,
@@ -4439,10 +4585,12 @@ def _shape_kernels(torch, np, name, flag, seed):
         print(f'shapes {name} {kid}: route {rec["route"]} '
               f'({rec["route_why"]}); {rec["ms"]:.4f} ms at S = 64 + 80, '
               f'{R} rays; bound {rec["bound_ms"]:.4f} ({rec["bound_by"]}); '
-              f'plain {rec["plain_ms"]:.4f}'
+              + (f'design floor {floors[kid]:.4f}; '
+                 if kid in floors else '')
+              + f'plain {rec["plain_ms"]:.4f}'
               + (f'; bf16 matmul chain {rec["library_ms"]:.4f}'
                  if rec['library_ms'] is not None else ''), flush=True)
-    return recs
+    return recs, floors
 
 
 def _shape_train(torch, np, name, overrides, n_steps=N_SHAPE_STEPS):
@@ -4535,6 +4683,8 @@ def shapes_phase(torch, np, data=None):
     phase's grid (`data`: its H5Arrays, made here when None). The counts
     are set to 0 just before each main path and read just after. Returns
     ({kernel id: [records by shape]}, launches by kernel, summary)."""
+    import os
+
     from anerf_torch.data.fixtures import synthetic_data
     from anerf_torch.data.schema import h5_arrays
     from anerf_torch.kernels import fused_mlp as fm
@@ -4544,36 +4694,71 @@ def shapes_phase(torch, np, data=None):
     t0 = time.perf_counter()
     flag = _flagship_render(torch, np)
     recs = {}
+    floors = {}
     for i, name in enumerate(rf.SHAPES):
-        for kid, rec in _shape_kernels(torch, np, name, flag,
-                                       100 + i).items():
+        own, floor = _shape_kernels(torch, np, name, flag, 100 + i)
+        for kid, rec in own.items():
             recs.setdefault(kid, []).append(rec)
+        floors.update({f'{kid}@{name}': ms for kid, ms in floor.items()})
         torch.cuda.empty_cache()
         if name == 'two-stage':
             # the same shape forced onto the layered route, checked the
             # same way, its times beside the two-stage single kernel's
             plan = fr.route_plan
-            fr.route_plan = lambda *a: fr.Route(
+            fr.route_plan = lambda *a, **k: fr.Route(
                 'layered', 0, 0, 'forced onto the layered route')
             try:
-                forced = _shape_kernels(torch, np, name, flag, 100 + i)
+                forced, _ = _shape_kernels(torch, np, name, flag,
+                                           100 + i, forced=True)
             finally:
                 fr.route_plan = plan
             for kid, rec in forced.items():
-                recs[kid][-1]['layered_ms'] = rec['ms']
-                print(f'shapes two-stage {kid}: single kernel at 2 stages '
-                      f'{recs[kid][-1]["ms"]:.4f} ms, layered route '
-                      f'{rec["ms"]:.4f} ms', flush=True)
+                own = recs[kid][-1]
+                own['layered_ms'] = rec['ms']
+                faster = ('the forced layered route'
+                          if rec['ms'] < own['ms']
+                          else f'its own route ({own["route"]})')
+                print(f'shapes two-stage {kid}: {own["route"]} '
+                      f'({own["route_why"]}) {own["ms"]:.4f} ms, layered '
+                      f'route forced {rec["ms"]:.4f} ms: {faster} is the '
+                      f'faster', flush=True)
             del forced
             torch.cuda.empty_cache()
     probe = _bf16_depth_probe(torch, np, flag)
+    # the layered route split by launch (kernel_bench --layered, this
+    # checkout's package) at the shapes route_plan sends there, each in a
+    # process of its own: in this long one torch.profiler was seen to
+    # drop most of a window's kernels. A split the profiler missed is
+    # printed as such (n/m) and does not fail the phase
+    split = {}
+    for name in ('wide-net', 'wide-input'):
+        cmd = [sys.executable, '-m', 'anerf_torch.tools.kernel_bench',
+               '--layered', name, '--rays', str(SHAPE_RAYS), '--reps', '3']
+        print(f'shapes {name}: the layered route by launch '
+              f'({" ".join(cmd[1:])})', flush=True)
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=SHAPES_BUDGET_S,
+                              cwd=os.path.dirname(os.path.abspath(__file__)))
+        lines = proc.stdout.strip().splitlines()
+        print('\n'.join(lines[-47:-1]), flush=True)
+        if proc.returncode:
+            raise AssertionError(f'kernel_bench --layered {name}: rc '
+                                 f'{proc.returncode}\n{proc.stderr[-2000:]}')
+        rec = json.loads(lines[-1])
+        split[name] = {'profiler_misses': rec['profiler_misses']}
+        for r in rec['rows']:
+            per = split[name].setdefault(r['kernel'], {})
+            per[r['launch']] = (None if r['ms'] is None
+                                or per.get(r['launch'], 0.0) is None
+                                else per.get(r['launch'], 0.0) + r['ms'])
     t_kernels = time.perf_counter() - t0
 
     # the main paths, counts from here on
     for k in fr.LAYERED_LAUNCHES:
         fr.LAYERED_LAUNCHES[k] = 0
     launches = {n: {'K1': 0, 'K2': 0, 'K2 bf16': 0} for n in SHAPE_CONFIGS}
-    summary = {'bf16_depth_probe': probe}
+    summary = {'bf16_depth_probe': probe, 'layered_split': split,
+               'design_floor_ms': floors}
     layered_train = dict.fromkeys(fr.LAYERED_LAUNCHES, 0)
     for name, overrides in list(SHAPE_CONFIGS.items()) + [
             ('wide-net culled fast-grads',

@@ -205,3 +205,164 @@ def test_stage_names_and_codes():
         stages.decompose_fwd('nope', *[None] * 7)
     with pytest.raises(ValueError):
         stages.decompose_bwd('nope', *[None] * 8)
+
+
+# ---- --layered: the layered route split by launch (card only) ----
+
+def test_layered_arguments(monkeypatch):
+    """--layered takes a roofline.SHAPES name, refuses the CPU (the
+    layered route runs on the card only) and another mode beside it, and
+    defaults to S = 64 80; nothing is launched here."""
+    from anerf_torch.kernels import roofline as rf
+    calls = []
+    monkeypatch.setattr(kb, 'run', lambda *a, **k: calls.append((a, k)))
+    for bad in (['--layered', 'flagship'],
+                ['--layered', 'wide-net', '--device', 'cpu'],
+                ['--layered', 'wide-net', '--decompose'],
+                ['--decompose', '--decompose_bwd']):
+        with pytest.raises(SystemExit):
+            kb.main(bad)
+    assert not calls
+    for shape in rf.SHAPES:
+        assert kb.main(['--layered', shape]) == 0
+    kb.main(['--layered', 'wide-input', '--shapes', '8', '--reps', '3'])
+    kb.main([])
+    (a, k), last = calls[-2], calls[-1]
+    assert [c[1]['shape'] for c in calls[:-2]] == list(rf.SHAPES)
+    assert all(c[0][0] == 'layered' and c[0][3] == [64, 80]
+               for c in calls[:-2])
+    assert a == ('layered', 2048, 3, [8], 'cuda')
+    assert k == {'bwd_f32': True, 'shape': 'wide-input'}
+    assert last[0][0] == 'bench' and last[0][3] == [64, 80, 8, 24]
+    assert last[1]['shape'] is None
+
+
+def test_layered_labels_follow_the_launch_sequence():
+    """One layered call: phase A (not K4), a launch per MMA layer, the
+    heads, and the recompute's copy into K2's act layout."""
+    from anerf_torch.kernels import roofline as rf
+    ncfg, _, _ = rf.shape_config('wide-net')
+    trunk = [f'layer {i}' for i in range(8)] + ['feature', 'view']
+    assert kb.layered_labels(ncfg, 'K4') == trunk + ['heads']
+    assert kb.layered_labels(ncfg, 'K1') == ['phase A'] + trunk + ['heads']
+    assert kb.layered_labels(ncfg, 'K2 recompute') == \
+        ['phase A'] + trunk + ['heads', 'to_act']
+    assert [kb.kind_of(lab) for lab in ('layer 3', 'feature', 'view',
+                                        'heads', 'phase A', 'to_act')] == \
+        ['layer', 'layer', 'layer', 'heads', 'phase A', 'to_act']
+    names = {'void (anonymous namespace)::phase_a_kernel<0>(float)':
+             'phase A',
+             'void (anonymous namespace)::layer_gemm_kernel<128, 2>(x)':
+             'layer',
+             '(anonymous namespace)::heads_kernel(float*)': 'heads',
+             '(anonymous namespace)::to_act_kernel(bf16*)': 'to_act',
+             'void at::native::vectorized_elementwise_kernel<4, Fill>':
+             None}
+    for name, kind in names.items():
+        assert kb.launch_kind(name) == kind
+
+
+def _events(labels, reps, us):
+    """Device kernel events of `reps` calls, a fill kernel of another
+    module before each launch, launch i of call r taking us(i, r)."""
+    name = {'phase A': 'phase_a_kernel<0>', 'heads': 'heads_kernel',
+            'to_act': 'to_act_kernel'}
+    ev, t = [], 0
+    for r in range(reps):
+        for i, lab in enumerate(labels):
+            ev.append((t, 'vectorized_elementwise_kernel<Fill>', 1.0))
+            ev.append((t + 1, name.get(lab, 'layer_gemm_kernel<128, 2>'),
+                       us(i, r)))
+            t += 2
+    return ev[::-1]                     # split_calls sorts by start
+
+
+def test_layered_split_and_table():
+    """split_calls names each launch by its place in a whole call and
+    takes the median over the whole calls; a call that lost a launch to
+    the profiler, or two calls merged by a lost last launch, are left
+    out, and it raises when no whole call remains. The table sums each
+    launch over S, gives its share of the kernel's launches, then the
+    launches together and the whole call."""
+    from anerf_torch.kernels import roofline as rf
+    ncfg, _, _ = rf.shape_config('wide-input')
+    labels = kb.layered_labels(ncfg, 'K1')
+    n = len(labels)
+    us = lambda i, r: 100.0 * (i + 1) + r
+    per = kb.split_calls(_events(labels, 3, us), labels)
+    assert per == {lab: (100.0 * (i + 1) + 1) / 1e3
+                   for i, lab in enumerate(labels)}
+    ev = sorted(_events(labels, 4, us))
+    # a layer of call 0 and the heads ending call 2 lost: calls 0, 2 and
+    # 3 are not whole, call 1 is
+    lost = [e for j, e in enumerate(ev)
+            if j not in (2 * 3 + 1, 2 * (2 * n + n - 1) + 1)]
+    assert kb.split_calls(lost, labels) == {
+        lab: us(i, 1) / 1e3 for i, lab in enumerate(labels)}
+    with pytest.raises(RuntimeError, match='no whole call'):
+        kb.split_calls(_events(labels, 1, us)[1:], labels)
+    with pytest.raises(RuntimeError, match='no whole call'):
+        kb.split_calls(_events(['phase A', 'heads'] * 6, 1, us), labels)
+    rows = [{'kernel': 'K1', 'S': S, 'launch': lab, 'kind': kb.kind_of(lab),
+             'ms': ms * S / 64} for S in (64, 80)
+            for lab, ms in list(per.items()) + [('call', 9.0)]]
+    lines = kb.layered_table(rows)
+    assert lines[0].split() == ['kernel', 'launch', 'S=64', 'S=80', 'sum',
+                                'share']
+    assert len(lines) == 1 + len(labels) + 2
+    body = [ln.split() for ln in lines[1:1 + len(labels)]]
+    assert [b[1] if b[1] != 'phase' else 'phase A' for b in body] == [
+        lab.split()[0] if lab.startswith('layer') else lab
+        for lab in labels]
+    total = sum(per.values()) * (1 + 80 / 64)
+    for (lab, ms), b in zip(per.items(), body):
+        assert float(b[-2]) == pytest.approx(ms * (1 + 80 / 64), abs=1e-4)
+        assert float(b[-1].rstrip('%')) == pytest.approx(
+            100 * ms * (1 + 80 / 64) / total, abs=0.06)
+    launches, call = lines[-2].split(), lines[-1].split()
+    assert launches[1] == 'launches' and launches[-1] == '100.0%'
+    assert float(launches[-2]) == pytest.approx(total, abs=1e-3)
+    assert call[1:] == ['call', '9.0000', '11.2500', '20.2500']
+
+
+def test_layered_reports_the_profiler_misses(monkeypatch):
+    """`layered` retries a window that holds no whole call up to
+    LAYERED_WINDOWS times, counts the windows missed, and where all of
+    them miss leaves that kernel's launches at that S unmeasured (None,
+    'n/m' in the table) instead of failing; the whole call is still
+    timed. Profiler and timer are stubbed: nothing is launched."""
+    ctx = kb.shape_setup('wide-input', 4, 'cpu')
+    windows = {'K1': 0, 'K4': 0, 'K2 recompute': 0}
+
+    def profiled_by_kernel(fn, arg_sets, reps):
+        kernel = next(k for k, f in names.items() if f(fn))
+        windows[kernel] += 1
+        labels = kb.layered_labels(ctx['ncfg'], kernel)
+        # K4's first window (S = 64) and every one at S = 80 hold no
+        # whole call
+        if kernel == 'K4' and (windows['K4'] == 1
+                               or arg_sets[0][2].shape[0] == 4 * 80):
+            return []
+        return _events(labels, reps, lambda i, r: 10.0 * (i + 1))
+
+    names = {'K1': lambda f: f is kb.fr.fused_encode_mlp_pts,
+             'K4': lambda f: f is kb.fm.fused_mlp_apply,
+             'K2 recompute': lambda f: f not in (
+                 kb.fr.fused_encode_mlp_pts, kb.fm.fused_mlp_apply)}
+    monkeypatch.setattr(kb, '_profiled', profiled_by_kernel)
+    monkeypatch.setattr(kb, 'time_ms', lambda *a: 1.5)
+    rows, misses = kb.layered(ctx, [64, 80], 3)
+    assert misses == {'K4 S=64': 1, 'K4 S=80': kb.LAYERED_WINDOWS}
+    assert windows == {'K1': 3, 'K4': 2 + kb.LAYERED_WINDOWS,
+                       'K2 recompute': 2}
+    by = {(r['kernel'], r['S'], r['launch']): r['ms'] for r in rows}
+    assert by['K4', 64, 'heads'] == pytest.approx(0.11)
+    assert by['K4', 80, 'heads'] is None and by['K4', 80, 'call'] == 1.5
+    assert by['K1', 80, 'phase A'] == pytest.approx(0.01)
+    lines = [ln.split() for ln in kb.layered_table(rows)]
+    k4 = {ln[1]: ln[2:] for ln in lines if ln[0] == 'K4'}
+    assert k4['heads'] == ['0.1100', 'n/m', 'n/m']
+    assert k4['launches'] == ['0.6600', 'n/m', 'n/m']
+    assert k4['call'] == ['1.5000', '1.5000', '3.0000']
+    k1 = {ln[1]: ln[2:] for ln in lines if ln[0] == 'K1'}
+    assert k1['launches'][-1] == '100.0%'

@@ -222,6 +222,165 @@ def test_route_plan_keeps_the_flagship_kernel():
         ncfg, depth=40, skips=(4, 35)))) == 2
 
 
+def test_route_plan_sends_k4_at_two_stages_to_the_layered_route():
+    """K4 (`embedded`) takes the layered route where the single kernel
+    fits at two weight stages only (the faster there on the card); at
+    three stages, and for K1, K3 and K2's recompute, the plan is the
+    single kernel's as before."""
+    two = NeRFConfig(depth=8, width=256, input_ch=24 * 21, input_ch_bones=72,
+                     input_ch_views=72 * 9, use_framecode=True,
+                     framecode_ch=16, n_framecodes=4)
+    k0, _, kv, _ = tfr.input_widths(10, 4)
+    assert (tfr.route_plan(two, k0, kv).kind,
+            tfr.route_plan(two, k0, kv).stages) == ('single', 2)
+    k4 = tfr.route_plan(two, *tfm.kernel_widths(two), embedded=True)
+    assert (k4.kind, k4.stages) == ('layered', 0) and 'K4' in k4.why
+    flagship = dataclasses.replace(two, input_ch=360)
+    assert tfr.route_plan(flagship, *tfm.kernel_widths(flagship),
+                          embedded=True).stages == 3
+
+
+def _grid_nets():
+    """(NeRFConfig, K1's k0 and kv) of every config the GRID's gate
+    admits (the width 384 the factory refuses left out)."""
+    for width, depth, fc, mr, mv in GRID:
+        if width == 384:
+            continue
+        args = TorchTrainConfig(**dataclasses.asdict(
+            _gate_args(width, depth, fc, mr, mv, fused_kernel=True)))
+        cfg = t_build(args, _data_attrs())
+        k0, _, kv, _ = tfr.input_widths(mr, mv, tfr.fc_width(cfg.nerf))
+        yield cfg.nerf, k0, kv
+
+
+def test_layered_plan_covers_every_admitted_config():
+    """The layered route's plan (`layered_plan`, the mirror of the CUDA
+    host code) at every config the gate admits, for K1 / K3, K2's
+    recompute and K4's own input widths: each layer's shared memory fits
+    a block, its output blocks cover its N outputs with no block to
+    spare, its A segments' k-slices are the weight image's slices of that
+    layer, its output columns lie inside the activation buffer, and it
+    runs clusters of LAYERED_CLUSTER CTAs only where the points make at
+    least that many tiles."""
+    n_configs = 0
+    for ncfg, k0, kv in _grid_nets():
+        n_configs += 1
+        for (a, b), save, embedded in (((k0, kv), False, False),
+                                       ((k0, kv), True, False),
+                                       (tfm.kernel_widths(ncfg), False,
+                                        True)):
+            plan = tfr.layered_plan(ncfg, a, b, save, embedded)
+            shapes = tfr.sm90_shapes(ncfg, a, b)
+            ldx = tfr.layered_columns(ncfg, a, b, save, embedded)
+            assert len(plan) == len(shapes) == ncfg.depth + 2
+            for layer, (N, K) in zip(plan, shapes):
+                assert layer['N'] == N
+                assert layer['smem'] <= tfr.SM90_MAX_SMEM
+                assert layer['stages'] == tfr.LAYERED_MAX_STAGES
+                assert layer['blocks'] * layer['block'] >= N \
+                    > (layer['blocks'] - 1) * layer['block']
+                assert layer['k_slices'] == K // tfr.SLICE_K == sum(
+                    n for *_, n in layer['segments'])
+                assert layer['out_col'] + N <= ldx
+                for src, col, n in layer['segments']:
+                    assert src in (('X', 'x0', 'xv') if embedded
+                                   else ('X',))
+                    if src == 'X':
+                        assert col + n * tfr.SLICE_K <= ldx
+                assert layer['cluster'] == tfr.LAYERED_CLUSTER
+        for n_points in (1, 64, tfr.LAYERED_GM, tfr.LAYERED_GM + 1, 294912):
+            tiles = -(-n_points // tfr.LAYERED_GM)
+            for layer in tfr.layered_plan(ncfg, k0, kv, False, False,
+                                          n_points):
+                assert layer['cluster'] == (
+                    tfr.LAYERED_CLUSTER if tiles >= tfr.LAYERED_CLUSTER
+                    else 1)
+    assert n_configs == len(GRID) // 4 * 3
+
+
+def _source_int(name):
+    import re
+    text = (tfr._CSRC / 'fused_render_layered_sm90.cu').read_text()
+    return int(re.search(rf'constexpr int {name} = (\d+);', text).group(1))
+
+
+def test_layered_plan_follows_the_kernel_source():
+    """The mirror's constants are the kernel's, and its shared memory is
+    the sum the layout gives: 256-wide blocks, four stages of a 128 x 64
+    A slice and a 256 x 64 B slice, two warpgroups' 64 staged rows of 128
+    bf16, 1,024 bytes of alignment, two barriers a stage (1,984 bytes to
+    spare); 128-wide blocks four stages. At wide-net the view layer
+    reads the feature rows and the 11 slices of xv; the trunk's outputs
+    alternate between two buffers after x0 | xv."""
+    for name, value in (('GM', tfr.LAYERED_GM),
+                        ('GCL', tfr.LAYERED_CLUSTER),
+                        ('MAX_STAGES', tfr.LAYERED_MAX_STAGES),
+                        ('STG_COLS', tfr.LAYERED_STG_COLS)):
+        assert _source_int(name) == value, name
+    assert tfr.layered_gemm_smem(256) == (
+        4, 1024 + 4 * (16384 + 32768) + 2 * 64 * 128 * 2 + 4 * 16)
+    assert tfr.layered_gemm_smem(256)[1] == tfr.SM90_MAX_SMEM - 1984
+    assert tfr.layered_gemm_smem(128) == (
+        4, 1024 + 4 * (16384 + 16384) + 2 * 64 * 128 * 2 + 4 * 16)
+    ncfg = NeRFConfig(depth=8, width=512, input_ch=360, input_ch_bones=72,
+                      input_ch_views=648, use_framecode=True,
+                      framecode_ch=16, n_framecodes=4)
+    k0, _, kv, _ = tfr.input_widths(7, 4)
+    plan = tfr.layered_plan(ncfg, k0, kv, False, False)
+    x0w, xvw = 448, 704
+    assert [p['out_col'] for p in plan[:8]] == [x0w + xvw + 512 * (i & 1)
+                                                for i in range(8)]
+    assert plan[5]['segments'] == [('X', 0, 7), ('X', x0w + xvw, 8)]
+    assert plan[-1]['segments'] == [('X', x0w + xvw, 8), ('X', x0w, 11)]
+    assert (plan[-1]['block'], plan[-1]['blocks']) == (256, 1)
+    assert (plan[0]['block'], plan[0]['blocks']) == (256, 2)
+    wide_in = NeRFConfig(depth=8, width=256, input_ch=24 * 21,
+                         input_ch_bones=72, input_ch_views=72 * 13,
+                         use_framecode=True, framecode_ch=32, n_framecodes=4)
+    view = tfr.layered_plan(wide_in, 576, 968, False, False)[-1]
+    assert (view['N'], view['block'], view['stages']) == (128, 128, 4)
+
+
+def test_layered_design_bytes_counts_the_layout():
+    """roofline.layered_design_bytes against the count written out from
+    the layered route's layout (`layered_columns`' x0 | xv | activations)
+    a point, layer by layer, at wide-net (8 x 512, inputs 432 and 664
+    columns, 448 and 704 padded) and wide-input (8 x 256, 576 and 968,
+    576 and 1024 padded), skip into layer 5. K4 reads its inputs in place
+    (k0 and kv columns); K1 reads its points (12 bytes) and writes x0 |
+    xv; K2's recompute also copies X's F columns into its act layout.
+    (K4's counts are the 23.6 and 14.5 KB a point of the layered route's
+    HBM floor.)"""
+    def count(w, x0, xv, emb_x0, emb_xv, embedded, save):
+        a0, av = (emb_x0, emb_xv) if embedded else (x0, xv)
+        per = 0 if embedded else 12 + 2 * (x0 + xv)          # phase A
+        per += 2 * (a0 + w)                                  # layer 0
+        per += 6 * 2 * (w + w)                               # 1-4, 6, 7
+        per += 2 * (a0 + w + w)                              # 5: skip
+        per += 2 * (w + w)                                   # feature
+        per += 2 * (w + av + w // 2)                         # view
+        per += 2 * (w // 2 + w) + 16                         # heads
+        if save:
+            per += 4 * (x0 + xv + 9 * w + w // 2)            # to_act
+        return per
+
+    from anerf_torch.kernels import roofline as rf
+    for name, w, (k0, kv), (x0, xv), want_k4 in (
+            ('wide-net', 512, (432, 664), (448, 704), 23552),
+            ('wide-input', 256, (576, 968), (576, 1024), 14496)):
+        ncfg, _, _ = rf.shape_config(name)
+        for embedded, save in ((True, False), (False, False),
+                               (False, True)):
+            got = rf.layered_design_bytes(ncfg, k0, kv, 1000, save,
+                                          embedded)
+            per = count(w, x0, xv, k0, kv, embedded, save)
+            assert got == per * 1000 + rf.net_bytes(ncfg), (name, embedded)
+            if embedded:
+                assert per == want_k4
+        assert tfr.layered_columns(ncfg, k0, kv, True, False) == \
+            x0 + xv + 9 * w + w // 2
+
+
 # ------------------------------------------------ the kernels at a shape
 
 def _setup(name, seed=0):

@@ -361,9 +361,11 @@ def test_k4_v1_kernel_matches_plain(cuda, config):
 
 @pytest.mark.gpu
 def test_layout_over_the_limit_raises_on_the_card(cuda):
-    """K4 of x0 480 columns wide: the wrapper takes the single kernel at
-    two weight stages (`route_plan`) and agrees with the plain version,
-    and the launcher itself refuses the layout at three stages
+    """K4 of x0 480 columns wide: the single kernel fits at two weight
+    stages only (`route_plan`), where K4's wrapper takes the layered
+    route (the faster there; here on one tile of points, a cluster of
+    one CTA) and agrees with the plain version, and the single kernel's
+    launcher itself refuses the layout at three stages
     (cudaErrorInvalidValue), launching nothing."""
     import ctypes
     from anerf_torch.kernels import fused_mlp as fm
@@ -373,15 +375,17 @@ def test_layout_over_the_limit_raises_on_the_card(cuda):
     packed = fm.pack_params(params, ncfg)
     route = fr.route_plan(ncfg, 480, 72)
     assert (route.kind, route.stages) == ('single', 2)
+    assert fr.route_plan(ncfg, 480, 72, embedded=True).kind == 'layered'
     g = torch.Generator(device=cuda).manual_seed(3)
     x0 = torch.randn((100, 480), device=cuda, generator=g)
     xv = torch.randn((100, 72), device=cuda, generator=g)
-    before = fm.LAUNCHES
+    before, layered = fm.LAUNCHES, fr.LAYERED_LAUNCHES['k4']
     got = fm.fused_mlp_apply(ncfg, packed, x0, xv)
     torch.cuda.synchronize()
     want = fm.fused_mlp_apply_ref(ncfg, packed, x0, xv)
     torch.testing.assert_close(got, want, atol=2e-3, rtol=2e-3)
     assert fm.LAUNCHES == before + 1
+    assert fr.LAYERED_LAUNCHES['k4'] == layered + 1
     x0, xv = x0.to(torch.bfloat16), xv.to(torch.bfloat16)
     out = torch.empty((100, 4), device=cuda)
     lib = fr._library('fused_render_sm90')
