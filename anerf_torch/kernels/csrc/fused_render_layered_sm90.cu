@@ -27,16 +27,20 @@
 //
 // Design (one launch per step, all on PyTorch's stream, no atomics: two
 // calls give the same bits):
-//  1. phase_a_kernel (IN_PTS: K1, IN_RAW: K3; K4's inputs are already
-//     embedded): the geometry, window and cutoff PE of a 64-point tile, the
-//     same arithmetic as the single kernel, written as bf16 rows of the
-//     row-major activation buffer X (x0 at column 0 and xv at rup64(k0),
-//     each zero-padded to a multiple of 64 columns).
+//  1. phase A (IN_PTS: K1, IN_RAW: K3; K4's inputs are already embedded):
+//     the geometry, window and cutoff PE of a 64-point tile, the same
+//     arithmetic as the single kernel, one CTA a tile, in 16-byte groups
+//     of 8 bf16, one thread a group; phase_a_rows_kernel stages blocks of
+//     8 whole rows of X (x0 at column 0 and xv at rup64(k0), each
+//     zero-padded to a multiple of 64 columns) and stores them whole;
+//     phase_a_act_kernel (with SAVE) writes act's feature rows, a warp
+//     whole 128-byte rows. K1's view bands are computed once per ray the
+//     tile touches (tables in shared memory) and weighted per point; K3's
+//     rows carry per-point directions, so its bands stay per point.
 //  2. layer_gemm_kernel, once per MMA layer: C = A W^T + bias (ReLU but on
-//     the feature layer), rounded to bf16 into X's columns. A is one or
-//     two segments of X's columns (a skip layer's [x0 | h], the view
-//     layer's [feat | xv]; K4's x0 / xv straight from its input rows), B
-//     the layer's k-slices of the weight image 'img' that the single
+//     the feature layer), rounded to bf16. A is one or two segments of the
+//     activations (a skip layer's [x0 | h], the view layer's [feat | xv]),
+//     B the layer's k-slices of the weight image 'img' that the single
 //     kernel reads (to_sm90_image: each slice's rows already in the wgmma
 //     K-major 128-byte swizzle). Persistent: one cluster of GCL CTAs per
 //     pair of SMs that can hold one (cudaOccupancyMaxActiveClusters)
@@ -45,29 +49,39 @@
 //     from L2. A CTA is a producer warp and two consumer warpgroups
 //     (setmaxnreg 40 / 232). The producer keeps a ring of up to
 //     MAX_STAGES k-slices full, guarded by full / empty mbarriers: A's
-//     GM x 64 slice by one TMA load (cp.async.bulk.tensor.2d, the 128-byte
-//     swizzle done by the copy engine; a tensor map for each segment's
-//     rows), B's BN x 64 slice by one 1-D bulk copy from the image, each
-//     CTA of the cluster copying 1/GCL of it multicast to both, so that
-//     each weight byte leaves L2 once per 2 GM points (K1's single kernel
-//     copies its image the same way). Each consumer warpgroup runs
+//     GM x 64 slice, B's BN x 64 slice by one 1-D bulk copy from the image,
+//     each CTA of the cluster copying 1/GCL of it multicast to both, so
+//     that each weight byte leaves L2 once per 2 GM points (K1's single
+//     kernel copies its image the same way). Each consumer warpgroup runs
 //     wgmma.m64n256k16 (m64n128k16 on a 128-wide block) on its 64 rows
 //     over the whole output block, f32 accumulators in registers, one
 //     wgmma group in flight while the next slice's wait runs; a slice is
 //     released to the producers of both CTAs once the group after it has
 //     been issued and its own has completed. The epilogue (bias, ReLU,
-//     bf16 rounding: the single kernel's arithmetic) stages the tile in
-//     shared memory and leaves it as coalesced 16-byte stores, while the
-//     producer already loads the next item's slices.
+//     bf16 rounding: the single kernel's arithmetic) stages STG_COLS
+//     columns at a time in shared memory while the producer already loads
+//     the next item's slices. Two layouts of the activations:
+//     - without SAVE (K1, K3, K4), the row-major buffer X: A's slice comes
+//       by one TMA load (cp.async.bulk.tensor.2d, the 128-byte swizzle
+//       done by the copy engine; a tensor map for each segment's rows),
+//       and the epilogue leaves as coalesced 16-byte stores of rows;
+//     - with SAVE (K2's recompute), K2's act layout itself (sm90_common.
+//       cuh: act_at), where every MLP input and activation is written
+//       once, where it is made: a 64-point tile's 64 feature rows are
+//       8 KB contiguous, already in the 128-byte swizzle with the points
+//       as the contiguous index, so A's slice comes by one 1-D bulk copy
+//       a warpgroup's tile and goes to wgmma MN-major (transposed A); the
+//       epilogue transposes its chunk into act's layout with
+//       stmatrix.trans and leaves it as one bulk store (16 KB of
+//       contiguous feature rows). Points past P are written as zeros. X
+//       then holds only what the heads read: the last trunk layer's rows
+//       and hv, written by their layers' epilogues as well.
 //  3. heads_kernel: the 3-wide rgb and 1-wide alpha heads, f32 dot
 //     products of the bf16 hv and last trunk activations with the f32 head
 //     weights, plus b_out: the weights in shared memory, a warp a point
 //     at a time, 16-byte loads along the row, a fixed shuffle tree for
 //     the sums.
-//  4. With SAVE (K2's recompute), X holds every MLP input and activation
-//     in make_act_rows' columns, and to_act_kernel copies it into K2's
-//     `act` layout (sm90_common.cuh: act_at), points past P as zeros.
-// 1 + (depth + 2) + 1 launches (K4: no phase A; SAVE: one more).
+// 1 + (depth + 2) + 1 launches (K4: no phase A).
 
 #include <cuda.h>
 
@@ -75,113 +89,428 @@
 
 namespace {
 
-constexpr int LT = 256;                  // threads of phase A, heads, to_act
+constexpr int LT = 256;                  // threads of phase A and heads
 constexpr int L_IN_PTS = 0, L_IN_RAW = 1, L_IN_EMBEDDED = 2;
 
 __host__ __device__ inline int rup64(int n) { return (n + KC - 1) / KC * KC; }
 
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// ---- phase A ----
+// Two kernels of the same arithmetic, one for each layout of the MLP
+// inputs: phase_a_rows_kernel writes X's rows (K1, K3), phase_a_act_kernel
+// K2's act tiles (K1 with SAVE). Both compute the geometry and window of
+// each (point, joint) first, then x0 = [v w | each kp band's [sin | cos]
+// (v 2^k) w | bone dirs | 0] and xv = [dv w | each view band's [sin | cos]
+// (dv 2^k) w | fc | 0] (x0 and xv zero-padded to multiples of 64) in
+// groups of 8 bf16, one thread a group, each group leaving as one 16-byte
+// store of a whole run of contiguous bytes. K1's view bands are computed
+// once per ray a tile touches (a table in shared memory) and weighted per
+// point; K3's rows carry per-point directions, so its bands stay per
+// point. The arithmetic is the single kernel's (exact fp32 geometry, the
+// overflow-safe window, accurate sincosf and expf): a band's sincosf of
+// the same value gives the same bits per ray as per point.
+
+// One view band's [sin | cos] columns: a row of K1's per-ray table.
+constexpr int PA_UNIT = 2 * C72;
+// Points of phase_a_rows_kernel's staged block of whole rows.
+constexpr int PA_RB = 8;
+// The most shared memory phase_a_rows_kernel gives K1's tables of every
+// view band; a tile whose rays need more takes its bands per point.
+constexpr int PA_TABLES = 32 * 1024;
+
+// Rays a 64-point tile of S samples a ray can touch (K1's view-band table).
+__host__ __device__ inline int pa_rays(int S) {
+  const int n = (TM - 1) / S + 2;
+  return n < TM ? n : TM;
+}
+
+__device__ __forceinline__ uint4 pack8(const float (&v)[8]) {
+  uint4 u;
+  u.x = pack_bf16(v[0], v[1]);
+  u.y = pack_bf16(v[2], v[3]);
+  u.z = pack_bf16(v[4], v[5]);
+  u.w = pack_bf16(v[6], v[7]);
+  return u;
+}
+
+// v[0 .. 7] = p[0 .. 7], p 16-byte aligned (shared memory).
+__device__ __forceinline__ void ld8(const float* p, float (&v)[8]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  const float4 y = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  v[4] = y.x; v[5] = y.y; v[6] = y.z; v[7] = y.w;
+}
+
+// Point p's joint j: the distance v, the window weight w and the bone
+// direction b (K1: from the world point and its ray's m_all / aux rows;
+// K3: from its row [v | r | ...]).
+template <int MODE>
+__device__ __forceinline__ void pa_joint(const float* __restrict__ pts,
+                                         const float* __restrict__ m_all,
+                                         const float* __restrict__ aux,
+                                         const float* __restrict__ cut,
+                                         const Dims& d, int p, int S, int j,
+                                         float tau, float& v, float& w,
+                                         float (&b)[3]) {
+  float q[3], inv;
+  if constexpr (MODE == L_IN_PTS) {
+    const int ray = p / S;
+    const float x = pts[(size_t)p * 3], y = pts[(size_t)p * 3 + 1],
+                z = pts[(size_t)p * 3 + 2];
+    const float* m = m_all + (size_t)ray * 3 * C72;
+    const float* tr = aux + (size_t)ray * d.auxw;
+    float ss = 0.f;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int c = j * 3 + a;
+      q[a] = fmaf(m[2 * C72 + c], z, fmaf(m[C72 + c], y, m[c] * x)) + tr[c];
+      ss = fmaf(q[a], q[a], ss);
+    }
+    v = sqrtf(fmaxf(ss, 1e-24f));
+    inv = 1.f / fmaxf(v, 1e-12f);
+  } else {
+    const float* xin = pts + (size_t)p * d.raww;
+    v = xin[j];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) q[a] = xin[J + j * 3 + a];
+    inv = 1.f;
+  }
+  w = 1.f / (1.f + expf(tau * (v - cut[j])));
+#pragma unroll
+  for (int a = 0; a < 3; ++a) b[a] = q[a] * inv;
+}
+
+// Shared memory of phase_a_rows_kernel: PA_RB staged rows of the x0 | xv
+// columns (+ 8, moving successive rows onto other banks), the block's
+// distances and window weights (PA_RB x (J + 4) f32 each), K1's tables of
+// every view band (pa_rays x nfv x PA_UNIT f32, where they fit in
+// PA_TABLES), the bone directions (PA_RB x C72 bf16), each point's ray in
+// the tile.
+__host__ __device__ inline int pa_rows_cols(const Dims& d) {
+  return rup64(d.k0) + rup64(d.kv) + 8;
+}
+__host__ __device__ inline bool pa_tables(int mode, int S, int nfv) {
+  return mode == L_IN_PTS && pa_rays(S) * nfv * PA_UNIT * 4 <= PA_TABLES;
+}
+__host__ __device__ inline int pa_rows_smem(int mode, const Dims& d, int S,
+                                            int nfv) {
+  return PA_RB * pa_rows_cols(d) * 2 + 2 * PA_RB * (J + 4) * 4
+         + (pa_tables(mode, S, nfv) ? pa_rays(S) * nfv * PA_UNIT * 4 : 0)
+         + PA_RB * C72 * 2 + PA_RB * 4;
+}
+
 // Phase A of K1 (IN_PTS: world points, per-ray m_all and aux rows of
 // d.auxw floats) or K3 (IN_RAW: per-point rows of d.raww floats
-// [v | r | d | fc | pad]) for one tile of 64 points: the bf16 MLP inputs
-// into X (row stride ldx): x0 = [kp bands | bone dirs] at columns 0 ..
-// rup64(k0) - 1 and xv = [view bands | fc] at xv_col .. + rup64(kv) - 1,
-// zero past k0 and kv. The arithmetic is the single kernel's (exact fp32
-// geometry, the overflow-safe window, accurate sincosf and expf); the view
-// bands are computed per point.
+// [v | r | d | fc | pad]) for one tile of 64 points into X's rows (stride
+// ld): x0 at column 0, xv at rup64(k0), the columns of the two side by
+// side. Blocks of PA_RB points at a time: their geometry, then each
+// thread fills 16-byte groups of the block's staged rows, (row, group)
+// with the rows varying fastest, a kp band's sin and cos groups of 8
+// joints (or a view band's of 8 columns) by one thread, then the rows
+// leave whole, as runs of 16-byte stores. K1's view-band tables of every
+// band are computed first, where they fit (pa_tables); else K1's bands,
+// as K3's, are computed per point.
 template <int MODE>
 __global__ void __launch_bounds__(LT)
-phase_a_kernel(const float* __restrict__ pts, const float* __restrict__ m_all,
-               const float* __restrict__ aux, const float* __restrict__ cut,
-               bf16* __restrict__ X, int ldx, int xv_col, int P, int S,
-               int nfk, int nfv, int fc, float tau) {
-  __shared__ float W24[TM * J];
+phase_a_rows_kernel(const float* __restrict__ pts,
+                    const float* __restrict__ m_all,
+                    const float* __restrict__ aux,
+                    const float* __restrict__ cut, bf16* __restrict__ X,
+                    int ld, int P, int S, int nfk, int nfv, int fc,
+                    float tau) {
+  const Dims d = make_dims(nfk, nfv, fc);
+  const int SP = pa_rows_cols(d), x0w = rup64(d.k0);
+  const bool tables = pa_tables(MODE, S, nfv);
+  extern __shared__ __align__(16) float pa_raw[];
+  bf16* stg = reinterpret_cast<bf16*>(pa_raw);
+  float* V = reinterpret_cast<float*>(stg + PA_RB * SP);
+  float* Wt = V + PA_RB * (J + 4);
+  float* tab = Wt + PA_RB * (J + 4);
+  bf16* Q = reinterpret_cast<bf16*>(
+      tab + (tables ? pa_rays(S) * nfv * PA_UNIT : 0));
+  int* ray = reinterpret_cast<int*>(Q + PA_RB * C72);
+  const int tid = threadIdx.x, row0 = blockIdx.x * TM;
+  const int ray_lo = row0 / S;
+  if (tables) {
+    const int nr = (min(row0 + TM, P) - 1) / S - ray_lo + 1;
+    for (int it = tid; it < nr * nfv * C72; it += LT) {
+      const int c = it % C72, rk = it / C72, k = rk % nfv, rr = rk / nfv;
+      float sn, cs;
+      sincosf(aux[(size_t)(ray_lo + rr) * d.auxw + C72 + c]
+                  * (float)(1 << k), &sn, &cs);
+      tab[rk * PA_UNIT + c] = sn;
+      tab[rk * PA_UNIT + C72 + c] = cs;
+    }
+  }
+  // a row's groups: v (3), the kp bands' sin | cos pairs (3 each), the
+  // bone dirs and x0's padding, dv (9), the view bands' pairs (9 each),
+  // the framecode and xv's padding
+  const int nb = J * (1 + 2 * nfk), gb = (x0w - nb) / 8;
+  const int c0 = d.kv - d.fc, gf = (rup64(d.kv) - c0) / 8;
+  const int q_band = 3, q_bone = q_band + 3 * nfk, q_dv = q_bone + gb;
+  const int q_view = q_dv + C72 / 8, q_fc = q_view + 9 * nfv;
+  const int n_q = q_fc + gf;
+
+  for (int rb = 0; rb < TM; rb += PA_RB) {
+    const int base = row0 + rb;
+    if (base >= P) break;
+    for (int it = tid; it < PA_RB * J; it += LT) {
+      const int rr = it / J, j = it - rr * J;
+      const int p = last_row(base + rr, P);
+      float v, w, b[3];
+      pa_joint<MODE>(pts, m_all, aux, cut, d, p, S, j, tau, v, w, b);
+      V[rr * (J + 4) + j] = v;
+      Wt[rr * (J + 4) + j] = w;
+#pragma unroll
+      for (int a = 0; a < 3; ++a)
+        Q[rr * C72 + j * 3 + a] = __float2bfloat16_rn(b[a]);
+      if (j == 0) ray[rr] = p / S - ray_lo;
+    }
+    __syncthreads();                     // (and the tables, the first time)
+    for (int it = tid; it < PA_RB * n_q; it += LT) {
+      const int rr = it % PA_RB, q = it / PA_RB;
+      const float* v = V + rr * (J + 4);
+      const float* w = Wt + rr * (J + 4);
+      const float* in = MODE == L_IN_PTS
+          ? aux + (size_t)(ray_lo + ray[rr]) * d.auxw
+          : pts + (size_t)last_row(base + rr, P) * d.raww + J;
+      bf16* row = stg + rr * SP;
+      float a[8], c8[8];
+      int col, col2 = -1;
+      if (q < q_band) {                  // v w of joints 8 q ..
+        col = 8 * q;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) a[e] = v[col + e] * w[col + e];
+      } else if (q < q_bone) {           // band k, joints 8 g ..
+        const int k = (q - q_band) / 3, g = q - q_band - 3 * k;
+        const float f = (float)(1 << k);
+        float vv[8], ww[8];
+        ld8(v + 8 * g, vv);
+        ld8(w + 8 * g, ww);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          sincosf(vv[e] * f, &a[e], &c8[e]);
+          a[e] *= ww[e];
+          c8[e] *= ww[e];
+        }
+        col = J + 2 * J * k + 8 * g;
+        col2 = col + J;
+      } else if (q < q_dv) {             // bone dirs, x0's padding
+        col = nb + 8 * (q - q_bone);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          a[e] = col - nb + e < C72
+                     ? __bfloat162float(Q[rr * C72 + col - nb + e]) : 0.f;
+      } else if (q < q_view) {           // dv w of columns 8 g ..
+        const int c = 8 * (q - q_dv);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          a[e] = in[C72 + c + e] * w[(c + e) / 3];
+        col = x0w + c;
+      } else if (q < q_fc) {             // view band k, columns 8 g ..
+        const int k = (q - q_view) / 9, c = 8 * (q - q_view - 9 * k);
+        if (tables) {
+          const float* t = tab + (ray[rr] * nfv + k) * PA_UNIT + c;
+          ld8(t, a);
+          ld8(t + C72, c8);
+        } else {
+          const float f = (float)(1 << k);
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            sincosf(in[C72 + c + e] * f, &a[e], &c8[e]);
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float we = w[(c + e) / 3];
+          a[e] *= we;
+          c8[e] *= we;
+        }
+        col = x0w + C72 + 2 * C72 * k + c;
+        col2 = col + C72;
+      } else {                           // the framecode, xv's padding
+        const int c = 8 * (q - q_fc);
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          a[e] = c + e < d.fc ? in[2 * C72 + c + e] : 0.f;
+        col = x0w + c0 + c;
+      }
+      *reinterpret_cast<uint4*>(row + col) = pack8(a);
+      if (col2 >= 0) *reinterpret_cast<uint4*>(row + col2) = pack8(c8);
+    }
+    __syncthreads();
+    const int g_row = (SP - 8) / 8;
+    for (int it = tid; it < PA_RB * g_row; it += LT) {
+      const int rr = it / g_row, g = it - rr * g_row;
+      if (base + rr < P)
+        *reinterpret_cast<uint4*>(X + (size_t)(base + rr) * ld + 8 * g) =
+            *reinterpret_cast<const uint4*>(stg + rr * SP + 8 * g);
+    }
+  }
+}
+
+// Shared memory of phase_a_act_kernel: the tile's distances and window
+// weights (J x (TM + 4) f32 each: the points of a joint contiguous, the 4
+// spare moving successive joints onto other banks), each point's ray in
+// the tile, the bone directions (C72 x TM bf16), and K1's view-band tables
+// of two bands in turn (2 x pa_rays x PA_UNIT f32).
+__host__ __device__ inline int pa_act_smem(int S) {
+  return 2 * J * (TM + 4) * 4 + TM * 4 + C72 * TM * 2
+         + 2 * pa_rays(S) * PA_UNIT * 4;
+}
+
+// One unit of phase_a_act_kernel's columns (`n` feature rows of act from
+// row col on; n % 8 == 0): 16-byte groups of 8 consecutive points
+// 8 pg .. 8 pg + 7 of one feature row c, fill(pg, c, v) (with PAIR
+// fill(pg, c, v, w), w the group of feature row c + n: sin | cos), points
+// past P zero, each stored at its swizzled place (act_at), so that a warp
+// writes whole 128-byte rows.
+template <bool PAIR, class Fill>
+__device__ __forceinline__ void pa_act_groups(bf16* tile, int row0, int P,
+                                              int col, int n, Fill fill) {
+  float a[8], b[8];
+  for (int it = threadIdx.x; it < n * 8; it += LT) {
+    const int pg = it & 7, c = it >> 3;
+    if constexpr (PAIR) fill(pg, c, a, b);
+    else fill(pg, c, a);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (row0 + 8 * pg + e >= P) a[e] = b[e] = 0.f;
+    const int f = col + c;
+    *reinterpret_cast<uint4*>(tile + (size_t)f * TM + 8 * (pg ^ (f & 7))) =
+        pack8(a);
+    if constexpr (PAIR)
+      *reinterpret_cast<uint4*>(tile + (size_t)(f + n) * TM
+                                + 8 * (pg ^ ((f + n) & 7))) = pack8(b);
+  }
+}
+
+// Phase A of K1 with SAVE for one tile of 64 points into act's tile (F
+// feature rows; x0 at feature row 0, xv at xv_row; points past P zero):
+// the tile's geometry, then each unit of columns by pa_act_groups; view
+// band k + 1's table is computed while band k is stored.
+__global__ void __launch_bounds__(LT)
+phase_a_act_kernel(const float* __restrict__ pts,
+                   const float* __restrict__ m_all,
+                   const float* __restrict__ aux,
+                   const float* __restrict__ cut, bf16* __restrict__ act,
+                   int xv_row, int F, int P, int S, int nfk, int nfv, int fc,
+                   float tau) {
+  extern __shared__ __align__(16) float pa_raw[];
+  float* V = pa_raw;                             // distances
+  float* Wt = V + J * (TM + 4);                  // window weights
+  int* ray = reinterpret_cast<int*>(Wt + J * (TM + 4));
+  bf16* Q = reinterpret_cast<bf16*>(ray + TM);   // bone directions
+  float* tab = reinterpret_cast<float*>(Q + C72 * TM);
+  const int nr_max = pa_rays(S);
   const Dims d = make_dims(nfk, nfv, fc);
   const int tid = threadIdx.x, row0 = blockIdx.x * TM;
-  const int nb = J * (1 + 2 * nfk);      // first bone-direction column
+  const int ray_lo = row0 / S;
+  const int nr = (min(row0 + TM, P) - 1) / S - ray_lo + 1;
+  bf16* tile = act + (size_t)blockIdx.x * F * TM;
+  // view band k's table: per ray of the tile, [sin | cos](dv 2^k)
+  auto table = [&](int k) {
+    float* t = tab + (k & 1) * nr_max * PA_UNIT;
+    const float f = (float)(1 << k);
+    for (int it = tid; it < nr * C72; it += LT) {
+      const int rr = it / C72, c = it - rr * C72;
+      float sn, cs;
+      sincosf(aux[(size_t)(ray_lo + rr) * d.auxw + C72 + c] * f, &sn, &cs);
+      t[rr * PA_UNIT + c] = sn;
+      t[rr * PA_UNIT + C72 + c] = cs;
+    }
+  };
   for (int it = tid; it < TM * J; it += LT) {
-    const int r = it / J, j = it - (it / J) * J;
+    const int r = it & (TM - 1), j = it >> 6;
     const int p = last_row(row0 + r, P);
-    float q[3], v, inv;
-    if constexpr (MODE == L_IN_PTS) {
-      const int ray = p / S;
-      const float x = pts[(size_t)p * 3], y = pts[(size_t)p * 3 + 1],
-                  z = pts[(size_t)p * 3 + 2];
-      const float* m = m_all + (size_t)ray * 3 * C72;
-      const float* tr = aux + (size_t)ray * d.auxw;
-      float ss = 0.f;
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const int c = j * 3 + a;
-        q[a] = fmaf(m[2 * C72 + c], z, fmaf(m[C72 + c], y, m[c] * x))
-               + tr[c];
-        ss = fmaf(q[a], q[a], ss);
-      }
-      v = sqrtf(fmaxf(ss, 1e-24f));
-      inv = 1.f / fmaxf(v, 1e-12f);
-    } else {
-      const float* xin = pts + (size_t)p * d.raww;
-      v = xin[j];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) q[a] = xin[J + j * 3 + a];
-      inv = 1.f;
-    }
-    const float w = 1.f / (1.f + expf(tau * (v - cut[j])));
-    W24[r * J + j] = w;
-    if (row0 + r >= P) continue;
-    bf16* xr = X + (size_t)(row0 + r) * ldx;
-    xr[j] = __float2bfloat16_rn(v * w);
-    float f = 1.f;
-    for (int k = 0; k < nfk; ++k) {
-      float s, c;
-      sincosf(v * f, &s, &c);
-      xr[J + 2 * J * k + j] = __float2bfloat16_rn(s * w);
-      xr[2 * J + 2 * J * k + j] = __float2bfloat16_rn(c * w);
-      f *= 2.f;
-    }
+    float v, w, b[3];
+    pa_joint<L_IN_PTS>(pts, m_all, aux, cut, d, p, S, j, tau, v, w, b);
+    V[j * (TM + 4) + r] = v;
+    Wt[j * (TM + 4) + r] = w;
 #pragma unroll
     for (int a = 0; a < 3; ++a)
-      xr[nb + j * 3 + a] = __float2bfloat16_rn(q[a] * inv);
+      Q[(j * 3 + a) * TM + r] = __float2bfloat16_rn(b[a]);
+    if (j == 0) ray[r] = p / S - ray_lo;
   }
-  const int pad0 = rup64(d.k0) - d.k0;
-  for (int it = tid; it < TM * pad0; it += LT) {
-    const int r = it / pad0;
-    if (row0 + r < P)
-      X[(size_t)(row0 + r) * ldx + d.k0 + it % pad0] =
-          __float2bfloat16_rn(0.f);
-  }
+  if (nfv > 0) table(0);
   __syncthreads();
 
-  for (int it = tid; it < TM * C72; it += LT) {
-    const int r = it / C72, c = it - (it / C72) * C72;
-    const int p = row0 + r;
-    if (p >= P) continue;
-    const float dv = MODE == L_IN_PTS
-                         ? aux[(size_t)(p / S) * d.auxw + C72 + c]
-                         : pts[(size_t)p * d.raww + J + C72 + c];
-    const float w = W24[r * J + c / 3];
-    bf16* xr = X + (size_t)p * ldx + xv_col;
-    xr[c] = __float2bfloat16_rn(dv * w);
-    float f = 1.f;
-    for (int k = 0; k < nfv; ++k) {
-      float sn, cs;
-      sincosf(dv * f, &sn, &cs);
-      xr[C72 + 2 * C72 * k + c] = __float2bfloat16_rn(sn * w);
-      xr[2 * C72 + 2 * C72 * k + c] = __float2bfloat16_rn(cs * w);
-      f *= 2.f;
-    }
+  // x0: v w, each kp band's [sin | cos](v 2^k) w, the bone dirs, padding
+  pa_act_groups<false>(tile, row0, P, 0, J,
+                       [&](int pg, int j, float (&a)[8]) {
+    float v[8], w[8];
+    ld8(V + j * (TM + 4) + 8 * pg, v);
+    ld8(Wt + j * (TM + 4) + 8 * pg, w);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) a[e] = v[e] * w[e];
+  });
+  for (int k = 0; k < nfk; ++k) {
+    const float f = (float)(1 << k);
+    pa_act_groups<true>(tile, row0, P, J + 2 * J * k, J,
+                        [&](int pg, int j, float (&a)[8], float (&b)[8]) {
+      float v[8], w[8];
+      ld8(V + j * (TM + 4) + 8 * pg, v);
+      ld8(Wt + j * (TM + 4) + 8 * pg, w);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        sincosf(v[e] * f, &a[e], &b[e]);
+        a[e] *= w[e];
+        b[e] *= w[e];
+      }
+    });
   }
-  // framecode and zero padding
-  const int c0 = d.kv - d.fc, nfc = rup64(d.kv) - c0;
-  for (int it = tid; it < TM * nfc; it += LT) {
-    const int r = it / nfc, c = it - (it / nfc) * nfc;
-    const int p = row0 + r;
-    if (p >= P) continue;
-    const float val =
-        c < d.fc ? (MODE == L_IN_PTS
-                        ? aux[(size_t)(p / S) * d.auxw + 2 * C72 + c]
-                        : pts[(size_t)p * d.raww + J + 2 * C72 + c])
-                 : 0.f;
-    X[(size_t)p * ldx + xv_col + c0 + c] = __float2bfloat16_rn(val);
+  const int nb = J * (1 + 2 * nfk);
+  pa_act_groups<false>(tile, row0, P, nb, rup64(d.k0) - nb,
+                       [&](int pg, int c, float (&a)[8]) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      a[e] = c < C72 ? __bfloat162float(Q[c * TM + 8 * pg + e]) : 0.f;
+  });
+  // xv: dv w (dv per ray), each view band's [sin | cos](dv 2^k) w from
+  // the tables, the framecode and padding. A group's 8 points mostly share
+  // one ray: its values are read once
+  auto in_row = [&](int r) {
+    return aux + (size_t)(ray_lo + ray[r]) * d.auxw;
+  };
+  auto one_ray = [&](int pg) { return ray[8 * pg] == ray[8 * pg + 7]; };
+  pa_act_groups<false>(tile, row0, P, xv_row, C72,
+                       [&](int pg, int c, float (&a)[8]) {
+    float w[8];
+    ld8(Wt + (c / 3) * (TM + 4) + 8 * pg, w);
+    const float dv = in_row(8 * pg)[C72 + c];
+    const bool one = one_ray(pg);
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      a[e] = (one ? dv : in_row(8 * pg + e)[C72 + c]) * w[e];
+  });
+  const int c0 = d.kv - d.fc;
+  pa_act_groups<false>(tile, row0, P, xv_row + c0, rup64(d.kv) - c0,
+                       [&](int pg, int c, float (&a)[8]) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      a[e] = c < d.fc ? in_row(8 * pg + e)[2 * C72 + c] : 0.f;
+  });
+  for (int k = 0; k < nfv; ++k) {
+    if (k > 0) __syncthreads();          // table k is whole, k - 1 read
+    if (k + 1 < nfv) table(k + 1);
+    const float* t = tab + (k & 1) * nr_max * PA_UNIT;
+    pa_act_groups<true>(tile, row0, P, xv_row + C72 + 2 * C72 * k, C72,
+                        [&](int pg, int c, float (&a)[8], float (&b)[8]) {
+      float w[8];
+      ld8(Wt + (c / 3) * (TM + 4) + 8 * pg, w);
+      const float* t0 = t + ray[8 * pg] * PA_UNIT + c;
+      const float sn = t0[0], cs = t0[C72];
+      const bool one = one_ray(pg);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const float* te = one ? t0 : t + ray[8 * pg + e] * PA_UNIT + c;
+        a[e] = (one ? sn : te[0]) * w[e];
+        b[e] = (one ? cs : te[C72]) * w[e];
+      }
+    });
   }
 }
 
@@ -221,17 +550,20 @@ static_assert(gemm_stages(128) == MAX_STAGES && gemm_smem(128) <= MAX_SMEM
               "the layer GEMM's plan fits a block");
 
 // One layer: A = [segment 0 | segment 1], segment s the nch_s 64-column
-// k-slices of map s from its column col_s on (map s: bf16 rows, boxes of
-// 64 columns x GM rows, zero past its columns and rows).
+// k-slices from column col_s on: of map s (bf16 rows, boxes of 64 columns
+// x GM rows, zero past its columns and rows), or with ACT of act's feature
+// rows (F a tile of 64 points, `tiles` tiles).
 struct GemmArgs {
   int col0, col1, nch0, nch1;
   const unsigned char* w;  // the layer's weight image: k-slices of N x 128 B
   int N;                   // outputs
   const float* bias;
   int relu;
-  bf16* out;               // C(p, n) at out[p * ldo + n]
+  bf16* out;               // C(p, n) at out[p * ldo + n], or null (ACT only)
   int ldo, P;
   int n_blocks, n_groups;  // output blocks; groups of CL point tiles
+  bf16* act;               // ACT: A's rows, and C's at feature rows act_col..
+  int F, act_col, tiles;
 };
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst,
@@ -258,7 +590,40 @@ __device__ __forceinline__ void wg_sync(int wg) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
 }
 
-template <int NACC, int CL>
+// `bytes` of shared `src` to global `dst`, one bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           int bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// This thread's bulk stores have read their shared memory / are done.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8 x 8 bf16 matrices of the warp's fragments (register i holds
+// matrix i: row lane / 4, columns 2 (lane % 4), + 1), each stored
+// transposed: row i of matrix m (a column of the fragment) at the address
+// lane 8 m + i gives.
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0,
+                                                  uint32_t r1, uint32_t r2,
+                                                  uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+      "{%1, %2, %3, %4};\n" ::"r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
+}
+
+template <int NACC, int CL, bool ACT>
 __global__ void __launch_bounds__(NT, 1)
 layer_gemm_kernel(const __grid_constant__ CUtensorMap map0,
                   const __grid_constant__ CUtensorMap map1,
@@ -297,15 +662,24 @@ layer_gemm_kernel(const __grid_constant__ CUtensorMap map0,
         const int rows = min(BN, L.N - n0);         // B rows of the block
         const int piece = rows * 128 / CL;
         const unsigned char* wb = L.w + (size_t)n0 * 128 + rank * piece;
+        // ACT: the act tiles of the item's two warpgroups that exist
+        const int t0 = row0 / TM;
+        const int live = ACT ? min(2, max(0, L.tiles - t0)) : 2;
         for (int c = 0; c < nk; ++c, ++it) {
           const int s = it % NSTG;
           mbar_wait(empty + 8 * s, ((it / NSTG) & 1) ^ 1);
           const uint32_t a = ring + s * STG, fb = full + 8 * s;
-          mbar_expect_tx(fb, A_BYTES + rows * 128);
-          if (c < L.nch0)
-            tma_load_2d(a, &map0, L.col0 + c * KC, row0, fb);
-          else
-            tma_load_2d(a, &map1, L.col1 + (c - L.nch0) * KC, row0, fb);
+          mbar_expect_tx(fb, live * (A_BYTES / 2) + rows * 128);
+          const int col = c < L.nch0 ? L.col0 + c * KC
+                                     : L.col1 + (c - L.nch0) * KC;
+          if constexpr (ACT) {
+            for (int h = 0; h < live; ++h)
+              bulk_load(a + h * (A_BYTES / 2),
+                        L.act + ((size_t)(t0 + h) * L.F + col) * KC,
+                        A_BYTES / 2, fb);
+          } else {
+            tma_load_2d(a, c < L.nch0 ? &map0 : &map1, col, row0, fb);
+          }
           const unsigned char* src = wb + (size_t)c * L.N * 128;
           if constexpr (CL > 1)
             bulk_multicast<CL>(a + A_BYTES + rank * piece, src, piece, fb);
@@ -323,6 +697,7 @@ layer_gemm_kernel(const __grid_constant__ CUtensorMap map0,
   const int wg = tid >> 7, t = tid & 127, lane = t & 31;
   const int r0 = (t >> 5) * 16 + (lane >> 2), q = lane & 3;
   bf16* my = staged + wg * 64 * STG_COLS;
+  const uint32_t my_s = smem_u32(my);
   float d[NACC];
   int it = 0;
   for (int item = first; item < n_items; item += stride) {
@@ -340,8 +715,14 @@ layer_gemm_kernel(const __grid_constant__ CUtensorMap map0,
       const uint32_t a = ring + s * STG + wg * (A_BYTES / 2);
       const uint32_t b = ring + s * STG + A_BYTES;
 #pragma unroll
-      for (int kk = 0; kk < KC / 16; ++kk)
-        wgmma<NACC>(d, gmma_desc(a + kk * 32), gmma_desc(b + kk * 32));
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        // ACT: A's 64 feature rows of 64 points, k = 16 rows of 128 bytes
+        if constexpr (ACT)
+          wgmma<NACC, 1>(d, gmma_desc_mn(a + kk * 2048),
+                         gmma_desc(b + kk * 32));
+        else
+          wgmma<NACC>(d, gmma_desc(a + kk * 32), gmma_desc(b + kk * 32));
+      }
       wgmma_commit();
       if (prev >= 0) {
         wgmma_wait<1>();
@@ -355,42 +736,89 @@ layer_gemm_kernel(const __grid_constant__ CUtensorMap map0,
 
     // epilogue: warp w, lane (g, q), n8 block j hold rows 16 w + g (+ 8)
     // at columns 8 j + 2 q, + 1 of the block; STG_COLS columns at a time
-    // are staged (16-byte group h of row r at h ^ (r % 8): no bank
-    // conflicts either way), then leave as 16-byte rows
+    // are staged, then leave: rows of X as 16-byte stores (16-byte group
+    // h of row r staged at h ^ (r % 8): no bank conflicts either way);
+    // with ACT, act's feature rows of this warpgroup's tile, transposed
+    // by stmatrix.trans into act's layout (points past P zero) and
+    // stored by one bulk copy
     const int cols = min(BN, L.N - n0);
+    const bool lo = row0 + r0 < L.P, hi = row0 + r0 + 8 < L.P;
     constexpr int CPR = STG_COLS / 8;   // 16-byte groups of a staged row
 #pragma unroll
     for (int c0 = 0; c0 < BN; c0 += STG_COLS) {
-      wg_sync(wg);                      // the staging's last reads are done
+      if (L.out != nullptr) {
+        if (ACT && t == 0) bulk_wait_read();
+        wg_sync(wg);                    // the staging's last reads are done
 #pragma unroll
-      for (int j = c0 / 8; j < (c0 + STG_COLS) / 8; ++j) {
-        const int col = 8 * j + 2 * q;
-        const float b0 = col < cols ? __ldg(L.bias + n0 + col) : 0.f;
-        const float b1 = col < cols ? __ldg(L.bias + n0 + col + 1) : 0.f;
-        float v0 = d[4 * j] + b0, v1 = d[4 * j + 1] + b1;
-        float v2 = d[4 * j + 2] + b0, v3 = d[4 * j + 3] + b1;
-        if (L.relu) {
-          v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f);
-          v2 = fmaxf(v2, 0.f); v3 = fmaxf(v3, 0.f);
+        for (int j = c0 / 8; j < (c0 + STG_COLS) / 8; ++j) {
+          const int col = 8 * j + 2 * q;
+          const float b0 = col < cols ? __ldg(L.bias + n0 + col) : 0.f;
+          const float b1 = col < cols ? __ldg(L.bias + n0 + col + 1) : 0.f;
+          float v0 = d[4 * j] + b0, v1 = d[4 * j + 1] + b1;
+          float v2 = d[4 * j + 2] + b0, v3 = d[4 * j + 3] + b1;
+          if (L.relu) {
+            v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f);
+            v2 = fmaxf(v2, 0.f); v3 = fmaxf(v3, 0.f);
+          }
+          const int h = (j - c0 / 8) ^ (r0 & 7), e = 2 * q;
+          *reinterpret_cast<__nv_bfloat162*>(my + r0 * STG_COLS + 8 * h + e) =
+              __floats2bfloat162_rn(v0, v1);
+          *reinterpret_cast<__nv_bfloat162*>(my + (r0 + 8) * STG_COLS + 8 * h
+                                             + e) =
+              __floats2bfloat162_rn(v2, v3);
         }
-        const int h = (j - c0 / 8) ^ (r0 & 7), e = 2 * q;
-        *reinterpret_cast<__nv_bfloat162*>(my + r0 * STG_COLS + 8 * h + e) =
-            __floats2bfloat162_rn(v0, v1);
-        *reinterpret_cast<__nv_bfloat162*>(my + (r0 + 8) * STG_COLS + 8 * h
-                                           + e) =
-            __floats2bfloat162_rn(v2, v3);
+        wg_sync(wg);
+        for (int i = t; i < 64 * CPR; i += 128) {
+          const int r = i / CPR, ch = i - r * CPR;
+          if (row0 + r < L.P && c0 + ch * 8 < cols)
+            *reinterpret_cast<uint4*>(L.out + (size_t)(row0 + r) * L.ldo
+                                      + n0 + c0 + ch * 8) =
+                *reinterpret_cast<const uint4*>(
+                    my + r * STG_COLS + 8 * (ch ^ (r & 7)));
+        }
       }
-      wg_sync(wg);
-      for (int i = t; i < 64 * CPR; i += 128) {
-        const int r = i / CPR, ch = i - r * CPR;
-        if (row0 + r < L.P && c0 + ch * 8 < cols)
-          *reinterpret_cast<uint4*>(L.out + (size_t)(row0 + r) * L.ldo + n0
-                                    + c0 + ch * 8) =
-              *reinterpret_cast<const uint4*>(
-                  my + r * STG_COLS + 8 * (ch ^ (r & 7)));
+      if constexpr (ACT) {
+        if (t == 0) bulk_wait_read();
+        wg_sync(wg);
+        // matrices (j, rows 16 w ..), (j, rows 16 w + 8 ..), the same of
+        // j + 1; staged feature row c = 8 j' + i - c0 holds the 64 points
+        // in 16-byte groups of 8, group g at g ^ (c % 8)
+        const int m = lane >> 3, i = lane & 7;
+        const uint32_t at =
+            my_s + 2 * (8 * ((m >> 1)) * 64 + i * 64
+                        + 8 * ((2 * (t >> 5) + (m & 1)) ^ i));
+#pragma unroll
+        for (int j = c0 / 8; j < (c0 + STG_COLS) / 8; j += 2) {
+          uint32_t rg[4];
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            const int jj = j + hh, col = 8 * jj + 2 * q;
+            const float b0 = col < cols ? __ldg(L.bias + n0 + col) : 0.f;
+            const float b1 =
+                col < cols ? __ldg(L.bias + n0 + col + 1) : 0.f;
+            float v0 = d[4 * jj] + b0, v1 = d[4 * jj + 1] + b1;
+            float v2 = d[4 * jj + 2] + b0, v3 = d[4 * jj + 3] + b1;
+            if (L.relu) {
+              v0 = fmaxf(v0, 0.f); v1 = fmaxf(v1, 0.f);
+              v2 = fmaxf(v2, 0.f); v3 = fmaxf(v3, 0.f);
+            }
+            rg[2 * hh] = lo ? pack_bf16(v0, v1) : 0u;
+            rg[2 * hh + 1] = hi ? pack_bf16(v2, v3) : 0u;
+          }
+          stmatrix_x4_trans(at + 2 * (8 * (j - c0 / 8)) * 64, rg[0], rg[1],
+                            rg[2], rg[3]);
+        }
+        fence_async_smem();             // st.shared before the bulk copy
+        wg_sync(wg);
+        if (t == 0 && row0 < L.P && c0 < cols)
+          bulk_store(L.act + ((size_t)(row0 / TM) * L.F + L.act_col + n0
+                              + c0) * KC,
+                     my_s, min(STG_COLS, cols - c0) * 128);
       }
     }
   }
+  if constexpr (ACT)
+    if (t == 0) bulk_wait();
   if constexpr (CL > 1) cluster_sync();
 }
 
@@ -461,55 +889,35 @@ heads_kernel(const bf16* __restrict__ X, int ldx, int hv_col, int h_col,
   }
 }
 
-// X's F columns (rows = points) -> act (K2's layout, act_at), for every
-// 16-byte group of every tile's feature rows; points past P read 0.
-__global__ void __launch_bounds__(LT)
-to_act_kernel(const bf16* __restrict__ X, int ldx, int F,
-              bf16* __restrict__ act, int P, long long n_groups) {
-  const long long idx = (long long)blockIdx.x * LT + threadIdx.x;
-  if (idx >= n_groups) return;
-  const int g = (int)(idx & 7);
-  const long long tf = idx >> 3;                 // tile * F + f
-  const int f = (int)(tf % F);
-  const int p0 = (int)(tf / F) * TM + 8 * (g ^ (f & 7));
-  __align__(16) bf16 v[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e)
-    v[e] = p0 + e < P ? X[(size_t)(p0 + e) * ldx + f]
-                      : __float2bfloat16_rn(0.f);
-  *reinterpret_cast<uint4*>(act + tf * KC + 8 * g) =
-      *reinterpret_cast<const uint4*>(v);
-}
-
-// Columns of X for a layered call (see anerf_layered_forward).
+// Columns of X for a layered call (see anerf_layered_forward): without
+// SAVE x0 | xv (not K4's: its rows are read in place) | two trunk buffers
+// (h_i at h[i & 1]) | hv, feat in the buffer the last trunk layer does not
+// hold; with SAVE the activations live in act (make_act_rows) and X holds
+// the heads' inputs alone: the last trunk layer at column 0, hv at w.
 struct XCols {
   int x0, xv, feat, hv, need;
-  int h[2];              // without SAVE: h_i at h[i & 1]
-  int h0;                // with SAVE: h_i at h0 + i w
-  bool save;
-  int at(int i, int w) const { return save ? h0 + i * w : h[i & 1]; }
+  int h[2];
+  int last(int depth) const { return h[(depth - 1) & 1]; }
 };
 
 XCols x_cols(const Dims& d, int depth, int w, bool save, bool embedded) {
-  const ActRows ar = make_act_rows(d, depth, w);
   XCols c;
-  c.save = save;
+  if (save) {
+    c.x0 = c.xv = c.feat = -1;
+    c.h[0] = c.h[1] = 0;
+    c.hv = w;
+    c.need = w + w / 2;
+    return c;
+  }
+  const ActRows ar = make_act_rows(d, 1, w);
+  const int base = embedded ? 0 : ar.h;
   c.x0 = ar.x0;
   c.xv = ar.xv;
-  if (save) {
-    c.h0 = ar.h;
-    c.feat = ar.feat;
-    c.hv = ar.hv;
-    c.need = ar.F;
-  } else {
-    const int base = embedded ? 0 : ar.h;
-    c.h[0] = base;
-    c.h[1] = base + w;
-    c.h0 = 0;
-    c.feat = c.h[depth & 1];             // not the last trunk layer's
-    c.hv = base + 2 * w;
-    c.need = base + 2 * w + w / 2;
-  }
+  c.h[0] = base;
+  c.h[1] = base + w;
+  c.feat = c.h[depth & 1];               // not the last trunk layer's
+  c.hv = base + 2 * w;
+  c.need = base + 2 * w + w / 2;
   return c;
 }
 
@@ -564,12 +972,13 @@ cudaError_t row_map(CUtensorMap* m, const void* a, int rows, int cols,
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// One persistent launch of layer_gemm_kernel<NACC, CL>: as many clusters
-// as the device holds at once (asked once a process), at most one an item.
-template <int NACC, int CL>
+// One persistent launch of layer_gemm_kernel<NACC, CL, ACT>: as many
+// clusters as the device holds at once (asked once a process and
+// instantiation), at most one an item.
+template <int NACC, int CL, bool ACT>
 cudaError_t launch_gemm(const CUtensorMap& m0, const CUtensorMap& m1,
                         const GemmArgs& L, cudaStream_t stream) {
-  auto kernel = layer_gemm_kernel<NACC, CL>;
+  auto kernel = layer_gemm_kernel<NACC, CL, ACT>;
   constexpr int smem = gemm_smem(NACC);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -604,23 +1013,68 @@ cudaError_t launch_gemm(const CUtensorMap& m0, const CUtensorMap& m1,
   return cudaLaunchKernelEx(&cfg, kernel, m0, m1, L);
 }
 
+template <bool ACT>
+cudaError_t launch_gemm_block(bool wide, int cl, const CUtensorMap& m0,
+                              const CUtensorMap& m1, const GemmArgs& L,
+                              cudaStream_t stream) {
+  if (wide)
+    return cl == GCL ? launch_gemm<128, GCL, ACT>(m0, m1, L, stream)
+                     : launch_gemm<128, 1, ACT>(m0, m1, L, stream);
+  return cl == GCL ? launch_gemm<64, GCL, ACT>(m0, m1, L, stream)
+                   : launch_gemm<64, 1, ACT>(m0, m1, L, stream);
+}
+
 // The plan of one layer of N outputs on P points (layered_plan mirrors
-// it): the block, the cluster, the launch.
+// it): the block, the cluster, the launch. A's segments are columns of
+// the maps' rows, or with act (F rows a tile) its feature rows; C goes to
+// out's columns (if out) and to act's feature rows from act_col on.
 cudaError_t gemm_layer(const CUtensorMap& m0, int col0, int nch0,
                        const CUtensorMap& m1, int col1, int nch1,
                        const bf16* w, int N, const float* bias, int relu,
-                       bf16* out, int ldo, int P, cudaStream_t stream) {
+                       bf16* out, int ldo, int P, bf16* act, int F,
+                       int act_col, cudaStream_t stream) {
   const bool wide = N % 256 == 0;
   const int bn = wide ? 256 : 128, tiles = (P + GM - 1) / GM;
   const int cl = tiles >= GCL ? GCL : 1;
   const GemmArgs L{col0, col1, nch0, nch1,
                    reinterpret_cast<const unsigned char*>(w), N, bias, relu,
-                   out, ldo, P, (N + bn - 1) / bn, (tiles + cl - 1) / cl};
-  if (wide)
-    return cl == GCL ? launch_gemm<128, GCL>(m0, m1, L, stream)
-                     : launch_gemm<128, 1>(m0, m1, L, stream);
-  return cl == GCL ? launch_gemm<64, GCL>(m0, m1, L, stream)
-                   : launch_gemm<64, 1>(m0, m1, L, stream);
+                   out, ldo, P, (N + bn - 1) / bn, (tiles + cl - 1) / cl,
+                   act, F, act_col, (P + TM - 1) / TM};
+  return act != nullptr
+             ? launch_gemm_block<true>(wide, cl, m0, m1, L, stream)
+             : launch_gemm_block<false>(wide, cl, m0, m1, L, stream);
+}
+
+// Phase A's launch: K1 (IN_PTS) or K3 (IN_RAW) into X's rows (ld
+// columns), or with act (K1 only) into act's tiles (F feature rows, xv at
+// feature row xv_row).
+cudaError_t launch_phase_a(int mode, const float* pts, const float* m_all,
+                           const float* aux, const float* cut, bf16* X,
+                           int ld, bf16* act, int xv_row, int F, int P,
+                           int S, int nfk, int nfv, int fc, float tau,
+                           cudaStream_t stream) {
+  const int tiles = (P + TM - 1) / TM;
+  cudaError_t e;
+  if (act != nullptr) {
+    const int smem = pa_act_smem(S);
+    if ((e = cudaFuncSetAttribute(
+             phase_a_act_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             smem)) != cudaSuccess)
+      return e;
+    phase_a_act_kernel<<<tiles, LT, smem, stream>>>(
+        pts, m_all, aux, cut, act, xv_row, F, P, S, nfk, nfv, fc, tau);
+    return cudaGetLastError();
+  }
+  auto kernel = mode == L_IN_PTS ? phase_a_rows_kernel<L_IN_PTS>
+                                 : phase_a_rows_kernel<L_IN_RAW>;
+  const int smem = pa_rows_smem(mode, make_dims(nfk, nfv, fc), S, nfv);
+  if ((e = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem))
+      != cudaSuccess)
+    return e;
+  kernel<<<tiles, LT, smem, stream>>>(pts, m_all, aux, cut, X, ld, P, S, nfk,
+                                      nfv, fc, tau);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -634,9 +1088,10 @@ extern "C" {
 // multiple of 256) and depth `depth`, skip[depth] the per-layer skip flags
 // in host memory -> raw (P, 4). X is the bf16 scratch buffer of P rows and
 // ldx columns (at least the columns of x_cols; anerf_torch/kernels/
-// fused_render.py:layered_columns). With act != null (mode 0 only) it also
-// writes K2's saved activations (X then holds make_act_rows' columns).
-// Returns a cudaError_t code.
+// fused_render.py:layered_columns). With act != null (mode 0 only) every
+// MLP input and activation goes to K2's saved activations `act` (tiles of
+// make_act_rows' F feature rows), where the layers read them, and X holds
+// the heads' inputs alone. Returns a cudaError_t code.
 int anerf_layered_forward(int mode, const void* pts, const float* m_all,
                           const void* aux, const void* img,
                           const float* bias, const float* w_rgb,
@@ -645,34 +1100,33 @@ int anerf_layered_forward(int mode, const void* pts, const float* m_all,
                           int depth, const int* skip, int nfk, int nfv,
                           int fc, float tau, void* xbuf, int ldx, void* act,
                           void* stream_v) {
-  const bool embedded = mode == L_IN_EMBEDDED;
+  const bool embedded = mode == L_IN_EMBEDDED, save = act != nullptr;
   if ((mode != L_IN_PTS && mode != L_IN_RAW && !embedded) || depth < 1
-      || w % 256 != 0 || ldx % 8 != 0 || P < 1
-      || (act != nullptr && mode != L_IN_PTS)
+      || w % 256 != 0 || ldx % 8 != 0 || P < 1 || S < 1
+      || (save && mode != L_IN_PTS)
       || (embedded && (nfk % 8 != 0 || nfv % 8 != 0)))
     return (int)cudaErrorInvalidValue;
   const Dims d = embedded ? make_dims_k(nfk, nfv) : make_dims(nfk, nfv, fc);
-  const XCols xc = x_cols(d, depth, w, act != nullptr, embedded);
+  const XCols xc = x_cols(d, depth, w, save, embedded);
+  const ActRows ar = make_act_rows(d, depth, w);
   if (ldx < xc.need) return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_v;
   bf16* X = reinterpret_cast<bf16*>(xbuf);
-  const int tiles = (P + TM - 1) / TM;
+  bf16* A = reinterpret_cast<bf16*>(act);
   cudaError_t e = cudaSuccess;
 
   // 1. phase A
-  if (mode == L_IN_PTS)
-    phase_a_kernel<L_IN_PTS><<<tiles, LT, 0, stream>>>(
-        reinterpret_cast<const float*>(pts), m_all,
-        reinterpret_cast<const float*>(aux), cut, X, ldx, xc.xv, P, S, nfk,
-        nfv, fc, tau);
-  else if (mode == L_IN_RAW)
-    phase_a_kernel<L_IN_RAW><<<tiles, LT, 0, stream>>>(
-        reinterpret_cast<const float*>(pts), nullptr, nullptr, cut, X, ldx,
-        xc.xv, P, 1, nfk, nfv, fc, tau);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  if (!embedded
+      && (e = launch_phase_a(mode, reinterpret_cast<const float*>(pts),
+                             m_all, reinterpret_cast<const float*>(aux), cut,
+                             X, ldx, A, ar.xv, ar.F, P,
+                             mode == L_IN_PTS ? S : 1, nfk, nfv, fc, tau,
+                             stream)) != cudaSuccess)
+    return (int)e;
 
-  // the GEMMs' A: X's columns, and K4's x0 / xv rows where they are read
-  // in place
+  // the GEMMs' A without SAVE: X's columns, and K4's x0 / xv rows where
+  // they are read in place (with SAVE, act's feature rows; the maps are
+  // not read)
   CUtensorMap mx, m0, mv;
   if ((e = row_map(&mx, X, P, ldx, ldx)) != cudaSuccess) return (int)e;
   if (embedded) {
@@ -682,35 +1136,43 @@ int anerf_layered_forward(int mode, const void* pts, const float* m_all,
   }
   const CUtensorMap& x0m = embedded ? m0 : mx;
   const CUtensorMap& xvm = embedded ? mv : mx;
-  const int x0c = embedded ? 0 : xc.x0, xvc = embedded ? 0 : xc.xv;
+  const int x0c = save ? ar.x0 : embedded ? 0 : xc.x0;
+  const int xvc = save ? ar.xv : embedded ? 0 : xc.xv;
   const int x0n = rup64(d.k0) / KC, xvn = rup64(d.kv) / KC, hn = w / KC;
+  // layer i's output: X's column (without SAVE) or act's feature row
+  auto h_at = [&](int i) { return save ? ar.h + i * w : xc.h[i & 1]; };
+  const int feat = save ? ar.feat : xc.feat;
 
-  // 2. the MMA layers, each's weight block in the image after the last
+  // 2. the MMA layers, each's weight block in the image after the last;
+  // with SAVE, into act, the last trunk layer and hv into X as well
   const bf16* wl = reinterpret_cast<const bf16*>(img);
   auto layer = [&](const CUtensorMap& a0, int c0, int n0,
                    const CUtensorMap& a1, int c1, int n1, int N,
-                   const float* bl, int relu, int col) {
-    const cudaError_t r = gemm_layer(a0, c0, n0, a1, c1, n1, wl, N, bl, relu,
-                                     X + col, ldx, P, stream);
+                   const float* bl, int relu, int col, int xcol) {
+    bf16* o = save ? (xcol < 0 ? nullptr : X + xcol) : X + col;
+    const cudaError_t r =
+        gemm_layer(a0, c0, n0, a1, c1, n1, wl, N, bl, relu, o, ldx, P, A,
+                   ar.F, col, stream);
     wl += (size_t)N * (n0 + n1) * KC;
     return r;
   };
   for (int i = 0; i < depth && e == cudaSuccess; ++i) {
     const float* bl = bias + (size_t)i * w;
+    const int xcol = i == depth - 1 ? xc.last(depth) : -1;
     if (i == 0)
-      e = layer(x0m, x0c, x0n, x0m, 0, 0, w, bl, 1, xc.at(0, w));
+      e = layer(x0m, x0c, x0n, x0m, 0, 0, w, bl, 1, h_at(0), xcol);
     else if (skip[i])
-      e = layer(x0m, x0c, x0n, mx, xc.at(i - 1, w), hn, w, bl, 1,
-                xc.at(i, w));
+      e = layer(x0m, x0c, x0n, mx, h_at(i - 1), hn, w, bl, 1, h_at(i), xcol);
     else
-      e = layer(mx, xc.at(i - 1, w), hn, mx, 0, 0, w, bl, 1, xc.at(i, w));
+      e = layer(mx, h_at(i - 1), hn, mx, 0, 0, w, bl, 1, h_at(i), xcol);
   }
   if (e == cudaSuccess)
-    e = layer(mx, xc.at(depth - 1, w), hn, mx, 0, 0, w,
-              bias + (size_t)depth * w, 0, xc.feat);
+    e = layer(mx, h_at(depth - 1), hn, mx, 0, 0, w,
+              bias + (size_t)depth * w, 0, feat, -1);
   if (e == cudaSuccess)
-    e = layer(mx, xc.feat, hn, xvm, xvc, xvn, w / 2,
-              bias + (size_t)(depth + 1) * w, 1, xc.hv);
+    e = layer(mx, feat, hn, xvm, xvc, xvn, w / 2,
+              bias + (size_t)(depth + 1) * w, 1, save ? ar.hv : xc.hv,
+              xc.hv);
   if (e != cudaSuccess) return (int)e;
 
   // 3. the heads: HEAD_BLOCKS_PER_SM blocks an SM, at most a warp a point
@@ -728,17 +1190,8 @@ int anerf_layered_forward(int mode, const void* pts, const float* m_all,
                                 (int)head_smem)) != cudaSuccess)
     return (int)e;
   heads_kernel<<<head_blocks, LT, head_smem, stream>>>(
-      X, ldx, xc.hv, xc.at(depth - 1, w), w, w_rgb, w_alpha, b_out, out, P);
-  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-
-  // 4. K2's saved activations
-  if (act != nullptr) {
-    const long long n_groups = (long long)tiles * xc.need * 8;
-    to_act_kernel<<<(unsigned)((n_groups + LT - 1) / LT), LT, 0, stream>>>(
-        X, ldx, xc.need, reinterpret_cast<bf16*>(act), P, n_groups);
-    e = cudaGetLastError();
-  }
-  return (int)e;
+      X, ldx, xc.hv, xc.last(depth), w, w_rgb, w_alpha, b_out, out, P);
+  return (int)cudaGetLastError();
 }
 
 // The columns of X that anerf_layered_forward needs (its ldx at least).

@@ -37,6 +37,15 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr) {
          | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// The same for an MN-major operand in the 128-byte swizzle: 64 rows'
+// worth (128 bytes) of each k, 8 k in a 1,024-byte atom, the atoms of
+// successive 8 k 1,024 bytes apart (the stride field; the other field,
+// the stride between 64-row atoms, is unused at 64 rows and set alike).
+__device__ __forceinline__ uint64_t gmma_desc_mn(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(1024 >> 4) << 16)
+         | ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
                "r"(count)
@@ -162,65 +171,58 @@ __device__ __forceinline__ void fence_acc(float (&d)[NACC]) {
       "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
 // d[64 x N] += A (desc a) B^T (desc b), bf16 operands, f32 accumulators;
-// NACC = N / 2 registers a thread.
-template <int NACC>
+// NACC = N / 2 registers a thread. TA = 1 reads A MN-major (gmma_desc_mn:
+// the rows' index contiguous, as K2's act layout holds a tile), else
+// K-major.
+template <int NACC, int TA = 0>
 __device__ __forceinline__ void wgmma(float (&d)[NACC], uint64_t a,
-                                      uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma<128>(float (&d)[128], uint64_t a,
-                                           uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
-      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
-      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
-      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
-      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
-      "%127}, "
-      "%128, %129, p, 1, 1, 0, 0;\n}\n"
-      : ANERF_F8(0), ANERF_F8(8), ANERF_F8(16), ANERF_F8(24), ANERF_F8(32),
-        ANERF_F8(40), ANERF_F8(48), ANERF_F8(56), ANERF_F8(64),
-        ANERF_F8(72), ANERF_F8(80), ANERF_F8(88), ANERF_F8(96),
-        ANERF_F8(104), ANERF_F8(112), ANERF_F8(120)
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<64>(float (&d)[64], uint64_t a,
-                                          uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
-      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
-      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : ANERF_F8(0), ANERF_F8(8), ANERF_F8(16), ANERF_F8(24), ANERF_F8(32),
-        ANERF_F8(40), ANERF_F8(48), ANERF_F8(56)
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<32>(float (&d)[32], uint64_t a,
-                                          uint64_t b) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : ANERF_F8(0), ANERF_F8(8), ANERF_F8(16), ANERF_F8(24)
-      : "l"(a), "l"(b), "r"(1));
+                                      uint64_t b) {
+  static_assert(NACC == 128 || NACC == 64 || NACC == 32, "wgmma width");
+  if constexpr (NACC == 128) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+        "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+        "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+        "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+        "%127}, "
+        "%128, %129, p, 1, 1, %131, 0;\n}\n"
+        : ANERF_F8(0), ANERF_F8(8), ANERF_F8(16), ANERF_F8(24), ANERF_F8(32),
+          ANERF_F8(40), ANERF_F8(48), ANERF_F8(56), ANERF_F8(64),
+          ANERF_F8(72), ANERF_F8(80), ANERF_F8(88), ANERF_F8(96),
+          ANERF_F8(104), ANERF_F8(112), ANERF_F8(120)
+        : "l"(a), "l"(b), "r"(1), "n"(TA));
+  } else if constexpr (NACC == 64) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, %67, 0;\n}\n"
+        : ANERF_F8(0), ANERF_F8(8), ANERF_F8(16), ANERF_F8(24), ANERF_F8(32),
+          ANERF_F8(40), ANERF_F8(48), ANERF_F8(56)
+        : "l"(a), "l"(b), "r"(1), "n"(TA));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, 0;\n}\n"
+        : ANERF_F8(0), ANERF_F8(8), ANERF_F8(16), ANERF_F8(24)
+        : "l"(a), "l"(b), "r"(1), "n"(TA));
+  }
 }
 #undef ANERF_F8
 

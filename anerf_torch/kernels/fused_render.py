@@ -1199,30 +1199,40 @@ def route_plan(ncfg: NeRFConfig, k0: int, kv: int,
 
 def _layered_x_cols(ncfg: NeRFConfig, k0: int, kv: int, save: bool,
                     embedded: bool) -> Dict[str, Any]:
-    """X's columns of a layered call (csrc/fused_render_layered_sm90.cu:
-    x_cols): x0, xv, each trunk layer's output 'h' (a list), feat, hv."""
+    """Where a layered call keeps its activations
+    (csrc/fused_render_layered_sm90.cu: x_cols, anerf_layered_forward):
+    'src' 'X' (the row-major buffer) or, with `save` (K2's recompute),
+    'act' (K2's saved activations, `act_rows`' feature rows); the column
+    or feature row of x0, xv, each trunk layer's output 'h' (a list),
+    feat and hv there; and X's own columns: 'x_last' and 'x_hv', where
+    the heads read the last trunk layer and hv, and 'ldx', X's width.
+    Without `save` x0 | xv (not K4's `embedded` rows, read in place) |
+    two trunk buffers the layers alternate between | hv; with it, X holds
+    the heads' inputs alone: the last trunk layer | hv."""
     W, d = ncfg.width, ncfg.depth
     xv = _rup64(k0)
     h0 = xv + _rup64(kv)
     if save:
-        h = [h0 + i * W for i in range(d)]
-        feat = h0 + d * W
-        return {'x0': 0, 'xv': xv, 'h': h, 'feat': feat, 'hv': feat + W}
+        return {'src': 'act', 'x0': 0, 'xv': xv,
+                'h': [h0 + i * W for i in range(d)], 'feat': h0 + d * W,
+                'hv': h0 + (d + 1) * W, 'x_last': 0, 'x_hv': W,
+                'ldx': W + W // 2}
     base = 0 if embedded else h0
     h = [base + (i & 1) * W for i in range(d)]
-    return {'x0': 0, 'xv': xv, 'h': h, 'feat': base + (d & 1) * W,
-            'hv': base + 2 * W}
+    return {'src': 'X', 'x0': 0, 'xv': xv, 'h': h,
+            'feat': base + (d & 1) * W, 'hv': base + 2 * W,
+            'x_last': h[-1], 'x_hv': base + 2 * W,
+            'ldx': base + 2 * W + W // 2}
 
 
 def layered_columns(ncfg: NeRFConfig, k0: int, kv: int, save: bool,
                     embedded: bool) -> int:
     """bf16 columns a point of the layered route's activation buffer X
-    (csrc/fused_render_layered_sm90.cu: x_cols): with `save` (K2's
-    recompute) x0 | xv | h_0 .. h_{depth-1} | feat | hv, `act_rows`' F;
-    else x0 | xv (not for K4's `embedded` inputs, read in place) and two
-    activation buffers and hv."""
-    return _layered_x_cols(ncfg, k0, kv, save, embedded)['hv'] \
-        + ncfg.width // 2
+    (csrc/fused_render_layered_sm90.cu: x_cols): x0 | xv (not for K4's
+    `embedded` inputs, read in place) | two activation buffers | hv; with
+    `save` (K2's recompute, whose activations live in its act layout)
+    the last trunk layer | hv, the heads' inputs."""
+    return _layered_x_cols(ncfg, k0, kv, save, embedded)['ldx']
 
 
 #: the layered route's GEMM plan (csrc/fused_render_layered_sm90.cu: GM,
@@ -1257,43 +1267,54 @@ def layered_plan(ncfg: NeRFConfig, k0: int, kv: int, save: bool,
     """The layered route's plan of each MMA layer (trunk, feature, view),
     as the host code of csrc/fused_render_layered_sm90.cu makes it
     (gemm_layer, anerf_layered_forward): its name, N outputs, A's two
-    segments (source 'X' at a column of the activation buffer, or K4's
-    'x0' / 'xv' input rows read in place with `embedded`; k-slices of 64
-    columns), the output column in X, LAYERED_GM rows a tile, the output
-    block (256 where N is a multiple of 256, else 128) and the number of
-    blocks, the ring's stages and the shared-memory bytes
-    (`layered_gemm_smem`), and the cluster: LAYERED_CLUSTER CTAs along the
-    points where n_points make at least that many tiles (None: a call of
-    many tiles), else 1. k0 and kv are the MLP inputs' widths; `save` is
-    K2's recompute (X holds every activation)."""
+    segments (source 'X' at a column of the activation buffer, 'act' at
+    a feature row of K2's saved activations with `save`, or K4's 'x0' /
+    'xv' input rows read in place with `embedded`; k-slices of 64
+    columns), where its output goes ('out': [(dst, column or feature
+    row)]: 'X', or with `save` 'act' and, for the last trunk layer and
+    hv, 'X' as well), LAYERED_GM rows a tile, the output block (256 where
+    N is a multiple of 256, else 128) and the number of blocks, the
+    ring's stages and the shared-memory bytes (`layered_gemm_smem`), and
+    the cluster: LAYERED_CLUSTER CTAs along the points where n_points
+    make at least that many tiles (None: a call of many tiles), else 1.
+    k0 and kv are the MLP inputs' widths; `save` is K2's recompute."""
     W, d = ncfg.width, ncfg.depth
     cols = _layered_x_cols(ncfg, k0, kv, save, embedded)
-    x0 = ('x0', 0) if embedded else ('X', cols['x0'])
-    xv = ('xv', 0) if embedded else ('X', cols['xv'])
+    src = cols['src']
+    x0 = ('x0', 0) if embedded else (src, cols['x0'])
+    xv = ('xv', 0) if embedded else (src, cols['xv'])
     nx0, nxv, nh = _rup64(k0) // SLICE_K, _rup64(kv) // SLICE_K, W // SLICE_K
     tiles = None if n_points is None else -(-n_points // LAYERED_GM)
     cluster = LAYERED_CLUSTER if tiles is None or tiles >= LAYERED_CLUSTER \
         else 1
     skips = skip_flags(ncfg)
+
+    def out(col, x_col=None):
+        return [(src, col)] + ([('X', x_col)] if save and x_col is not None
+                               else [])
+
     layers = []
     for i in range(d):
+        h_in = (src, cols['h'][i - 1], nh) if i else None
         if i == 0:
             segs = [x0 + (nx0,)]
         elif skips[i]:
-            segs = [x0 + (nx0,), ('X', cols['h'][i - 1], nh)]
+            segs = [x0 + (nx0,), h_in]
         else:
-            segs = [('X', cols['h'][i - 1], nh)]
-        layers.append((f'layer {i}', W, segs, cols['h'][i]))
-    layers.append(('feature', W, [('X', cols['h'][d - 1], nh)],
-                   cols['feat']))
-    layers.append(('view', W // 2, [('X', cols['feat'], nh), xv + (nxv,)],
-                   cols['hv']))
+            segs = [h_in]
+        layers.append((f'layer {i}', W, segs,
+                       out(cols['h'][i], cols['x_last'] if i == d - 1
+                           else None)))
+    layers.append(('feature', W, [(src, cols['h'][d - 1], nh)],
+                   out(cols['feat'])))
+    layers.append(('view', W // 2, [(src, cols['feat'], nh), xv + (nxv,)],
+                   out(cols['hv'], cols['x_hv'])))
     plan = []
-    for name, N, segs, out in layers:
+    for name, N, segs, dst in layers:
         block = 256 if N % 256 == 0 else 128
         stages, smem = layered_gemm_smem(block)
         plan.append({'layer': name, 'N': N, 'segments': segs,
-                     'k_slices': sum(n for *_, n in segs), 'out_col': out,
+                     'k_slices': sum(n for *_, n in segs), 'out': dst,
                      'rows': LAYERED_GM, 'block': block,
                      'blocks': -(-N // block), 'stages': stages,
                      'cluster': cluster, 'smem': smem})

@@ -282,35 +282,53 @@ def k2_design_bytes(ncfg: NeRFConfig, nfk: int, nfv: int, n_points: int,
     return per * n_points + 2 * 4 * n_grad * -(-n_points // chunk)
 
 
-def layered_design_bytes(ncfg: NeRFConfig, k0: int, kv: int,
+def layered_launch_bytes(ncfg: NeRFConfig, k0: int, kv: int,
                          n_points: int, save: bool = False,
-                         embedded: bool = False) -> int:
-    """HBM bytes of one call of the layered route
-    (csrc/fused_render_layered_sm90.cu) on n_points points of one net,
-    every tensor read from HBM once for each time the design reads it
-    (a layer's second output block finds its A rows in L2): K1's points
-    (12 B; K4's inputs, with `embedded`, are read by the layers that take
-    them, k0 and kv bf16 columns); phase A's bf16 x0 | xv rows, each
-    padded to 64 columns (not K4's); each MMA layer's bf16 input segments
-    and output rows; the heads' reads of hv and of the last trunk layer's
-    rows and the raw output (16 B); with `save` (K2's recompute) the copy
-    of X's F columns into K2's act layout, read and written once; and
-    one read of the net's operands (`net_bytes`). k0, kv: the MLP inputs'
-    widths."""
-    W, d = ncfg.width, ncfg.depth
+                         embedded: bool = False) -> list:
+    """[(launch, HBM bytes)] of one call of the layered route
+    (csrc/fused_render_layered_sm90.cu) on n_points points of one net, in
+    launch order (tools/kernel_bench.py: layered_labels' names), every
+    tensor read from HBM once for each time the design reads it (a
+    layer's second output block finds its A rows in L2):
+      * 'phase A' (not K4's, with `embedded`: its inputs come embedded):
+        K1's points (12 B) and the 24 cutoff distances read, the bf16
+        x0 | xv rows written, each padded to 64 columns (into X, or with
+        `save`, K2's recompute, into its act layout);
+      * each MMA layer ('layer i', 'feature', 'view'): its bf16 input
+        segments read (K4's x0 and xv at their k0 and kv columns) and its
+        output written, where the activations live (X, or act with
+        `save`), with `save` also the last trunk layer's and hv's rows
+        into X for the heads; its bf16 weights (unpadded) and f32 bias;
+      * 'heads': hv and the last trunk layer's rows read, the raw output
+        (16 B) written; the f32 head weights and b_out.
+    k0, kv: the MLP inputs' widths."""
+    W, d, WV = ncfg.width, ncfg.depth, ncfg.width // 2
     up = lambda n: -(-n // SLICE_K) * SLICE_K
     x0, xv = up(k0), up(kv)
     a0, av = (k0, kv) if embedded else (x0, xv)   # what the layers read
-    per = 0 if embedded else 12 + 2 * (x0 + xv)
-    for i in range(d):
-        k = a0 if i == 0 else (a0 + W) if (i - 1) in ncfg.skips else W
-        per += 2 * (k + W)
-    per += 2 * (W + W)                                 # feature
-    per += 2 * (W + av + W // 2)                       # view
-    per += 2 * (W // 2 + W) + 16                       # heads
-    if save:
-        per += 2 * 2 * (x0 + xv + (d + 1) * W + W // 2)
-    return per * n_points + net_bytes(ncfg)
+    ins = [a0] + [(a0 + W) if (i - 1) in ncfg.skips else W
+                  for i in range(1, d)] + [W, W + av]
+    extra = [0] * (d - 1) + [W, 0, WV] if save else [0] * (d + 2)
+    out = [] if embedded else [
+        ('phase A', (12 + 2 * (x0 + xv)) * n_points + 4 * 24)]
+    names = [f'layer {i}' for i in range(d)] + ['feature', 'view']
+    for name, k, (kw, n), x in zip(names, ins, _mma_layers(ncfg), extra):
+        out.append((name, 2 * (k + n + x) * n_points + 2 * kw * n + 4 * n))
+    out.append(('heads', (2 * (WV + W) + 16) * n_points
+                + 4 * (3 * WV + W + 4)))
+    return out
+
+
+def layered_design_bytes(ncfg: NeRFConfig, k0: int, kv: int,
+                         n_points: int, save: bool = False,
+                         embedded: bool = False) -> int:
+    """HBM bytes of one call of the layered route on n_points points of
+    one net: the sum of `layered_launch_bytes`' launches (K1's points;
+    with `save` the activations written once, into K2's act layout, and
+    the heads' inputs into X as well; K4, `embedded`, reads its inputs in
+    place and no cutoff distances)."""
+    return sum(b for _, b in layered_launch_bytes(ncfg, k0, kv, n_points,
+                                                  save, embedded))
 
 
 def k2_seconds(ncfg: NeRFConfig, nfk: int, nfv: int, n_points_by_net,

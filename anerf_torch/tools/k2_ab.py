@@ -4,7 +4,8 @@ outputs, times in turns, and (in the bf16 flavour) each K2's MLP backward
 against the plain bf16 one on its own saved activations.
 
     python -m anerf_torch.tools.k2_ab --other DIR [--bwd_bf16] [--v1]
-        [--rays 2048] [--reps 11] [--shapes 64 80 8 24] [--device cuda]
+        [--shape SHAPE] [--rays 2048] [--reps 11] [--shapes 64 80 8 24]
+        [--device cuda]
 
 DIR holds the other copy's `anerf_torch/` (e.g. `git archive` of another
 commit, or this tree with one change to a kernel source); it is imported
@@ -22,7 +23,13 @@ distance of a dW block, dx0 or dxv from the plain bf16 MLP backward on
 the kernel's own activations (None in the f32 flavour). With --v1 the
 line also holds "v1_rows": [{kernel, S, bit_equal, ms, other_ms,
 turns}], the first versions K1-v1 and K2-v1 (f32) compared the same
-way. The other copy's `fused_bwd` must take `bwd_f32` for --bwd_bf16.
+way. With --shape (a roofline.SHAPES name: the kernel_bench tool's
+--layered network, random weights from seed 0) the line also holds
+"k3_rows" (K3 on build_raw_inputs of the same points) and "act_rows"
+[{S, bit_equal, raw_bit_equal}]: K2's recompute alone (launch_bwd stopped
+after it), its saved activations (the tiles of the points; the spare
+tile is scratch) and raw compared bit for bit. The other copy's
+`fused_bwd` must take `bwd_f32` for --bwd_bf16.
 --device cpu runs the plain versions on the host clock, for the tests.
 """
 from __future__ import annotations
@@ -92,14 +99,30 @@ def ab_row(S: int, this, that, ins, reps: int, dev) -> Dict[str, Any]:
             'other_ms': (turns[0] + turns[3]) / 2, 'turns': turns}
 
 
+def act_row(S: int, ofr, args) -> Dict[str, Any]:
+    """K2's recompute of this tree and of `ofr` on the same operands:
+    bit-equality of the saved activations of the points' tiles and of
+    raw."""
+    a, b = fr.launch_bwd(1, *args), ofr.launch_bwd(1, *args)
+    ncfg, packed = args[0], args[1]
+    P = args[2].shape[0] * args[5]
+    n = -(-P // fr.SLICE_K) * fr.act_rows(ncfg, packed['nfk'],
+                                          packed['nfv'])['F'] * fr.SLICE_K
+    return {'S': S, 'bit_equal': torch.equal(a['act'][:n], b['act'][:n]),
+            'raw_bit_equal': torch.equal(a['raw'], b['raw'])}
+
+
 def run(other: str, n_rays: int = 2048, reps: int = 11,
         shapes: Sequence[int] = (64, 80, 8, 24), bwd_f32: bool = True,
-        device='cuda', v1: bool = False) -> Dict[str, Any]:
+        device='cuda', v1: bool = False, shape: str | None = None
+        ) -> Dict[str, Any]:
     """Both K2s and both K1s per S (with `v1`, both K1-v1s and K2-v1s
-    too); prints their rows per S and the JSON line, and returns the
-    JSON object."""
+    too; with `shape`, at that roofline.SHAPES network, both K3s and both
+    K2 recomputes' saved activations too); prints their rows per S and
+    the JSON line, and returns the JSON object."""
     ofr = load_other(other)
-    ctx = kb.setup(n_rays, device)
+    ctx = kb.setup(n_rays, device) if shape is None else \
+        kb.shape_setup(shape, n_rays, device)
     dev = ctx['dev']
     kw = {} if bwd_f32 else {'bwd_f32': False}
     this = lambda *a: fr.fused_bwd(*a, **kw)
@@ -107,6 +130,8 @@ def run(other: str, n_rays: int = 2048, reps: int = 11,
     rows: List[Dict[str, Any]] = []
     k1_rows: List[Dict[str, Any]] = []
     v1_rows: List[Dict[str, Any]] = []
+    k3_rows: List[Dict[str, Any]] = []
+    act_rows: List[Dict[str, Any]] = []
     for S in shapes:
         sets = kb.input_sets(ctx, S)
         k1_ins = kb._k1_args(ctx, sets, S)
@@ -115,6 +140,17 @@ def run(other: str, n_rays: int = 2048, reps: int = 11,
         k1_rows.append(k1)
         print({'kernel': 'K1', **k1}, flush=True)
         ins = [a + (s['g'],) for a, s in zip(k1_ins, sets)]
+        if shape is not None:
+            raw = [(ctx['ncfg'], ctx['packed'], fr.build_raw_inputs(
+                s['pts'], ctx['rays_d'], ctx['skts'], ctx['fc']),
+                ctx['tau']) for s in sets]
+            k3_rows.append(ab_row(S, fr.fused_encode_mlp,
+                                  ofr.fused_encode_mlp, raw, reps, dev))
+            print({'kernel': 'K3', **k3_rows[-1]}, flush=True)
+            if dev.type == 'cuda':
+                act_rows.append(act_row(S, ofr, ins[0]))
+                print({'kernel': 'K2 recompute', **act_rows[-1]},
+                      flush=True)
         row = {**ab_row(S, this, that, ins, reps, dev), 'fro': None,
                'other_fro': None}
         if not bwd_f32:
@@ -136,6 +172,8 @@ def run(other: str, n_rays: int = 2048, reps: int = 11,
            'other': other, 'rows': rows, 'k1_rows': k1_rows}
     if v1:
         rec['v1_rows'] = v1_rows
+    if shape is not None:
+        rec.update(shape=shape, k3_rows=k3_rows, act_rows=act_rows)
     print(json.dumps(rec), flush=True)
     return rec
 
@@ -151,11 +189,15 @@ def main(argv=None) -> int:
                    help="K2's bf16-cotangent flavour (both copies)")
     p.add_argument('--v1', action='store_true',
                    help='also K1-v1 and K2-v1 against the other copy')
+    p.add_argument('--shape', default=None,
+                   help='a roofline.SHAPES network (kernel_bench '
+                        '--layered\'s) in place of the flagship\'s; adds K3 '
+                        'and the saved activations')
     p.add_argument('--device', default='cuda',
                    help="'cpu' runs the plain versions (for the tests)")
     a = p.parse_args(argv)
     run(a.other, a.rays, a.reps, a.shapes, not a.bwd_bf16, a.device,
-        a.v1)
+        a.v1, a.shape)
     return 0
 
 

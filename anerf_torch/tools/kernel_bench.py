@@ -32,18 +32,22 @@ Each mode prints one row per S as it goes and ends with one JSON line
                    K1, K4 and K2's recompute (launch_bwd stopped after
                    it): per S, rows {kernel, S, launch, kind, ms} with
                    launch 'phase A', 'layer 0' .. 'layer d-1',
-                   'feature', 'view', 'heads', 'to_act' (the recompute's
-                   copy into K2's act layout) and 'call' (a whole call
-                   on CUDA events, launch gaps included), each launch's
-                   device time from torch.profiler (grouped by kernel
-                   name as tools/step_trace.py groups them, then by
-                   place in the call), the median over the whole calls of
-                   `reps` (a call that lost a kernel to the profiler is
-                   left out; where LAYERED_WINDOWS windows hold no whole
-                   call, the launches' ms are null, and the windows
-                   missed stand in 'profiler_misses'); then
-                   a table summed over the S given, with each launch's
-                   share of its kernel's launches. Card only.
+                   'feature', 'view', 'heads' (the recompute writes K2's
+                   act layout from phase A and the layers, no copy) and
+                   'call' (a whole call on CUDA events, launch gaps
+                   included), each launch's device time from
+                   torch.profiler (grouped by kernel name as
+                   tools/step_trace.py groups them, then by place in the
+                   call), the median over the whole calls of `reps` (a
+                   call that lost a kernel to the profiler is left out;
+                   where LAYERED_WINDOWS windows hold no whole call, the
+                   launches' ms are null, and the windows missed stand in
+                   'profiler_misses'), and its floor_ms, its own HBM bytes
+                   at 3.35 TB/s (roofline.layered_launch_bytes; 'call':
+                   their sum); then a table summed over the S given, with
+                   each launch's share of its kernel's launches and its
+                   floor; 'device_kernels' lists the device kernels the
+                   profiler saw in each kernel's windows. Card only.
 
 The setup is the TPU tool's: the flagship SURREAL model at full width
 with random weights from a seed (anerf_torch/tools/flagship.py) and its
@@ -266,23 +270,36 @@ def decompose_bwd(ctx: Dict[str, Any], shapes: Sequence[int], reps: int,
 LAYERED_KERNELS = ('K1', 'K4', 'K2 recompute')
 #: a layered launch's kind by a fragment of its kernel's name, first match
 LAYERED_KINDS = (('phase_a', 'phase A'), ('heads', 'heads'),
-                 ('to_act', 'to_act'), ('layer', 'layer'))
+                 ('layer', 'layer'))
 
 
 def layered_labels(ncfg, kernel: str) -> List[str]:
     """The launches of one call of `kernel` (LAYERED_KERNELS) on the
     layered route, in order: phase A (not K4: its inputs come embedded),
     one per MMA layer (the trunk's 'layer i', 'feature', 'view'), the
-    heads, and for K2's recompute the copy into its act layout."""
+    heads."""
     labels = [] if kernel == 'K4' else ['phase A']
     labels += [f'layer {i}' for i in range(ncfg.depth)]
-    labels += ['feature', 'view', 'heads']
-    return labels + (['to_act'] if kernel == 'K2 recompute' else [])
+    return labels + ['feature', 'view', 'heads']
+
+
+def layered_floors(ncfg, kernel: str, k0: int, kv: int, n_points: int
+                   ) -> Dict[str, float]:
+    """{launch: ms} of one call of `kernel` on n_points points: each
+    launch's own HBM bytes (roofline.layered_launch_bytes; K4 at its
+    embedded widths, K2's recompute with its saved activations) at
+    3.35 TB/s."""
+    if kernel == 'K4':
+        k0, kv = fm.kernel_widths(ncfg)
+    return {lab: b / rf.PEAK_HBM_BYTES * 1e3
+            for lab, b in rf.layered_launch_bytes(
+                ncfg, k0, kv, n_points, save=kernel == 'K2 recompute',
+                embedded=kernel == 'K4')}
 
 
 def launch_kind(name: str):
     """The kind of a device kernel named `name` ('phase A', 'layer',
-    'heads', 'to_act'), or None for a kernel of another module."""
+    'heads'), or None for a kernel of another module."""
     return next((kind for frag, kind in LAYERED_KINDS if frag in name),
                 None)
 
@@ -332,29 +349,35 @@ def layered_table(rows: Sequence[Dict[str, Any]]) -> List[str]:
     """The --layered rows as a table: per kernel, each launch's ms at
     every S, their sum and its share of the kernel's launches, then the
     kernel's launches together and its whole calls; 'n/m' where the
-    profiler gave no whole call (ms None)."""
+    profiler gave no whole call (ms None); the last column, each launch's
+    floor summed over S (the launches' and the call's: their sum)."""
     Ss = sorted({r['S'] for r in rows})
     cell = lambda x, n: f'{"n/m":>{n}}' if x is None else f'{x:>{n}.4f}'
     out = [f'{"kernel":<13}{"launch":<10}'
            + ''.join(f'{f"S={S}":>10}' for S in Ss)
-           + f'{"sum":>10}{"share":>8}']
+           + f'{"sum":>10}{"share":>8}{"floor":>10}']
     for kernel in dict.fromkeys(r['kernel'] for r in rows):
         mine = [r for r in rows if r['kernel'] == kernel]
         ms = {(r['launch'], r['S']): r['ms'] for r in mine}
+        fl = {(r['launch'], r['S']): r['floor_ms'] for r in mine}
         launches = [lab for lab in dict.fromkeys(r['launch'] for r in mine)
                     if lab != 'call']
         total = _total([ms[lab, S] for lab in launches for S in Ss])
-        line = lambda lab, v, share: (
+        floor = lambda labs: cell(sum(fl[lab, S] for lab in labs
+                                      for S in Ss), 10)
+        line = lambda lab, v, share, labs: (
             f'{kernel:<13}{lab:<10}' + ''.join(cell(x, 10) for x in v)
             + cell(_total(v), 10) + (f'{share:>8.1%}' if share is not None
-                                     else ''))
+                                     else f'{"":>8}') + floor(labs))
         for lab in launches:
             v = [ms[lab, S] for S in Ss]
-            out.append(line(lab, v, _total(v) / total if total else None))
+            out.append(line(lab, v, _total(v) / total if total else None,
+                            [lab]))
         out.append(line('launches', [_total([ms[lab, S] for lab in launches])
                                      for S in Ss],
-                        1.0 if total is not None else None))
-        out.append(line('call', [ms['call', S] for S in Ss], None))
+                        1.0 if total is not None else None, launches))
+        out.append(line('call', [ms['call', S] for S in Ss], None,
+                        launches))
     return out
 
 
@@ -402,20 +425,23 @@ def _profiled(fn, arg_sets, reps):
 
 
 def layered(ctx: Dict[str, Any], shapes: Sequence[int], reps: int
-            ) -> Tuple[List[Dict[str, Any]], Dict[str, int]]:
+            ) -> Tuple[List[Dict[str, Any]], Dict[str, int],
+                       Dict[str, List[str]]]:
     """--layered: K1, K4 and K2's recompute on the layered route at the
     context's shape (forced there where route_plan picks the single
-    kernel), split by launch, per S; prints the table and the profiler's
-    misses. Returns (rows, {'kernel S=n': profiler windows without a
-    whole call}); a kernel's launches at an S whose LAYERED_WINDOWS
-    windows all missed are None, its whole call is still timed."""
+    kernel), split by launch, per S, each launch beside its floor
+    (`layered_floors`); prints the table and the profiler's misses.
+    Returns (rows, {'kernel S=n': profiler windows without a whole call},
+    {kernel: the device kernels' names its windows held}); a kernel's
+    launches at an S whose LAYERED_WINDOWS windows all missed are None,
+    its whole call is still timed."""
     ncfg, packed, dev = ctx['ncfg'], ctx['packed'], ctx['dev']
     k0, kv = ncfg.dnet_input, fm.view_in(ncfg)
     bf = torch.bfloat16
     plan = fr.route_plan
     fr.route_plan = lambda *a, **k: fr.Route('layered', 0, 0,
                                              'kernel_bench')
-    rows, misses = [], {}
+    rows, misses, seen = [], {}, {}
     try:
         sets = input_sets(ctx, shapes[0])
         _profiled(fr.fused_encode_mlp_pts, _k1_args(ctx, sets, shapes[0]), 1)
@@ -436,18 +462,25 @@ def layered(ctx: Dict[str, Any], shapes: Sequence[int], reps: int
             for kernel in LAYERED_KERNELS:
                 fn, arg_sets = calls[kernel]
                 labels = layered_labels(ncfg, kernel)
+                floors = layered_floors(ncfg, kernel, k0, kv,
+                                        arg_sets[0][2].shape[0] * (
+                                            1 if kernel == 'K4' else S))
+                floors['call'] = sum(floors.values())
                 per = dict.fromkeys(labels)
                 for window in range(LAYERED_WINDOWS):
+                    events = _profiled(fn, arg_sets, reps)
+                    seen.setdefault(kernel, set()).update(
+                        name for _, name, _ in events)
                     try:
-                        per = split_calls(_profiled(fn, arg_sets, reps),
-                                          labels)
+                        per = split_calls(events, labels)
                         break
                     except RuntimeError:
                         misses[f'{kernel} S={S}'] = window + 1
                 per['call'] = time_ms(fn, arg_sets, reps, dev)
                 for lab, ms in per.items():
                     rows.append({'kernel': kernel, 'S': S, 'launch': lab,
-                                 'kind': kind_of(lab), 'ms': ms})
+                                 'kind': kind_of(lab), 'ms': ms,
+                                 'floor_ms': floors[lab]})
     finally:
         fr.route_plan = plan
     for line in layered_table(rows):
@@ -456,7 +489,7 @@ def layered(ctx: Dict[str, Any], shapes: Sequence[int], reps: int
           f'at most a kernel and S): '
           + (', '.join(f'{k} {n}' for k, n in misses.items()) or 'none'),
           flush=True)
-    return rows, misses
+    return rows, misses, {k: sorted(v) for k, v in seen.items()}
 
 
 def run(mode: str, n_rays: int = 2048, reps: int = 8,
@@ -471,9 +504,10 @@ def run(mode: str, n_rays: int = 2048, reps: int = 8,
         if ctx['dev'].type != 'cuda':
             raise RuntimeError('--layered: the layered route runs on the '
                                'card only')
-        rows, misses = layered(ctx, shapes, reps)
+        rows, misses, seen = layered(ctx, shapes, reps)
         rec = {'metric': 'kernel_layered', 'shape': shape,
-               **card(ctx['dev']), 'rows': rows, 'profiler_misses': misses}
+               **card(ctx['dev']), 'rows': rows, 'profiler_misses': misses,
+               'device_kernels': seen}
         print(json.dumps(rec), flush=True)
         return rec
     ctx = setup(n_rays, device)

@@ -173,9 +173,13 @@ Phases (any failure exits non-zero and prints no result):
      slower than it; the layered GEMM's cluster tails (an odd count of
      128-point tiles, the last one partial: K1, K4, K2's saved
      activations); the multires 10 / 4 shape again forced onto the
-     layered route, its times beside the two-stage kernel's; the layered
-     route split by launch at wide-net and wide-input (kernel_bench
-     --layered; a split the profiler missed is printed n/m);
+     layered route, its times beside the two-stage kernel's; K4 at a
+     second two-stage config (K4_TWO_STAGE_BANDS), the single kernel at
+     two stages and the layered route both forced, timed in turns; the
+     layered route split by launch at wide-net and wide-input, each
+     launch beside its own HBM floor (kernel_bench --layered; a split
+     the profiler missed is printed n/m; no copy launch may run: K2's
+     recompute writes its saved activations where they are made);
      then one step's gradients against the plain branch at wide-net and
      wide-input (K2-bf16 against its plain version at wide-net culled)
      and N_SHAPE_STEPS train steps at wide-net,
@@ -257,7 +261,8 @@ K2_BF16_FRO = 1.5e-3
 # three digits, so the gap is the recomputes', not K2's backward's.
 K2_OWN_DEPTH = 8
 # K2's saved activations (its recompute: the single kernel's SAVE or the
-# layered route's copy into the act layout) at phase 14's shapes, block
+# layered route's phase A and layer epilogues, which write the act layout
+# where the activations are made) at phase 14's shapes, block
 # by block. ACT_LOCAL_FRO: each MMA layer's saved output against that
 # layer run in f64 on the kernel's own saved input (relative Frobenius):
 # f32 summation order alone moves an occasional bf16 rounding, and no
@@ -4158,13 +4163,14 @@ SHAPES_BUDGET_S = 120
 SHAPE_DIR = 'logs/chip_shapes'
 
 
-def _shape_operands(torch, np, name, flag, seed, depth=None):
+def _shape_operands(torch, np, name, flag, seed, depth=None, bands=None):
     """A roofline.SHAPES network (with `depth` trunk layers in place of its
-    own, where given) with random weights (seeded), its K1 / K3 and K4
-    operands, and one bucket of SHAPE_RAYS rays of the flagship render
-    setup `flag` (_bucket_inputs: S = 64, 16 and 80) with random
-    framecodes of the network's width. Returns (ncfg, packed, packed4,
-    route, route4, bucket)."""
+    own, and the PE bands `bands` = (multires, multires_views), where
+    given) with random weights (seeded), its K1 / K3 and K4 operands, and
+    one bucket of SHAPE_RAYS rays of the flagship render setup `flag`
+    (_bucket_inputs: S = 64, 16 and 80) with random framecodes of the
+    network's width. Returns (ncfg, packed, packed4, route, route4,
+    bucket)."""
     import dataclasses
 
     from anerf_torch.kernels import fused_mlp as fm
@@ -4176,6 +4182,10 @@ def _shape_operands(torch, np, name, flag, seed, depth=None):
     ncfg, nfk, nfv = rf.shape_config(name)
     if depth is not None:
         ncfg = dataclasses.replace(ncfg, depth=depth)
+    if bands is not None:
+        nfk, nfv = bands
+        ncfg = dataclasses.replace(ncfg, input_ch=24 * (1 + 2 * nfk),
+                                   input_ch_views=72 * (1 + 2 * nfv))
     net = init_nerf_params(ncfg, torch.Generator().manual_seed(seed), 'cuda')
     net['alpha_linear']['b'] += 2.0
     packed = fr.pack_render_params(net, ncfg, nfk, nfv,
@@ -4285,9 +4295,9 @@ def _design_floor_ms(kid, ncfg, packed, k4_widths, R, Ss):
     at 3.35 TB/s) of a kernel of _shape_kernels on R rays at each S of
     Ss: K1 its points; K3 its f32 rows in place of the points; K4 its
     embedded rows read in place; K2 (both flavours, f32 cotangents
-    through HBM) the recompute with its act copy, then the backward
-    sequence's bytes (roofline.k2_design_bytes less its single-kernel
-    recompute)."""
+    through HBM) the recompute writing its saved activations once, then
+    the backward sequence's bytes (roofline.k2_design_bytes less its
+    single-kernel recompute)."""
     from anerf_torch.kernels import fused_render as fr
     from anerf_torch.kernels import roofline as rf
     k0, kv, fc = packed['k0'], packed['kv'], packed['fc']
@@ -4386,6 +4396,80 @@ def _shape_tails(torch, name, ncfg, packed, packed4, k4_in, bucket,
     if not ok:
         raise AssertionError(f'shapes {name}: K2 saved activations disagree'
                              f' on {P} points')
+
+
+#: the second configuration at which K4's two-stage rule is timed
+#: (route_plan: the layered route wherever the single kernel needs two
+#: weight stages, first timed at multires 10 / 4, phase 14's two-stage
+#: shape): the flagship's kp bands and multires_views 6, K4's x0 432 and
+#: xv 952 columns (the view input the wide one where the first had x0)
+K4_TWO_STAGE_BANDS = (7, 6)
+
+
+def _k4_two_stage(torch, np, flag, seed=150):
+    """K4 at K4_TWO_STAGE_BANDS (8 x 256, 16-wide framecodes): the single
+    kernel forced at two weight stages and the layered route forced, each
+    against its plain version (K1_ATOL) and relaunched bit-equal, timed in
+    turns (single, layered, layered, single; medians of 5, S = 64 + 80 on
+    SHAPE_RAYS rays). Returns {single_ms, layered_ms, faster, route}:
+    `route`, route_plan's pick, is the faster one's where the readings
+    agree with the rule."""
+    from anerf_torch.kernels import fused_mlp as fm
+    from anerf_torch.kernels import fused_render as fr
+
+    ncfg, packed, packed4, _, route4, (pts, m_all, aux, _) = _shape_operands(
+        torch, np, 'two-stage', flag, seed, bands=K4_TWO_STAGE_BANDS)
+    k0, kv = fm.kernel_widths(ncfg)
+    need = fr.sm90_smem_bytes(k0, kv, 2)
+    if not (fr.sm90_smem_bytes(k0, kv, fr.SM90_STAGES) > fr.SM90_MAX_SMEM
+            >= need):
+        raise AssertionError(f'K4 at {K4_TWO_STAGE_BANDS}: not a two-stage '
+                             'config')
+    routes = {'single': fr.Route('single', 2, need, 'forced'),
+              'layered': fr.Route('layered', 0, 0, 'forced')}
+
+    def on(kind):
+        def run(*a):
+            plan = fr.route_plan
+            fr.route_plan = lambda *x, **k: routes[kind]
+            try:
+                return fm.fused_mlp_apply(*a)
+            finally:
+                fr.route_plan = plan
+        return run
+
+    tau, bf = 2000.0, torch.bfloat16
+    ms = {'single': 0.0, 'layered': 0.0}
+    err = 0.0
+    for S in (64, 80):
+        x0, xv = fr._encode(packed, pts[S], m_all, aux, S, tau)
+        args = (ncfg, packed4,
+                x0[..., :ncfg.dnet_input].reshape(-1, ncfg.dnet_input).to(bf),
+                xv[..., :fm.view_in(ncfg)].reshape(-1, fm.view_in(ncfg))
+                .to(bf))
+        want = fm.fused_mlp_apply_ref(*args)
+        for kind in ms:
+            got, again = on(kind)(*args), on(kind)(*args)
+            torch.cuda.synchronize()
+            ok = (torch.allclose(got, want, atol=K1_ATOL, rtol=K1_RTOL)
+                  and torch.equal(got, again))
+            if not ok:
+                raise AssertionError(f'K4 at {K4_TWO_STAGE_BANDS} on the '
+                                     f'{kind} route disagrees at S={S}')
+            err = max(err, (got - want).abs().max().item())
+        turns = [_median_ms(on(kind), [args], 5)
+                 for kind in ('single', 'layered', 'layered', 'single')]
+        ms['single'] += (turns[0] + turns[3]) / 2
+        ms['layered'] += (turns[1] + turns[2]) / 2
+    faster = min(ms, key=ms.get)
+    print(f'shapes K4 two-stage rule at multires {K4_TWO_STAGE_BANDS[0]} / '
+          f'{K4_TWO_STAGE_BANDS[1]} (x0 {k0}, xv {kv}): single kernel at 2 '
+          f'stages {ms["single"]:.4f} ms, layered route {ms["layered"]:.4f}'
+          f' (medians of turns, S = 64 + 80, {SHAPE_RAYS} rays; max_abs '
+          f'{err:.3e} vs plain): the {faster} route is the faster, '
+          f'route_plan picks {route4.kind}', flush=True)
+    return {'single_ms': ms['single'], 'layered_ms': ms['layered'],
+            'faster': faster, 'route': route4.kind, 'max_abs_err': err}
 
 
 def _shape_kernels(torch, np, name, flag, seed, forced=False):
@@ -4724,6 +4808,8 @@ def shapes_phase(torch, np, data=None):
                       f'faster', flush=True)
             del forced
             torch.cuda.empty_cache()
+    k4_two_stage = _k4_two_stage(torch, np, flag)
+    torch.cuda.empty_cache()
     probe = _bf16_depth_probe(torch, np, flag)
     # the layered route split by launch (kernel_bench --layered, this
     # checkout's package) at the shapes route_plan sends there, each in a
@@ -4745,12 +4831,22 @@ def shapes_phase(torch, np, data=None):
             raise AssertionError(f'kernel_bench --layered {name}: rc '
                                  f'{proc.returncode}\n{proc.stderr[-2000:]}')
         rec = json.loads(lines[-1])
+        # K2's recompute writes its saved activations where they are made:
+        # no copy kernel may run in any window of the split
+        copies = sorted({n for names in rec['device_kernels'].values()
+                         for n in names if 'to_act' in n})
+        print(f'shapes {name}: copy launches in the split\'s profiler '
+              f'windows: {copies or "none"}', flush=True)
+        if copies:
+            raise AssertionError(f'shapes {name}: {copies} launched')
         split[name] = {'profiler_misses': rec['profiler_misses']}
         for r in rec['rows']:
             per = split[name].setdefault(r['kernel'], {})
             per[r['launch']] = (None if r['ms'] is None
                                 or per.get(r['launch'], 0.0) is None
                                 else per.get(r['launch'], 0.0) + r['ms'])
+            floor = split[name].setdefault(f'{r["kernel"]} floor_ms', {})
+            floor[r['launch']] = floor.get(r['launch'], 0.0) + r['floor_ms']
     t_kernels = time.perf_counter() - t0
 
     # the main paths, counts from here on
@@ -4758,7 +4854,7 @@ def shapes_phase(torch, np, data=None):
         fr.LAYERED_LAUNCHES[k] = 0
     launches = {n: {'K1': 0, 'K2': 0, 'K2 bf16': 0} for n in SHAPE_CONFIGS}
     summary = {'bf16_depth_probe': probe, 'layered_split': split,
-               'design_floor_ms': floors}
+               'design_floor_ms': floors, 'k4_two_stage': k4_two_stage}
     layered_train = dict.fromkeys(fr.LAYERED_LAUNCHES, 0)
     for name, overrides in list(SHAPE_CONFIGS.items()) + [
             ('wide-net culled fast-grads',

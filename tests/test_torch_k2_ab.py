@@ -70,3 +70,18 @@ def test_k2_ab_v1_rows(capsys):
                        '--reps', '1', '--shapes', '8']) == 0
     assert 'v1_rows' not in json.loads(
         capsys.readouterr().out.strip().splitlines()[-1])
+
+
+def test_k2_ab_shape_rows(capsys):
+    """--shape: the kernel_bench tool's --layered network in place of the
+    flagship's, K3 compared as K1 is (bit-equal on the CPU), the shape in
+    the line; the saved activations' rows need the card (none here)."""
+    assert k2_ab.main(['--other', ROOT, '--device', 'cpu', '--rays', '2',
+                       '--reps', '1', '--shapes', '8', '--shape',
+                       'wide-input']) == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec['shape'] == 'wide-input' and rec['act_rows'] == []
+    assert [r['S'] for r in rec['k3_rows']] == [8]
+    for r in rec['k3_rows'] + rec['k1_rows'] + rec['rows']:
+        assert r['bit_equal'] is True
+    assert set(rec['k3_rows'][0]) == K1_ROW_KEYS

@@ -239,34 +239,69 @@ def test_layered_arguments(monkeypatch):
 
 def test_layered_labels_follow_the_launch_sequence():
     """One layered call: phase A (not K4), a launch per MMA layer, the
-    heads, and the recompute's copy into K2's act layout."""
+    heads; K2's recompute the same launches as K1 (its saved activations
+    are written where they are made: no copy launch)."""
     from anerf_torch.kernels import roofline as rf
     ncfg, _, _ = rf.shape_config('wide-net')
     trunk = [f'layer {i}' for i in range(8)] + ['feature', 'view']
     assert kb.layered_labels(ncfg, 'K4') == trunk + ['heads']
     assert kb.layered_labels(ncfg, 'K1') == ['phase A'] + trunk + ['heads']
     assert kb.layered_labels(ncfg, 'K2 recompute') == \
-        ['phase A'] + trunk + ['heads', 'to_act']
+        ['phase A'] + trunk + ['heads']
     assert [kb.kind_of(lab) for lab in ('layer 3', 'feature', 'view',
-                                        'heads', 'phase A', 'to_act')] == \
-        ['layer', 'layer', 'layer', 'heads', 'phase A', 'to_act']
-    names = {'void (anonymous namespace)::phase_a_kernel<0>(float)':
+                                        'heads', 'phase A')] == \
+        ['layer', 'layer', 'layer', 'heads', 'phase A']
+    names = {'void (anonymous namespace)::phase_a_kernel<0, true>(float)':
              'phase A',
-             'void (anonymous namespace)::layer_gemm_kernel<128, 2>(x)':
+             'void (anonymous namespace)::layer_gemm_kernel<128, 2, true>(x)':
              'layer',
              '(anonymous namespace)::heads_kernel(float*)': 'heads',
-             '(anonymous namespace)::to_act_kernel(bf16*)': 'to_act',
              'void at::native::vectorized_elementwise_kernel<4, Fill>':
              None}
     for name, kind in names.items():
         assert kb.launch_kind(name) == kind
+    assert 'to_act' not in (kb.fr._CSRC
+                            / 'fused_render_layered_sm90.cu').read_text()
+
+
+def test_layered_floors_are_each_launchs_bytes():
+    """layered_floors: each launch's own HBM bytes at 3.35 TB/s, in the
+    order of layered_labels, summing to the design floor of the whole
+    call (K4 at its embedded widths, K2's recompute with its saved
+    activations)."""
+    from anerf_torch.kernels import roofline as rf
+    for shape in ('wide-net', 'wide-input'):
+        ncfg, _, _ = rf.shape_config(shape)
+        k0, kv = ncfg.dnet_input, kb.fm.view_in(ncfg)
+        for kernel, save, emb in (('K1', False, False),
+                                  ('K4', False, True),
+                                  ('K2 recompute', True, False)):
+            fl = kb.layered_floors(ncfg, kernel, k0, kv, 1000)
+            assert list(fl) == kb.layered_labels(ncfg, kernel)
+            a, b = kb.fm.kernel_widths(ncfg) if emb else (k0, kv)
+            assert sum(fl.values()) == pytest.approx(
+                rf.layered_design_bytes(ncfg, a, b, 1000, save, emb)
+                / rf.PEAK_HBM_BYTES * 1e3, rel=1e-12)
+    # the table's last column: each launch's floor summed over S, the
+    # launches' and the call's their sum
+    labels = kb.layered_labels(ncfg, 'K1')
+    rows = [{'kernel': 'K1', 'S': S, 'launch': lab, 'kind': kb.kind_of(lab),
+             'ms': 1.0, 'floor_ms': fl}
+            for S in (64, 80) for lab, fl in [(lab, 0.25 * (i + 1))
+                                              for i, lab in enumerate(labels)]
+            + [('call', 2.0)]]
+    lines = [ln.split() for ln in kb.layered_table(rows)]
+    assert lines[0][-1] == 'floor'
+    assert [float(ln[-1]) for ln in lines[1:1 + len(labels)]] == [
+        0.5 * (i + 1) for i in range(len(labels))]
+    total = 0.5 * len(labels) * (len(labels) + 1) / 2
+    assert float(lines[-2][-1]) == float(lines[-1][-1]) == total
 
 
 def _events(labels, reps, us):
     """Device kernel events of `reps` calls, a fill kernel of another
     module before each launch, launch i of call r taking us(i, r)."""
-    name = {'phase A': 'phase_a_kernel<0>', 'heads': 'heads_kernel',
-            'to_act': 'to_act_kernel'}
+    name = {'phase A': 'phase_a_kernel<0>', 'heads': 'heads_kernel'}
     ev, t = [], 0
     for r in range(reps):
         for i, lab in enumerate(labels):
@@ -304,11 +339,11 @@ def test_layered_split_and_table():
     with pytest.raises(RuntimeError, match='no whole call'):
         kb.split_calls(_events(['phase A', 'heads'] * 6, 1, us), labels)
     rows = [{'kernel': 'K1', 'S': S, 'launch': lab, 'kind': kb.kind_of(lab),
-             'ms': ms * S / 64} for S in (64, 80)
+             'ms': ms * S / 64, 'floor_ms': 0.0} for S in (64, 80)
             for lab, ms in list(per.items()) + [('call', 9.0)]]
     lines = kb.layered_table(rows)
     assert lines[0].split() == ['kernel', 'launch', 'S=64', 'S=80', 'sum',
-                                'share']
+                                'share', 'floor']
     assert len(lines) == 1 + len(labels) + 2
     body = [ln.split() for ln in lines[1:1 + len(labels)]]
     assert [b[1] if b[1] != 'phase' else 'phase A' for b in body] == [
@@ -316,13 +351,13 @@ def test_layered_split_and_table():
         for lab in labels]
     total = sum(per.values()) * (1 + 80 / 64)
     for (lab, ms), b in zip(per.items(), body):
-        assert float(b[-2]) == pytest.approx(ms * (1 + 80 / 64), abs=1e-4)
-        assert float(b[-1].rstrip('%')) == pytest.approx(
+        assert float(b[-3]) == pytest.approx(ms * (1 + 80 / 64), abs=1e-4)
+        assert float(b[-2].rstrip('%')) == pytest.approx(
             100 * ms * (1 + 80 / 64) / total, abs=0.06)
     launches, call = lines[-2].split(), lines[-1].split()
-    assert launches[1] == 'launches' and launches[-1] == '100.0%'
-    assert float(launches[-2]) == pytest.approx(total, abs=1e-3)
-    assert call[1:] == ['call', '9.0000', '11.2500', '20.2500']
+    assert launches[1] == 'launches' and launches[-2] == '100.0%'
+    assert float(launches[-3]) == pytest.approx(total, abs=1e-3)
+    assert call[1:] == ['call', '9.0000', '11.2500', '20.2500', '0.0000']
 
 
 def test_layered_reports_the_profiler_misses(monkeypatch):
@@ -351,7 +386,9 @@ def test_layered_reports_the_profiler_misses(monkeypatch):
                  kb.fr.fused_encode_mlp_pts, kb.fm.fused_mlp_apply)}
     monkeypatch.setattr(kb, '_profiled', profiled_by_kernel)
     monkeypatch.setattr(kb, 'time_ms', lambda *a: 1.5)
-    rows, misses = kb.layered(ctx, [64, 80], 3)
+    rows, misses, seen = kb.layered(ctx, [64, 80], 3)
+    assert 'heads_kernel' in seen['K2 recompute']
+    assert not any('to_act' in n for names in seen.values() for n in names)
     assert misses == {'K4 S=64': 1, 'K4 S=80': kb.LAYERED_WINDOWS}
     assert windows == {'K1': 3, 'K4': 2 + kb.LAYERED_WINDOWS,
                        'K2 recompute': 2}
@@ -361,8 +398,12 @@ def test_layered_reports_the_profiler_misses(monkeypatch):
     assert by['K1', 80, 'phase A'] == pytest.approx(0.01)
     lines = [ln.split() for ln in kb.layered_table(rows)]
     k4 = {ln[1]: ln[2:] for ln in lines if ln[0] == 'K4'}
-    assert k4['heads'] == ['0.1100', 'n/m', 'n/m']
-    assert k4['launches'] == ['0.6600', 'n/m', 'n/m']
-    assert k4['call'] == ['1.5000', '1.5000', '3.0000']
+    # the last column: each launch's floor (measured or not)
+    floor = sum(r['floor_ms'] for r in rows
+                if r['kernel'] == 'K4' and r['launch'] == 'heads')
+    assert k4['heads'] == ['0.1100', 'n/m', 'n/m', f'{floor:.4f}']
+    assert k4['launches'][:3] == ['0.6600', 'n/m', 'n/m']
+    assert k4['call'][:3] == ['1.5000', '1.5000', '3.0000']
+    assert k4['call'][3] == k4['launches'][3]
     k1 = {ln[1]: ln[2:] for ln in lines if ln[0] == 'K1'}
-    assert k1['launches'][-1] == '100.0%'
+    assert k1['launches'][-2] == '100.0%'

@@ -240,9 +240,9 @@ def test_route_plan_sends_k4_at_two_stages_to_the_layered_route():
                           embedded=True).stages == 3
 
 
-def _grid_nets():
-    """(NeRFConfig, K1's k0 and kv) of every config the GRID's gate
-    admits (the width 384 the factory refuses left out)."""
+def _grid_nets(with_bands=False):
+    """(NeRFConfig, K1's k0 and kv[, (nfk, nfv)]) of every config the
+    GRID's gate admits (the width 384 the factory refuses left out)."""
     for width, depth, fc, mr, mv in GRID:
         if width == 384:
             continue
@@ -250,7 +250,7 @@ def _grid_nets():
             _gate_args(width, depth, fc, mr, mv, fused_kernel=True)))
         cfg = t_build(args, _data_attrs())
         k0, _, kv, _ = tfr.input_widths(mr, mv, tfr.fc_width(cfg.nerf))
-        yield cfg.nerf, k0, kv
+        yield (cfg.nerf, k0, kv) + (((mr, mv),) if with_bands else ())
 
 
 def test_layered_plan_covers_every_admitted_config():
@@ -263,7 +263,7 @@ def test_layered_plan_covers_every_admitted_config():
     runs clusters of LAYERED_CLUSTER CTAs only where the points make at
     least that many tiles."""
     n_configs = 0
-    for ncfg, k0, kv in _grid_nets():
+    for ncfg, k0, kv, nf in _grid_nets(with_bands=True):
         n_configs += 1
         for (a, b), save, embedded in (((k0, kv), False, False),
                                        ((k0, kv), True, False),
@@ -271,7 +271,8 @@ def test_layered_plan_covers_every_admitted_config():
                                         True)):
             plan = tfr.layered_plan(ncfg, a, b, save, embedded)
             shapes = tfr.sm90_shapes(ncfg, a, b)
-            ldx = tfr.layered_columns(ncfg, a, b, save, embedded)
+            width = {'X': tfr.layered_columns(ncfg, a, b, save, embedded),
+                     'act': tfr.act_rows(ncfg, *nf)['F']}
             assert len(plan) == len(shapes) == ncfg.depth + 2
             for layer, (N, K) in zip(plan, shapes):
                 assert layer['N'] == N
@@ -281,12 +282,15 @@ def test_layered_plan_covers_every_admitted_config():
                     > (layer['blocks'] - 1) * layer['block']
                 assert layer['k_slices'] == K // tfr.SLICE_K == sum(
                     n for *_, n in layer['segments'])
-                assert layer['out_col'] + N <= ldx
+                assert [dst for dst, _ in layer['out']] in (
+                    (['act'], ['act', 'X']) if save else (['X'],))
+                for dst, col in layer['out']:
+                    assert col + N <= width[dst]
                 for src, col, n in layer['segments']:
                     assert src in (('X', 'x0', 'xv') if embedded
-                                   else ('X',))
-                    if src == 'X':
-                        assert col + n * tfr.SLICE_K <= ldx
+                                   else ('act',) if save else ('X',))
+                    if src in width:
+                        assert col + n * tfr.SLICE_K <= width[src]
                 assert layer['cluster'] == tfr.LAYERED_CLUSTER
         for n_points in (1, 64, tfr.LAYERED_GM, tfr.LAYERED_GM + 1, 294912):
             tiles = -(-n_points // tfr.LAYERED_GM)
@@ -311,7 +315,10 @@ def test_layered_plan_follows_the_kernel_source():
     bf16, 1,024 bytes of alignment, two barriers a stage (1,984 bytes to
     spare); 128-wide blocks four stages. At wide-net the view layer
     reads the feature rows and the 11 slices of xv; the trunk's outputs
-    alternate between two buffers after x0 | xv."""
+    alternate between two buffers after x0 | xv. K2's recompute keeps
+    every activation in its act layout (`act_rows`' feature rows), where
+    the layers read them, and writes the last trunk layer and hv into X
+    as well, the heads' inputs (X: 768 columns)."""
     for name, value in (('GM', tfr.LAYERED_GM),
                         ('GCL', tfr.LAYERED_CLUSTER),
                         ('MAX_STAGES', tfr.LAYERED_MAX_STAGES),
@@ -328,12 +335,23 @@ def test_layered_plan_follows_the_kernel_source():
     k0, _, kv, _ = tfr.input_widths(7, 4)
     plan = tfr.layered_plan(ncfg, k0, kv, False, False)
     x0w, xvw = 448, 704
-    assert [p['out_col'] for p in plan[:8]] == [x0w + xvw + 512 * (i & 1)
-                                                for i in range(8)]
+    assert [p['out'] for p in plan[:8]] == [[('X', x0w + xvw + 512 * (i & 1))]
+                                            for i in range(8)]
     assert plan[5]['segments'] == [('X', 0, 7), ('X', x0w + xvw, 8)]
     assert plan[-1]['segments'] == [('X', x0w + xvw, 8), ('X', x0w, 11)]
     assert (plan[-1]['block'], plan[-1]['blocks']) == (256, 1)
     assert (plan[0]['block'], plan[0]['blocks']) == (256, 2)
+    rows = tfr.act_rows(ncfg, 7, 4)
+    save = tfr.layered_plan(ncfg, k0, kv, True, False)
+    assert [p['out'] for p in save] == [
+        [('act', rows['h'] + 512 * i)] for i in range(7)] + [
+        [('act', rows['h'] + 512 * 7), ('X', 0)], [('act', rows['feat'])],
+        [('act', rows['hv']), ('X', 512)]]
+    assert save[5]['segments'] == [('act', 0, 7),
+                                   ('act', rows['h'] + 512 * 4, 8)]
+    assert save[-1]['segments'] == [('act', rows['feat'], 8),
+                                    ('act', rows['xv'], 11)]
+    assert tfr.layered_columns(ncfg, k0, kv, True, False) == 768
     wide_in = NeRFConfig(depth=8, width=256, input_ch=24 * 21,
                          input_ch_bones=72, input_ch_views=72 * 13,
                          use_framecode=True, framecode_ch=32, n_framecodes=4)
@@ -342,26 +360,28 @@ def test_layered_plan_follows_the_kernel_source():
 
 
 def test_layered_design_bytes_counts_the_layout():
-    """roofline.layered_design_bytes against the count written out from
-    the layered route's layout (`layered_columns`' x0 | xv | activations)
-    a point, layer by layer, at wide-net (8 x 512, inputs 432 and 664
-    columns, 448 and 704 padded) and wide-input (8 x 256, 576 and 968,
-    576 and 1024 padded), skip into layer 5. K4 reads its inputs in place
-    (k0 and kv columns); K1 reads its points (12 bytes) and writes x0 |
-    xv; K2's recompute also copies X's F columns into its act layout.
-    (K4's counts are the 23.6 and 14.5 KB a point of the layered route's
-    HBM floor.)"""
+    """roofline.layered_design_bytes and layered_launch_bytes against the
+    count written out from the layered route's layout (x0 | xv |
+    activations) a point, layer by layer, at wide-net (8 x 512, inputs
+    432 and 664 columns, 448 and 704 padded) and wide-input (8 x 256, 576
+    and 968, 576 and 1024 padded), skip into layer 5. K4 reads its inputs
+    in place (k0 and kv columns) and no cutoff distances; K1 reads its
+    points (12 bytes) and writes x0 | xv; K2's recompute writes every
+    activation once, into its act layout, and the last trunk layer and hv
+    into X as well (no copy). Each launch carries its own weights (bf16,
+    unpadded), biases and the heads' and phase A's f32 operands. (K4's
+    counts are the 23.6 and 14.5 KB a point of the layered route's HBM
+    floor.)"""
     def count(w, x0, xv, emb_x0, emb_xv, embedded, save):
         a0, av = (emb_x0, emb_xv) if embedded else (x0, xv)
-        per = 0 if embedded else 12 + 2 * (x0 + xv)          # phase A
-        per += 2 * (a0 + w)                                  # layer 0
-        per += 6 * 2 * (w + w)                               # 1-4, 6, 7
-        per += 2 * (a0 + w + w)                              # 5: skip
-        per += 2 * (w + w)                                   # feature
-        per += 2 * (w + av + w // 2)                         # view
-        per += 2 * (w // 2 + w) + 16                         # heads
-        if save:
-            per += 4 * (x0 + xv + 9 * w + w // 2)            # to_act
+        per = [] if embedded else [12 + 2 * (x0 + xv)]       # phase A
+        per += [2 * (a0 + w)]                                # layer 0
+        per += [2 * (w + w)] * 4                             # 1-4
+        per += [2 * (a0 + w + w)]                            # 5: skip
+        per += [2 * (w + w), 2 * (w + w + w * save)]         # 6, 7
+        per += [2 * (w + w)]                                 # feature
+        per += [2 * (w + av + w // 2 + w // 2 * save)]       # view
+        per += [2 * (w // 2 + w) + 16]                       # heads
         return per
 
     from anerf_torch.kernels import roofline as rf
@@ -369,16 +389,29 @@ def test_layered_design_bytes_counts_the_layout():
             ('wide-net', 512, (432, 664), (448, 704), 23552),
             ('wide-input', 256, (576, 968), (576, 1024), 14496)):
         ncfg, _, _ = rf.shape_config(name)
+        ks = [k0] + [w] * 4 + [k0 + w] + [w] * 3 + [w + kv]
+        weights = [2 * k * n + 4 * n for k, n in zip(ks, [w] * 9 + [w // 2])]
+        heads = 4 * (3 * (w // 2) + w + 4)
         for embedded, save in ((True, False), (False, False),
                                (False, True)):
+            launches = rf.layered_launch_bytes(ncfg, k0, kv, 1000, save,
+                                               embedded)
+            per = count(w, x0, xv, k0, kv, embedded, save)
+            own = ([] if embedded else [4 * 24]) + weights + [heads]
+            assert [b for _, b in launches] == [
+                p * 1000 + o for p, o in zip(per, own)], (name, embedded)
+            assert [lab for lab, _ in launches] == (
+                [] if embedded else ['phase A']) + [
+                f'layer {i}' for i in range(8)] + ['feature', 'view',
+                                                   'heads']
             got = rf.layered_design_bytes(ncfg, k0, kv, 1000, save,
                                           embedded)
-            per = count(w, x0, xv, k0, kv, embedded, save)
-            assert got == per * 1000 + rf.net_bytes(ncfg), (name, embedded)
+            assert got == sum(per) * 1000 + rf.net_bytes(ncfg) - (
+                4 * 24 if embedded else 0), (name, embedded)
             if embedded:
-                assert per == want_k4
+                assert sum(per) == want_k4
         assert tfr.layered_columns(ncfg, k0, kv, True, False) == \
-            x0 + xv + 9 * w + w // 2
+            w + w // 2
 
 
 # ------------------------------------------------ the kernels at a shape

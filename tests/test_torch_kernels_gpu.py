@@ -52,6 +52,8 @@ Tolerances:
     accumulation rounds (observed on the CPU plain version: 1e-7, the
     f32 FMA product's 3e-7); and no more than 4x K2-v1's FMA GEMM's error
     on the same inputs.
+  * The layered route (a 3 x 512 trunk): K1 and K3 at 2e-3 as above;
+    K2's saved activations at 2e-2 as below.
   * K2's saved activations against the plain `_forward_trace`: 2e-2
     abs/rel. Both round the same f32 sums to bf16, in another summation
     order, which moves an occasional activation by one bf16 step (2^-8
@@ -605,3 +607,68 @@ def test_k2_v1_matches_plain_and_k2(cuda, R, S, tau):
             assert _rel(blocks[name], ref) < 0.12, name
         for a, b in zip(got[1:], k2[1:]):
             assert _rel(a, b) < 2e-2
+
+
+def _layered_packed(dev):
+    """A 3 x 512 trunk with a skip into layer 2, multires 7 / 4, 16-wide
+    framecodes: the layered route (`route_plan`)."""
+    ncfg = NeRFConfig(depth=3, width=512, skips=(1,), use_framecode=True,
+                      framecode_ch=16, n_framecodes=4)
+    params = init_nerf_params(ncfg, torch.Generator().manual_seed(5), dev)
+    params['alpha_linear']['b'] += 1.0
+    packed = fr.pack_render_params(params, ncfg, 7, 4,
+                                   torch.full((24,), 0.5, device=dev))
+    assert fr.route_plan(ncfg, packed['k0'], packed['kv']).kind == 'layered'
+    return ncfg, packed
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('R,S,tau', [(3, 7, 35.0), (131, 1, 2000.0),
+                                     (67, 80, 2000.0)])
+def test_layered_route_matches_plain(cuda, R, S, tau):
+    """The layered route: K1 and K3 against their plain versions,
+    relaunches bit-equal; K2's recompute (its activations in the act
+    layout, where its layers read them) with raw bit-equal to K1's (the
+    same sums of the same bf16 operands), its saved activations against
+    the plain trace, the padding rows of x0 and xv and every row of the
+    points past P zero. S = 1 puts 64 rays in a tile (phase A's per-ray
+    view-band table at its largest); 21, 131 and 5,360 points make odd
+    counts of tiles, the last one partial."""
+    ncfg, packed = _layered_packed(cuda)
+    pts, m_all, aux = _operands(cuda, R, S, R + S)
+    before = dict(fr.LAYERED_LAUNCHES)
+    k1 = fr.fused_encode_mlp_pts(ncfg, packed, pts, m_all, aux, S, tau)
+    again = fr.fused_encode_mlp_pts(ncfg, packed, pts, m_all, aux, S, tau)
+    x = _raw_inputs(cuda, R, S, R + S)
+    k3 = fr.fused_encode_mlp(ncfg, packed, x, tau)
+    g = torch.zeros((R, S, 4), device=cuda)
+    t = fr.launch_bwd(1, ncfg, packed, pts, m_all, aux, S, tau, g)
+    torch.cuda.synchronize()
+    assert fr.LAYERED_LAUNCHES['k1'] == before['k1'] + 2
+    assert fr.LAYERED_LAUNCHES['k3'] == before['k3'] + 1
+    assert fr.LAYERED_LAUNCHES['k2'] == before['k2'] + 1
+    assert torch.equal(k1, again)
+    torch.testing.assert_close(
+        k1, fr.fused_encode_mlp_pts_ref(ncfg, packed, pts, m_all, aux, S,
+                                        tau), atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(k3, fr.fused_encode_mlp_ref(ncfg, packed, x,
+                                                           tau),
+                               atol=2e-3, rtol=2e-3)
+    assert torch.equal(t['raw'].view(R, S, 4), k1)
+    P, rows = R * S, fr.act_rows(ncfg, 7, 4)
+    padded = -(-P // 64) * 64
+    act = fr.from_act_image(t['act'], padded, rows['F']).float()
+    assert not act[P:].any()
+    act = act[:P]
+    tr = fr._forward_trace(ncfg, packed, pts, m_all, aux, S, tau)
+    flat = lambda y: y.reshape(P, -1)
+    W = ncfg.width
+    pieces = [('x0', flat(tr['x0'])), ('xv', flat(tr['xv'])),
+              ('feat', flat(tr['feat'])), ('hv', flat(tr['hv']))]
+    pieces += [(rows['h'] + i * W, flat(h)) for i, h in enumerate(tr['hs'])]
+    for at, want in pieces:
+        r0 = rows[at] if isinstance(at, str) else at
+        torch.testing.assert_close(act[:, r0:r0 + want.shape[1]], want,
+                                   atol=2e-2, rtol=2e-2)
+    assert not act[:, 432:rows['xv']].any()
+    assert not act[:, rows['xv'] + 664:rows['h']].any()
