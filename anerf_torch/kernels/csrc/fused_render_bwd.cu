@@ -278,7 +278,7 @@ int run_bwd(const float* pts, const float* m_all,
 
   // 5. fixed-order sum of the dW partials
   reduce_chunks_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      partial, dW, total, n_chunk);
+      partial, dW, total, n_chunk, nullptr, nullptr, 0, 0, 0);
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
 
   // 6. PE and transform backward, per-ray sums
@@ -336,7 +336,7 @@ int anerf_fma_gemm_probe(int kind, const float* dy, int ldy, const void* b,
   L.dw(reinterpret_cast<const bf16*>(b), K, K, true, dy, ldy, N, 0, 0);
   if (L.err != cudaSuccess) return (int)L.err;
   reduce_chunks_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      partial, out, total, n_chunk);
+      partial, out, total, n_chunk, nullptr, nullptr, 0, 0, 0);
   return (int)cudaGetLastError();
 }
 

@@ -8,14 +8,32 @@
 
 namespace {
 
-// out[i] = sum over chunks c = 0, 1, .. of partial[c * total + i].
+// out[i] = sum over chunks c = 0, 1, .. of partial[c * total + i], but in
+// a bias row (bmap: per MMA layer its dW offset, length and bias partial
+// column, in dW order; n_layers = 0 where there is none, as in K2's f32
+// flavour and K2-v1) the sum over the n_groups rows of the bias partials
+// bpart (K2's bf16 flavour: one row a DX group) instead. Both in a fixed
+// order.
 __global__ void reduce_chunks_kernel(const float* __restrict__ partial,
                                      float* __restrict__ out,
-                                     long long total, int n_chunk) {
+                                     long long total, int n_chunk,
+                                     const float* __restrict__ bpart,
+                                     const long long* __restrict__ bmap,
+                                     int n_layers, int n_groups, int n_bias) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
+  int lo = 0, hi = n_layers - 1, l = -1;   // the last layer at or before i
+  while (lo <= hi) {
+    const int mid = (lo + hi) / 2;
+    if (bmap[3 * mid] <= i) { l = mid; lo = mid + 1; } else { hi = mid - 1; }
+  }
   float s = 0.f;
-  for (int c = 0; c < n_chunk; ++c) s += partial[(long long)c * total + i];
+  if (l >= 0 && i < bmap[3 * l] + bmap[3 * l + 1]) {
+    const long long col = bmap[3 * l + 2] + (i - bmap[3 * l]);
+    for (int c = 0; c < n_groups; ++c) s += bpart[(long long)c * n_bias + col];
+  } else {
+    for (int c = 0; c < n_chunk; ++c) s += partial[(long long)c * total + i];
+  }
   out[i] = s;
 }
 

@@ -94,11 +94,6 @@ constexpr int L_IN_PTS = 0, L_IN_RAW = 1, L_IN_EMBEDDED = 2;
 
 __host__ __device__ inline int rup64(int n) { return (n + KC - 1) / KC * KC; }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
 // ---- phase A ----
 // Two kernels of the same arithmetic, one for each layout of the MLP
 // inputs: phase_a_rows_kernel writes X's rows (K1, K3), phase_a_act_kernel
@@ -573,53 +568,6 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst,
       "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
       ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          int bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// The 128 threads of consumer warpgroup wg (named barriers 2 and 3).
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
-}
-
-// `bytes` of shared `src` to global `dst`, one bulk group.
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
-                                           int bytes) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
-          dst),
-      "r"(src), "r"(bytes)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// This thread's bulk stores have read their shared memory / are done.
-__device__ __forceinline__ void bulk_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-__device__ __forceinline__ void bulk_wait() {
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// Four 8 x 8 bf16 matrices of the warp's fragments (register i holds
-// matrix i: row lane / 4, columns 2 (lane % 4), + 1), each stored
-// transposed: row i of matrix m (a column of the fragment) at the address
-// lane 8 m + i gives.
-__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0,
-                                                  uint32_t r1, uint32_t r2,
-                                                  uint32_t r3) {
-  asm volatile(
-      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
-      "{%1, %2, %3, %4};\n" ::"r"(addr),
-      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
       : "memory");
 }
 

@@ -1,10 +1,11 @@
 // Hopper (sm_90a) building blocks shared by K1 (fused_render_sm90.cu), K2
 // (fused_render_bwd_sm90.cu) and the layered route
 // (fused_render_layered_sm90.cu): the 128-byte-swizzled tile layout that
-// wgmma reads, its shared-memory descriptor, mbarrier waits, the cluster's
-// remote arrives, multicast bulk copies and barrier, and the
-// wgmma.m64n256k16 / m64n128k16 / m64n64k16 instructions with bf16
-// operands from shared memory and f32 accumulators in registers.
+// wgmma reads, its shared-memory descriptors, mbarrier waits and arrives,
+// the cluster's remote arrives, bulk copies (multicast too) and bulk
+// stores, stmatrix.trans, named barriers, and the wgmma.m64n256k16 /
+// m64n128k16 / m64n64k16 instructions with bf16 operands from shared
+// memory and f32 accumulators in registers.
 #pragma once
 
 #include "fused_render_common.cuh"
@@ -119,6 +120,66 @@ __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
   asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
   return r;
+}
+
+// bf16 pair (lo in the low half), rounded to nearest even.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// `bytes` from global `src` to shared `dst`, completing on barrier `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One arrive on barrier `bar` of this CTA.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// The 128 threads of consumer warpgroup wg (named barriers 2 and 3).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+}
+
+// `bytes` of shared `src` to global `dst`, one bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           int bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// This thread's bulk stores have read their shared memory / are done.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Four 8 x 8 bf16 matrices of the warp's fragments (register i holds
+// matrix i: row lane / 4, columns 2 (lane % 4), + 1), each stored
+// transposed: row i of matrix m (a column of the fragment) at the address
+// lane 8 m + i gives.
+__device__ __forceinline__ void stmatrix_x4_trans(uint32_t addr, uint32_t r0,
+                                                  uint32_t r1, uint32_t r2,
+                                                  uint32_t r3) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], "
+      "{%1, %2, %3, %4};\n" ::"r"(addr),
+      "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+      : "memory");
 }
 
 // The 256 consumer threads only (named barrier 1).

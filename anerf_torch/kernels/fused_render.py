@@ -13,10 +13,12 @@ kernel. With f32-accurate cotangent products (`bwd_f32=True`) they are
 split-bf16 wgmma GEMMs: the f32 cotangent splits exactly into three bf16
 planes (`split3_ref`), each multiplied by the bf16 weights or saved
 activations. With bf16 cotangent operands (`bwd_f32=False`, the
---fast_grads numerics) the same launches multiply the hi plane alone,
-the cotangent rounded to bf16, and the heads round g the same way. The
-weights' second image 'W^T' (`t_image_index`) and the saved activations'
-tile layout (`act_image`) feed them. K2-v1 (`fused_bwd_v1`,
+--fast_grads numerics) a layer kernel of its own multiplies the
+cotangents rounded to bf16, which it keeps in HBM as bf16 tiles of the
+saved activations' layout, and the heads round g the same way; its grid
+comes from P (`bwd_plan`). The weights' second image 'W^T'
+(`t_image_index`) and the saved activations' tile layout (`act_image`)
+feed them. K2-v1 (`fused_bwd_v1`,
 csrc/fused_render_bwd.cu, f32 FMA GEMMs) is its first version, kept as
 the comparison; no path of the port runs it. `FusedApply` /
 `fused_apply` run K1 forward and K2 backward, with gradients reaching
@@ -83,6 +85,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 import hashlib
 import os
 import shutil
@@ -454,6 +457,12 @@ def t_image_index(ncfg: NeRFConfig, nfk: int, nfv: int, device
                                                  offs[-1])])))
         _T_IMAGE_INDEX[key] = torch.cat(parts).to(device)
     return _T_IMAGE_INDEX[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _t_image_numel(ncfg: NeRFConfig, nfk: int, nfv: int) -> int:
+    """Elements of K2's W^T image."""
+    return sum(rpad * n for *_, rpad, n in t_image_segments(ncfg, nfk, nfv))
 
 
 def weights_from_t_image(ncfg: NeRFConfig, packed: Dict[str, Any],
@@ -1048,7 +1057,7 @@ def _library(name: str):
             lib.anerf_fused_encode_mlp_pts_v1.restype = i
         elif name == 'fused_render_bwd_sm90':
             lib.anerf_fused_bwd_sm90.argtypes = \
-                [i, i] + [p] * 19 + [i] * 4 + [p] + [i] * 4 + [f, p]
+                [i, i] + [p] * 21 + [i] * 4 + [p] + [i] * 5 + [f, p]
             lib.anerf_fused_bwd_sm90.restype = i
             lib.anerf_split_gemm_probe.argtypes = \
                 [i, p, i, p, ctypes.c_longlong, i, i, i, i, p, i, i, i,
@@ -1561,21 +1570,188 @@ def fused_encode_mlp_v1(ncfg: NeRFConfig, packed: Dict[str, Any],
     return out
 
 
-def _bwd_scratch(ncfg: NeRFConfig, packed: Dict[str, Any], P: int,
-                 dev) -> Dict[str, torch.Tensor]:
-    """K2's and K2-v1's f32 cotangent buffers and per-chunk dW partials."""
-    _, k0p, _, kvp = input_widths(packed['nfk'], packed['nfv'],
-                                  packed['fc'])
+def _mma_products(ncfg: NeRFConfig, k0p: int, kvp: int
+                  ) -> List[Tuple[str, List[Tuple[str, int, int]]]]:
+    """K2's layer launches in order (csrc/fused_render_bwd_sm90.cu:
+    run_bwd): (label, [(role, m_tiles or k_slices, n_tiles)]) per MMA
+    layer, view first, then feature and the trunk from its last layer.
+    A 'dwt' product is dW^T of one input segment (m_tiles: the layer's
+    outputs / 64; n_tiles: the segment's rows / 256, rounded up); a 'dx'
+    product is the cotangent of one input segment (k_slices: outputs /
+    64)."""
     W, WV = ncfg.width, ncfg.width // 2
-    n_grad = sum(r * c for _, r, c in grad_blocks(ncfg, packed['nfk'],
-                                                  packed['nfv']))
-    f32 = dict(dtype=torch.float32, device=dev)
-    return {'dhv': torch.empty((P, WV), **f32),           # d hv
-            'dview': torch.empty((P, W + kvp), **f32),    # d [feat | xv]
-            'dh_a': torch.empty((P, W), **f32),           # d h, ping
-            'dh_b': torch.empty((P, W), **f32),           # d h, pong
-            'dx0': torch.empty((P, k0p), **f32),          # d x0
-            'partial': torch.empty((-(-P // BWD_CHUNK), n_grad), **f32)}
+    t = lambda n: -(-n // BWD_TILE_N)
+    out = [('view', [('dwt', WV // SLICE_K, t(W)), ('dwt', WV // SLICE_K,
+                                                      t(kvp)),
+                     ('dx', WV // SLICE_K, t(W)), ('dx', WV // SLICE_K,
+                                                   t(kvp))]),
+           ('feature', [('dwt', W // SLICE_K, t(W)),
+                        ('dx', W // SLICE_K, t(W))])]
+    skips = skip_flags(ncfg)
+    for i in range(ncfg.depth - 1, -1, -1):
+        x0 = i == 0 or skips[i]
+        prods = [('dwt', W // SLICE_K, t(k0p))] if x0 else []
+        prods += [('dwt', W // SLICE_K, t(W))] if i else []
+        prods += [('dx', W // SLICE_K, t(k0p))] if x0 else []
+        prods += [('dx', W // SLICE_K, t(W))] if i else []
+        out.append((f'layer {i}', prods))
+    return out
+
+
+#: the bf16 flavour's plan (csrc/fused_render_bwd_sm90.cu: run_bwd_bf16):
+#: the dW partials a layer writes, about (fewer where the points make
+#: fewer tiles of BF16_CHUNK_TILES)
+BF16_CHUNKS = 16
+#: a chunk's 64-point tiles are a multiple of this
+BF16_CHUNK_TILES = 4
+#: the f32 flavour's DX CTAs take this many 64-point tiles
+#: (csrc/fused_render_bwd_sm90.cu: DX_ITEMS)
+BWD_DX_ITEMS = 8
+#: hv columns a dhv block of the bf16 flavour's heads takes (DHV_SLAB)
+DHV_SLAB = 32
+
+
+def bf16_grid(P: int, W: int) -> Tuple[int, int]:
+    """(points a dW partial covers, 64-point tiles a DX CTA takes) of the
+    bf16 flavour on P points of a trunk of width W: chunks of a multiple
+    of BF16_CHUNK_TILES tiles, about BF16_CHUNKS of them, and DX CTAs of a
+    chunk's tiles over the trunk's 64-output slices (a DWT CTA's MMAs)."""
+    T = -(-P // SLICE_K)
+    g = BF16_CHUNK_TILES * -(-T // (BF16_CHUNKS * BF16_CHUNK_TILES))
+    return g * SLICE_K, max(1, g // (W // SLICE_K))
+
+
+def bias_map(ncfg: NeRFConfig, nfk: int, nfv: int) -> List[Tuple[int, int,
+                                                                 int]]:
+    """(offset in the flat dW, length, column of the bias partials) of
+    every MMA layer's bias row, in dW order (trunk, feature, view): the
+    table K2's bf16 chunk sum reads (reduce_chunks_kernel). The bias
+    partials hold trunk layer i at column i W, the feature layer at
+    depth W, the view layer at (depth + 1) W."""
+    out, off = [], 0
+    W = ncfg.width
+    for i, (_, r, c) in enumerate(grad_blocks(ncfg, nfk, nfv)[:-2]):
+        out.append((off + (r - 1) * c, c, i * W))
+        off += r * c
+    return out
+
+
+_BIAS_MAP: Dict[Any, torch.Tensor] = {}
+
+
+def bias_map_operand(ncfg: NeRFConfig, nfk: int, nfv: int, device
+                     ) -> torch.Tensor:
+    """`bias_map` as the kernel reads it: int64 (layers, 3), cached per
+    config and device."""
+    key = (ncfg.width, ncfg.depth, tuple(ncfg.skips), nfk, nfv,
+           fc_width(ncfg), str(device))
+    if key not in _BIAS_MAP:
+        _BIAS_MAP[key] = torch.tensor(bias_map(ncfg, nfk, nfv),
+                                      dtype=torch.int64, device=device)
+    return _BIAS_MAP[key]
+
+
+_BWD_PLANS: Dict[Any, Dict[str, Any]] = {}
+
+
+def bwd_plan(ncfg: NeRFConfig, packed: Dict[str, Any], P: int,
+             bwd_f32: bool) -> Dict[str, Any]:
+    """K2's plan for P points of one net in the flavour `bwd_f32`, as
+    `launch_bwd` and csrc/fused_render_bwd_sm90.cu make it:
+      * 'chunk': points a dW partial covers (the f32 flavour BWD_CHUNK;
+        the bf16 flavour a multiple of BF16_CHUNK_TILES tiles of 64 from
+        P, so that a layer writes about BF16_CHUNKS partials),
+        'n_chunk' the partials;
+      * 'dx_items': 64-point tiles a DX CTA walks (f32: BWD_DX_ITEMS;
+        bf16: the chunk's tiles over the trunk's 64-output slices, so
+        that a DX CTA does a DWT CTA's MMAs), 'n_dx_groups' the DX CTAs
+        of one 256-column tile (bf16: also the rows of the bias partials
+        'bpart', which the DX epilogues and the heads' dhv blocks write);
+      * 'launches': [{'label', 'kernel', 'ctas'}] in launch order: the
+        recompute's (the single kernel's one, or the layered route's,
+        labelled 'recompute: ...'), 'heads', each MMA layer's ('view',
+        'feature', 'layer d-1' .. 'layer 0'; 'ctas' {'dx', 'dwt'}),
+        'chunk sum', 'PE'; 'kernel' the fragment of the device kernel's
+        name;
+      * 'scratch': {name: (dtype, shape)} of the buffers `launch_bwd`
+        allocates after the recompute (f32: the cotangents as (P, cols)
+        f32 rows; bf16: dhv, dh_a and dh_b as bf16 tiles in act's layout,
+        (tiles, cols, 64), and only dx0 and dxv, which the f32 PE
+        backward reads, as f32 rows);
+      * 'cot_bytes': bytes of a stored MMA-layer cotangent (4 or 2).
+    Cached per config, P and flavour (a call's host time is part of a
+    step's): callers read it and change nothing in it."""
+    key = (ncfg.width, ncfg.depth, tuple(ncfg.skips), packed['nfk'],
+           packed['nfv'], packed['fc'], packed['k0'], packed['kv'], P,
+           bwd_f32)
+    if key not in _BWD_PLANS:
+        _BWD_PLANS[key] = _bwd_plan(ncfg, packed, P, bwd_f32)
+    return _BWD_PLANS[key]
+
+
+def _bwd_plan(ncfg: NeRFConfig, packed: Dict[str, Any], P: int,
+              bwd_f32: bool) -> Dict[str, Any]:
+    nfk, nfv = packed['nfk'], packed['nfv']
+    _, k0p, _, kvp = input_widths(nfk, nfv, packed['fc'])
+    W, WV = ncfg.width, ncfg.width // 2
+    T = -(-P // SLICE_K)
+    chunk, dx_items = ((BWD_CHUNK, BWD_DX_ITEMS) if bwd_f32 else
+                       bf16_grid(P, W))
+    n_chunk, n_dxg = -(-P // chunk), -(-T // dx_items)
+    route = route_plan(ncfg, packed['k0'], packed['kv'])
+    if route.kind == 'single':
+        launches = [{'label': 'recompute', 'kernel': 'k1_sm90_kernel',
+                     'ctas': None}]
+    else:
+        frag = {'phase A': 'phase_a_act_kernel', 'heads': 'heads_kernel'}
+        launches = [{'label': f'recompute: {lab}',
+                     'kernel': frag.get(lab, 'layer_gemm_kernel'),
+                     'ctas': None}
+                    for lab in ['phase A'] + [f'layer {i}' for i in
+                                              range(ncfg.depth)]
+                    + ['feature', 'view', 'heads']]
+    # the heads' rows: 32 a block (f32), 8 (bf16); dhv: a block a tile
+    # (f32), a DX group's DHV_SLAB columns (bf16)
+    rows = WV + 1 + W + 1
+    launches.append({'label': 'heads', 'kernel': 'heads_bwd_kernel',
+                     'ctas': n_chunk * -(-rows // 32) + T if bwd_f32 else
+                     n_chunk * -(-rows // 8) + n_dxg * (WV // DHV_SLAB)})
+    for label, prods in _mma_products(ncfg, k0p, kvp):
+        ctas = {'dx': 0, 'dwt': 0}
+        for role, m, n in prods:
+            ctas[role] += n_dxg * n if role == 'dx' else n_chunk * m * n
+        launches.append({'label': label, 'kernel': 'bwd_layer_kernel',
+                         'ctas': ctas})
+    launches += [{'label': 'chunk sum', 'kernel': 'reduce_chunks_kernel',
+                  'ctas': None},
+                 {'label': 'PE', 'kernel': 'pe_transform_bwd_kernel',
+                  'ctas': None}]
+    n_grad = sum(r * c for _, r, c in grad_blocks(ncfg, nfk, nfv))
+    f32, bf = torch.float32, torch.bfloat16
+    if bwd_f32:
+        scratch = {'dhv': (f32, (P, WV)), 'dview': (f32, (P, W + kvp)),
+                   'dh_a': (f32, (P, W)), 'dh_b': (f32, (P, W)),
+                   'dx0': (f32, (P, k0p)),
+                   'partial': (f32, (n_chunk, n_grad))}
+    else:
+        scratch = {'dhv': (bf, (T, WV, SLICE_K)), 'dxv': (f32, (P, kvp)),
+                   'dh_a': (bf, (T, W, SLICE_K)),
+                   'dh_b': (bf, (T, W, SLICE_K)), 'dx0': (f32, (P, k0p)),
+                   'partial': (f32, (n_chunk, n_grad)),
+                   'bpart': (f32, (n_dxg, (ncfg.depth + 1) * W + WV))}
+    return {'bwd_f32': bwd_f32, 'P': P, 'tiles': T, 'chunk': chunk,
+            'n_chunk': n_chunk, 'dx_items': dx_items, 'n_dx_groups': n_dxg,
+            'launches': launches, 'scratch': scratch,
+            'cot_bytes': 4 if bwd_f32 else 2}
+
+
+def _bwd_scratch(ncfg: NeRFConfig, packed: Dict[str, Any], P: int,
+                 dev, bwd_f32: bool = True) -> Dict[str, torch.Tensor]:
+    """K2's scratch buffers as `bwd_plan` sizes them (K2-v1 takes the f32
+    flavour's: f32 cotangents and per-chunk dW partials)."""
+    return {name: torch.empty(shape, dtype=dt, device=dev) for name,
+            (dt, shape) in bwd_plan(ncfg, packed, P, bwd_f32)['scratch']
+            .items()}
 
 
 def _bwd_outputs(ncfg: NeRFConfig, packed: Dict[str, Any], R: int, S: int,
@@ -1600,17 +1776,20 @@ def launch_bwd(stage: int, ncfg: NeRFConfig, packed: Dict[str, Any],
     csrc/fused_render_layered_sm90.cu), then the layer launches of
     csrc/fused_render_bwd_sm90.cu, whose cotangent products are
     f32-accurate (bwd_f32: three bf16 planes of each f32 cotangent) or
-    take the cotangent rounded to bf16 (not bwd_f32: its hi plane alone,
-    the JAX `bwd_f32=False` flavour). Allocates the
-    outputs and the scratch and returns them by name: dW, dpts, dm, daux,
-    act (the saved bf16 activations in `act_image` layout, 2 F bytes a
-    point, 7,168 at the flagship, and one spare tile), raw, and the f32
-    cotangents dhv, dview, dh_a, dh_b, dx0 and the per-chunk dW partial
-    sums."""
+    take the cotangent rounded to bf16 (not bwd_f32, the JAX
+    `bwd_f32=False` flavour: bwd_layer_kernel_bf16 on bf16 cotangent
+    tiles). Allocates the outputs and the scratch
+    (`bwd_plan`) and returns them by name: dW, dpts, dm, daux, act (the
+    saved bf16 activations in `act_image` layout, 2 F bytes a point,
+    7,168 at the flagship, and one spare tile), raw, the cotangents dhv,
+    dh_a, dh_b (f32 rows, or bf16 tiles in `act_image` layout), dx0 and
+    dxv (f32 rows, the MLP inputs'; the f32 flavour's dxv a view of its
+    dview, d[feat | xv]), the per-chunk dW partial sums and, in the bf16
+    flavour, the bias partials 'bpart'. A sequence stopped early leaves
+    the outputs it does not reach zero."""
     R = pts.shape[0]
     nfk, nfv = packed['nfk'], packed['nfv']
-    n_img_t = sum(rpad * n for *_, rpad, n in t_image_segments(ncfg, nfk,
-                                                               nfv))
+    n_img_t = _t_image_numel(ncfg, nfk, nfv)
     route = route_plan(ncfg, packed['k0'], packed['kv'])
     _check_operands('fused_bwd', ncfg, packed, pts, m_all, aux, S,
                     g=(g, (R, S, 4), torch.float32),
@@ -1646,8 +1825,15 @@ def launch_bwd(stage: int, ncfg: NeRFConfig, packed: Dict[str, Any],
         _raise_on(lib, err, 'fused_bwd (recompute)')
     if stage == 1:
         return t
-    scratch = _bwd_scratch(ncfg, packed, P, dev)
+    plan = bwd_plan(ncfg, packed, P, bwd_f32)
+    scratch = _bwd_scratch(ncfg, packed, P, dev, bwd_f32)
     t.update(scratch)
+    if bwd_f32:
+        t['dxv'] = t['dview'][:, ncfg.width:]
+    cot = [scratch[k] for k in ('dhv', 'dview' if bwd_f32 else 'dxv', 'dh_a',
+                                'dh_b', 'dx0', 'partial')]
+    bias = (None, None) if bwd_f32 else (
+        scratch['bpart'], bias_map_operand(ncfg, nfk, nfv, dev))
     skip = (ctypes.c_int * ncfg.depth)(*skip_flags(ncfg))
     lib = _library('fused_render_bwd_sm90')
     with torch.cuda.device(dev):
@@ -1658,11 +1844,12 @@ def launch_bwd(stage: int, ncfg: NeRFConfig, packed: Dict[str, Any],
             t['act'].data_ptr(),
             g.data_ptr(), packed['w_rgb'].data_ptr(),
             packed['w_alpha'].data_ptr(),
-            *(x.data_ptr() for x in scratch.values()),
+            *(x.data_ptr() for x in cot),
+            *(None if x is None else x.data_ptr() for x in bias),
             t['dW'].data_ptr(), t['dpts'].data_ptr(), t['dm'].data_ptr(),
             t['daux'].data_ptr(), P, S, ncfg.width, ncfg.depth,
             ctypes.cast(skip, ctypes.c_void_p), nfk, nfv, packed['fc'],
-            BWD_CHUNK, float(tau), stream)
+            plan['chunk'], plan['dx_items'], float(tau), stream)
     _raise_on(lib, err, 'fused_bwd')
     return t
 

@@ -238,48 +238,72 @@ def k2_fp32_ms(ncfg: NeRFConfig, n_points: int) -> float:
         * 1e3
 
 
-def k2_design_bytes(ncfg: NeRFConfig, nfk: int, nfv: int, n_points: int,
-                    chunk: int = 2048, cot_bytes: int = 4,
-                    fc: int = FC) -> int:
-    """HBM bytes K2's layer-by-layer sequence moves on n_points points of
-    one net, with every tensor read from HBM as often as the design reads
-    it (none from L2): the recompute writes the saved activations (2 F a
-    point, `act_rows`) and raw; the heads read g, hv and the last trunk
-    activation and write dhv; each MMA layer reads its f32 cotangent dY
-    twice (the dW and dX roles), its input activations (dW's B) and the
-    masks, and writes its input's f32 cotangent (dx0's second writer
-    reads it first); the dW partial sums are written and read once per
-    chunk; the PE backward reads the points, dx0 and dxv and writes dpts.
-    cot_bytes is the size of a stored cotangent entry: 4, the design of
-    both flavours (f32 cotangents through HBM); 2 is what the bf16
-    flavour would move with its MMA layers' cotangents held as bf16 (dx0
-    and dxv, which the f32 PE backward reads, stay f32). fc: framecode
-    columns."""
+def k2_launch_bytes(ncfg: NeRFConfig, nfk: int, nfv: int, n_points: int,
+                    cot_bytes: int = 4, chunk: int = 2048,
+                    fc: int = FC) -> list:
+    """[(launch, HBM bytes)] of K2's layer-by-layer sequence on n_points
+    points of one net, in launch order (fused_render.bwd_plan's labels,
+    the recompute as one), every tensor read from HBM as often as the
+    design reads it (none from L2):
+      * 'recompute': the points read, the saved activations (2 F a point,
+        `act_rows`) and raw written;
+      * 'heads': g, hv and the last trunk activation read, dhv written,
+        the heads' dW partials written once per chunk;
+      * each MMA layer ('view', 'feature', 'layer d-1' .. 'layer 0'): its
+        cotangent dY read twice (the dW and dX roles), its input
+        activations (dW's B) and, where its input is a ReLU output, the
+        masks read; its input's cotangent written (an MLP input's columns
+        always f32: the PE backward reads them; 'layer 0' also reads dx0,
+        which the skip layer wrote first); its dW partials written once
+        per chunk;
+      * 'chunk sum': every partial read once;
+      * 'PE': the points, dx0 and dxv read, dpts written.
+    cot_bytes is the size of a stored MMA-layer cotangent entry: 4 (f32,
+    the f32 flavour), 2 (bf16 tiles, the bf16 flavour). chunk: points a
+    dW partial covers (fused_render.bwd_plan). fc: framecode columns."""
     W, WV = ncfg.width, ncfg.width // 2
     k0 = N_JOINTS * (1 + 2 * nfk) + C72
     kv = C72 * (1 + 2 * nfv) + fc
     up = lambda n, m: -(-n // m) * m
     k0p, kvp = up(k0, 16), up(kv, 16)
     F = up(k0, 64) + up(kv, 64) + (ncfg.depth + 1) * W + WV
-    per = 12 + 2 * F + 16                              # recompute
-    c = cot_bytes
-    per += 16 + 2 * (WV + W) + c * WV                  # heads
+    c, P, n_chunk = cot_bytes, n_points, -(-n_points // chunk)
     layers = [(k0p, W)] + [((k0p + W) if (i - 1) in ncfg.skips else W, W)
                            for i in range(1, ncfg.depth)]
     layers += [(W, W), (W + kvp, WV)]
+    names = [f'layer {i}' for i in range(ncfg.depth)] + ['feature', 'view']
+    heads_grad = (WV + 1) * 3 + W + 1
+    out = [('recompute', (12 + 2 * F + 16) * P),
+           ('heads', (16 + 2 * (WV + W) + c * WV) * P
+            + 4 * heads_grad * n_chunk)]
+    per_layer = {}
     for i, (k, n) in enumerate(layers):
-        # dY read twice; B; the input cotangent written (an MLP input's
-        # columns always f32: the PE backward reads them)
         x_in = k0p if i == 0 else (k0p if k > W and i <= ncfg.depth
                                    else 0)
         x_in = kvp if i == len(layers) - 1 else x_in
-        per += 2 * c * n + 2 * k + c * (k - x_in) + 4 * x_in
+        per = 2 * c * n + 2 * k + c * (k - x_in) + 4 * x_in
         if 0 < i <= ncfg.depth:                        # masked input h
             per += 2 * W
-    per += 4 * k0p                                     # dx0 accumulate
-    per += 12 + 4 * (k0p + kvp) + 12                   # PE backward
-    n_grad = sum((k + 1) * n for k, n in layers) + (WV + 1) * 3 + W + 1
-    return per * n_points + 2 * 4 * n_grad * -(-n_points // chunk)
+        if i == 0:                                     # dx0 accumulate
+            per += 4 * k0p
+        per_layer[names[i]] = per * P + 4 * (k + 1) * n * n_chunk
+    out += [(name, per_layer[name]) for name in reversed(names)]
+    n_grad = sum((k + 1) * n for k, n in layers) + heads_grad
+    return out + [('chunk sum', 4 * n_grad * n_chunk),
+                  ('PE', (12 + 4 * (k0p + kvp) + 12) * P)]
+
+
+def k2_design_bytes(ncfg: NeRFConfig, nfk: int, nfv: int, n_points: int,
+                    chunk: int = 2048, cot_bytes: int = 4,
+                    fc: int = FC) -> int:
+    """HBM bytes K2's layer-by-layer sequence moves on n_points points of
+    one net: the sum of `k2_launch_bytes`' launches. cot_bytes is the size
+    of a stored MMA-layer cotangent entry: 4, the f32 flavour's design
+    (f32 cotangents through HBM); 2, the bf16 flavour's (bf16 cotangent
+    tiles; dx0 and dxv, which the f32 PE backward reads, stay f32).
+    chunk: points a dW partial covers. fc: framecode columns."""
+    return sum(b for _, b in k2_launch_bytes(ncfg, nfk, nfv, n_points,
+                                             cot_bytes, chunk, fc))
 
 
 def layered_launch_bytes(ncfg: NeRFConfig, k0: int, kv: int,
@@ -479,20 +503,23 @@ def l2_weight_lines(n_rays: int = 4096):
 
 def k2_lines(n_rays: int = 2048):
     """Beside K2's bound: the fp32-FMA bound it had before the split
-    products (history) and its design's HBM traffic per train step of
-    n_rays rays, at S = 64 + 80 and at the culled S = 8 + 24; the bf16
-    flavour moves the same bytes (f32 cotangents), and the line beside
-    says what it would move with bf16 cotangents."""
+    products (history) and each flavour's design HBM traffic per train
+    step of n_rays rays, at S = 64 + 80 and at the culled S = 8 + 24: the
+    f32 flavour's f32 cotangents in 2048-point chunks, the bf16 flavour's
+    bf16 cotangent tiles in its plan's chunks (fused_render.bf16_grid)."""
+    from .fused_render import bf16_grid
     ncfg = NeRFConfig(use_framecode=True, framecode_ch=16)
     P = n_rays * (64 + 80)
     lines = [f'K2 history: its products as f32 FMAs, '
              f'{k2_fp32_ms(ncfg, P):.4f} ms at 67 TFLOP/s per {n_rays}-ray '
              f'train step (K2-v1\'s design)']
     for shapes in ((64, 80), (8, 24)):
-        for cot, what in ((4, 'both flavours, f32 cotangents'),
-                          (2, 'bf16 flavour with bf16 cotangents held')):
-            b = sum(k2_design_bytes(ncfg, 7, 4, n_rays * S, cot_bytes=cot)
-                    for S in shapes)
+        for f32, what in ((True, 'f32 flavour, f32 cotangents'),
+                          (False, 'bf16 flavour, bf16 cotangent tiles')):
+            b = sum(k2_design_bytes(
+                ncfg, 7, 4, n_rays * S,
+                2048 if f32 else bf16_grid(n_rays * S, ncfg.width)[0],
+                4 if f32 else 2) for S in shapes)
             lines.append(
                 f'K2 design traffic, S = {shapes[0]} + {shapes[1]} '
                 f'({what}): {b / 1e9:.3f} GB through HBM per {n_rays}-ray '

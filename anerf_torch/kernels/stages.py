@@ -158,5 +158,4 @@ def decompose_bwd(stage: str, ncfg: NeRFConfig, packed: Dict[str, Any],
         return t['dW'], t['dpts'], t['dm'], t['daux']
     if stage == 'pe':
         return t['dW'], t['dpts']
-    return (t['dW'], t['dx0'].view(R, S, -1),
-            t['dview'].view(R, S, -1)[..., ncfg.width:])
+    return t['dW'], t['dx0'].view(R, S, -1), t['dxv'].reshape(R, S, -1)

@@ -17,7 +17,8 @@ default_rng(0)); times are medians of `reps` CUDA-event timings in turns
 Per S it prints a row for K2 and one for K1's forward
 (`fused_encode_mlp_pts` on the same points), and ends with one JSON line
 {"metric": "k2_ab", "device", "power_limit", "bwd_f32", "rows": [{S,
-bit_equal, ms, other_ms, turns, fro, other_fro}], "k1_rows": [{S,
+bit_equal, outputs_bit_equal (dW, dpts, dm_all, daux each), ms,
+other_ms, turns, fro, other_fro}], "k1_rows": [{S,
 bit_equal, ms, other_ms, turns}]}; fro is the worst relative Frobenius
 distance of a dW block, dx0 or dxv from the plain bf16 MLP backward on
 the kernel's own activations (None in the f32 flavour). With --v1 the
@@ -73,7 +74,9 @@ def mlp_fro(ofr, ncfg, packed, args, bwd_f32: bool) -> float:
             fr.mlp_bwd_ref(*args, bwd_f32=False)
     else:
         t = ofr.launch_bwd(2, *args, bwd_f32=bwd_f32)
-        got = (t['dW'], t['dx0'], t['dview'][:, W:])
+        # the other copy may predate 'dxv' (its dview is d[feat | xv])
+        got = (t['dW'], t['dx0'], t['dxv'] if 'dxv' in t
+               else t['dview'][:, W:])
         want = fr.mlp_bwd_ref(*args, bwd_f32=False, trace=fr.trace_from_act(
             ncfg, packed, t['act'], P))
     nfk, nfv = packed['nfk'], packed['nfv']
@@ -85,18 +88,22 @@ def mlp_fro(ofr, ncfg, packed, args, bwd_f32: bool) -> float:
                for a, b in pairs)
 
 
-def ab_row(S: int, this, that, ins, reps: int, dev) -> Dict[str, Any]:
+def ab_row(S: int, this, that, ins, reps: int, dev, each: bool = False
+           ) -> Dict[str, Any]:
     """`this` against `that` on the input sets `ins`: bit-equality of
-    their outputs on the first set, and their times in turns (that,
-    this, this, that)."""
+    their outputs on the first set (with `each`, also output by output),
+    and their times in turns (that, this, this, that)."""
     a, b = this(*ins[0]), that(*ins[0])
     if torch.is_tensor(a):
         a, b = (a,), (b,)
-    bit_equal = all(torch.equal(x, y) for x, y in zip(a, b))
+    same = [torch.equal(x, y) for x, y in zip(a, b)]
     turns = [kb.time_ms(fn, ins, reps, dev) for fn in (that, this, this,
                                                        that)]
-    return {'S': S, 'bit_equal': bit_equal, 'ms': (turns[1] + turns[2]) / 2,
-            'other_ms': (turns[0] + turns[3]) / 2, 'turns': turns}
+    row = {'S': S, 'bit_equal': all(same), 'ms': (turns[1] + turns[2]) / 2,
+           'other_ms': (turns[0] + turns[3]) / 2, 'turns': turns}
+    if each:
+        row['outputs_bit_equal'] = same
+    return row
 
 
 def act_row(S: int, ofr, args) -> Dict[str, Any]:
@@ -151,8 +158,8 @@ def run(other: str, n_rays: int = 2048, reps: int = 11,
                 act_rows.append(act_row(S, ofr, ins[0]))
                 print({'kernel': 'K2 recompute', **act_rows[-1]},
                       flush=True)
-        row = {**ab_row(S, this, that, ins, reps, dev), 'fro': None,
-               'other_fro': None}
+        row = {**ab_row(S, this, that, ins, reps, dev, each=True),
+               'fro': None, 'other_fro': None}
         if not bwd_f32:
             row['fro'] = mlp_fro(fr, ctx['ncfg'], ctx['packed'], ins[0],
                                  False)

@@ -4,7 +4,8 @@ tools/kernel_bench.py).
 
     python -m anerf_torch.tools.kernel_bench [--rays 2048] [--reps 8]
         [--shapes 64 80 8 24] [--decompose | --decompose_bwd |
-        --layered SHAPE] [--bwd_bf16] [--device cuda]
+        --layered SHAPE | --k2_launches [SHAPE]] [--bwd_bf16]
+        [--device cuda]
 
 Each mode prints one row per S as it goes and ends with one JSON line
 {"metric": ..., "device": ..., "power_limit": ..., "rows": [...]}:
@@ -48,6 +49,19 @@ Each mode prints one row per S as it goes and ends with one JSON line
                    each launch's share of its kernel's launches and its
                    floor; 'device_kernels' lists the device kernels the
                    profiler saw in each kernel's windows. Card only.
+  --k2_launches [SHAPE]  metric kernel_k2_launches: K2 split by launch in
+                   both flavours ('K2 f32', 'K2 bf16' in the rows'
+                   'kernel'), at the flagship or a roofline.SHAPES network
+                   (S = 64 80 8 24 by default): per S, rows {kernel, S,
+                   launch, ms, floor_ms} with launch 'recompute' (its
+                   launches together, on either route), 'heads', 'view',
+                   'feature', 'layer d-1' .. 'layer 0', 'chunk sum', 'PE'
+                   (fused_render.bwd_plan's launches) and 'call', split as
+                   --layered splits (the same windows and misses); each
+                   floor is the launch's own HBM bytes in its flavour's
+                   plan (roofline.k2_launch_bytes: f32 cotangents and
+                   2048-point chunks, or bf16 cotangent tiles and chunks
+                   from P) at 3.35 TB/s; then the same table. Card only.
 
 The setup is the TPU tool's: the flagship SURREAL model at full width
 with random weights from a seed (anerf_torch/tools/flagship.py) and its
@@ -309,30 +323,35 @@ def kind_of(label: str) -> str:
         'feature', 'view') else label
 
 
-def split_calls(events, labels: Sequence[str]) -> Dict[str, float]:
+def split_calls(events, labels: Sequence[str], kinds=None,
+                name_kind=launch_kind) -> Dict[str, float]:
     """{label: median ms} over the whole calls among device kernels
-    `events` [(start, name, microseconds)]: the layered route's launches
-    (launch_kind) in start order, cut after each launch of the kind that
-    ends a call (the last label's), each launch of a cut whose kinds are
-    `labels`' named by its place. torch.profiler can drop a kernel from a
-    window; the cut that lost it, or the two it merged, is left out.
-    Raises if no whole call remains."""
-    last = kind_of(labels[-1])
+    `events` [(start, name, microseconds)]: the launches that `name_kind`
+    names (default: the layered route's, launch_kind) in start order, cut
+    after each launch of the kind that ends a call (kinds[-1]); a cut
+    whose kinds are `kinds` (default: `labels`' kinds, kind_of) is a whole
+    call, each launch named by its place, and where `kinds` are more than
+    `labels` the first launches are summed into the first label.
+    torch.profiler can drop a kernel from a window; the cut that lost it,
+    or the two it merged, is left out. Raises if no whole call remains."""
+    kinds = [kind_of(lab) for lab in labels] if kinds is None else list(kinds)
     calls, cut = [], []
     for _, name, us in sorted(events):
-        kind = launch_kind(name)
+        kind = name_kind(name)
         if kind is None:
             continue
         cut.append((kind, us))
-        if kind == last:
+        if kind == kinds[-1]:
             calls.append(cut)
             cut = []
-    whole = [c for c in calls
-             if [k for k, _ in c] == [kind_of(lab) for lab in labels]]
+    whole = [[us for _, us in c] for c in calls
+             if [k for k, _ in c] == kinds]
     if not whole:
-        raise RuntimeError(f'no whole call of {len(labels)} layered '
-                           f'launches among {sum(map(len, calls))}')
-    return {lab: statistics.median(c[i][1] / 1e3 for c in whole)
+        raise RuntimeError(f'no whole call of {len(kinds)} launches '
+                           f'among {sum(map(len, calls))}')
+    n = len(kinds) - len(labels) + 1
+    per = [[sum(c[:n])] + c[n:] for c in whole]
+    return {lab: statistics.median(p[i] / 1e3 for p in per)
             for i, lab in enumerate(labels)}
 
 
@@ -343,6 +362,30 @@ LAYERED_WINDOWS = 3
 
 def _total(v):
     return None if None in v else sum(v)
+
+
+def _split_windows(fn, arg_sets, reps, split, seen):
+    """(split(events), profiler windows missed) of the first of
+    LAYERED_WINDOWS windows of `reps` calls fn(*args) that holds a whole
+    call; (None, LAYERED_WINDOWS) where all miss. The device kernels'
+    names each window saw go into the set `seen`."""
+    for window in range(LAYERED_WINDOWS):
+        events = _profiled(fn, arg_sets, reps)
+        seen.update(name for _, name, _ in events)
+        try:
+            return split(events), window
+        except RuntimeError:
+            pass
+    return None, LAYERED_WINDOWS
+
+
+def _print_split(rows, misses, what: str) -> None:
+    for line in layered_table(rows):
+        print(line, flush=True)
+    print(f'profiler windows without a whole call (of {LAYERED_WINDOWS} '
+          f'at most {what} and S): '
+          + (', '.join(f'{k} {n}' for k, n in misses.items()) or 'none'),
+          flush=True)
 
 
 def layered_table(rows: Sequence[Dict[str, Any]]) -> List[str]:
@@ -466,16 +509,13 @@ def layered(ctx: Dict[str, Any], shapes: Sequence[int], reps: int
                                         arg_sets[0][2].shape[0] * (
                                             1 if kernel == 'K4' else S))
                 floors['call'] = sum(floors.values())
-                per = dict.fromkeys(labels)
-                for window in range(LAYERED_WINDOWS):
-                    events = _profiled(fn, arg_sets, reps)
-                    seen.setdefault(kernel, set()).update(
-                        name for _, name, _ in events)
-                    try:
-                        per = split_calls(events, labels)
-                        break
-                    except RuntimeError:
-                        misses[f'{kernel} S={S}'] = window + 1
+                per, missed = _split_windows(
+                    fn, arg_sets, reps,
+                    lambda ev: split_calls(ev, labels),
+                    seen.setdefault(kernel, set()))
+                if missed:
+                    misses[f'{kernel} S={S}'] = missed
+                per = per or dict.fromkeys(labels)
                 per['call'] = time_ms(fn, arg_sets, reps, dev)
                 for lab, ms in per.items():
                     rows.append({'kernel': kernel, 'S': S, 'launch': lab,
@@ -483,29 +523,101 @@ def layered(ctx: Dict[str, Any], shapes: Sequence[int], reps: int
                                  'floor_ms': floors[lab]})
     finally:
         fr.route_plan = plan
-    for line in layered_table(rows):
-        print(line, flush=True)
-    print(f'profiler windows without a whole call (of {LAYERED_WINDOWS} '
-          f'at most a kernel and S): '
-          + (', '.join(f'{k} {n}' for k, n in misses.items()) or 'none'),
-          flush=True)
+    _print_split(rows, misses, 'a kernel')
+    return rows, misses, {k: sorted(v) for k, v in seen.items()}
+
+
+#: --k2_launches' flavours, in the order of its rows
+K2_FLAVOURS = (('K2 f32', True), ('K2 bf16', False))
+
+
+def k2_labels(plan: Dict[str, Any]) -> List[str]:
+    """The rows of one K2 call split by launch (fused_render.bwd_plan's
+    launches, the recompute's taken together): 'recompute', 'heads',
+    'view', 'feature', 'layer d-1' .. 'layer 0', 'chunk sum', 'PE'."""
+    labs = [ln['label'] for ln in plan['launches']]
+    return ['recompute'] + [lab for lab in labs
+                            if not lab.startswith('recompute')]
+
+
+def k2_floors(ncfg, packed, P: int, cot_bytes: int, chunk: int
+              ) -> Dict[str, float]:
+    """{launch: ms} of one K2 call on P points: each launch's own HBM
+    bytes (roofline.k2_launch_bytes) at 3.35 TB/s."""
+    return {lab: b / rf.PEAK_HBM_BYTES * 1e3 for lab, b in
+            rf.k2_launch_bytes(ncfg, packed['nfk'], packed['nfv'], P,
+                               cot_bytes, chunk, packed['fc'])}
+
+
+def k2_split_calls(events, plan: Dict[str, Any]) -> Dict[str, float]:
+    """split_calls of K2's launches: the kernels of the plan's launches,
+    known by their name fragments, cut after each PE launch, the
+    recompute's launches summed into 'recompute' (k2_labels)."""
+    frags = [ln['kernel'] for ln in plan['launches']]
+    known = list(dict.fromkeys(frags))
+    return split_calls(events, k2_labels(plan), frags,
+                       lambda name: next((f for f in known if f in name),
+                                         None))
+
+
+def k2_launches(ctx: Dict[str, Any], shapes: Sequence[int], reps: int
+                ) -> Tuple[List[Dict[str, Any]], Dict[str, int],
+                           Dict[str, List[str]]]:
+    """--k2_launches: K2 in both flavours split by launch, per S, each
+    launch beside its floor (`k2_floors`, of its flavour's plan);
+    prints the table and the profiler's misses. Returns (rows, {'flavour
+    S=n': profiler windows without a whole call}, {flavour: the device
+    kernels' names its windows held}); a flavour's launches at an S whose
+    LAYERED_WINDOWS windows all missed are None, its whole call is still
+    timed."""
+    ncfg, packed, dev = ctx['ncfg'], ctx['packed'], ctx['dev']
+    rows, misses, seen = [], {}, {}
+    sets = input_sets(ctx, shapes[0])
+    _profiled(fr.fused_bwd, [a + (s['g'],) for a, s in zip(
+        _k1_args(ctx, sets, shapes[0]), sets)], 1)
+    for S in shapes:
+        sets = input_sets(ctx, S)
+        P = ctx['R'] * S
+        for flavour, f32 in K2_FLAVOURS:
+            arg_sets = [a + (s['g'], f32) for a, s in
+                        zip(_k1_args(ctx, sets, S), sets)]
+            plan = fr.bwd_plan(ncfg, packed, P, f32)
+            floors = k2_floors(ncfg, packed, P, plan['cot_bytes'],
+                               plan['chunk'])
+            floors['call'] = sum(floors.values())
+            per, missed = _split_windows(
+                fr.fused_bwd, arg_sets, reps,
+                lambda ev: k2_split_calls(ev, plan),
+                seen.setdefault(flavour, set()))
+            if missed:
+                misses[f'{flavour} S={S}'] = missed
+            per = per or dict.fromkeys(k2_labels(plan))
+            per['call'] = time_ms(fr.fused_bwd, arg_sets, reps, dev)
+            for lab, ms in per.items():
+                rows.append({'kernel': flavour, 'S': S, 'launch': lab,
+                             'ms': ms, 'floor_ms': floors[lab]})
+    _print_split(rows, misses, 'a flavour')
     return rows, misses, {k: sorted(v) for k, v in seen.items()}
 
 
 def run(mode: str, n_rays: int = 2048, reps: int = 8,
         shapes: Sequence[int] = (64, 80, 8, 24), device='cuda',
         bwd_f32: bool = True, shape: str | None = None) -> Dict[str, Any]:
-    """One mode ('bench', 'decompose', 'decompose_bwd' or 'layered' at
-    `shape`) end to end; prints its rows and its JSON line, and returns
+    """One mode ('bench', 'decompose', 'decompose_bwd', or 'layered' or
+    'k2_launches' at `shape`, a roofline.SHAPES name; 'k2_launches' also
+    at 'flagship') end to end; prints its rows and its JSON line, and returns
     the JSON object. bwd_f32=False adds K2's bf16 flavour to 'bench' and
     runs 'decompose_bwd' in it (--bwd_bf16)."""
-    if mode == 'layered':
-        ctx = shape_setup(shape, n_rays, device)
+    if mode in ('layered', 'k2_launches'):
+        ctx = setup(n_rays, device) if shape in (None, 'flagship') else \
+            shape_setup(shape, n_rays, device)
         if ctx['dev'].type != 'cuda':
-            raise RuntimeError('--layered: the layered route runs on the '
-                               'card only')
-        rows, misses, seen = layered(ctx, shapes, reps)
-        rec = {'metric': 'kernel_layered', 'shape': shape,
+            raise RuntimeError(f'--{mode}: the profiler splits device '
+                               'kernels on the card only')
+        split, metric = ((layered, 'kernel_layered') if mode == 'layered'
+                         else (k2_launches, 'kernel_k2_launches'))
+        rows, misses, seen = split(ctx, shapes, reps)
+        rec = {'metric': metric, 'shape': shape or 'flagship',
                **card(ctx['dev']), 'rows': rows, 'profiler_misses': misses,
                'device_kernels': seen}
         print(json.dumps(rec), flush=True)
@@ -539,23 +651,32 @@ def main(argv=None) -> int:
                    metavar='SHAPE',
                    help='split the layered route by launch at a '
                         'roofline.SHAPES network: ' + ', '.join(rf.SHAPES))
+    p.add_argument('--k2_launches', nargs='?', const='flagship',
+                   default=None, metavar='SHAPE',
+                   choices=['flagship', *rf.SHAPES],
+                   help='split K2 by launch in both flavours, at the '
+                        'flagship (default) or a roofline.SHAPES network')
     p.add_argument('--bwd_bf16', action='store_true',
                    help="K2's bf16-cotangent flavour: 'bwd_bf16' rows in "
                         'the default mode, the flavour of --decompose_bwd')
     p.add_argument('--device', default='cuda',
                    help="'cpu' runs the plain versions (for the tests)")
     a = p.parse_args(argv)
-    if sum((a.decompose, a.decompose_bwd, a.layered is not None)) > 1:
-        p.error('--decompose, --decompose_bwd and --layered are modes: '
-                'give one')
-    if a.layered is not None and not a.device.startswith('cuda'):
-        p.error('--layered: the layered route runs on the card only')
+    split = a.layered is not None or a.k2_launches is not None
+    if sum((a.decompose, a.decompose_bwd, a.layered is not None,
+            a.k2_launches is not None)) > 1:
+        p.error('--decompose, --decompose_bwd, --layered and --k2_launches '
+                'are modes: give one')
+    if split and not a.device.startswith('cuda'):
+        p.error('--layered and --k2_launches split device kernels: the '
+                'card only')
     mode = ('decompose' if a.decompose else
             'decompose_bwd' if a.decompose_bwd else
-            'layered' if a.layered is not None else 'bench')
+            'layered' if a.layered is not None else
+            'k2_launches' if a.k2_launches is not None else 'bench')
     shapes = a.shapes or ([64, 80] if mode == 'layered' else [64, 80, 8, 24])
     run(mode, a.rays, a.reps, shapes, a.device, bwd_f32=not a.bwd_bf16,
-        shape=a.layered)
+        shape=a.layered or a.k2_launches)
     return 0
 
 

@@ -838,14 +838,14 @@ def _mlp_stage_fro(torch, ncfg, packed, args):
     of any dW block, dx0 or dxv, (bf16 flavour, f32 flavour)."""
     from anerf_torch.kernels import fused_render as fr
     out = []
-    P, W = args[2].shape[0] * args[5], ncfg.width
+    P = args[2].shape[0] * args[5]
     for f32 in (False, True):
         t = fr.launch_bwd(2, *args, bwd_f32=f32)
         if not f32:
             want = fr.mlp_bwd_ref(*args, bwd_f32=False,
                                   trace=fr.trace_from_act(ncfg, packed,
                                                           t['act'], P))
-        got = (t['dW'], t['dx0'], t['dview'][:, W:])
+        got = (t['dW'], t['dx0'], t['dxv'])
         pairs = list(zip(fr.split_grads(ncfg, packed['nfk'], packed['nfv'],
                                         got[0]).values(),
                          fr.split_grads(ncfg, packed['nfk'], packed['nfv'],
@@ -865,8 +865,9 @@ def k2_bf16_phase(torch, np, cfg, params, src, n_k2_f32):
     its plain bf16 version within K2's bounds; its MLP backward against
     the plain bf16 one on its own saved activations within K2_BF16_FRO,
     which K2's f32 flavour against the same (the control) must exceed;
-    two launches bit-equal; as many launches a call as the
-    f32 flavour (n_k2_f32). At S = 8 and 24 also K2's f32 flavour against
+    two launches bit-equal; exactly the launches a call that
+    fused_render.bwd_plan lists, in each flavour (n_k2_f32: the f32
+    flavour's at S = 80). At S = 8 and 24 also K2's f32 flavour against
     its plain version, bit-equal across launches. Both flavours timed in
     turns (f32, bf16, bf16, f32) at every S beside their bounds. Returns
     (the bf16 record, {S: f32 ms}, {S: f32 plain ms}, f32 max abs error
@@ -959,9 +960,16 @@ def k2_bf16_phase(torch, np, cfg, params, src, n_k2_f32):
     print('K2-bf16 by launch (S=24, one call under the profiler, device '
           'ms): ' + ', '.join(f'{n} {us / 1e3:.4f}' for n, us in by_launch),
           flush=True)
-    if n_bf != n_k2_f32 or counted != (0, 1):
-        raise AssertionError(f'K2-bf16: {n_bf} launches a call (f32 '
-                             f'{n_k2_f32}), counted {counted}')
+    plan_bf = len(fr.bwd_plan(ncfg, packed['fine'], R * 24, False)
+                  ['launches'])
+    plan_f32 = len(fr.bwd_plan(ncfg, packed['fine'], R * 80, True)
+                   ['launches'])
+    print(f'launches per call against bwd_plan: bf16 {n_bf} / {plan_bf}, '
+          f'f32 {n_k2_f32} / {plan_f32}', flush=True)
+    if n_bf != plan_bf or n_k2_f32 != plan_f32 or counted != (0, 1):
+        raise AssertionError(f'K2-bf16: {n_bf} launches a call (plan '
+                             f'{plan_bf}; f32 {n_k2_f32}, plan {plan_f32}), '
+                             f'counted {counted}')
     args = (ncfg, packed['fine'], variants[1][0][80], variants[1][1],
             variants[1][2], 80, 2000.0, gs[80][1])
     _, _, by_launch = _launches_per_call(
@@ -994,6 +1002,21 @@ def k2_bf16_phase(torch, np, cfg, params, src, n_k2_f32):
     print(f'K2 flavours in the same turns: S=64 + S=80 f32 {f32_ms:.4f} ms, '
           f'bf16 {ms:.4f} ms; S=8 + S=24 f32 {f32_c:.4f} ms, bf16 '
           f'{ms_c:.4f} ms', flush=True)
+    # the bf16 flavour's own design floor: its HBM bytes with bf16
+    # cotangent tiles and its plan's chunks (roofline.k2_design_bytes)
+    floors = {}
+    for key, pair in (('s64_80', (64, 80)), ('s8_24', (8, 24))):
+        b = 0
+        for S in pair:
+            chunk = fr.bwd_plan(ncfg, packed['coarse'], R * S,
+                                False)['chunk']
+            b += rf.k2_design_bytes(ncfg, nfk, nfv, R * S, chunk, 2,
+                                    packed['coarse']['fc'])
+        floors[key] = b / rf.PEAK_HBM_BYTES * 1e3
+    print(f'K2-bf16 design floor (bf16 cotangent tiles): S=64 + S=80 '
+          f'{floors["s64_80"]:.4f} ms ({ms / floors["s64_80"]:.2f}x), '
+          f'S=8 + S=24 {floors["s8_24"]:.4f} ms '
+          f'({ms_c / floors["s8_24"]:.2f}x)', flush=True)
     out = {'name': 'fused_bwd(bwd_f32=False)', 'route': 'cuda',
            'source': 'anerf_torch/kernels/csrc/fused_render_bwd_sm90.cu',
            'replaces': 'anerf_tpu/kernels/fused_render.py:962',
@@ -1432,8 +1455,7 @@ def stages_phase(torch, np, cfg, params, src):
         if not torch.allclose(got['recompute'][0], want[0], atol=K1_ATOL,
                               rtol=K1_RTOL):
             raise AssertionError(f'K2-d bf16 recompute disagrees at S={S}')
-        mlp = (t['dW'], t['dx0'].view(R, S, -1),
-               t['dview'].view(R, S, -1)[..., ncfg.width:])
+        mlp = (t['dW'], t['dx0'].view(R, S, -1), t['dxv'].reshape(R, S, -1))
         fro, _ = _mlp_stage_fro(torch, ncfg, packed[net], args)
         digest = fr.pe_transform_bwd_ref(packed[net], *args[2:7], mlp[1],
                                          mlp[2], pe_only=True)
@@ -4294,10 +4316,11 @@ def _design_floor_ms(kid, ncfg, packed, k4_widths, R, Ss):
     """The layered route's own HBM floor (roofline.layered_design_bytes
     at 3.35 TB/s) of a kernel of _shape_kernels on R rays at each S of
     Ss: K1 its points; K3 its f32 rows in place of the points; K4 its
-    embedded rows read in place; K2 (both flavours, f32 cotangents
-    through HBM) the recompute writing its saved activations once, then
-    the backward sequence's bytes (roofline.k2_design_bytes less its
-    single-kernel recompute)."""
+    embedded rows read in place; K2 (both flavours) the recompute writing
+    its saved activations once, then the backward sequence's bytes
+    (roofline.k2_design_bytes less its single-kernel recompute: the f32
+    flavour's f32 cotangents and 2048-point chunks, the bf16 flavour's
+    bf16 cotangent tiles and its plan's chunks, fused_render.bwd_plan)."""
     from anerf_torch.kernels import fused_render as fr
     from anerf_torch.kernels import roofline as rf
     k0, kv, fc = packed['k0'], packed['kv'], packed['fc']
@@ -4314,8 +4337,11 @@ def _design_floor_ms(kid, ncfg, packed, k4_widths, R, Ss):
             total += (4 * fr.raw_width(fc) - 12) * P
         elif kid.startswith('K2'):
             F = fr.act_rows(ncfg, packed['nfk'], packed['nfv'])['F']
-            total += rf.k2_design_bytes(ncfg, packed['nfk'], packed['nfv'],
-                                        P, fc=fc) - (12 + 2 * F + 16) * P
+            plan = fr.bwd_plan(ncfg, packed, P, kid == 'K2')
+            chunk = fr.BWD_CHUNK if kid == 'K2' else plan['chunk']
+            total += rf.k2_design_bytes(
+                ncfg, packed['nfk'], packed['nfv'], P, chunk,
+                plan['cot_bytes'], fc) - (12 + 2 * F + 16) * P
     return total / rf.PEAK_HBM_BYTES * 1e3
 
 

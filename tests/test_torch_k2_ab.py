@@ -13,8 +13,8 @@ from anerf_torch.kernels import fused_render as fr
 from anerf_torch.tools import k2_ab
 
 ROOT = str(Path(__file__).resolve().parents[1])
-ROW_KEYS = {'S', 'bit_equal', 'ms', 'other_ms', 'turns', 'fro',
-            'other_fro'}
+ROW_KEYS = {'S', 'bit_equal', 'outputs_bit_equal', 'ms', 'other_ms',
+            'turns', 'fro', 'other_fro'}
 K1_ROW_KEYS = {'S', 'bit_equal', 'ms', 'other_ms', 'turns'}
 
 
@@ -34,6 +34,7 @@ def test_k2_ab_rows(capsys, flags):
     assert [r['S'] for r in rec['rows']] == [8, 5]
     for r in rec['rows']:
         assert set(r) == ROW_KEYS and r['bit_equal'] is True
+        assert r['outputs_bit_equal'] == [True] * 4
         assert len(r['turns']) == 4 and r['ms'] > 0
         if flags:
             assert r['fro'] == r['other_fro'] == 0.0
