@@ -98,6 +98,7 @@ import torch
 from ..models.nerf import NeRFConfig
 from ..ops.encoding import (_expand3, _group3_sumsq, rot_cols, rotate_flat,
                             transform_batch_pts_flat)
+from ..utils import trace
 
 N_JOINTS = 24
 C72 = 3 * N_JOINTS
@@ -547,16 +548,17 @@ def pack_render_params(params: Dict[str, Any], ncfg: NeRFConfig,
     'w_alpha' (W,), 'b_out' (4,)). 'fc' is the framecode columns of the
     view block (`fc_width`), 'skip' the per-layer skip flags.
     """
-    fc = fc_width(ncfg)
-    k0, _, kv, _ = input_widths(n_freq_kp, n_freq_view, fc)
-    mlp = pack_mlp_params(params, ncfg, k0, kv)
-    w0 = torch.cat([mlp['w'], mlp['w'].new_zeros(1)])
-    return {**mlp,
-            'img_t': w0[t_image_index(ncfg, n_freq_kp, n_freq_view,
-                                      w0.device)],
-            'cut': cutoff_dist.reshape(-1)[:N_JOINTS].float()
-            .to(cutoff_dist.device).contiguous(),
-            'nfk': int(n_freq_kp), 'nfv': int(n_freq_view), 'fc': fc}
+    with trace.span('anerf.fused.pack'):
+        fc = fc_width(ncfg)
+        k0, _, kv, _ = input_widths(n_freq_kp, n_freq_view, fc)
+        mlp = pack_mlp_params(params, ncfg, k0, kv)
+        w0 = torch.cat([mlp['w'], mlp['w'].new_zeros(1)])
+        return {**mlp,
+                'img_t': w0[t_image_index(ncfg, n_freq_kp, n_freq_view,
+                                          w0.device)],
+                'cut': cutoff_dist.reshape(-1)[:N_JOINTS].float()
+                .to(cutoff_dist.device).contiguous(),
+                'nfk': int(n_freq_kp), 'nfv': int(n_freq_view), 'fc': fc}
 
 
 _SKIP_FLAGS: Dict[Any, torch.Tensor] = {}
@@ -1443,11 +1445,12 @@ def fused_encode_mlp_pts(ncfg: NeRFConfig, packed: Dict[str, Any],
     CPU tensors take the plain version; CUDA tensors launch the kernel on
     its route (`route_plan`; it raises if a kernel cannot launch)."""
     global LAUNCHES
-    if pts.device.type == 'cpu':
-        return fused_encode_mlp_pts_ref(ncfg, packed, pts, m_all, aux, S,
-                                        tau)
-    out = launch_k1('fused_encode_mlp_pts', None, ncfg, packed, pts, m_all,
-                    aux, S, tau)
+    with trace.span('anerf.fused.k1', pts.shape[0] * S):
+        if pts.device.type == 'cpu':
+            return fused_encode_mlp_pts_ref(ncfg, packed, pts, m_all, aux,
+                                            S, tau)
+        out = launch_k1('fused_encode_mlp_pts', None, ncfg, packed, pts,
+                        m_all, aux, S, tau)
     if out.numel():
         LAUNCHES += 1
     return out
@@ -2097,14 +2100,16 @@ class FusedApply(torch.autograd.Function):
     def backward(ctx, g):
         pts, m_all, aux = ctx.saved_tensors
         p = ctx.packed
-        dW, dpts, dm, daux = fused_bwd(ctx.ncfg, p, pts, m_all, aux, ctx.S,
-                                       ctx.tau, g.contiguous().float(),
-                                       ctx.bwd_f32)
-        if ctx.mesh is not None:
-            from ..parallel.mesh import all_reduce_mean
-            dW = all_reduce_mean(ctx.mesh, dW)
-        return (None,) * 8 + (dpts, dm, daux) + tuple(
-            _leaf_grads(ctx.ncfg, p['nfk'], p['nfv'], dW))
+        with trace.span('anerf.fused.k2', pts.shape[0] * ctx.S):
+            dW, dpts, dm, daux = fused_bwd(ctx.ncfg, p, pts, m_all, aux,
+                                           ctx.S, ctx.tau,
+                                           g.contiguous().float(),
+                                           ctx.bwd_f32)
+            if ctx.mesh is not None:
+                from ..parallel.mesh import all_reduce_mean
+                dW = all_reduce_mean(ctx.mesh, dW)
+            return (None,) * 8 + (dpts, dm, daux) + tuple(
+                _leaf_grads(ctx.ncfg, p['nfk'], p['nfv'], dW))
 
 
 def fused_apply(ncfg: NeRFConfig, S: int, net: Dict[str, Any],

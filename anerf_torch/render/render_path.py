@@ -28,6 +28,7 @@ import torch
 from ..ops.cylinder import cylinder_to_box_2d, get_kp_bounding_cylinder
 from ..ops.rays import nerf_c2w_to_extrinsic
 from ..parallel.mesh import all_gather_rows, pad_to_multiple
+from ..utils import trace
 from .raycaster import (RenderConfig, pack_fused_params, ray_near_far,
                         render_rays)
 
@@ -90,12 +91,14 @@ def make_render_fn(cfg: RenderConfig, params: Dict[str, Any],
             near_far = None
             if mesh is not None:
                 near_far = tuple(x[blk] for x in ray_near_far(rays_b, cyls))
-            ret = render_rays(
-                params, test_cfg, rays_b[blk], blocked(kp3d),
-                blocked(skts), blocked(bones), blocked(cyls),
-                cam_idxs=blocked(cam_idxs) if use_framecode_idx else None,
-                tau=tau, eval_framecode_mean=not use_framecode_idx,
-                packed=packed, near_far=near_far)
+            with trace.span('anerf.render.bucket', chunk):
+                ret = render_rays(
+                    params, test_cfg, rays_b[blk], blocked(kp3d),
+                    blocked(skts), blocked(bones), blocked(cyls),
+                    cam_idxs=(blocked(cam_idxs) if use_framecode_idx
+                              else None),
+                    tau=tau, eval_framecode_mean=not use_framecode_idx,
+                    packed=packed, near_far=near_far)
             outs.append(torch.cat([ret['rgb_map'], ret['disp_map'][:, None],
                                    ret['acc_map'][:, None]], -1))
         out = torch.stack(outs)                       # (buckets, rays, 5)
@@ -135,7 +138,8 @@ def render_one_pose(render_fn, tables, scal: np.ndarray, n: int,
     """Render one pose; returns per-box-pixel (row-major) numpy outputs
     of length n."""
     ret = render_fn(scal, tables, n_buckets_for(n, chunk), chunk)
-    return {k: ret[k][:n].cpu().numpy() for k in OUT_KEYS}
+    with trace.span('anerf.render.fetch'):
+        return {k: ret[k][:n].cpu().numpy() for k in OUT_KEYS}
 
 
 def render_path(params, cfg: RenderConfig,
@@ -162,93 +166,97 @@ def render_path(params, cfg: RenderConfig,
     same arguments and gets the whole result; make_render_fn).
     Returns 'rgbs', 'disps', 'accs', 'bboxes' stacked (N, H, W, .).
     """
-    H_all, W_all, focals = hwf
-    n_poses = len(c2ws)
-    dev = params['cutoff_dist'].device
-    if mesh is not None:
-        # each bucket's ray axis splits over the mesh
-        chunk = pad_to_multiple(chunk, mesh.size)
+    with trace.span('anerf.render.request') as request:
+        H_all, W_all, focals = hwf
+        n_poses = len(c2ws)
+        dev = params['cutoff_dist'].device
+        if mesh is not None:
+            # each bucket's ray axis splits over the mesh
+            chunk = pad_to_multiple(chunk, mesh.size)
 
-    if cyls is None:
-        cyls = get_kp_bounding_cylinder(
-            kps, ext_scale=ext_scale, extend_mm=250,
-            top_expand_ratio=1.60, bot_expand_ratio=1.10, head='-y')
+        if cyls is None:
+            cyls = get_kp_bounding_cylinder(
+                kps, ext_scale=ext_scale, extend_mm=250,
+                top_expand_ratio=1.60, bot_expand_ratio=1.10, head='-y')
 
-    render_fn = make_render_fn(cfg, params, use_framecode_idx, mesh)
+        render_fn = make_render_fn(cfg, params, use_framecode_idx, mesh)
 
-    def put(x):
-        return None if x is None else torch.as_tensor(
-            np.asarray(x, np.float32), device=dev)
+        def put(x):
+            return None if x is None else torch.as_tensor(
+                np.asarray(x, np.float32), device=dev)
 
-    tables = {'kp3d': put(kps), 'skts': put(skts), 'bones': put(bones),
-              'cyls': put(cyls)}
+        tables = {'kp3d': put(kps), 'skts': put(skts), 'bones': put(bones),
+                  'cyls': put(cyls)}
 
-    rgbs, disps, accs, bboxes = [], [], [], []
-    t0 = time.time()
-    for i in range(n_poses):
-        H = int(H_all if np.isscalar(H_all) else np.asarray(H_all).reshape(-1)[
-            i % np.asarray(H_all).size])
-        W = int(W_all if np.isscalar(W_all) else np.asarray(W_all).reshape(-1)[
-            i % np.asarray(W_all).size])
-        focal = (float(focals) if np.isscalar(focals)
-                 else np.asarray(focals).reshape(-1)[i % np.asarray(
-                     focals).size])
-        if render_factor > 0:
-            H, W, focal = H // render_factor, W // render_factor, \
-                focal / render_factor
-
-        pose_i = i % len(kps)
-        c2w = np.asarray(c2ws[i], np.float32)
-        center = None if centers is None else centers[i]
-
-        w2c = nerf_c2w_to_extrinsic(c2w)
-        tl, br, _ = cylinder_to_box_2d(cyls[pose_i], [H, W, focal], w2c,
-                                       center=center)
-        hh, ww = np.meshgrid(np.arange(tl[1], br[1]),
-                             np.arange(tl[0], br[0]), indexing='ij')
-        valid_idx = (hh * W + ww).reshape(-1)
-
-        offset = (center if center is not None
-                  else np.array([W * 0.5, H * 0.5], np.float32))
-        n = len(valid_idx)
-        if n == 0:
-            out = {'rgb_map': np.zeros((0, 3), np.float32),
-                   'disp_map': np.zeros((0,), np.float32),
-                   'acc_map': np.zeros((0,), np.float32)}
-        else:
-            scal = pack_pose_scalars(
-                c2w, focal, offset, tl, br, pose_i,
-                None if cam_idxs is None
-                else int(cam_idxs[i % len(cam_idxs)]), tau)
-            out = render_one_pose(render_fn, tables, scal, n, chunk)
-
-        if bgs is not None and bg_idxs is not None:
-            canvas = np.asarray(bgs[bg_idxs[i % len(bg_idxs)]],
-                                np.float32).copy()
+        rgbs, disps, accs, bboxes = [], [], [], []
+        t0 = time.time()
+        for i in range(n_poses):
+            H = int(H_all if np.isscalar(H_all)
+                    else np.asarray(H_all).reshape(-1)[
+                        i % np.asarray(H_all).size])
+            W = int(W_all if np.isscalar(W_all)
+                    else np.asarray(W_all).reshape(-1)[
+                        i % np.asarray(W_all).size])
+            focal = (float(focals) if np.isscalar(focals)
+                     else np.asarray(focals).reshape(-1)[i % np.asarray(
+                         focals).size])
             if render_factor > 0:
-                import cv2
-                canvas = cv2.resize(canvas, (W, H))
-        elif white_bkgd:
-            canvas = np.ones((H, W, 3), np.float32)
-        else:
-            canvas = np.zeros((H, W, 3), np.float32)
+                H, W, focal = H // render_factor, W // render_factor, \
+                    focal / render_factor
 
-        canvas = canvas.reshape(-1, 3)
-        acc = out['acc_map'][..., None]
-        canvas[valid_idx] = (out['rgb_map'] * acc
-                             + canvas[valid_idx] * (1.0 - acc))
-        rgbs.append(canvas.reshape(H, W, 3))
+            pose_i = i % len(kps)
+            c2w = np.asarray(c2ws[i], np.float32)
+            center = None if centers is None else centers[i]
 
-        disp = np.zeros((H * W,), np.float32)
-        disp[valid_idx] = np.nan_to_num(out['disp_map'])
-        disps.append(disp.reshape(H, W))
+            w2c = nerf_c2w_to_extrinsic(c2w)
+            tl, br, _ = cylinder_to_box_2d(cyls[pose_i], [H, W, focal], w2c,
+                                           center=center)
+            hh, ww = np.meshgrid(np.arange(tl[1], br[1]),
+                                 np.arange(tl[0], br[0]), indexing='ij')
+            valid_idx = (hh * W + ww).reshape(-1)
 
-        acc_img = np.zeros((H * W,), np.float32)
-        acc_img[valid_idx] = out['acc_map']
-        accs.append(acc_img.reshape(H, W))
-        bboxes.append(np.stack([tl, br]))
-        if verbose:
-            print(f'pose {i}: +{time.time() - t0:.2f}s ({n} rays)')
+            offset = (center if center is not None
+                      else np.array([W * 0.5, H * 0.5], np.float32))
+            n = len(valid_idx)
+            request.add(n)
+            if n == 0:
+                out = {'rgb_map': np.zeros((0, 3), np.float32),
+                       'disp_map': np.zeros((0,), np.float32),
+                       'acc_map': np.zeros((0,), np.float32)}
+            else:
+                scal = pack_pose_scalars(
+                    c2w, focal, offset, tl, br, pose_i,
+                    None if cam_idxs is None
+                    else int(cam_idxs[i % len(cam_idxs)]), tau)
+                out = render_one_pose(render_fn, tables, scal, n, chunk)
 
-    return {'rgbs': np.stack(rgbs), 'disps': np.stack(disps),
-            'accs': np.stack(accs), 'bboxes': np.stack(bboxes)}
+            if bgs is not None and bg_idxs is not None:
+                canvas = np.asarray(bgs[bg_idxs[i % len(bg_idxs)]],
+                                    np.float32).copy()
+                if render_factor > 0:
+                    import cv2
+                    canvas = cv2.resize(canvas, (W, H))
+            elif white_bkgd:
+                canvas = np.ones((H, W, 3), np.float32)
+            else:
+                canvas = np.zeros((H, W, 3), np.float32)
+
+            canvas = canvas.reshape(-1, 3)
+            acc = out['acc_map'][..., None]
+            canvas[valid_idx] = (out['rgb_map'] * acc
+                                 + canvas[valid_idx] * (1.0 - acc))
+            rgbs.append(canvas.reshape(H, W, 3))
+
+            disp = np.zeros((H * W,), np.float32)
+            disp[valid_idx] = np.nan_to_num(out['disp_map'])
+            disps.append(disp.reshape(H, W))
+
+            acc_img = np.zeros((H * W,), np.float32)
+            acc_img[valid_idx] = out['acc_map']
+            accs.append(acc_img.reshape(H, W))
+            bboxes.append(np.stack([tl, br]))
+            if verbose:
+                print(f'pose {i}: +{time.time() - t0:.2f}s ({n} rays)')
+
+        return {'rgbs': np.stack(rgbs), 'disps': np.stack(disps),
+                'accs': np.stack(accs), 'bboxes': np.stack(bboxes)}

@@ -40,6 +40,7 @@ from ..pose.pose_opt import (PoseOptConfig, init_pose_params,
                              pose_anchor_tree)
 from ..render.factory import build_render_config, init_render_params
 from ..render.render_path import render_path
+from ..utils import trace
 from ..utils.metrics import evaluate_metric_arrays
 from .checkpoint import (restore_checkpoint, restore_from_path,
                          save_checkpoint, save_pose_checkpoint)
@@ -117,9 +118,10 @@ def upload_batch(batch: Dict[str, Optional[np.ndarray]],
     """A numpy batch on `device` in ONE copy: pack_batch's buffer, pinned
     and copied with non_blocking=True when the device is a GPU, viewed
     back per leaf on the device. None leaves stay None."""
-    on_gpu = device.type == 'cuda'
-    host, layout = pack_batch(batch, on_gpu)
-    return batch_views(host.to(device, non_blocking=on_gpu), layout)
+    with trace.span('anerf.loop.upload'):
+        on_gpu = device.type == 'cuda'
+        host, layout = pack_batch(batch, on_gpu)
+        return batch_views(host.to(device, non_blocking=on_gpu), layout)
 
 
 @dataclasses.dataclass
@@ -399,7 +401,8 @@ def train(args: TrainConfig, dataset=None,
             # the loader emits pre-stacked unroll-sized super-batches
             # (BatchLoader(stack=unroll)) assembled in its worker threads
             t0 = time.perf_counter()
-            batch = ctx.loader.next() if main else None
+            with trace.span('anerf.loop.wait'):
+                batch = ctx.loader.next() if main else None
             t1 = time.perf_counter()
             if mesh is None:
                 batch = upload_batch(batch, ctx.device)

@@ -45,6 +45,7 @@ from ..ops.rotations import rot_to_rot6d
 from ..parallel.mesh import DataMesh, all_reduce_mean, shard_ray_batch
 from ..pose.pose_opt import PoseOptConfig, fk_lookup
 from ..render.raycaster import RenderConfig, ray_near_far, render_rays
+from ..utils import trace
 from .losses import acc2bce, get_loss_fn, get_reg_fn, img2mse, mse2psnr
 from .state import (FlatAdam, TrainState, flatten_tree, grad_norms,
                     unflatten_like)
@@ -239,6 +240,10 @@ def make_train_step(args: TrainConfig, cfg: RenderConfig,
     def train_step(state: TrainState, batch: Dict[str, Any],
                    generator: Optional[torch.Generator]
                    ) -> Tuple[TrainState, Dict[str, Any]]:
+        with trace.span('anerf.train.step', batch['rays'].shape[0]):
+            return step_body(state, batch, generator)
+
+    def step_body(state, batch, generator):
         batch = dict(batch)
         if state.anchors is not None:
             batch['anchors'] = state.anchors
@@ -252,9 +257,11 @@ def make_train_step(args: TrainConfig, cfg: RenderConfig,
             flat_pp = flatten_tree(pose_params).detach().requires_grad_(True)
             pose_params = unflatten_like(flat_pp, pose_params)
             wrt.append(flat_pp)
-        total, losses, stats = loss_fn(params, pose_params, batch, generator,
-                                       state.step)
-        grads = torch.autograd.grad(total, wrt, allow_unused=True)
+        with trace.span('anerf.train.forward'):
+            total, losses, stats = loss_fn(params, pose_params, batch,
+                                           generator, state.step)
+        with trace.span('anerf.train.backward'):
+            grads = torch.autograd.grad(total, wrt, allow_unused=True)
         grads = [torch.zeros_like(x) if gx is None else gx
                  for x, gx in zip(wrt, grads)]
         losses = {k: v.detach() for k, v in losses.items()}
@@ -267,35 +274,38 @@ def make_train_step(args: TrainConfig, cfg: RenderConfig,
         for k in [k for k in stats if k.startswith('mse')]:
             stats['psnr' + k[3:]] = mse2psnr(stats.pop(k))
 
-        # cutoff_dist is never trained (reference cutoff_embedder.py:91-92)
-        g_tree = unflatten_like(grads[0], state.params)
-        g_tree['cutoff_dist'].zero_()
-        total_norm, avg_norm = grad_norms(g_tree)
-        updates, new_opt_state = optimizer.update(grads[0], state.opt_state)
-        new_params = unflatten_like(flat_p.detach() + updates, state.params)
+        with trace.span('anerf.train.adam'):
+            # cutoff_dist is never trained (reference cutoff_embedder.py:91-92)
+            g_tree = unflatten_like(grads[0], state.params)
+            g_tree['cutoff_dist'].zero_()
+            total_norm, avg_norm = grad_norms(g_tree)
+            updates, new_opt_state = optimizer.update(grads[0],
+                                                      state.opt_state)
+            new_params = unflatten_like(flat_p.detach() + updates,
+                                        state.params)
 
-        new_pose_params = state.pose_params
-        new_pose_opt_state = state.pose_opt_state
-        new_acc = state.pose_grad_acc
-        if use_pose:
-            acc = state.pose_grad_acc + grads[1]
-            do_step = state.step % args.opt_pose_step == 0
-            if args.opt_pose_warmup:
-                # poses frozen until the field has formed; warmup grads
-                # are dropped, not accumulated (reference
-                # core/pose_opt.py:631)
-                warm_done = state.step >= args.opt_pose_warmup
-                do_step = do_step and warm_done
-                if not warm_done:
-                    acc = torch.zeros_like(acc)
-            if do_step:
-                p_updates, new_pose_opt_state = pose_optimizer.update(
-                    acc, state.pose_opt_state)
-                new_pose_params = unflatten_like(
-                    flat_pp.detach() + p_updates, state.pose_params)
-                new_acc = torch.zeros_like(acc)
-            else:
-                new_acc = acc
+            new_pose_params = state.pose_params
+            new_pose_opt_state = state.pose_opt_state
+            new_acc = state.pose_grad_acc
+            if use_pose:
+                acc = state.pose_grad_acc + grads[1]
+                do_step = state.step % args.opt_pose_step == 0
+                if args.opt_pose_warmup:
+                    # poses frozen until the field has formed; warmup grads
+                    # are dropped, not accumulated (reference
+                    # core/pose_opt.py:631)
+                    warm_done = state.step >= args.opt_pose_warmup
+                    do_step = do_step and warm_done
+                    if not warm_done:
+                        acc = torch.zeros_like(acc)
+                if do_step:
+                    p_updates, new_pose_opt_state = pose_optimizer.update(
+                        acc, state.pose_opt_state)
+                    new_pose_params = unflatten_like(
+                        flat_pp.detach() + p_updates, state.pose_params)
+                    new_acc = torch.zeros_like(acc)
+                else:
+                    new_acc = acc
 
         stats['total_norm'] = total_norm
         stats['avg_norm'] = avg_norm
@@ -358,11 +368,14 @@ def make_train_step_scan(*args_mk, unroll: int = 8, **kwargs_mk):
     def scan_step(state: TrainState, batches: Dict[str, Any],
                   generator: Optional[torch.Generator]
                   ) -> Tuple[TrainState, Dict[str, Any]]:
-        out = None
-        for i in range(unroll):
-            batch = {k: None if v is None else v[i]
-                     for k, v in batches.items()}
-            state, out = inner(state, batch, generator)
+        rays = batches['rays']
+        with trace.span('anerf.train.dispatch',
+                        rays.shape[0] * rays.shape[1]):
+            out = None
+            for i in range(unroll):
+                batch = {k: None if v is None else v[i]
+                         for k, v in batches.items()}
+                state, out = inner(state, batch, generator)
         return state, out
     return scan_step
 

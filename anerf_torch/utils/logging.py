@@ -14,6 +14,8 @@ import json
 import os
 from typing import Dict
 
+from . import trace
+
 
 class MetricsLogger:
 
@@ -53,7 +55,10 @@ class DeviceProfiler:
     <exp_dir>/profile/trace_<start>_<stop>.json. On a GPU it records the
     device's activity alone (which leaves the host's time nearly
     untouched), on the CPU the host's operators. `last` keeps the
-    finished profile for key_averages() / events()."""
+    finished profile for key_averages() / events(). The port's host spans
+    (utils/trace.py) are on while it records: their summary by name
+    (`trace.summary`: count, total and self ms, work count) is written to
+    spans_<start>_<stop>.json beside the trace (`spans_path`)."""
 
     def __init__(self, exp_dir: str, start_step: int = -1,
                  num_steps: int = 5):
@@ -62,7 +67,7 @@ class DeviceProfiler:
         self.stop_step = start_step + num_steps
         self._prof = None
         self.last = None
-        self.trace_path = None
+        self.trace_path = self.spans_path = None
 
     @property
     def active(self) -> bool:
@@ -76,6 +81,8 @@ class DeviceProfiler:
                    else ProfilerActivity.CPU)
             os.makedirs(self.dir, exist_ok=True)
             self._prof = profile(activities=[act])
+            trace.take()
+            trace.enable()
             self._prof.start()
 
     def maybe_stop(self, step: int):
@@ -84,7 +91,11 @@ class DeviceProfiler:
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
             self._prof.stop()
-            self.trace_path = os.path.join(
-                self.dir, f'trace_{self.start_step}_{step}.json')
+            trace.disable()
+            tag = f'{self.start_step}_{step}'
+            self.trace_path = os.path.join(self.dir, f'trace_{tag}.json')
             self._prof.export_chrome_trace(self.trace_path)
+            self.spans_path = os.path.join(self.dir, f'spans_{tag}.json')
+            with open(self.spans_path, 'w') as f:
+                json.dump(trace.summary(trace.take()), f, indent=1)
             self.last, self._prof = self._prof, None

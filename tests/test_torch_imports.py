@@ -68,7 +68,7 @@ def test_scan_finds_the_port():
                 'parallel/__init__.py', 'parallel/mesh.py',
                 # the quality A/B and the card settings
                 'tools/quality_ab.py', 'tools/qab_table.py',
-                'utils/device.py',
+                'utils/device.py', 'utils/trace.py',
                 # the throughput bench and its companion tools
                 'tools/bench.py', 'tools/e2e_rate.py', 'tools/sr_measure.py',
                 'tools/step_trace.py', 'tools/serve_bench.py'):

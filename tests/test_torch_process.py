@@ -40,6 +40,7 @@ from anerf_torch.data import process_surreal as tsur
 from anerf_torch.data import process_zju as tzju
 from anerf_torch.data import smpl_tables as tst
 from anerf_torch.utils import eval_helpers as teval
+from anerf_torch.utils import trace
 from anerf_torch.utils.logging import DeviceProfiler
 
 import rawlayout
@@ -285,7 +286,8 @@ def test_device_profiler_writes_a_trace_over_its_window(tmp_path):
         prof.maybe_stop(step)
         prof.maybe_start(step)
         active.append(prof.active)
-        torch.randn(64, 64) @ torch.randn(64, 64)
+        with trace.span('anerf.train.step', 64):
+            torch.randn(64, 64) @ torch.randn(64, 64)
     # the window is steps 2 and 3
     assert active == [False, True, True, False, False, False]
     assert prof.trace_path == str(tmp_path / 'profile' / 'trace_2_4.json')
@@ -293,6 +295,16 @@ def test_device_profiler_writes_a_trace_over_its_window(tmp_path):
         events = json.load(f)['traceEvents']
     assert any('mm' in e.get('name', '') for e in events)
     assert any('mm' in e.key for e in prof.last.key_averages())
+    # the spans were on for the window alone, summed beside the trace
+    assert prof.spans_path == str(tmp_path / 'profile' / 'spans_2_4.json')
+    with open(prof.spans_path) as f:
+        spans = json.load(f)
+    assert set(spans) == {'anerf.train.step'}
+    assert spans['anerf.train.step']['count'] == 2
+    assert spans['anerf.train.step']['n'] == 128
+    assert spans['anerf.train.step']['total_ms'] > 0
+    assert trace.span('anerf.train.step') is trace.span('anerf.x')
+    assert trace.take() == []
     # a window that never opens writes nothing
     idle = DeviceProfiler(str(tmp_path / 'idle'), start_step=-1)
     for step in range(3):

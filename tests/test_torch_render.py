@@ -30,6 +30,7 @@ from anerf_torch.render.factory import build_render_config
 from anerf_torch.render.factory import init_render_params
 from anerf_torch.render.raycaster import render_rays as t_render_rays
 from anerf_torch.render.render_path import render_path as t_render_path
+from anerf_torch.utils import trace
 from anerf_torch.skeleton import SMPLSkeleton
 
 from helpers import build_tiny, synthetic_batch
@@ -98,10 +99,13 @@ def test_render_rays_matches_jax(fused):
                                    err_msg=k, **LIKE)
 
 
-def test_render_path_bullet_view_matches_jax():
+@pytest.fixture(scope='module')
+def bullet_view():
+    """The fused flagship-width nets, 16 + 8 samples, and one 32x32 view
+    of a 4-view bullet-time orbit in both packages' data: (cfg, params,
+    jdata, tcfg, tparams, tdata, view, hwf, render_path's kwargs)."""
     _, args, cfg, params, pose, tcfg, tparams = _build(
         N_samples=16, N_importance=8, fused_kernel=True)
-    assert cfg.use_fused and tcfg.use_fused
     kp = pose['kp3d']
     c2ws = np.tile(np.eye(4, dtype=np.float32), (len(kp), 1, 1))
     c2ws[:, :3, 3] = kp[:, 0] + [0.0, 0.0, 2.5]
@@ -112,12 +116,18 @@ def test_render_path_bullet_view_matches_jax():
                                    np.array([0]), n_bullet=4)
     tdata = tmodes.load_bullettime(tmodes.PoseSource(**src_kw),
                                    np.array([0]), n_bullet=4)
-    for k in jdata:
-        np.testing.assert_array_equal(tdata[k], jdata[k], err_msg=k)
     view = slice(1, 2)          # one 32x32 view of the orbit
     kw = dict(cam_idxs=tdata['cam_idxs'][view], tau=2000.0, chunk=128,
               white_bkgd=True, use_framecode_idx=True)
     hwf = (32, 32, tdata['focals'][view])
+    return cfg, params, jdata, tcfg, tparams, tdata, view, hwf, kw
+
+
+def test_render_path_bullet_view_matches_jax(bullet_view):
+    cfg, params, jdata, tcfg, tparams, tdata, view, hwf, kw = bullet_view
+    assert cfg.use_fused and tcfg.use_fused
+    for k in jdata:
+        np.testing.assert_array_equal(tdata[k], jdata[k], err_msg=k)
     want = j_render_path(params, cfg, jdata['c2ws'][view], hwf,
                          jdata['kp3d'][view], jdata['skts'][view],
                          jdata['bones'][view], **kw)
@@ -130,6 +140,41 @@ def test_render_path_bullet_view_matches_jax():
     assert want['accs'].max() > 0.05
     for k in ('rgbs', 'accs', 'disps'):
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **LIKE)
+
+
+def test_render_path_spans_form_the_request_tree(bullet_view):
+    """One render_path call yields the render spans (utils/trace.py) in
+    their tree: the request a root counting the box rays; the pack, each
+    bucket and the fetch under it; each bucket's K1 launches under it."""
+    _, _, _, tcfg, tparams, tdata, view, hwf, kw = bullet_view
+    trace.take()
+    trace.enable()
+    try:
+        got = t_render_path(tparams, tcfg, tdata['c2ws'][view], hwf,
+                            tdata['kp3d'][view], tdata['skts'][view],
+                            tdata['bones'][view], **kw)
+    finally:
+        trace.disable()
+    by = {}
+    for r in trace.take():
+        by.setdefault(r.name, []).append(r)
+    (req,), (fetch,) = by['anerf.render.request'], by['anerf.render.fetch']
+    (tl, br), = got['bboxes']
+    box = int((br[0] - tl[0]) * (br[1] - tl[1]))
+    assert req.parent is None and req.n == box
+    buckets = by['anerf.render.bucket']
+    assert len(buckets) == -(-box // 128) > 1
+    assert {r.n for r in buckets} == {128}
+    assert len(by['anerf.fused.pack']) == 2          # coarse and fine
+    assert len(by['anerf.fused.k1']) == 2 * len(buckets)
+    ids = {r.id for r in buckets}
+    for r in by['anerf.fused.pack'] + buckets + [fetch]:
+        assert r.parent == req.id and r.root == req.id
+    assert all(r.parent in ids and r.root == req.id
+               for r in by['anerf.fused.k1'])
+    assert set(by) == {'anerf.render.request', 'anerf.render.bucket',
+                       'anerf.render.fetch', 'anerf.fused.pack',
+                       'anerf.fused.k1'}
 
 
 def test_params_from_numpy_round_trip():

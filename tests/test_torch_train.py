@@ -47,7 +47,9 @@ from anerf_torch.render.factory import build_render_config
 from anerf_torch.skeleton import SMPLSkeleton, smpl_rest_pose
 from anerf_torch.train import losses as tloss
 from anerf_torch.train import state as tst
-from anerf_torch.train.trainer import make_train_step
+from anerf_torch.train.loop import upload_batch
+from anerf_torch.train.trainer import make_train_step, make_train_step_scan
+from anerf_torch.utils import trace
 
 from helpers import build_tiny, synthetic_batch
 
@@ -164,6 +166,58 @@ def test_train_step_matches_jax(flagship_step, fused):
     # the stepped parameters land where JAX puts them
     assert _relmax(ravel_pytree(jnew.params)[0],
                    tst.flatten_tree(new.params).numpy()) < 1e-3
+
+
+def test_train_spans_form_the_step_tree(flagship_step):
+    """One fused dispatch of one step, fed by upload_batch, yields the
+    train spans (utils/trace.py) in their tree: the upload a root of its
+    own; the step under the dispatch; forward, backward and Adam under
+    the step; each net's pack and K1 under the forward, its K2 under the
+    backward."""
+    args, cfg, params, pose, batch = flagship_step
+    tcfg = dataclasses.replace(_torch_cfg(args, pose).test_mode(),
+                               use_fused=True)
+    jstate, _, _ = _jax_state(args, params, pose,
+                              jpose.PoseOptConfig(use_rot6d=True))
+    state = train_state_from_numpy(jax.tree.map(np.asarray, jstate), 'cpu')
+    topt, tpopt = _torch_optimizers(args)
+    step = make_train_step_scan(args, tcfg,
+                                tpose.PoseOptConfig(use_rot6d=True),
+                                _t(pose['rest_pose']), topt, tpopt,
+                                tau_fixed=35.0, unroll=1)
+    stacked = {k: v.numpy()[None] for k, v in _torch_batch(batch).items()}
+    trace.take()
+    trace.enable()
+    try:
+        step(state, upload_batch(stacked, torch.device('cpu')), None)
+    finally:
+        trace.disable()
+    recs = trace.take()
+    by = {}
+    for r in recs:
+        by.setdefault(r.name, []).append(r)
+    assert {k: len(v) for k, v in by.items()} == {
+        'anerf.loop.upload': 1, 'anerf.train.dispatch': 1,
+        'anerf.train.step': 1, 'anerf.train.forward': 1,
+        'anerf.train.backward': 1, 'anerf.train.adam': 1,
+        'anerf.fused.pack': 2, 'anerf.fused.k1': 2, 'anerf.fused.k2': 2}
+    one = {k: v[0] for k, v in by.items()}
+    up, disp = one['anerf.loop.upload'], one['anerf.train.dispatch']
+    assert up.parent is None and disp.parent is None and up.root != disp.root
+    parent = {'anerf.train.step': 'anerf.train.dispatch',
+              'anerf.train.forward': 'anerf.train.step',
+              'anerf.train.backward': 'anerf.train.step',
+              'anerf.train.adam': 'anerf.train.step',
+              'anerf.fused.pack': 'anerf.train.forward',
+              'anerf.fused.k1': 'anerf.train.forward',
+              'anerf.fused.k2': 'anerf.train.backward'}
+    for name, above in parent.items():
+        assert all(r.parent == one[above].id and r.root == disp.id
+                   for r in by[name]), name
+    assert disp.n == one['anerf.train.step'].n == 16
+    assert sorted(r.n for r in by['anerf.fused.k1']) == \
+        sorted(r.n for r in by['anerf.fused.k2'])
+    assert min(r.n for r in by['anerf.fused.k1']) >= 16 * 4
 
 
 def test_train_state_round_trip(flagship_step):
